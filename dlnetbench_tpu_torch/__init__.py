@@ -1,0 +1,28 @@
+"""dlnetbench_tpu_torch — the PyTorch/CUDA port of ``dlnetbench_tpu``.
+
+The JAX package beside this one is the reference; this package grows
+slice by slice until it does what the reference does, on an NVIDIA
+Hopper card.  Module names follow the JAX package so that each piece
+has an obvious counterpart.  Nothing here imports ``jax`` or
+``dlnetbench_tpu``: what the port needs from the reference it keeps as
+its own copy (the model cards under ``data/models`` included).
+
+Slice 1 — the serving path of ``cli serve`` (classic one-token-per-step
+greedy decode over a paged KV cache):
+
+  core/      model cards
+  models/    the dense gated transformer's layers, config and weights
+  ops/       hand-written Hopper kernels (``csrc/*.cu``), their build,
+             wrappers with launch counters, and the plain PyTorch
+             version beside each kernel
+  serving/   arrival plans, the paged KV cache, prefill/decode programs,
+             the continuous-batching engine and its metrics
+  metrics/   sample summaries and schema-v2 record emission
+  proxies/   the ``ProxyResult`` record carrier
+  cli.py     ``python -m dlnetbench_tpu_torch.cli serve ...``
+
+Every entry point runs on ``cuda`` unless the caller asks for ``cpu``;
+with no card and no explicit ``cpu`` it raises.  On a CUDA tensor each
+kernel wrapper launches its kernel or raises; on a CPU tensor it runs
+the kernel's plain version (the CPU tests rely on this).
+"""

@@ -1,0 +1,388 @@
+"""Block-table paged KV cache and the decode attention over it (the JAX
+package's ``serving/kv_cache.py``).
+
+* ``PagedKVCache`` (host) — the page allocator: a free list over
+  ``num_pages`` physical pages, one block-table row per decode slot,
+  allocate/append/free and occupancy/fragmentation stats.  Pure numpy,
+  and the same allocation order as the JAX package, so the same
+  admit/append/free sequence gives the same block tables.  (The prefix
+  trie and copy-on-write sharing are not ported yet.)
+* device pools — ``k``/``v`` of shape ``[L, Hkv, num_pages, page_size,
+  Dh]`` (``device_buffers``); quantized caches (``cache_dtype`` int8 or
+  fp8) add f32 scales ``[L, Hkv, num_pages]``, one per page and head.
+  The port updates the pools IN PLACE (the JAX programs return new
+  arrays; here a program returns the same tensors it was given).
+* cache writes — ``write_rows`` (unquantized) and ``write_span``
+  (quantized: every touched page re-quantized against a fresh amax over
+  its valid rows; ``quant_write_span`` is the JAX package's signature
+  for it).  The gating and the column plan depend only on the step's
+  positions and block tables, so a step builds them once
+  (``write_gate``, ``span_plan``) for every layer's k and v writes.
+  A write that is switched off changes nothing: where the JAX package
+  scatters it to an out-of-bounds page in ``drop`` mode,
+  the port points it at the first enabled write's target and value (or,
+  when none is enabled, at that target's own current content), so every
+  duplicate index writes the same bytes and no host sync is needed.
+* ``paged_attention_decode`` — one decode step's attention: kernel K1
+  (``ops/paged_attention``) for unquantized pools, K2
+  (``ops/paged_attention_quant``) for quantized ones.  On a CUDA tensor
+  each launches its Hopper kernel; on a CPU tensor each runs its plain
+  version (the JAX package's gather fallback math).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dlnetbench_tpu_torch.ops.paged_attention import (  # noqa: F401
+    MASK_VALUE, paged_attention)
+from dlnetbench_tpu_torch.ops.paged_attention_quant import \
+    quant_paged_attention
+from dlnetbench_tpu_torch.ops.quantized_matmul import cast_q, scale_from_amax
+
+_F32 = torch.float32
+
+# "bf16" labels the UNQUANTIZED pool, stored in the model's own dtype
+# (float32 in the CPU tests, bfloat16 on the card)
+CACHE_DTYPES = ("bf16", "int8", "fp8")
+_QUANT_FMT = {"int8": "int8", "fp8": "float8"}
+_QUANT_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+_MODEL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the JAX package's stated decode-parity bars: max absolute error of the
+# paged-attention output against the unquantized cache on unit-scale
+# activations
+QUANT_DECODE_TOL = {"int8": 0.05, "fp8": 0.15}
+
+
+class CacheOOM(RuntimeError):
+    """The free list is empty: the scheduler must reserve a request's
+    worst-case pages at admission, so a running sequence never runs
+    out."""
+
+
+@dataclasses.dataclass
+class CacheConfig:
+    num_layers: int
+    num_kv_heads: int
+    head_dim: int
+    num_pages: int           # physical pages shared by every slot
+    page_size: int           # tokens per page
+    max_seqs: int            # decode slots (the block table's rows)
+    max_pages_per_seq: int   # block-table width
+    dtype: str = "float32"   # the model's dtype (unquantized pools)
+    cache_dtype: str = "bf16"   # "bf16" (pools in `dtype`) | "int8" | "fp8"
+
+    @property
+    def quantized(self) -> bool:
+        return self.cache_dtype != "bf16"
+
+    @property
+    def quant_fmt(self) -> str | None:
+        """The ``ops/quantized_matmul`` format name, or None."""
+        return _QUANT_FMT.get(self.cache_dtype)
+
+    @property
+    def pool_dtype(self) -> torch.dtype:
+        return (_QUANT_TORCH[self.cache_dtype] if self.quantized
+                else _MODEL_DTYPES[self.dtype])
+
+    @property
+    def page_bytes(self) -> int:
+        """Device bytes one physical page costs across both pools, the
+        scale entries of a quantized pool included."""
+        itemsize = torch.empty((), dtype=self.pool_dtype).element_size()
+        payload = (2 * self.num_layers * self.num_kv_heads
+                   * self.page_size * self.head_dim * itemsize)
+        scales = (2 * self.num_layers * self.num_kv_heads * 4
+                  if self.quantized else 0)
+        return payload + scales
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.num_pages * self.page_bytes
+
+    def validate(self) -> "CacheConfig":
+        for name in ("num_layers", "num_kv_heads", "head_dim",
+                     "num_pages", "page_size", "max_seqs",
+                     "max_pages_per_seq"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"kv cache: {name} must be >= 1")
+        if self.cache_dtype not in CACHE_DTYPES:
+            raise ValueError(
+                f"kv cache: unknown cache_dtype {self.cache_dtype!r} "
+                f"(one of {CACHE_DTYPES})")
+        if self.dtype not in _MODEL_DTYPES:
+            raise ValueError(f"kv cache: dtype {self.dtype!r} (one of "
+                             f"{tuple(_MODEL_DTYPES)})")
+        if self.num_pages < self.max_pages_per_seq:
+            raise ValueError(
+                f"kv cache: num_pages {self.num_pages} cannot hold even "
+                f"one max-seq request ({self.max_pages_per_seq} pages) — "
+                f"the admission gate would starve the queue head forever")
+        return self
+
+
+class PagedKVCache:
+    """Host-side page allocator + block tables.  Page 0 is a real,
+    allocatable page; block-table padding also points at 0, which every
+    consumer masks by length."""
+
+    def __init__(self, cfg: CacheConfig):
+        self.cfg = cfg.validate()
+        self._free: list[int] = list(range(cfg.num_pages - 1, -1, -1))
+        self.block_tables = np.zeros(
+            (cfg.max_seqs, cfg.max_pages_per_seq), np.int32)
+        self.lengths = np.zeros((cfg.max_seqs,), np.int32)
+        self._pages_of: list[list[int]] = [[] for _ in range(cfg.max_seqs)]
+        self.peak_pages_in_use = 0
+        self.admissions = 0
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.cfg.num_pages - len(self._free)
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.cfg.page_size)
+
+    def can_fit(self, n_tokens: int) -> bool:
+        return self.pages_for(n_tokens) <= len(self._free)
+
+    def allocate(self, slot: int, n_tokens: int) -> None:
+        """Reserve pages for ``n_tokens`` on an empty slot (the scheduler
+        reserves prompt + output up front)."""
+        need = self.pages_for(n_tokens)
+        if need > self.cfg.max_pages_per_seq:
+            raise ValueError(
+                f"kv cache: {n_tokens} tokens need {need} pages > "
+                f"max_pages_per_seq {self.cfg.max_pages_per_seq}")
+        if self._pages_of[slot]:
+            raise ValueError(f"kv cache: slot {slot} already allocated")
+        if need > len(self._free):
+            raise CacheOOM(f"kv cache: need {need} pages, "
+                           f"{len(self._free)} free")
+        self.admissions += 1
+        for i in range(need):
+            page = self._free.pop()
+            self._pages_of[slot].append(page)
+            self.block_tables[slot, i] = page
+        self.lengths[slot] = 0
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages_in_use)
+
+    def append(self, slot: int, n: int = 1) -> None:
+        """Advance the slot's length by ``n`` tokens (the device write
+        already happened); growing past the reservation is a bug."""
+        new_len = int(self.lengths[slot]) + n
+        if new_len > len(self._pages_of[slot]) * self.cfg.page_size:
+            raise CacheOOM(
+                f"kv cache: slot {slot} grew to {new_len} tokens past "
+                f"its {len(self._pages_of[slot])}-page reservation")
+        self.lengths[slot] = new_len
+
+    def free(self, slot: int) -> None:
+        self._free.extend(self._pages_of[slot])
+        self._pages_of[slot] = []
+        self.block_tables[slot, :] = 0
+        self.lengths[slot] = 0
+
+    def stats(self) -> dict:
+        """Occupancy = fraction of pages in use; fragmentation =
+        fraction of allocated token capacity holding no token."""
+        cap = self.pages_in_use * self.cfg.page_size
+        toks = int(self.lengths.sum())
+        return {
+            "num_pages": self.cfg.num_pages,
+            "page_size": self.cfg.page_size,
+            "cache_dtype": self.cfg.cache_dtype,
+            "pool_bytes": self.cfg.pool_bytes,
+            "pages_in_use": self.pages_in_use,
+            "peak_pages_in_use": self.peak_pages_in_use,
+            "admissions": self.admissions,
+            "occupancy": round(self.pages_in_use / self.cfg.num_pages, 4),
+            "peak_occupancy": round(
+                self.peak_pages_in_use / self.cfg.num_pages, 4),
+            "fragmentation": (round(max(cap - toks, 0) / cap, 4)
+                              if cap else 0.0),
+        }
+
+
+def device_buffers(cfg: CacheConfig, device="cuda") -> tuple:
+    """Zeroed pools ``(k, v)``; quantized configs add ``(k_scale,
+    v_scale)`` set to 1.0 (a zeroed page dequantizes to zeros)."""
+    shape = (cfg.num_layers, cfg.num_kv_heads, cfg.num_pages,
+             cfg.page_size, cfg.head_dim)
+    k = torch.zeros(shape, dtype=cfg.pool_dtype, device=device)
+    v = torch.zeros(shape, dtype=cfg.pool_dtype, device=device)
+    if not cfg.quantized:
+        return k, v
+    return (k, v, torch.ones(shape[:3], dtype=_F32, device=device),
+            torch.ones(shape[:3], dtype=_F32, device=device))
+
+
+# ---------------------------------------------------------------------
+# cache writes
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Pool bytes for selection and indexing: e4m3 tensors are handled
+    through a uint8 view (the same bytes), every other dtype as is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+@dataclasses.dataclass(frozen=True)
+class WriteGate:
+    """Where the rows of a gated write land (see the module docstring):
+    ``targets`` — one ``[B]`` index tensor per indexed pool dimension,
+    a disabled row redirected to the first enabled row's target;
+    ``first`` — ``[1]`` index of that row (0 when none is enabled),
+    ``first_on`` its ``[1]`` enable bit, ``first_target`` its target;
+    ``ok`` — the ``[B]`` enable bits.  Built once per step (or chunk)
+    and shared by every layer's k and v writes."""
+    targets: tuple
+    first: torch.Tensor
+    first_on: torch.Tensor
+    first_target: tuple
+    ok: torch.Tensor
+
+
+def write_gate(idx: tuple, ok: torch.Tensor) -> WriteGate:
+    """The gate for writing row ``b`` at ``idx[..][b]`` where ``ok[b]``.
+    The first enabled row is found on the device (a ``[1]`` tensor:
+    indexing with a 0-d tensor would read it back to the host)."""
+    first = torch.argmax(ok.to(torch.int32)).view(1)
+    targets = tuple(torch.where(ok, i, i[first]).long() for i in idx)
+    return WriteGate(targets=targets, first=first, first_on=ok[first],
+                     first_target=tuple(t[first] for t in targets), ok=ok)
+
+
+def _gated_put(pool, gate: WriteGate, val) -> None:
+    """``pool[:, *targets[b]] = val[:, b]`` for the enabled rows; the rest
+    change nothing.  ``pool`` is a byte-level view (``_bits``), ``val``
+    ``[H, B, ...]`` of pool's dtype."""
+    shape = (1, -1) + (1,) * (val.dim() - 2)
+    old = pool[(slice(None),) + gate.first_target]
+    first = torch.where(gate.first_on.view(shape), val[:, gate.first], old)
+    pool[(slice(None),) + gate.targets] = torch.where(gate.ok.view(shape),
+                                                      val, first)
+
+
+def write_rows(pages, li: int, new, gate: WriteGate):
+    """Unquantized write of one token per row: ``new[b]`` (``[Hkv, Dh]``)
+    lands at ``pages[li, :, page, row]`` for the gate's ``(page, row)``
+    targets (``write_gate((page_ids, rows), write_ok)``).  In place;
+    returns ``pages``."""
+    val = _bits(new.transpose(0, 1).to(pages.dtype))        # [Hkv, B, Dh]
+    _gated_put(_bits(pages[li]), gate, val)
+    return pages
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanColumn:
+    """One page column a span write touches — everything about it that
+    does not depend on the layer or on k/v, so a step plans it once:
+    the page per slot, the cached rows kept (``old_valid``), the new
+    rows (``onehot`` token -> row, ``new_mask``), and the write gate."""
+    page: torch.Tensor
+    old_valid: torch.Tensor
+    onehot: torch.Tensor
+    new_mask: torch.Tensor
+    gate: WriteGate
+
+
+def span_plan(positions, write_ok, block_tables, *, page_size: int,
+              num_pages: int) -> list[SpanColumn]:
+    """Plan a span write: token ``j`` of slot ``b`` lands at position
+    ``positions[b] + j``, gated by ``write_ok[b, j]``; positions ``[B]``,
+    write_ok ``[B, K]``, block_tables ``[B, pmax]``."""
+    k1 = write_ok.shape[1]
+    s = page_size
+    pmax = block_tables.shape[1]
+    dev = write_ok.device
+    pos = positions.long()
+    tok_pos = pos[:, None] + torch.arange(k1, device=dev)[None, :]
+    tok_col = tok_pos // s                                  # [B, K]
+    row_of_tok = tok_pos % s
+    rows = torch.arange(s, device=dev)
+    bt = block_tables.long()
+    plan = []
+    # bound on distinct page columns one span can touch
+    for c in range((k1 + s - 2) // s + 1):
+        col = pos // s + c                                  # [B]
+        in_col = (tok_col == col[:, None]) & write_ok       # [B, K]
+        page = bt.gather(1, col.clamp(0, pmax - 1)[:, None])[:, 0]
+        page = page.clamp(max=num_pages - 1)
+        old_valid = rows[None, :] < (pos - col * s).clamp(0, s)[:, None]
+        onehot = in_col[:, :, None] & (rows[None, None, :]
+                                       == row_of_tok[:, :, None])
+        plan.append(SpanColumn(
+            page=page, old_valid=old_valid[None, :, :, None],
+            onehot=onehot.to(_F32),
+            new_mask=onehot.any(dim=1)[None, :, :, None],
+            gate=write_gate((page,), in_col.any(dim=1))))
+    return plan
+
+
+def write_span(pages, scales, li: int, new, plan: list[SpanColumn], *,
+               fmt: str):
+    """Write a planned span into layer ``li`` of a QUANTIZED pool: every
+    touched page is re-quantized against a fresh amax over its valid
+    rows — the cached prefix (dequantized at the old scale) plus the new
+    rows, masked to the sequence's own content.  The JAX package's
+    arithmetic (divide by the scale, ``cast_q``).  pages ``[L, Hkv, P,
+    S, Dh]`` int8/e4m3, scales ``[L, Hkv, P]`` f32, new ``[B, K, Hkv,
+    Dh]``.  In place; returns ``(pages, scales)``."""
+    pool = _bits(pages[li])
+    sc = scales[li]
+    newf = new.to(_F32)
+    for col in plan:
+        deq = (pool[:, col.page].view(pages.dtype).to(_F32)
+               * sc[:, col.page][:, :, None, None])         # [H, B, S, D]
+        base = torch.where(col.old_valid, deq, 0.0)
+        new_rows = torch.einsum("bks,bkhd->hbsd", col.onehot, newf)
+        pagef = torch.where(col.new_mask, new_rows, base)
+        scale = scale_from_amax(pagef.abs().amax(dim=(2, 3)), fmt)
+        q = _bits(cast_q(pagef / scale[:, :, None, None], fmt))
+        _gated_put(sc, col.gate, scale)
+        _gated_put(pool, col.gate, q)
+    return pages, scales
+
+
+def quant_write_span(pages, scales, li: int, new, positions, write_ok,
+                     block_tables, *, fmt: str, page_size: int,
+                     num_pages: int):
+    """The JAX package's ``quant_write_span`` signature: ``span_plan``
+    then ``write_span``."""
+    return write_span(pages, scales, li, new,
+                      span_plan(positions, write_ok, block_tables,
+                                page_size=page_size, num_pages=num_pages),
+                      fmt=fmt)
+
+
+def dequant_gathered(pages_g, scales_g):
+    """Gathered quantized pages -> f32: ``pages_g`` [..., pages, S, Dh]
+    times the matching [..., pages] scales."""
+    return pages_g.to(_F32) * scales_g[..., None, None]
+
+
+# ---------------------------------------------------------------------
+# decode attention over the page pool
+
+
+def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
+                           k_scale=None, v_scale=None,
+                           fmt: str | None = None):
+    """One decode step's attention for a batch of slots over ONE layer's
+    pools (``[Hkv, P, S, Dh]``).  ``q`` must be pre-scaled by
+    ``head_dim**-0.5``.  With ``k_scale``/``v_scale`` (+ ``fmt``) the
+    pools are quantized and K2 runs; otherwise K1."""
+    if k_scale is not None:
+        if fmt is None:
+            raise ValueError("paged_attention_decode: scale arrays need "
+                             "fmt ('int8'|'float8')")
+        return quant_paged_attention(q, k_pages, v_pages, k_scale,
+                                     v_scale, lengths, page_indices,
+                                     fmt=fmt)
+    return paged_attention(q, k_pages, v_pages, lengths, page_indices)

@@ -1,0 +1,68 @@
+"""The torch package stands alone: importing it (every submodule) loads
+no ``jax`` and no module of the JAX package, and no file of it — nor
+``chip_smoke.py`` — imports either.  The import check runs in a
+subprocess because tests/conftest.py imports jax into this one."""
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "dlnetbench_tpu_torch"
+
+_BAD_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|dlnetbench_tpu)\b(?!_torch)"
+    r"|from\s+(jax|dlnetbench_tpu)(\.|\s)(?!_torch))", re.MULTILINE)
+
+
+def _modules() -> list[str]:
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_submodule_loads_no_jax():
+    mods = _modules()
+    assert "dlnetbench_tpu_torch.serving.scheduler" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+            "             or m.startswith('jax.')\n"
+            "             or m == 'dlnetbench_tpu'\n"
+            "             or m.startswith('dlnetbench_tpu.'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin",
+                               "PYTHONPATH": str(REPO),
+                               "HOME": str(Path.home())})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_no_port_file_imports_jax_or_the_jax_package(path):
+    src = (REPO / path).read_text()
+    assert not _BAD_IMPORT.search(src), path
+
+
+def test_the_guard_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from jax import lax", "from dlnetbench_tpu.ops import x",
+                 "    import dlnetbench_tpu", "from dlnetbench_tpu import y"):
+        assert _BAD_IMPORT.search(line), line
+    for line in ("import dlnetbench_tpu_torch",
+                 "from dlnetbench_tpu_torch.ops import common",
+                 "import jaxlib_like_name_is_not_jax_x"):
+        assert not _BAD_IMPORT.search(line), line
