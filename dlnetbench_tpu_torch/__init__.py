@@ -8,18 +8,24 @@ has an obvious counterpart.  Nothing here imports ``jax`` or
 its own copy (the model cards under ``data/models`` included).
 
 Slice 1 — the serving path of ``cli serve`` (classic one-token-per-step
-greedy decode over a paged KV cache):
+greedy decode over a paged KV cache); slice 2 — the headline training
+step (forward, backward, SGD) and the flagship forward:
 
-  core/      model cards
-  models/    the dense gated transformer's layers, config and weights
-  ops/       hand-written Hopper kernels (``csrc/*.cu``), their build,
-             wrappers with launch counters, and the plain PyTorch
-             version beside each kernel
+  core/      model cards, hardware presets, the roofline model
+  models/    the dense gated transformer's layers, config, weights,
+             forward and loss; the bench train step
+  ops/       hand-written Hopper kernels (``csrc/*.cu``: paged decode
+             attention, flash attention forward/dq/dk-dv), their build,
+             wrappers with launch counters, the plain PyTorch version
+             beside each kernel, and the ``attention`` dispatcher
   serving/   arrival plans, the paged KV cache, prefill/decode programs,
              the continuous-batching engine and its metrics
   metrics/   sample summaries and schema-v2 record emission
   proxies/   the ``ProxyResult`` record carrier
-  cli.py     ``python -m dlnetbench_tpu_torch.cli serve ...``
+  utils/     timing
+  bench.py   ``python -m dlnetbench_tpu_torch.bench`` (headline line)
+  entry.py   ``entry()``, the flagship forward
+  cli.py     ``python -m dlnetbench_tpu_torch.cli serve|train ...``
 
 Every entry point runs on ``cuda`` unless the caller asks for ``cpu``;
 with no card and no explicit ``cpu`` it raises.  On a CUDA tensor each

@@ -1,6 +1,7 @@
 """Command line of the torch package:
 
     python -m dlnetbench_tpu_torch.cli serve --arrival PLAN [flags]
+    python -m dlnetbench_tpu_torch.cli train [--platform cuda|cpu]
 
 ``serve`` is the JAX package's ``cli serve`` (same flag names and
 defaults) for the slice the port covers: the classic greedy engine with
@@ -9,6 +10,10 @@ paged KV cache.  ``--platform`` is ``cuda`` unless the caller asks for
 ``cpu``; without a card, ``cuda`` is an error.  The record (schema v2)
 is appended to ``--out`` or written to stdout; a one-line summary goes
 to stderr.
+
+``train`` runs the headline train-step benchmark
+(``dlnetbench_tpu_torch.bench``: the bench step at llama3_8b width, its
+shape from the ``DLNB_BENCH_*`` variables) and prints its JSON line.
 """
 from __future__ import annotations
 
@@ -70,7 +75,17 @@ def main(argv=None) -> int:
     _add_serve(sub.add_parser(
         "serve", help="serving tier: paged-KV decode under continuous "
                       "batching + an open-loop arrival plan"))
+    train = sub.add_parser(
+        "train", help="the headline train step (forward, backward, SGD) "
+                      "at the bench shape; prints one JSON line")
+    train.add_argument("--platform", default="cuda",
+                       choices=list(PLATFORMS),
+                       help="cuda (default; an error without a card) or "
+                            "cpu")
     args = parser.parse_args(argv)
+    if args.proxy == "train":
+        from dlnetbench_tpu_torch import bench
+        return bench.main(["--platform", args.platform])
     return _run_serve(args, parser)
 
 

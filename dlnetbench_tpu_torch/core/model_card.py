@@ -48,8 +48,62 @@ class ModelCard:
         return self.num_kv_heads or self.num_heads
 
     @property
+    def is_moe(self) -> bool:
+        return self.moe_params is not None
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def kv_dim(self) -> int:
+        return self.kv_heads * self.head_dim
+
+    @property
     def num_experts(self) -> int:
         return self.moe_params.num_experts if self.moe_params else 1
+
+    @property
+    def top_k(self) -> int:
+        return self.moe_params.num_experts_per_tok if self.moe_params else 1
+
+    def attn_params_per_layer(self) -> int:
+        d, dkv = self.embed_dim, self.kv_dim
+        return d * d + 2 * d * dkv + d * d  # Wq, Wk, Wv, Wo
+
+    def mlp_params_per_expert(self) -> int:
+        n_mat = 3 if self.gated_mlp else 2
+        return n_mat * self.embed_dim * self.ff_dim
+
+    def num_params(self) -> int:
+        """Analytic total parameter count (norms included coarsely)."""
+        d = self.embed_dim
+        per_layer = self.attn_params_per_layer() + 2 * d  # + two norms
+        if self.is_moe:
+            per_layer += self.num_experts * self.mlp_params_per_expert()
+            per_layer += d * self.num_experts  # router
+        else:
+            per_layer += self.mlp_params_per_expert()
+        total = self.num_layers * per_layer + d  # final norm
+        if self.vocab_size:
+            total += self.vocab_size * d  # input embedding
+            if not self.tied_embeddings:
+                total += self.vocab_size * d  # LM head
+        if self.max_position_embeddings:
+            total += self.max_position_embeddings * d
+        if self.is_vit:
+            total += 3 * self.patch_size ** 2 * d        # patch embed
+            total += (self.seq_len + 1) * d              # cls + positions
+            total += d * self.num_classes                # classifier head
+        return total
+
+    def non_expert_params(self) -> int:
+        """Params not sharded by expert parallelism; zero for dense
+        models."""
+        if not self.is_moe:
+            return 0
+        return self.num_params() - self.num_layers * self.num_experts * \
+            self.mlp_params_per_expert()
 
 
 def _parse_card(name: str, raw: dict) -> ModelCard:

@@ -1,7 +1,8 @@
 """Building-block layers of the dense gated transformer, in PyTorch (the
 JAX package's ``models/layers.py``).  The cast points are the JAX
 package's: norm statistics and RoPE in f32, each projection rounded to
-the compute dtype, SwiGLU's gate in f32."""
+the compute dtype, SwiGLU's gate in f32, softmax and the loss's
+logsumexp in f32."""
 from __future__ import annotations
 
 import torch
@@ -17,11 +18,35 @@ def init_dense(gen: torch.Generator, shape, scale: float, dtype,
     return (w * scale).to(dtype)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the JAX package's hand-written backward
+    (``models/layers.py`` ``_rmsnorm_bwd``): the scale gradient and the
+    input gradient are computed as separate passes, with the same cast
+    points."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        var = x.to(_F32).square().mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, scale, rstd)
+        return (x * rstd.to(x.dtype)) * scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        xhat = x * rstd.to(x.dtype)
+        dscale = (dy.to(_F32) * xhat.to(_F32)).sum(
+            dim=tuple(range(x.dim() - 1))).to(scale.dtype)
+        t = dy * scale
+        c = (t.to(_F32) * xhat.to(_F32)).mean(dim=-1, keepdim=True)
+        dx = (t.to(_F32) - xhat.to(_F32) * c) * rstd
+        return dx.to(x.dtype), dscale, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """Forward only (the custom backward waits for the training slice)."""
-    var = x.to(_F32).square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+    """``x * rsqrt(mean(x^2) + eps) * scale``, statistics in f32."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def rope_tables(positions: torch.Tensor, dh: int,
@@ -70,3 +95,33 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return torch.mm(x, w, out_dtype=_F32)
     return x.to(_F32) @ w.to(_F32)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """The einsum reference: q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv,
+    Dh]`` (GQA by reshape, KV never broadcast); scores and softmax in
+    f32, probabilities rounded to v's dtype before the AV product."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(_F32), k.to(_F32))
+    scores = scores / torch.sqrt(torch.tensor(dh, dtype=_F32))
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool,
+                          device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).to(_F32),
+                       v.to(_F32))
+    return out.reshape(b, s, hq, dh).to(v.dtype)
+
+
+def cross_entropy(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, ``mean(logsumexp - logits[target])``:
+    the logsumexp in f32, the target logit gathered in the logits' own
+    dtype (the full log-probability tensor is never formed)."""
+    lse = torch.logsumexp(logits.to(_F32), dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt.to(_F32)).mean()

@@ -1,6 +1,7 @@
 """The dense gated (SwiGLU + RMSNorm + RoPE) decoder: configuration and
-weights (the JAX package's ``models/transformer.py``, the subset the
-serving slice runs).
+weights, and the full-sequence forward and loss the training step
+differentiates (the JAX package's ``models/transformer.py``, its dense
+bf16 path).
 
 ``init_params`` builds the JAX package's parameter tree with the same
 names and shapes — ``embed [V, D]``, ``layers.{wq, wk, wv, wo, norm1,
@@ -18,7 +19,9 @@ import math
 import numpy as np
 import torch
 
+from dlnetbench_tpu_torch import ops
 from dlnetbench_tpu_torch.core.model_card import ModelCard
+from dlnetbench_tpu_torch.models import layers as L
 from dlnetbench_tpu_torch.models.layers import init_dense
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -42,6 +45,7 @@ class TransformerConfig:
     dtype: str = "bfloat16"
     attention_window: int = 0
     attention_seg_avg: int = 0
+    logits_f32: bool = True        # f32 logits, else the compute dtype
 
     def __post_init__(self):
         if not self.gated or self.max_positions:
@@ -149,3 +153,49 @@ def params_from_numpy(tree, device="cuda"):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(arr).to(device)
+
+
+def _block(cfg: TransformerConfig, x, lp: dict, tables):
+    """One decoder block over a full sequence; x ``[B, S, D]``, ``lp``
+    this layer's weights, ``tables`` the shared RoPE tables.  Each
+    projection is a plain product rounded to the compute dtype (the JAX
+    package's ``jnp.dot`` without ``preferred_element_type``)."""
+    b, s, d = x.shape
+    y = L.rmsnorm(x, lp["norm1"])
+    q = (y @ lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = (y @ lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = (y @ lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q, k = L.apply_rope(q, tables), L.apply_rope(k, tables)
+    att = ops.attention(q, k, v.contiguous(), causal=True).reshape(b, s, d)
+    x = x + att @ lp["wo"]
+    y = L.rmsnorm(x, lp["norm2"])
+    return x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def forward(params: dict, tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """tokens ``[B, S]`` -> logits ``[B, S, V]`` (f32 with
+    ``cfg.logits_f32``, else the compute dtype).  The layer loop is a
+    Python loop; the stacked weights are split with ``unbind``, whose
+    backward stacks each weight's layer gradients once."""
+    x = params["embed"][tokens.long()]
+    s = tokens.shape[1]
+    tables = L.rope_tables(torch.arange(s, device=tokens.device),
+                           cfg.head_dim)
+    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for li in range(cfg.num_layers):
+        x = _block(cfg, x, {n: w[li] for n, w in per_layer.items()},
+                   tables)
+    x = L.rmsnorm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tied_embeddings else params["head"]
+    if cfg.logits_f32:
+        b, s, d = x.shape
+        return L.dot_f32(x.reshape(b * s, d), head).reshape(b, s, -1)
+    return x @ head
+
+
+def loss_fn(params: dict, tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy on a ``[B, S+1]`` token batch."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    return L.cross_entropy(logits, tokens[:, 1:])

@@ -2,10 +2,62 @@
 
 * ``paged_attention``       — K1, decode attention over bf16/f32 pages;
 * ``paged_attention_quant`` — K2, decode attention over int8/e4m3 pages;
+* ``flash_attention``       — K3/K4/K5, flash attention forward, dq and
+  dk/dv (the training path);
 * ``quantized_matmul``      — the shared quantization recipes;
 * ``common``                — the CUDA/CPU device split;
 * ``_build``                — builds ``csrc/*.cu`` with nvcc at first use.
 
-Importing this package builds nothing and needs no card: a kernel is
-compiled the first time a wrapper is called on a CUDA tensor.
+``attention`` is the dispatcher the model calls (the JAX package's
+``ops.attention`` without masks).  Importing this package builds nothing
+and needs no card: a kernel is compiled the first time a wrapper is
+called on a CUDA tensor.
 """
+from __future__ import annotations
+
+from dlnetbench_tpu_torch.models import layers as _L
+from dlnetbench_tpu_torch.ops import flash_attention as _FA
+from dlnetbench_tpu_torch.ops.common import on_card
+
+__all__ = ["attention"]
+
+
+def attention(q, k, v, causal: bool, impl: str = "auto"):
+    """q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` -> ``[B, S, Hq, Dh]``.
+
+    ``impl``: "auto" — the flash op (kernels K3/K4/K5 on a CUDA tensor,
+    their plain versions on a CPU tensor); "xla" — the
+    einsum reference ``layers.attention`` on a CPU tensor (the name is
+    the JAX package's; here it is for tests only, and a CUDA tensor is
+    refused, so nothing routes the card around the kernels).
+
+    The JAX package's "auto" picks flash only on a TPU at S >= 2048, a
+    threshold measured on the TPU; the port's "auto" takes the kernels
+    on the card at every length they support.  A shape they cannot take
+    raises on the card; on the CPU "auto" then runs the einsum
+    reference, as the JAX package does off the TPU, except at S >= 64k,
+    where it refuses (the S^2 score matrix would materialize).
+    """
+    if impl == "xla":
+        if on_card(q):
+            raise ValueError("attention: impl='xla' is the CPU reference; "
+                             "a CUDA tensor runs the flash kernels "
+                             "(impl='auto')")
+        return _L.attention(q, k, v, causal=causal)
+    if impl != "auto":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if _FA.flash_supported(q, k, v):
+        return _FA.flash_attention(q, k, v, causal)
+    s = q.shape[1]
+    if s >= _FA.LONG_SEQ:
+        raise ValueError(
+            f"attention: impl='auto' refuses the dense fallback at "
+            f"seq_len {s} >= {_FA.LONG_SEQ} (the S^2 score matrix would "
+            f"materialize); pad the sequence to a multiple of 128 for the "
+            f"flash kernels or pass impl='xla' explicitly (CPU only)")
+    if on_card(q):
+        raise ValueError(
+            f"attention: the flash kernels cannot take q {tuple(q.shape)}"
+            f" / k {tuple(k.shape)} (seq_len a multiple of 128, head_dim "
+            f"64 or 128) and a CUDA tensor has no other path")
+    return _L.attention(q, k, v, causal=causal)

@@ -1,7 +1,8 @@
 """The torch package stands alone: importing it (every submodule) loads
 no ``jax`` and no module of the JAX package, and no file of it — nor
-``chip_smoke.py`` — imports either.  The import check runs in a
-subprocess because tests/conftest.py imports jax into this one."""
+``chip_smoke.py`` — imports either; the CUDA sources include no JAX or
+XLA header.  The import check runs in a subprocess because
+tests/conftest.py imports jax into this one."""
 from __future__ import annotations
 
 import re
@@ -14,6 +15,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "dlnetbench_tpu_torch"
 
+_BAD_INCLUDE = re.compile(r"^\s*#\s*include\s*[<\"][^>\"]*(jax|xla)",
+                          re.MULTILINE | re.IGNORECASE)
 _BAD_IMPORT = re.compile(
     r"^\s*(import\s+(jax|dlnetbench_tpu)\b(?!_torch)"
     r"|from\s+(jax|dlnetbench_tpu)(\.|\s)(?!_torch))", re.MULTILINE)
@@ -32,7 +35,10 @@ def _modules() -> list[str]:
 
 def test_importing_every_submodule_loads_no_jax():
     mods = _modules()
-    assert "dlnetbench_tpu_torch.serving.scheduler" in mods
+    for m in ("serving.scheduler", "ops.flash_attention", "bench", "entry",
+              "models.bench_step", "core.roofline", "core.hardware",
+              "utils.timing"):
+        assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -57,6 +63,19 @@ def test_no_port_file_imports_jax_or_the_jax_package(path):
     assert not _BAD_IMPORT.search(src), path
 
 
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("csrc/*.cu*")))
+def test_no_kernel_source_includes_jax_or_xla(path):
+    src = (REPO / path).read_text()
+    assert not _BAD_INCLUDE.search(src), path
+    assert not _BAD_IMPORT.search(src), path
+
+
+def test_the_guard_covers_every_kernel_source():
+    srcs = {p.name for p in PKG.rglob("csrc/*.cu*")}
+    assert {"paged_attention.cu", "flash_attention.cu"} <= srcs
+
+
 def test_the_guard_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp",
                  "from jax import lax", "from dlnetbench_tpu.ops import x",
@@ -66,3 +85,5 @@ def test_the_guard_pattern_catches_what_it_should():
                  "from dlnetbench_tpu_torch.ops import common",
                  "import jaxlib_like_name_is_not_jax_x"):
         assert not _BAD_IMPORT.search(line), line
+    assert _BAD_INCLUDE.search('#include "xla/ffi/api/ffi.h"')
+    assert not _BAD_INCLUDE.search("#include <cuda_bf16.h>")
