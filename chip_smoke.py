@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --profile  # also: kernel-time breakdowns of a
                                      # served run and of the train step
+                                     # under each MLP recipe
                                      # (torch.profiler)
 
 Phases, in order; any failure exits non-zero:
@@ -39,6 +40,18 @@ Phases, in order; any failure exits non-zero:
    and D 1e-3 absolute.  Times as in 3, at the train shape; the yardsticks
    are SDPA's forward (K3) and SDPA's backward, which computes dq, dk
    and dv together (K4 and K5 both list it);
+5b. K11 (the fused-quantization matmul) at the train step's MLP shapes
+   (gate/up [12288, 4096] @ [4096, 14336], down [12288, 14336] @
+   [14336, 4096]), int8 and e4m3, with and without amax, against its
+   plain version on the card: int8 bit-exact; e4m3 every row within
+   2^-6 of its max-abs and a relative Frobenius error <= 1e-2 (the JAX
+   bar); amax exactly max |x|; a stale scale (0.1 x the amax) gives a
+   finite, saturated output equal to the plain version's.  Yardstick:
+   ``torch._int_mm`` / ``torch._scaled_mm`` on operands quantized
+   beforehand;
+5c. K9 (dg, du) and K10 (dWd) at the same shape against their plain
+   versions: dg and du every row within 2^-6 of its max-abs, dWd within
+   1e-3; yardsticks one ``torch.mm`` each (dy @ Wd^T, h^T @ dy);
 6. a tiny f32 model served on the card and on the CPU (plain versions)
    with the same weights: greedy token streams must be equal, for each
    cache dtype;
@@ -51,11 +64,21 @@ Phases, in order; any failure exits non-zero:
    f32 kernels) and on the CPU (plain versions) from the same weights
    and tokens: losses within 1e-5 relative and every parameter within
    1e-5 of its tensor's max-abs (f32 on both sides; summation order);
+8b. the MLP recipes' train steps at the bench shape through
+   ``bench_step.build`` (counters reset before and read after each):
+   int8 composed and fused give bitwise-equal first losses and K11
+   launched 3 x layers x steps in the fused run; e4m3 fused with delayed
+   scaling keeps finite losses and moves its qstate off the initial
+   ones, then holds it within 5 %; ``mlp_backward="pallas"`` gives the
+   autograd loss bitwise and every gradient leaf within 2e-2 of its
+   max-abs, with K9 and K10 launched layers x steps;
 9. train through ``dlnetbench_tpu_torch.bench.main([])`` at the bench
    shape (llama3_8b width, 4 layers, vocab 32768, B=2, S=6144, bf16):
-   the headline line has a finite loss within 1.5 of ln(32768) and
-   vs_baseline in (0, 1.05], and each of K3/K4/K5 launched layers x
-   steps times (warm call included);
+   the MLP aux lines come first, under the headline's keys, with the A/B
+   bands and int8_step's loss within 2 % of the headline's; the headline
+   line has a finite loss within 1.5 of ln(32768) and vs_baseline in
+   (0, 1.05]; each of K3/K4/K5 launched layers x steps times (warm calls
+   included) and K11 as often as the A/B chains launch it;
 10. ``dlnetbench_tpu_torch.entry.entry()`` forward once at S=1024: logits
    [1, 1024, 32768], finite, K3 launched once per layer;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
@@ -98,6 +121,45 @@ FLASH_CASES = [(2, 6144, 32, 8, 128, True), (1, 1024, 32, 8, 128, False),
 # against 2^-6 of that row's own max-abs (floored at 1e-3 of the
 # tensor's); lse and D: absolute
 FLASH_TOL_ROW, FLASH_TOL_LSE = 2.0 ** -6, 1e-3
+
+MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
+MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
+                "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
+                "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
+# the train step's MLP: T = B * S tokens, hidden D, ff F
+MLP_T, MLP_D, MLP_F = 12288, 4096, 14336
+# K11 e4m3 (bf16 output): each row within 2^-6 of its max-abs and a
+# relative Frobenius error <= 1e-2 (the JAX bar); int8 is bit-exact
+E4M3_TOL_ROW, E4M3_TOL_FRO = 2.0 ** -6, 1e-2
+# K9 dg/du (bf16 outputs, one ulp apart at most): 2^-6 of the row's
+# max-abs; K10 dWd (f32 output; summation order differs, and the kernel's
+# approximate sigmoid can move an element of the recomputed h by one bf16
+# rounding): 1e-3 of the row's max-abs
+DGDU_TOL_ROW, DWD_TOL_ROW = 2.0 ** -6, 1e-3
+# mlp_backward="pallas" vs the autograd backward, each gradient leaf
+# within this share of its max-abs: the default path rounds dh and the
+# f32 silu-gradient terms to bf16 where K9 keeps dh in f32 registers
+PALLAS_TOL_LEAF = 2e-2
+
+
+def abs_err(a, r) -> float:
+    return float((a.float() - r.float()).abs().max())
+
+
+def row_err(a, r) -> float:
+    """Worst row's max abs error over the plain row's max-abs, the latter
+    floored at 1e-3 of the tensor's: a row that cancels to ~0 (dq of
+    query 0 under the causal mask: O = v_0, so dp - D = 0) keeps f32
+    rounding of its terms."""
+    err = (a.float() - r.float()).abs().amax(dim=-1)
+    scale = r.float().abs().amax(dim=-1)
+    return float((err / scale.clamp_min(1e-3 * scale.max())).max())
+
+
+def fro_err(a, r) -> float:
+    """Relative Frobenius error ||a - r|| / ||r||."""
+    d = (a.float() - r.float()).norm()
+    return float(d / r.float().norm().clamp_min(1e-30))
 
 
 def fail(msg: str) -> None:
@@ -397,17 +459,6 @@ def flash_phase(torch, case, peak: dict, timed: bool) -> dict:
     p_dq, p_dcap = FA.plain_dq(q, k, v, out, lse, do, causal)
     p_dk, p_dv = FA.plain_dkv(q, k, v, do, lse, dcap, causal)
 
-    def abs_err(a, r):
-        return float((a.float() - r.float()).abs().max())
-
-    def row_err(a, r):
-        """Worst row's max abs error over the plain row's max-abs, the
-        latter floored at 1e-3 of the tensor's: a row that cancels to ~0
-        (dq of query 0 under the causal mask: O = v_0, so dp - D = 0)
-        keeps f32 rounding of its terms."""
-        err = (a.float() - r.float()).abs().amax(dim=-1)
-        scale = r.float().abs().amax(dim=-1)
-        return float((err / scale.clamp_min(1e-3 * scale.max())).max())
     pairs = {"o": (out, p_out), "lse": (lse, p_lse), "d": (dcap, p_dcap),
              "dq": (dq, p_dq), "dk": (dk, p_dk), "dv": (dv, p_dv)}
     errs = {n: abs_err(a, r) for n, (a, r) in pairs.items()}
@@ -542,6 +593,311 @@ def train_reference_phase(torch) -> None:
         f"{counts}")
 
 
+def reset_mlp_counts() -> None:
+    from dlnetbench_tpu_torch.ops import mlp_backward as MB
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    Q.fused_launches = MB.dgdu_launches = MB.dwd_launches = 0
+
+
+def mlp_counts() -> dict:
+    from dlnetbench_tpu_torch.ops import mlp_backward as MB
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    return {"k11": Q.fused_launches, "k9": MB.dgdu_launches,
+            "k10": MB.dwd_launches}
+
+
+def seeded(torch, seed: int):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+    return rand
+
+
+def bound_ms(ops: float, nbytes: float, peak: dict,
+             kind: str) -> tuple[float, str]:
+    t_bytes = nbytes / peak["bytes"] * 1e3
+    t_ops = ops / peak[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def qmm_check(torch, fmt: str, y, ref, label: str) -> dict:
+    """K11 against its plain version: int8 bit-exact, e4m3 by row and
+    Frobenius bars; both finite."""
+    if not torch.isfinite(y.float()).all():
+        fail(f"{label}: output not finite")
+    errs = {"max_abs_err": abs_err(y, ref), "row": row_err(y, ref),
+            "fro": fro_err(y, ref)}
+    if fmt == "int8":
+        if not torch.equal(y, ref):
+            fail(f"{label}: int8 kernel differs from the plain version "
+                 f"(max abs err {errs['max_abs_err']:.3e}); it must be "
+                 f"bit-exact")
+    elif not (errs["row"] <= E4M3_TOL_ROW and errs["fro"] <= E4M3_TOL_FRO):
+        fail(f"{label}: e4m3 row err {errs['row']:.3e} (bar "
+             f"{E4M3_TOL_ROW:.3e}), Frobenius {errs['fro']:.3e} (bar "
+             f"{E4M3_TOL_FRO})")
+    return errs
+
+
+def qmm_phase(torch, fmt: str, peak: dict) -> dict:
+    """K11 at the train step's MLP shapes (gate/up [T, D] @ [D, F], down
+    [T, F] @ [F, D]), with and without amax, against the plain version on
+    the card; a stale-scale case; times at the up-projection shape."""
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    kind = "int8" if fmt == "int8" else "fp8"
+    rand = seeded(torch, 21)
+    out, worst = {}, 0.0
+    for proj, (k, n) in (("up", (MLP_D, MLP_F)), ("down", (MLP_F, MLP_D))):
+        x = rand(MLP_T, k)
+        w = rand(k, n, scale=k ** -0.5)
+        wq, sw = Q.quantize_tensor(w, fmt)
+        w_t = Q.k_major(wq)
+        amax = Q.amax_of(x)
+        sx = Q.scale_from_amax(amax, fmt)
+        for collect in (False, True):
+            y, am = Q.kernel_fused_matmul(x, w_t, sw, sx, fmt, collect)
+            torch.cuda.synchronize()
+            ref, _ = Q.plain_fused_matmul(x, wq, sw, sx, fmt, False)
+            label = f"K11 {kind} {proj} amax={collect}"
+            errs = qmm_check(torch, fmt, y, ref, label)
+            if collect and not torch.equal(am, amax):
+                fail(f"{label}: amax {float(am)} != max|x| {float(amax)}")
+            worst = max(worst, errs["max_abs_err"])
+            say(f"{label}: max abs err {errs['max_abs_err']:.3e}, worst "
+                f"row {errs['row']:.3e}, Frobenius {errs['fro']:.3e}"
+                + (f"; amax {float(am)} exact" if collect else ""))
+            del y, ref
+        if proj == "up":
+            out = qmm_times(torch, fmt, x, wq, w_t, sw, sx, peak)
+        del x, w, wq, w_t
+        torch.cuda.empty_cache()
+    # a stale carried amax (0.1 of the truth): saturated, finite, equal
+    # to the plain version's saturated result
+    x = rand(1024, MLP_D)
+    wq, sw = Q.quantize_tensor(rand(MLP_D, MLP_D, scale=MLP_D ** -0.5),
+                               fmt)
+    stale = Q.scale_from_amax(0.1 * Q.amax_of(x), fmt)
+    y, am = Q.kernel_fused_matmul(x, Q.k_major(wq), sw, stale, fmt, True)
+    torch.cuda.synchronize()
+    ref, _ = Q.plain_fused_matmul(x, wq, sw, stale, fmt, False)
+    errs = qmm_check(torch, fmt, y, ref, f"K11 {kind} stale scale")
+    fresh, _ = Q.plain_fused_matmul(x, wq, sw, Q.scale_from_amax(
+        Q.amax_of(x), fmt), fmt, False)
+    if torch.equal(y, fresh) or not torch.equal(am, Q.amax_of(x)):
+        fail(f"K11 {kind} stale scale: output not saturated or amax "
+             f"{float(am)} not fresh")
+    say(f"K11 {kind} stale scale (0.1 x amax): finite, saturated, max abs "
+        f"err vs plain {errs['max_abs_err']:.3e}; amax out fresh")
+    return {"max_abs_err": max(worst, errs["max_abs_err"]), **out}
+
+
+def qmm_times(torch, fmt, x, wq, w_t, sw, sx, peak) -> dict:
+    """K11, its plain version and the library product on operands
+    quantized beforehand, at [T, D] @ [D, F]."""
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    kind = "int8" if fmt == "int8" else "fp8"
+    t, k = x.shape
+    n = w_t.shape[0]
+    xq = Q.cast_q(x.float() / sx, fmt)
+    if fmt == "int8":
+        def library():
+            return torch._int_mm(xq, w_t.t())
+    else:
+        def library():
+            return torch._scaled_mm(xq, w_t.t(), scale_a=sx, scale_b=sw,
+                                    out_dtype=torch.bfloat16)
+    y, _ = Q.kernel_fused_matmul(x, w_t, sw, sx, fmt, False)
+    lib = library()
+    ref = (lib.float() * (sx * sw)).to(torch.bfloat16) if fmt == "int8" \
+        else lib
+    lib_err = abs_err(y, ref)
+    del y, lib, ref
+    ms = timed_ms(torch, lambda: Q.kernel_fused_matmul(x, w_t, sw, sx, fmt,
+                                                       False))
+    plain_ms = timed_ms(torch, lambda: Q.plain_fused_matmul(
+        x, wq, sw, sx, fmt, False), reps=5)
+    library_ms = timed_ms(torch, library)
+    b_ms, b_by = bound_ms(2 * t * k * n, t * k * 2 + k * n + t * n * 2,
+                          peak, kind)
+    say(f"K11 {kind}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} ({'torch._int_mm' if fmt == 'int8' else 'torch._scaled_mm'}, "
+        f"err vs K11 {lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by}) -> "
+        f"{b_ms / ms:.3f} of bound, {2 * t * k * n / ms / 1e9:.1f} T/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def mlp_bwd_phase(torch, peak: dict) -> dict:
+    """K9 and K10 at the train step's MLP shape against their plain
+    versions on the card; times beside the plain versions', one
+    torch.mm each (dy . Wd^T; h^T . dy on h computed beforehand) and the
+    bound."""
+    from dlnetbench_tpu_torch.ops import mlp_backward as MB
+    rand = seeded(torch, 31)
+    t, d, f = MLP_T, MLP_D, MLP_F
+    dy = rand(t, d, scale=0.1)
+    wd = rand(f, d, scale=f ** -0.5)
+    g, u = rand(t, f), rand(t, f)
+    dg, du = MB.kernel_dgdu(dy, wd, g, u)
+    dw = MB.kernel_dwd(g, u, dy)
+    torch.cuda.synchronize()
+    pdg, pdu = MB.plain_dgdu(dy, wd, g, u)
+    pdw = MB.plain_dwd(g, u, dy)
+    for name, a in (("dg", dg), ("du", du), ("dWd", dw)):
+        if not torch.isfinite(a.float()).all():
+            fail(f"K9/K10: {name} not finite")
+    rows = {"dg": row_err(dg, pdg), "du": row_err(du, pdu),
+            "dwd": row_err(dw, pdw)}
+    errs = {"k9": max(abs_err(dg, pdg), abs_err(du, pdu)),
+            "k10": abs_err(dw, pdw)}
+    say(f"K9/K10: worst row err / row max-abs dg {rows['dg']:.3e} du "
+        f"{rows['du']:.3e} (bar {DGDU_TOL_ROW:.3e}) dWd {rows['dwd']:.3e} "
+        f"(bar {DWD_TOL_ROW}); max abs err K9 {errs['k9']:.3e} K10 "
+        f"{errs['k10']:.3e}")
+    if not (rows["dg"] <= DGDU_TOL_ROW and rows["du"] <= DGDU_TOL_ROW
+            and rows["dwd"] <= DWD_TOL_ROW):
+        fail(f"K9/K10 disagree with their plain versions: {rows}")
+    del dg, du, dw, pdg, pdu, pdw
+    h = MB.silu_parts(g.float())[0].mul_(u.float()).to(torch.bfloat16)
+    runs = {
+        "k9": (lambda: MB.kernel_dgdu(dy, wd, g, u),
+               lambda: MB.plain_dgdu(dy, wd, g, u),
+               lambda: torch.mm(dy, wd.t()),
+               t * d * 2 + f * d * 2 + 4 * t * f * 2),
+        "k10": (lambda: MB.kernel_dwd(g, u, dy),
+                lambda: MB.plain_dwd(g, u, dy),
+                lambda: torch.mm(h.t(), dy, out_dtype=torch.float32),
+                2 * t * f * 2 + t * d * 2 + f * d * 4),
+    }
+    out = {}
+    for name, (kernel, plain, library, nbytes) in runs.items():
+        ms = timed_ms(torch, kernel)
+        plain_ms = timed_ms(torch, plain, reps=5)
+        library_ms = timed_ms(torch, library)
+        b_ms, b_by = bound_ms(2 * t * d * f, nbytes, peak, "bf16")
+        out[name] = {"max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms}
+        say(f"{name.upper()}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {library_ms:.4f} (one torch.mm) bound_ms "
+            f"{b_ms:.4f} ({b_by}) -> {b_ms / ms:.3f} of bound, "
+            f"{2 * t * d * f / ms / 1e9:.1f} TFLOP/s")
+    return out
+
+
+def quant_train_phase(torch) -> dict:
+    """The quantized and fused-backward train steps at the bench shape,
+    through ``bench_step.build`` with the JAX package's overrides; the
+    launch counters are reset before and read after each run."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    layers = BS.LAYERS
+    launches = {}
+
+    def run(steps: int, **overrides):
+        train_k, carry, tokens, _, cfg = BS.build(steps, **overrides)
+        reset_mlp_counts()
+        carry, losses = train_k(carry, tokens)
+        torch.cuda.synchronize()
+        counts = mlp_counts()
+        losses = losses.cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"quant train {overrides}: losses {losses.tolist()}")
+        return carry, tokens, cfg, losses, counts
+
+    # int8 composed vs fused: the same recipe, so the first loss is
+    # bitwise equal; K11 launched 3 x layers a step in the fused run only
+    steps = 2
+    losses = {}
+    for fusion in ("composed", "fused"):
+        _, _, _, losses[fusion], counts = run(steps, mlp_dtype="int8",
+                                              quant_fusion=fusion)
+        want = 3 * layers * steps if fusion == "fused" else 0
+        if counts != {"k11": want, "k9": 0, "k10": 0}:
+            fail(f"quant train int8 {fusion}: launches {counts}, want K11 "
+                 f"{want}")
+        launches["k11_int8"] = launches.get("k11_int8", 0) + counts["k11"]
+        torch.cuda.empty_cache()
+    if losses["composed"][0].item() != losses["fused"][0].item():
+        fail(f"quant train: int8 fused first loss {losses['fused'][0]!r} "
+             f"!= composed {losses['composed'][0]!r} (must be bitwise)")
+    say(f"quant train int8: composed losses {losses['composed'].tolist()}, "
+        f"fused {losses['fused'].tolist()} (first bitwise equal); K11 "
+        f"{launches['k11_int8']} = 3 x {layers} layers x {steps} steps")
+
+    # e4m3 fused with delayed scaling: the state moves off its ones and
+    # then holds still on the same batch
+    steps = 3
+    (params, qs), tokens, cfg, l1, counts = run(
+        steps, mlp_dtype="float8", quant_fusion="fused",
+        quant_scaling="delayed")
+    if counts["k11"] != 3 * layers * steps:
+        fail(f"quant train e4m3 delayed: K11 launches {counts['k11']}")
+    launches["k11_e4m3"] = counts["k11"]
+    qs1 = qs.clone()
+    (_, qs), l2 = BS.make_train_k(cfg, 1)((params, qs), tokens)
+    torch.cuda.synchronize()
+    drift = float((qs / qs1 - 1).abs().max())
+    if not (torch.isfinite(qs1).all() and bool((qs1 != 1).all())
+            and torch.isfinite(l2).all() and drift < 0.05):
+        fail(f"quant train e4m3 delayed: qstate {qs1.tolist()} -> "
+             f"{qs.tolist()}, losses {l1.tolist()} {l2.tolist()}")
+    say(f"quant train e4m3 fused delayed: losses {l1.tolist()} then "
+        f"{l2.tolist()}; qstate {qs1.cpu().tolist()} (moved off 1.0; next "
+        f"step drifts {drift:.2e}); K11 {counts['k11']}")
+    del params, qs, qs1, tokens
+    torch.cuda.empty_cache()
+
+    # mlp_backward="pallas" against the autograd backward on the same
+    # weights: the forward is the same, so the loss is bitwise equal
+    _, params, tokens, _, cfg = BS.build(1)
+    cfg_p = dataclasses.replace(cfg, mlp_backward="pallas")
+    ps = BS.leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss_d = T.loss_fn(params, tokens, cfg)
+    grads_d = torch.autograd.grad(loss_d, ps)
+    reset_mlp_counts()
+    loss_p = T.loss_fn(params, tokens, cfg_p)
+    grads_p = torch.autograd.grad(loss_p, ps)
+    torch.cuda.synchronize()
+    counts = mlp_counts()
+    worst = max(float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max().clamp_min(1e-30))
+                for a, b in zip(grads_p, grads_d))
+    if loss_p.item() != loss_d.item() or worst > PALLAS_TOL_LEAF \
+            or counts != {"k11": 0, "k9": layers, "k10": layers}:
+        fail(f"quant train pallas: loss {loss_p.item()!r} vs "
+             f"{loss_d.item()!r}, worst leaf {worst:.3e} (bar "
+             f"{PALLAS_TOL_LEAF}), launches {counts}")
+    del grads_d, grads_p, loss_d, loss_p
+    for p in ps:
+        p.requires_grad_(False)
+    steps = 2
+    reset_mlp_counts()
+    params, lp = BS.make_train_k(cfg_p, steps)(params, tokens)
+    torch.cuda.synchronize()
+    counts = mlp_counts()
+    if counts != {"k11": 0, "k9": layers * steps, "k10": layers * steps} \
+            or not torch.isfinite(lp).all():
+        fail(f"quant train pallas: {steps} steps, launches {counts}, "
+             f"losses {lp.tolist()}")
+    launches["k9"], launches["k10"] = counts["k9"], counts["k10"]
+    say(f"quant train pallas: loss bitwise equal to autograd's, worst "
+        f"gradient leaf {worst:.3e} of its max-abs (bar "
+        f"{PALLAS_TOL_LEAF}); {steps} steps, losses {lp.tolist()}, K9 "
+        f"{counts['k9']} K10 {counts['k10']} = {layers} layers x {steps} "
+        f"steps")
+    del params, tokens, ps
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_phase(torch) -> dict:
     """The headline train step through ``bench.main([])``."""
     import contextlib
@@ -552,18 +908,44 @@ def train_phase(torch) -> dict:
     buf = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
+    reset_mlp_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = bench.main([])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = flash_counts()
+    k11 = mlp_counts()["k11"]
     if rc != 0:
         fail(f"train: bench rc {rc}")
-    text = buf.getvalue().strip()
-    line = json.loads(text.splitlines()[-1])
-    say(f"train headline: {json.dumps(line)}")
-    steps = BS.env_int("DLNB_BENCH_K", 10) * (1 + bench.ROUNDS)
+    lines = [json.loads(t) for t in buf.getvalue().strip().splitlines()]
+    line = lines[-1]
+    for ln in lines[:-1]:
+        say(f"train aux line: {json.dumps(ln)}")
+    say(f"train headline: {json.dumps({k: v for k, v in line.items() if not isinstance(v, dict)})}")
+    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "int8_step",
+                "int8_switchback_step", "recommended_step")
+    if [ln["metric"] for ln in lines[:-1]] != [line[k]["metric"]
+                                              for k in aux_keys] \
+            or line["recommended_step"]["metric"] != "recommended_step":
+        fail(f"train: aux lines {[ln.get('metric') for ln in lines]} do "
+             f"not match the headline's keys {aux_keys}")
+    for key in ("int8_fused_ab", "fp8_fused_ab"):
+        ab = line[key]
+        for var in ("composed", "fused", "fused_delayed"):
+            if set(ab[var]) != {"value", "best", "band", "n"} \
+                    or not ab[var]["value"] > 0:
+                fail(f"train: {key} {var} band {ab[var]}")
+    rel = abs(line["int8_step"]["loss"] - line["loss"]) / line["loss"]
+    if not rel <= 0.02:
+        fail(f"train: int8_step loss {line['int8_step']['loss']} not "
+             f"within 2 % of the headline's {line['loss']}")
+    want_k11 = 2 * 2 * (1 + bench.ROUNDS) * bench.AB_K
+    if k11 != want_k11:
+        fail(f"train: K11 launches {k11} != {want_k11} (2 formats x 2 "
+             f"fused variants x {1 + bench.ROUNDS} chains x {bench.AB_K})")
+    steps = (BS.env_int("DLNB_BENCH_K", 10)
+             + 2 * bench.STEP_K) * (1 + bench.ROUNDS)
     want = BS.LAYERS * steps
     loss = line["loss"]
     if not (math.isfinite(loss) and abs(loss - math.log(BS.VOCAB)) < 1.5):
@@ -575,8 +957,13 @@ def train_phase(torch) -> dict:
         fail(f"train: flash launches {counts}, want {BS.LAYERS} layers x "
              f"{steps} steps = {want} each")
     say(f"train: {line['value']} ms/step, vs_baseline {vs}, loss {loss}; "
-        f"flash launches {counts} = {BS.LAYERS} layers x {steps} steps "
-        f"(warm call included); bench wall {wall:.1f} s; peak memory "
+        f"int8_step {line['int8_step']['value']} ms (loss "
+        f"{line['int8_step']['loss']}), int8_switchback_step "
+        f"{line['int8_switchback_step']['value']} ms, recommended "
+        f"{line['recommended_step']['recipe']}; flash launches {counts} = "
+        f"{BS.LAYERS} layers x {steps} steps (headline and both int8 "
+        f"lines, warm calls included); K11 {k11} in the A/B chains; bench "
+        f"wall {wall:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return {"counts": counts, "line": line}
 
@@ -627,25 +1014,41 @@ def profile_rows(prof, wall: float, label: str) -> None:
         say(f"  {t_us / 1e3:10.3f} ms  {n:6d}x  {key[:90]}")
 
 
-def profile_train(torch) -> None:
-    """Device busy share and top kernels over one round (K chained
-    steps) of the bench train step, after a warm round."""
+# the step recipes profiled with --profile: label -> build overrides
+PROFILE_RECIPES = {
+    "train": {},
+    "train_int8": {"mlp_dtype": "int8"},
+    "train_int8_fused": {"mlp_dtype": "int8", "quant_fusion": "fused"},
+    "train_e4m3_delayed": {"mlp_dtype": "float8", "quant_fusion": "fused",
+                           "quant_scaling": "delayed"},
+    "train_pallas_bwd": {"mlp_backward": "pallas"},
+}
+
+
+def profile_train(torch, label: str, overrides: dict) -> None:
+    """ms a step (one round of K chained steps after a warm round,
+    unprofiled), then device busy share and top kernels over a profiled
+    round, of the bench train step under a recipe's overrides."""
     from torch.profiler import ProfilerActivity, profile
 
     from dlnetbench_tpu_torch.models import bench_step as BS
     k = BS.env_int("DLNB_BENCH_K", 10)
-    train_k, params, tokens, _, _ = BS.build(k)
-    train_k(params, tokens)
+    train_k, carry, tokens, _, _ = BS.build(k, **overrides)
+    carry, _ = train_k(carry, tokens)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = train_k(carry, tokens)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / k * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_k(params, tokens)
+        train_k(carry, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    say(f"profile train: {k} steps, {wall / k * 1e3:.1f} ms a step under "
-        f"the profiler")
-    profile_rows(prof, wall, "train")
+    say(f"profile {label} {overrides}: {k} steps, {step_ms:.3f} ms a step "
+        f"unprofiled, {wall / k * 1e3:.1f} ms under the profiler")
+    profile_rows(prof, wall, label)
 
 
 def profile_phase(torch) -> None:
@@ -717,10 +1120,15 @@ def main(argv: list[str]) -> int:
     for case in FLASH_CASES[1:]:
         flash_phase(torch, case, peak, timed=False)
     torch.cuda.empty_cache()
+    qmm = {fmt: qmm_phase(torch, fmt, peak) for fmt in ("int8", "float8")}
+    torch.cuda.empty_cache()
+    mlp_bwd = mlp_bwd_phase(torch, peak)
+    torch.cuda.empty_cache()
     reference_phase(torch)
     served = {dt: serve_phase(torch, dt) for dt in ("bf16", "int8", "fp8")}
     torch.cuda.empty_cache()
     train_reference_phase(torch)
+    quant_launches = quant_train_phase(torch)
     trained = train_phase(torch)
     torch.cuda.empty_cache()
     entry_phase(torch)
@@ -728,7 +1136,9 @@ def main(argv: list[str]) -> int:
     if "--profile" in argv:
         profile_phase(torch)
         torch.cuda.empty_cache()
-        profile_train(torch)
+        for label, overrides in PROFILE_RECIPES.items():
+            profile_train(torch, label, overrides)
+            torch.cuda.empty_cache()
 
     kernels = []
     for dt, label, replaces in (
@@ -750,6 +1160,14 @@ def main(argv: list[str]) -> int:
                         "replaces": FLASH_REPLACES[kind],
                         "launches": trained["counts"][kind],
                         **flash[kind]})
+    for key, label, res in (
+            ("k9", "K9 dgdu (SwiGLU backward dg, du)", mlp_bwd["k9"]),
+            ("k10", "K10 dwd (SwiGLU backward dWd)", mlp_bwd["k10"]),
+            ("k11_int8", "K11 fused_matmul (int8)", qmm["int8"]),
+            ("k11_e4m3", "K11 fused_matmul (e4m3)", qmm["float8"])):
+        kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
+                        "replaces": MLP_REPLACES[key.split("_")[0]],
+                        "launches": quant_launches[key], **res})
     say(card)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

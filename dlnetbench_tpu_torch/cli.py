@@ -13,7 +13,8 @@ to stderr.
 
 ``train`` runs the headline train-step benchmark
 (``dlnetbench_tpu_torch.bench``: the bench step at llama3_8b width, its
-shape from the ``DLNB_BENCH_*`` variables) and prints its JSON line.
+shape from the ``DLNB_BENCH_*`` variables) and prints its JSON lines,
+the headline last (``--skip-aux``: the headline alone).
 """
 from __future__ import annotations
 
@@ -77,15 +78,20 @@ def main(argv=None) -> int:
                       "batching + an open-loop arrival plan"))
     train = sub.add_parser(
         "train", help="the headline train step (forward, backward, SGD) "
-                      "at the bench shape; prints one JSON line")
+                      "at the bench shape and the MLP recipes' aux lines; "
+                      "prints the headline JSON line last")
     train.add_argument("--platform", default="cuda",
                        choices=list(PLATFORMS),
                        help="cuda (default; an error without a card) or "
                             "cpu")
+    train.add_argument("--skip-aux", "--skip_aux", dest="skip_aux",
+                       action="store_true",
+                       help="the headline train step alone")
     args = parser.parse_args(argv)
     if args.proxy == "train":
         from dlnetbench_tpu_torch import bench
-        return bench.main(["--platform", args.platform])
+        return bench.main(["--platform", args.platform]
+                          + (["--skip-aux"] if args.skip_aux else []))
     return _run_serve(args, parser)
 
 

@@ -9,6 +9,11 @@ call: loss, backward (``torch.autograd.grad``), then the update
 ``p - 1e-3 * g`` applied to the parameter tensors IN PLACE under
 ``torch.no_grad()`` (the JAX package's step returns a new parameter
 tree; updating in place is where the port saves a copy of the weights).
+``build(k, device, **overrides)`` takes the JAX ``build``'s config
+overrides (``mlp_dtype``, ``quant_fusion``, ``quant_scaling``,
+``int8_backward``, ``mlp_backward``); with delayed scaling the carry is
+``(params, qstate)``, the per-layer amax state riding the chain as it
+would ride a training loop.
 """
 from __future__ import annotations
 
@@ -53,10 +58,10 @@ def bench_card():
                      vocab_size=VOCAB, gated_mlp=True)
 
 
-def bench_cfg(card):
+def bench_cfg(card, **overrides):
     from dlnetbench_tpu_torch.models import transformer as tfm
     return dataclasses.replace(tfm.TransformerConfig.from_card(card),
-                               logits_f32=False)
+                               logits_f32=False, **overrides)
 
 
 def leaves(tree: dict) -> list:
@@ -69,19 +74,25 @@ def leaves(tree: dict) -> list:
 
 
 def make_train_k(cfg, k: int):
-    """``train_k(params, tokens) -> (params, losses)``: k SGD steps on
-    the same token batch, chained; ``losses`` is a ``[k]`` f32 tensor
-    on the parameters' device.  ``params`` is updated in place and
-    returned."""
+    """``train_k(carry, tokens) -> (carry, losses)``: k SGD steps on the
+    same token batch, chained; ``losses`` is a ``[k]`` f32 tensor on the
+    parameters' device.  The carry is the parameter tree, updated in
+    place and returned, or with delayed scaling ``(params, qstate)``,
+    whose ``qstate`` is replaced by each step's emitted amaxes."""
     from dlnetbench_tpu_torch.models import transformer as tfm
+    delayed = tfm.needs_qstate(cfg)
 
-    def train_k(params, tokens):
+    def train_k(carry, tokens):
+        params, qstate = carry if delayed else (carry, None)
         ps = leaves(params)
         losses = []
         for _ in range(k):
             for p in ps:
                 p.requires_grad_(True)
-            loss = tfm.loss_fn(params, tokens, cfg)
+            if delayed:
+                loss, qstate = tfm.loss_fn(params, tokens, cfg, qstate)
+            else:
+                loss = tfm.loss_fn(params, tokens, cfg)
             grads = torch.autograd.grad(loss, ps)
             with torch.no_grad():
                 for p, g in zip(ps, grads):
@@ -90,19 +101,22 @@ def make_train_k(cfg, k: int):
             del loss, grads
         for p in ps:
             p.requires_grad_(False)
-        return params, torch.stack(losses)
+        return ((params, qstate) if delayed else params), torch.stack(losses)
     return train_k
 
 
-def build(k: int = 10, device="cuda"):
-    """``(train_k_fn, params, tokens, card, cfg)`` at the bench shape on
-    ``device``: seeded random weights and a seeded ``[B, S+1]`` token
-    batch."""
+def build(k: int = 10, device="cuda", **cfg_overrides):
+    """``(train_k_fn, carry, tokens, card, cfg)`` at the bench shape on
+    ``device``: seeded random weights (the carry, or ``(params,
+    qstate)`` when the config threads delayed-scaling state) and a
+    seeded ``[B, S+1]`` token batch."""
     from dlnetbench_tpu_torch.models import transformer as tfm
     card = bench_card()
-    cfg = bench_cfg(card)
+    cfg = bench_cfg(card, **cfg_overrides)
     device = torch.device(device)
     params = tfm.init_params(cfg, seed=0, device=device)
+    if tfm.needs_qstate(cfg):
+        params = (params, tfm.init_qstate(cfg, device))
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,

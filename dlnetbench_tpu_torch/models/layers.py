@@ -77,12 +77,61 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     return apply_rope(q, tables), apply_rope(k, tables)
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+def swiglu_fwd_res(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor):
+    """The SwiGLU forward, returning ``(y, residuals)``: the one place
+    the three-product body lives — the autograd path (``swiglu``) and
+    the split-product and fused-kernel backwards
+    (``ops/mlp_backward.py``) all call it.  Each projection is rounded to
+    the compute dtype, so the saved g and u are bf16 in a bf16 model."""
     g = (x @ w_gate).to(x.dtype)
     u = (x @ w_up).to(x.dtype)
     h = (F.silu(g.to(_F32)) * u.to(_F32)).to(g.dtype)
-    return (h @ w_down).to(x.dtype)
+    return (h @ w_down).to(x.dtype), (x, g, u, w_gate, w_up, w_down)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return swiglu_fwd_res(x, w_gate, w_up, w_down)[0]
+
+
+def quantized_swiglu(x, w_gate, w_up, w_down, *, mlp_dtype: str,
+                     quant_fusion: str = "composed",
+                     int8_backward: str = "master", amax_state=None):
+    """The one dispatch point for the low-precision SwiGLU recipes
+    (``transformer._block`` calls it; ``TransformerConfig`` validates
+    the combinations): ``quant_fusion="composed"`` quantizes in separate
+    passes around a plain quantized product (``ops/int8.py``,
+    ``ops/fp8.py``); ``"fused"`` runs the fused kernel K11
+    (``ops/quantized_matmul.py``).  ``amax_state`` (a ``[amax_x,
+    amax_h]`` f32 pair, fused only) selects delayed scaling, and the
+    return value is then ``(y, new_state)``."""
+    if amax_state is not None and quant_fusion != "fused":
+        # a composed call handing state would otherwise silently get the
+        # fused path
+        raise ValueError(
+            "quantized_swiglu: amax_state (delayed scaling) requires "
+            "quant_fusion='fused'")
+    if mlp_dtype == "int8":
+        from dlnetbench_tpu_torch.ops import int8 as q8
+        if amax_state is not None:
+            return q8.swiglu_int8_fused_delayed(x, w_gate, w_up, w_down,
+                                                amax_state)
+        if quant_fusion == "fused":
+            return q8.swiglu_int8_fused(x, w_gate, w_up, w_down)
+        if int8_backward == "switchback":
+            return q8.swiglu_int8_sb(x, w_gate, w_up, w_down)
+        return q8.swiglu_int8(x, w_gate, w_up, w_down)
+    if mlp_dtype == "float8":
+        from dlnetbench_tpu_torch.ops import fp8 as qf8
+        if amax_state is not None:
+            return qf8.swiglu_fp8_fused_delayed(x, w_gate, w_up, w_down,
+                                                amax_state)
+        if quant_fusion == "fused":
+            return qf8.swiglu_fp8_fused(x, w_gate, w_up, w_down)
+        return qf8.swiglu_fp8(x, w_gate, w_up, w_down)
+    raise ValueError(f"quantized_swiglu: not a quantized mlp_dtype "
+                     f"{mlp_dtype!r}")
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,8 @@ def test_importing_every_submodule_loads_no_jax():
     mods = _modules()
     for m in ("serving.scheduler", "ops.flash_attention", "bench", "entry",
               "models.bench_step", "core.roofline", "core.hardware",
-              "utils.timing"):
+              "utils.timing", "ops.int8", "ops.fp8", "ops.mlp_backward",
+              "ops.quantized_matmul"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -73,7 +74,8 @@ def test_no_kernel_source_includes_jax_or_xla(path):
 
 def test_the_guard_covers_every_kernel_source():
     srcs = {p.name for p in PKG.rglob("csrc/*.cu*")}
-    assert {"paged_attention.cu", "flash_attention.cu"} <= srcs
+    assert {"paged_attention.cu", "flash_attention.cu",
+            "mlp_matmul.cu"} <= srcs
 
 
 def test_the_guard_pattern_catches_what_it_should():

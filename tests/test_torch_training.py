@@ -260,6 +260,23 @@ def test_transformer_config_knobs():
     for knob in ("attention_impl", "scan_layers"):
         with pytest.raises(TypeError, match=knob):
             TT.TransformerConfig(**{knob: "xla"}, **TINY)
+    # the MLP recipes: the JAX package's five knobs, its defaults, and
+    # every combination it accepts
+    jcfg = JT.TransformerConfig(gated=True, max_positions=0, **TINY)
+    for knob in ("mlp_dtype", "int8_backward", "quant_fusion",
+                 "quant_scaling", "mlp_backward"):
+        assert getattr(cfg, knob) == getattr(jcfg, knob), knob
+    for knobs in ({"mlp_dtype": "int8"},
+                  {"mlp_dtype": "int8", "int8_backward": "switchback"},
+                  {"mlp_dtype": "int8", "quant_fusion": "fused"},
+                  {"mlp_dtype": "float8"},
+                  {"mlp_dtype": "float8", "quant_fusion": "fused",
+                   "quant_scaling": "delayed"},
+                  {"mlp_backward": "split"}, {"mlp_backward": "pallas"}):
+        got = TT.TransformerConfig(**TINY, **knobs)
+        JT.TransformerConfig(gated=True, max_positions=0, **TINY, **knobs)
+        assert TT.needs_qstate(got) == (knobs.get("quant_scaling")
+                                        == "delayed")
 
 
 def test_flagship_cfg_matches_graft_entry():
@@ -295,9 +312,15 @@ HEADLINE_KEYS = {"metric", "value", "best", "band", "n", "vs_baseline",
                  "tflops_executed", "loss", "logits_dtype"}
 
 
+AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "int8_step",
+            "int8_switchback_step", "recommended_step")
+
+
 @pytest.mark.parametrize("argv", [
     ["-m", "dlnetbench_tpu_torch.bench", "--platform", "cpu"],
-    ["-m", "dlnetbench_tpu_torch.cli", "train", "--platform", "cpu"]])
+    ["-m", "dlnetbench_tpu_torch.cli", "train", "--platform", "cpu"],
+    ["-m", "dlnetbench_tpu_torch.bench", "--platform", "cpu",
+     "--skip-aux"]])
 def test_bench_entry_prints_the_headline_line_on_cpu(argv):
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "PYTHONPATH": str(REPO), "HOME": str(Path.home()),
@@ -305,8 +328,22 @@ def test_bench_entry_prints_the_headline_line_on_cpu(argv):
     proc = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = [json.loads(t) for t in proc.stdout.strip().splitlines()]
+    line = lines[-1]
     assert HEADLINE_KEYS <= set(line)
+    # the MLP recipes' aux lines come first, in order, and ride inside
+    # the headline under the JAX bench's keys; --skip-aux prints the
+    # headline alone
+    if "--skip-aux" in argv:
+        assert len(lines) == 1
+        assert line["recommended_step"]["recipe"] == "bf16"
+    else:
+        assert [ln["metric"] for ln in lines[:-1]] == [
+            line[k]["metric"] for k in AUX_KEYS]
+        for key in ("int8_fused_ab", "fp8_fused_ab"):
+            assert {"composed", "fused", "fused_delayed"} <= set(line[key])
+        assert abs(line["int8_step"]["loss"] - line["loss"]) \
+            <= 0.02 * line["loss"]
     assert line["n"] == 3 and line["value"] > 0
     assert line["vs_baseline"] is None       # no preset prices the CPU
     assert "B=2 S=128" in line["metric"] and "cpu" in line["metric"]
