@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --profile  # also: kernel-time breakdowns of a
-                                     # served run and of the train step
-                                     # under each MLP recipe
+                                     # served run, of the train step
+                                     # under each MLP recipe and of the
+                                     # moe_ab grouped step
                                      # (torch.profiler)
 
 Phases, in order; any failure exits non-zero:
@@ -52,6 +53,16 @@ Phases, in order; any failure exits non-zero:
 5c. K9 (dg, du) and K10 (dWd) at the same shape against their plain
    versions: dg and du every row within 2^-6 of its max-abs, dWd within
    1e-3; yardsticks one ``torch.mm`` each (dy @ Wd^T, h^T @ dy);
+5d. K12 (the grouped expert matmul) against its plain version: bf16 at
+   the bench's moe_ab shapes (8 experts x 1280 slots, 4096 -> 7168 and
+   7168 -> 4096) and at mixtral_8x7b width (4096 -> 14336), int8 and
+   e4m3 at the moe_ab gate/up shape, each with full and with skewed
+   counts ([1280, 1000, 0, 17, 640, 1280, 129, 1]): every row at or past
+   a count exactly zero; bf16 every row within 2^-6 of its max-abs; int8
+   bit-exact; e4m3 every row within 2^-6 and Frobenius <= 1e-2.
+   Yardsticks at the moe_ab gate/up shape, full counts: one
+   ``torch.bmm`` (bf16), 8 per-expert ``torch._int_mm`` /
+   ``torch._scaled_mm`` products summed (int8 / e4m3);
 6. a tiny f32 model served on the card and on the CPU (plain versions)
    with the same weights: greedy token streams must be equal, for each
    cache dtype;
@@ -72,13 +83,32 @@ Phases, in order; any failure exits non-zero:
    ones, then holds it within 5 %; ``mlp_backward="pallas"`` gives the
    autograd loss bitwise and every gradient leaf within 2e-2 of its
    max-abs, with K9 and K10 launched layers x steps;
+8c. a tiny f32 MoE model (4 experts, top-2, ``moe_impl="grouped"``, TF32
+   off) takes 2 SGD steps on the card (K12 f32, K3/K4/K5 f32) and on the
+   CPU from the same weights: the layers' expert choices are compared
+   first (a routing flip is not a kernel fault), then losses within 1e-5
+   relative and every parameter within 1e-5 of its leaf's max-abs, K12
+   launched 3 x layers x steps;
+8d. the quantized grouped expert FFN (``moe.moe_grouped(quant=...)``, the
+   JAX package's route to K12 int8 / e4m3) forward and backward at the
+   moe_ab width: finite, within 0.1 (relative Frobenius; the recipes'
+   own quantization error is 5-7 %) of the bf16 layer, K12 launched 3
+   times per format;
+8e. a mixtral_8x7b-width train step (``TransformerConfig.from_card``, 2
+   layers, S=2048, B=2, vocab 32000): ``moe_impl="grouped"`` against
+   ``"sparse"`` on the same weights, first losses within 1e-3 relative
+   and within 1.5 of ln V, ms a step of each and the layer-0 routing
+   stats; K12 launched 3 x layers x steps in the grouped run only;
 9. train through ``dlnetbench_tpu_torch.bench.main([])`` at the bench
    shape (llama3_8b width, 4 layers, vocab 32768, B=2, S=6144, bf16):
    the MLP aux lines come first, under the headline's keys, with the A/B
    bands and int8_step's loss within 2 % of the headline's; the headline
    line has a finite loss within 1.5 of ln(32768) and vs_baseline in
-   (0, 1.05]; each of K3/K4/K5 launched layers x steps times (warm calls
-   included) and K11 as often as the A/B chains launch it;
+   (0, 1.05]; the ``moe_ab`` line carries the three variants' bands, the
+   ratio bands and the routing globals; each of K3/K4/K5 launched layers
+   x steps times (warm calls included, the moe_ab chains too), K11 as
+   often as the A/B chains launch it and K12 3 x 2 layers x the grouped
+   chain's steps;
 10. ``dlnetbench_tpu_torch.entry.entry()`` forward once at S=1024: logits
    [1, 1024, 32768], finite, K3 launched once per layer;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
@@ -140,6 +170,29 @@ DGDU_TOL_ROW, DWD_TOL_ROW = 2.0 ** -6, 1e-3
 # within this share of its max-abs: the default path rounds dh and the
 # f32 silu-gradient terms to bf16 where K9 keeps dh in f32 registers
 PALLAS_TOL_LEAF = 2e-2
+
+GMM_REPLACES = "dlnetbench_tpu/ops/grouped_matmul.py:82"
+# K12 at the bench's moe_ab shape (E=8 experts, C=1280 slots = int(1.25 x
+# 4096 tokens x top-2 / 8), d 4096, f_e 7168) and at mixtral_8x7b width
+# (f 14336): (label, K, N) of x [E, C, K] @ w [E, K, N]
+GMM_E, GMM_C = 8, 1280
+GMM_CASES = [("moe_ab gate/up", 4096, 7168), ("moe_ab down", 7168, 4096),
+             ("mixtral gate/up", 4096, 14336)]
+# skewed per-expert counts: a full expert, an empty one, ragged tails
+GMM_SKEW = [1280, 1000, 0, 17, 640, 1280, 129, 1]
+# bf16 and e4m3 (bf16 outputs): every row within 2^-6 of its max-abs;
+# e4m3 also a relative Frobenius error <= 1e-2; int8 bit-exact
+GMM_TOL_ROW = 2.0 ** -6
+# the tiny f32 MoE model, card vs CPU: losses 1e-5 relative, each
+# parameter within 1e-5 of its leaf's max-abs (f32 on both sides)
+MOE_REF_TOL = 1e-5
+# mixtral width, grouped vs sparse on the same weights: first loss
+MIXTRAL_TOL_LOSS = 1e-3
+# the quantized grouped expert layer against the bf16 one (relative
+# Frobenius): a sanity bar over the recipes' own quantization error
+# (5.0 % int8, 6.5 % e4m3 at a reduced shape on the CPU); K12's own
+# int8 / e4m3 results are held to its plain version in the K12 phase
+MOE_QUANT_TOL = 0.1
 
 
 def abs_err(a, r) -> float:
@@ -788,6 +841,304 @@ def mlp_bwd_phase(torch, peak: dict) -> dict:
     return out
 
 
+def gmm_counts() -> int:
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    return GM.grouped_launches
+
+
+def reset_gmm_counts() -> None:
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    GM.grouped_launches = 0
+
+
+def gmm_check(torch, fmt, y, ref, counts, label: str) -> dict:
+    """K12 against its plain version: every row at or past an expert's
+    count exactly zero; int8 bit-exact, bf16 and e4m3 by the row bar
+    (e4m3 also the Frobenius bar); finite."""
+    if not torch.isfinite(y.float()).all():
+        fail(f"{label}: output not finite")
+    for e, n in enumerate(counts.tolist()):
+        if y[e, n:].count_nonzero().item():
+            fail(f"{label}: expert {e} has nonzero rows at or past its "
+                 f"count {n}")
+    errs = {"max_abs_err": abs_err(y, ref), "row": row_err(y, ref),
+            "fro": fro_err(y, ref)}
+    if fmt == "int8":
+        if not torch.equal(y, ref):
+            fail(f"{label}: int8 kernel differs from the plain version "
+                 f"(max abs err {errs['max_abs_err']:.3e}); it must be "
+                 f"bit-exact")
+    elif not errs["row"] <= GMM_TOL_ROW or (
+            fmt == "float8" and not errs["fro"] <= E4M3_TOL_FRO):
+        fail(f"{label}: row err {errs['row']:.3e} (bar {GMM_TOL_ROW:.3e}), "
+             f"Frobenius {errs['fro']:.3e}")
+    return errs
+
+
+def gmm_phase(torch, peak: dict) -> dict:
+    """K12 against its plain version at the moe_ab gate/up and down shapes
+    and at mixtral width (bf16), and int8 and e4m3 at the moe_ab gate/up
+    shape, each with full and with skewed counts; times at the moe_ab
+    gate/up shape with full counts beside the plain version's, a library
+    yardstick's and the bound."""
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    rand = seeded(torch, 41)
+    full = torch.full((GMM_E,), GMM_C, dtype=torch.int32, device="cuda")
+    skew = torch.tensor(GMM_SKEW, dtype=torch.int32, device="cuda")
+    out = {}
+    for fmt in (None, "int8", "float8"):
+        kind = {None: "bf16", "int8": "int8", "float8": "e4m3"}[fmt]
+        cases = GMM_CASES if fmt is None else GMM_CASES[:1]
+        worst = 0.0
+        for label, k, n in cases:
+            x = rand(GMM_E, GMM_C, k)
+            w = rand(GMM_E, k, n, scale=k ** -0.5)
+            sx = sw = None
+            if fmt:
+                w, sw = GM.quantize_experts(w, fmt)
+                sx = Q.scale_from_amax(GM.expert_amax(x), fmt)
+            for cname, counts in (("full", full), ("skewed", skew)):
+                y = GM.grouped_matmul(x, w, counts=counts, sx=sx, sw=sw,
+                                      fmt=fmt)
+                torch.cuda.synchronize()
+                ref = GM.plain_grouped_matmul(x, w, counts, sx, sw, fmt)
+                tag = f"K12 {kind} {label} [{GMM_E}, {GMM_C}, {k}] x [{k}, " \
+                      f"{n}] {cname} counts"
+                errs = gmm_check(torch, fmt, y, ref, counts, tag)
+                worst = max(worst, errs["max_abs_err"])
+                say(f"{tag}: max abs err {errs['max_abs_err']:.3e}, worst "
+                    f"row {errs['row']:.3e}, Frobenius {errs['fro']:.3e}; "
+                    f"rows past the counts zero")
+                del y, ref
+            if label == GMM_CASES[0][0]:
+                out[kind] = {"max_abs_err": worst,
+                             **gmm_times(torch, fmt, x, w, sx, sw, peak)}
+            del x, w
+            torch.cuda.empty_cache()
+        out[kind]["max_abs_err"] = worst
+    return out
+
+
+def gmm_times(torch, fmt, x, w, sx, sw, peak) -> dict:
+    """K12, its plain version and a library yardstick at full counts:
+    bf16 one ``torch.bmm``; int8 / e4m3 the per-expert
+    ``torch._int_mm`` / ``torch._scaled_mm`` products summed over the
+    experts, on operands quantized beforehand."""
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    e, c, k = x.shape
+    n = w.shape[2]
+    kind = {None: "bf16", "int8": "int8", "float8": "fp8"}[fmt]
+    if fmt is None:
+        w_t = w
+
+        def library():
+            return torch.bmm(x, w)
+        lib_name = "one torch.bmm"
+    else:
+        xq = Q.cast_q(x.float() / sx[:, None, None], fmt)
+        w_t = w.transpose(1, 2).contiguous()     # K-major, made once
+        if fmt == "int8":
+            def library():
+                return [torch._int_mm(xq[i], w_t[i].t()) for i in range(e)]
+            lib_name = f"{e} torch._int_mm, summed"
+        else:
+            # a scale of its own per expert: cuBLASLt refuses a scale
+            # pointer that is not aligned like an allocation
+            sxs = [sx[i].clone() for i in range(e)]
+            sws = [sw[i].clone() for i in range(e)]
+
+            def library():
+                return [torch._scaled_mm(xq[i], w_t[i].t(), scale_a=sxs[i],
+                                         scale_b=sws[i],
+                                         out_dtype=torch.bfloat16)
+                        for i in range(e)]
+            lib_name = f"{e} torch._scaled_mm, summed"
+    ms = timed_ms(torch, lambda: GM.kernel_grouped_matmul(x, w_t, None, sx,
+                                                          sw, fmt))
+    plain_ms = timed_ms(torch, lambda: GM.plain_grouped_matmul(
+        x, w, None, sx, sw, fmt), reps=5)
+    library_ms = timed_ms(torch, library)
+    ops = 2 * e * c * k * n
+    nbytes = e * c * k * 2 + e * k * n * w.element_size() + e * c * n * 2
+    b_ms, b_by = bound_ms(ops, nbytes, peak, kind)
+    say(f"K12 {kind}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} ({lib_name}) bound_ms {b_ms:.4f} "
+        f"({b_by}) -> {b_ms / ms:.3f} of bound, {ops / ms / 1e9:.1f} T/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def moe_quant_phase(torch) -> dict:
+    """The quantized grouped expert FFN (``moe.moe_grouped(quant=...)``,
+    the JAX package's route to the int8 / e4m3 grouped kernels) at the
+    moe_ab width, forward and backward once per format: finite, K12
+    launched 3 times, and within ``MOE_QUANT_TOL`` (relative Frobenius)
+    of the bf16 grouped layer on the same inputs."""
+    from dlnetbench_tpu_torch.models import moe as M
+    rand = seeded(torch, 51)
+    t, d, f, e = 4096, 4096, 7168, GMM_E
+    x = rand(t, d)
+    wr, wg, wu = rand(d, e, scale=d ** -0.5), rand(e, d, f, scale=d ** -0.5), \
+        rand(e, d, f, scale=d ** -0.5)
+    wd = rand(e, f, d, scale=f ** -0.5)
+    with torch.no_grad():
+        ref = M.moe_grouped(x, wr, wg, wu, wd, 2)
+    launches = {}
+    for fmt in ("int8", "float8"):
+        leaves = [a.detach().requires_grad_(True) for a in (x, wg, wu, wd)]
+        reset_gmm_counts()
+        y = M.moe_grouped(leaves[0], wr, *leaves[1:], 2, quant=fmt)
+        grads = torch.autograd.grad(y.float().square().sum(), leaves)
+        torch.cuda.synchronize()
+        launches[fmt] = gmm_counts()
+        err = fro_err(y.detach(), ref)
+        if launches[fmt] != 3 or not all(torch.isfinite(g).all()
+                                         for g in (y, *grads)) \
+                or not err <= MOE_QUANT_TOL:
+            fail(f"moe quant {fmt}: K12 launches {launches[fmt]} (want 3), "
+                 f"Frobenius vs bf16 {err:.3e} (bar {MOE_QUANT_TOL}), or "
+                 f"not finite")
+        say(f"moe quant {fmt}: moe_grouped(quant={fmt!r}) forward + "
+            f"backward finite, Frobenius vs the bf16 layer {err:.3e}; K12 "
+            f"launches {launches[fmt]}")
+        del y, grads, leaves
+    return launches
+
+
+def moe_reference_phase(torch) -> None:
+    """Tiny f32 MoE model (``moe_impl="grouped"``, TF32 off), same
+    weights and tokens, 2 SGD steps on the card (K12 f32, the f32 flash
+    kernels) and on the CPU (plain versions).  The layer routings are
+    compared first, so that a flipped expert is told apart from a
+    kernel fault."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import moe as M
+    from dlnetbench_tpu_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = T.TransformerConfig(vocab_size=256, embed_dim=256, num_heads=2,
+                              num_kv_heads=1, ff_dim=128, num_layers=2,
+                              seq_len=128, dtype="float32", logits_f32=False,
+                              num_experts=4, top_k=2, moe_impl="grouped")
+    cpu = T.init_params(cfg, seed=9, device="cpu")
+    gpu = {k: ({n: w.cuda() for n, w in v.items()}
+               if isinstance(v, dict) else v.cuda())
+           for k, v in cpu.items()}
+    gen = torch.Generator()
+    gen.manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len + 1),
+                           generator=gen)
+    route = M.route
+    seen = []
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        seen.append(out[0].idx.cpu())
+        return out
+    M.route = recording
+    try:
+        with torch.no_grad():
+            T.loss_fn(cpu, tokens, cfg)
+            T.loss_fn(gpu, tokens.cuda(), cfg)
+    finally:
+        M.route = route
+    half = len(seen) // 2
+    same = all(torch.equal(a, b) for a, b in zip(seen[:half], seen[half:]))
+    say(f"moe reference: expert indices of the {half} layers "
+        f"{'EQUAL' if same else 'DIFFER'} on the card and on the CPU")
+    if not same:
+        fail("moe reference: a routing flip between card and CPU (router "
+             "logits differ near a tie), not a kernel fault")
+    step = BS.make_train_k(cfg, 2)
+    reset_gmm_counts()
+    gpu, gpu_losses = step(gpu, tokens.cuda())
+    torch.cuda.synchronize()
+    launches = gmm_counts()
+    cpu, cpu_losses = step(cpu, tokens)
+    gl = gpu_losses.cpu()
+    if launches != 3 * cfg.num_layers * 2:
+        fail(f"moe reference: K12 launches {launches}, want "
+             f"{3 * cfg.num_layers * 2}")
+    if not torch.allclose(gl, cpu_losses, rtol=MOE_REF_TOL, atol=0):
+        fail(f"moe reference: card losses {gl.tolist()} vs CPU "
+             f"{cpu_losses.tolist()}")
+    worst = 0.0
+    for c, g in zip(BS.leaves(cpu), BS.leaves(gpu)):
+        worst = max(worst, float((g.cpu() - c).abs().max()
+                                 / c.abs().max().clamp_min(1e-30)))
+    if not worst <= MOE_REF_TOL:
+        fail(f"moe reference: a parameter differs by {worst:.3e} of its "
+             f"leaf's max-abs (bar {MOE_REF_TOL})")
+    say(f"moe reference: 2 f32 SGD steps, losses card {gl.tolist()} CPU "
+        f"{cpu_losses.tolist()}; worst parameter {worst:.3e} of its leaf's "
+        f"max-abs (bar {MOE_REF_TOL}); K12 f32 launches {launches}")
+
+
+def mixtral_phase(torch) -> dict:
+    """A mixtral_8x7b-width train step (the card's own dims, 2 layers,
+    S=2048, B=2, its vocab 32000), ``moe_impl="grouped"`` against
+    ``"sparse"`` on the same weights and tokens: first losses, ms a step,
+    the layer-0 routing stats and K12's launches."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch import bench
+    from dlnetbench_tpu_torch.core.model_card import load_model_card
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    card = load_model_card("mixtral_8x7b")
+    base = T.TransformerConfig.from_card(card, num_layers=2, seq_len=2048)
+    steps, b = 3, 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    tokens = torch.randint(0, base.vocab_size, (b, base.seq_len + 1),
+                           generator=gen, device="cuda")
+    params = T.init_params(base, seed=0, device="cuda")
+    info = bench.router_probe(params, tokens[:, :-1], base)
+    res = {}
+    for impl in ("sparse", "grouped"):
+        cfg = dataclasses.replace(base, moe_impl=impl)
+        p = {k: ({n: w.clone() for n, w in v.items()}
+                 if isinstance(v, dict) else v.clone())
+             for k, v in params.items()}
+        first = float(T.loss_fn(p, tokens, cfg).detach())
+        BS.make_train_k(cfg, 1)(p, tokens)            # warm
+        torch.cuda.synchronize()
+        reset_gmm_counts()
+        t0 = time.perf_counter()
+        p, losses = BS.make_train_k(cfg, steps)(p, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        res[impl] = {"loss": first, "ms": ms, "launches": gmm_counts(),
+                     "losses": losses.cpu().tolist()}
+        del p
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    ln_v = math.log(base.vocab_size)
+    ls, lg = res["sparse"]["loss"], res["grouped"]["loss"]
+    want = 3 * base.num_layers * steps
+    if not (math.isfinite(ls) and math.isfinite(lg)
+            and abs(ls - ln_v) < 1.5 and abs(lg - ln_v) < 1.5
+            and abs(lg - ls) <= MIXTRAL_TOL_LOSS * abs(ls)):
+        fail(f"mixtral: first losses grouped {lg} sparse {ls} (bar "
+             f"{MIXTRAL_TOL_LOSS} relative, within 1.5 of ln V {ln_v:.3f})")
+    if res["grouped"]["launches"] != want or res["sparse"]["launches"]:
+        fail(f"mixtral: K12 launches grouped {res['grouped']['launches']} "
+             f"(want {want}), sparse {res['sparse']['launches']} (want 0)")
+    say(f"mixtral_8x7b width (d {card.embed_dim}, {card.num_heads}/"
+        f"{card.kv_heads} heads, {base.num_experts} experts of ff "
+        f"{base.ff_dim}, top-{base.top_k}, 2 layers, B={b} S="
+        f"{base.seq_len}, vocab {base.vocab_size}): first loss grouped "
+        f"{lg!r} sparse {ls!r}; ms/step grouped {res['grouped']['ms']:.2f} "
+        f"sparse {res['sparse']['ms']:.2f} ({steps} chained steps after a "
+        f"warm one); losses grouped {res['grouped']['losses']} sparse "
+        f"{res['sparse']['losses']}; K12 launches {want} = 3 x 2 layers x "
+        f"{steps} steps; layer-0 routing {json.dumps(info['moe'])}")
+    return res
+
+
 def quant_train_phase(torch) -> dict:
     """The quantized and fused-backward train steps at the bench shape,
     through ``bench_step.build`` with the JAX package's overrides; the
@@ -909,6 +1260,7 @@ def train_phase(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
     reset_mlp_counts()
+    reset_gmm_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = bench.main([])
@@ -916,6 +1268,7 @@ def train_phase(torch) -> dict:
     wall = time.perf_counter() - t0
     counts = flash_counts()
     k11 = mlp_counts()["k11"]
+    k12 = gmm_counts()
     if rc != 0:
         fail(f"train: bench rc {rc}")
     lines = [json.loads(t) for t in buf.getvalue().strip().splitlines()]
@@ -923,7 +1276,7 @@ def train_phase(torch) -> dict:
     for ln in lines[:-1]:
         say(f"train aux line: {json.dumps(ln)}")
     say(f"train headline: {json.dumps({k: v for k, v in line.items() if not isinstance(v, dict)})}")
-    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "int8_step",
+    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "moe_ab", "int8_step",
                 "int8_switchback_step", "recommended_step")
     if [ln["metric"] for ln in lines[:-1]] != [line[k]["metric"]
                                               for k in aux_keys] \
@@ -944,9 +1297,28 @@ def train_phase(torch) -> dict:
     if k11 != want_k11:
         fail(f"train: K11 launches {k11} != {want_k11} (2 formats x 2 "
              f"fused variants x {1 + bench.ROUNDS} chains x {bench.AB_K})")
+    moe = line["moe_ab"]
+    sh = bench.moe_ab_shape(BS.bench_card())
+    for var in ("dense_ms", "moe_ms", "moe_grouped_ms"):
+        if set(moe[var]) != {"value", "best", "band", "n"} \
+                or not moe[var]["value"] > 0 or moe[var]["n"] != bench.ROUNDS:
+            fail(f"train: moe_ab {var} band {moe[var]}")
+    for var in ("ratio_moe_vs_dense", "ratio_moe_grouped_vs_dense"):
+        if not moe[var]["value"] > 0:
+            fail(f"train: moe_ab {var} {moe[var]}")
+    if moe["moe_experts"] != sh["experts"] \
+            or len(moe["moe"]["expert_load"]) != sh["experts"] \
+            or not isinstance(moe["band_disjoint"], bool):
+        fail(f"train: moe_ab routing globals {moe}")
+    moe_steps = sh["k"] * (1 + bench.ROUNDS)
+    want_k12 = 3 * sh["layers"] * moe_steps
+    if k12 != want_k12:
+        fail(f"train: K12 launches {k12} != {want_k12} (3 x "
+             f"{sh['layers']} layers x {moe_steps} grouped-chain steps)")
     steps = (BS.env_int("DLNB_BENCH_K", 10)
              + 2 * bench.STEP_K) * (1 + bench.ROUNDS)
-    want = BS.LAYERS * steps
+    # the moe_ab chains attend through the same kernels: 3 chains
+    want = BS.LAYERS * steps + 3 * sh["layers"] * moe_steps
     loss = line["loss"]
     if not (math.isfinite(loss) and abs(loss - math.log(BS.VOCAB)) < 1.5):
         fail(f"train: loss {loss} not within 1.5 of ln({BS.VOCAB})")
@@ -955,17 +1327,24 @@ def train_phase(torch) -> dict:
         fail(f"train: vs_baseline {vs} not in (0, 1.05]")
     if counts != {"fwd": want, "dq": want, "dkv": want}:
         fail(f"train: flash launches {counts}, want {BS.LAYERS} layers x "
-             f"{steps} steps = {want} each")
+             f"{steps} steps + 3 moe_ab chains x {sh['layers']} layers x "
+             f"{moe_steps} steps = {want} each")
     say(f"train: {line['value']} ms/step, vs_baseline {vs}, loss {loss}; "
         f"int8_step {line['int8_step']['value']} ms (loss "
         f"{line['int8_step']['loss']}), int8_switchback_step "
         f"{line['int8_switchback_step']['value']} ms, recommended "
-        f"{line['recommended_step']['recipe']}; flash launches {counts} = "
-        f"{BS.LAYERS} layers x {steps} steps (headline and both int8 "
-        f"lines, warm calls included); K11 {k11} in the A/B chains; bench "
+        f"{line['recommended_step']['recipe']}; moe_ab dense "
+        f"{moe['dense_ms']['value']} ms, sparse {moe['moe_ms']['value']} ms, "
+        f"grouped {moe['moe_grouped_ms']['value']} ms (ratios "
+        f"{moe['ratio_moe_vs_dense']['value']} / "
+        f"{moe['ratio_moe_grouped_vs_dense']['value']} vs dense); flash "
+        f"launches {counts} = {BS.LAYERS} layers x {steps} steps "
+        f"(headline and both int8 lines) + the moe_ab chains, warm calls "
+        f"included; K11 {k11} in the A/B chains; K12 {k12} in the grouped "
+        f"chain; bench "
         f"wall {wall:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return {"counts": counts, "line": line}
+    return {"counts": counts, "k12": k12, "line": line}
 
 
 def entry_phase(torch) -> None:
@@ -1051,6 +1430,46 @@ def profile_train(torch, label: str, overrides: dict) -> None:
     profile_rows(prof, wall, label)
 
 
+def profile_moe(torch) -> None:
+    """The moe_ab grouped chain's train step (``moe_impl="grouped"`` at
+    the bench's moe_ab shape): ms a step and its kernel breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlnetbench_tpu_torch import bench
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    card = BS.bench_card()
+    sh = bench.moe_ab_shape(card)
+    cfg = T.TransformerConfig(
+        vocab_size=BS.VOCAB, embed_dim=card.embed_dim,
+        num_heads=card.num_heads, num_kv_heads=card.num_kv_heads,
+        ff_dim=sh["f_e"], num_layers=sh["layers"], seq_len=sh["seq"],
+        logits_f32=False, num_experts=sh["experts"], top_k=sh["top_k"],
+        moe_impl="grouped", moe_capacity_factor=sh["capacity_factor"])
+    k = sh["k"]
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, BS.VOCAB, (BS.BATCH, sh["seq"] + 1),
+                           generator=gen, device="cuda")
+    train_k = BS.make_train_k(cfg, k)
+    train_k(params, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_k(params, tokens)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / k * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_k(params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say(f"profile moe_grouped (moe_ab shape): {k} steps, {step_ms:.3f} ms a "
+        f"step unprofiled, {wall / k * 1e3:.1f} ms under the profiler")
+    profile_rows(prof, wall, "moe_grouped")
+
+
 def profile_phase(torch) -> None:
     """Kernel-time breakdown of a served run at the same width (bf16 and
     int8 caches), from torch.profiler's device events; the rows go to
@@ -1124,11 +1543,17 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     mlp_bwd = mlp_bwd_phase(torch, peak)
     torch.cuda.empty_cache()
+    gmm = gmm_phase(torch, peak)
+    torch.cuda.empty_cache()
     reference_phase(torch)
     served = {dt: serve_phase(torch, dt) for dt in ("bf16", "int8", "fp8")}
     torch.cuda.empty_cache()
     train_reference_phase(torch)
     quant_launches = quant_train_phase(torch)
+    moe_reference_phase(torch)
+    moe_quant = moe_quant_phase(torch)
+    torch.cuda.empty_cache()
+    mixtral_phase(torch)
     trained = train_phase(torch)
     torch.cuda.empty_cache()
     entry_phase(torch)
@@ -1139,6 +1564,8 @@ def main(argv: list[str]) -> int:
         for label, overrides in PROFILE_RECIPES.items():
             profile_train(torch, label, overrides)
             torch.cuda.empty_cache()
+        profile_moe(torch)
+        torch.cuda.empty_cache()
 
     kernels = []
     for dt, label, replaces in (
@@ -1168,6 +1595,13 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": MLP_REPLACES[key.split("_")[0]],
                         "launches": quant_launches[key], **res})
+    for kind, label, launches in (
+            ("bf16", "K12 grouped_matmul (bf16)", trained["k12"]),
+            ("int8", "K12 grouped_matmul (int8)", moe_quant["int8"]),
+            ("e4m3", "K12 grouped_matmul (e4m3)", moe_quant["float8"])):
+        kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
+                        "replaces": GMM_REPLACES, "launches": launches,
+                        **gmm[kind]})
     say(card)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -20,13 +20,19 @@ Before the headline it prints the JAX ``bench.py``'s auxiliary lines of
 the MLP recipes, which also ride inside the headline under the same
 keys: ``int8_fused_ab`` and ``fp8_fused_ab`` (paired interleaved rounds
 of composed / fused / fused_delayed up-projection chains at the bench
-shape, K=8: the fused variants run kernel K11), ``int8_step`` and
-``int8_switchback_step`` (the headline step with ``mlp_dtype="int8"``,
-priced by the split-peak roofline), and ``recommended_step`` (the
-fastest of bf16, int8_master and int8_switchback whose loss is within
-2 % of bf16's).  ``--skip-aux`` prints the headline alone.  An
-auxiliary line that fails fails the run: nothing degrades to a skip
-marker.
+shape, K=8: the fused variants run kernel K11), ``moe_ab`` (paired
+rounds of three 2-layer train-step chains at matched active FFN
+parameters — a dense FFN of ff = top_k * f_e, the capacity-dispatch MoE
+with batched library products, and the same MoE through the grouped
+kernel K12 — with the layer-0 router stats as record globals; shapes
+from ``DLNB_BENCH_MOE_{EXPERTS,TOPK,FF,LAYERS,SEQ,K}``, default 8
+experts, top-2, f_e = ff / 2, 2 layers, S = min(S, 2048), K = 4),
+``int8_step`` and ``int8_switchback_step`` (the headline step with
+``mlp_dtype="int8"``, priced by the split-peak roofline), and
+``recommended_step`` (the fastest of bf16, int8_master and
+int8_switchback whose loss is within 2 % of bf16's).  ``--skip-aux``
+prints the headline alone.  An auxiliary line that fails fails the run:
+nothing degrades to a skip marker.
 """
 from __future__ import annotations
 
@@ -265,6 +271,139 @@ def bench_quant_fused_ab(card, hw_key, device_name: str, device,
     return line
 
 
+def moe_ab_line(summaries_s: dict, round_times_s: dict, *, metric: str,
+                moe_info: dict, active_params: dict) -> dict:
+    """The dense-FFN-vs-MoE A/B line (the JAX ``bench.py``'s
+    ``_moe_ab_line``): ``value`` is the sparse MoE's median ms; each
+    variant carries its ``{value, best, band, n}`` in ms, each MoE
+    variant a paired per-round ratio band vs dense (at matched active
+    params the ratio is the price of routing, dispatch and combine), and
+    ``moe_info`` the routing knobs and the measured router stats."""
+    from dlnetbench_tpu_torch.metrics import stats
+    mo = summaries_s["moe"]
+    dense_rounds = round_times_s["dense"]
+    line = {
+        "metric": metric,
+        "value": round(mo["value"] * 1e3, 3),
+        "unit": "ms",
+        **band_ms(mo),
+    }
+    for name, s in summaries_s.items():
+        line[f"{name}_ms"] = {"value": round(s["value"] * 1e3, 3),
+                              **band_ms(s)}
+    for name in summaries_s:
+        if name == "dense":
+            continue
+        ratios = [t / d for t, d in zip(round_times_s[name], dense_rounds)
+                  if d > 0]
+        line[f"ratio_{name}_vs_dense"] = stats.summarize(ratios, ndigits=4)
+    line["band_disjoint"] = (
+        stats.bands_overlap(mo["band"], summaries_s["dense"]["band"])
+        is False)
+    line["active_params"] = active_params
+    line.update(moe_info)
+    return stats.flag_low_mode(line)
+
+
+def moe_ab_shape(card) -> dict:
+    """The ``moe_ab`` chains' shape knobs (``DLNB_BENCH_MOE_*``)."""
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    top_k = bs.env_int("DLNB_BENCH_MOE_TOPK", 2)
+    return {"experts": bs.env_int("DLNB_BENCH_MOE_EXPERTS", 8),
+            "top_k": top_k,
+            "f_e": (bs.env_int("DLNB_BENCH_MOE_FF", 0)
+                    or max(128, card.ff_dim // top_k)),
+            "layers": bs.env_int("DLNB_BENCH_MOE_LAYERS", 2),
+            "seq": bs.env_int("DLNB_BENCH_MOE_SEQ", min(bs.SEQ, 2048)),
+            "k": bs.env_int("DLNB_BENCH_MOE_K", 4),
+            "capacity_factor": 1.25}
+
+
+def router_probe(params: dict, tokens, cfg) -> dict:
+    """The measured layer-0 routing of a MoE model over a token batch
+    ``[B, S]`` as record globals (``moe.stats_globals``): the tokens'
+    embeddings, RMS-normalized by layer 0's MLP norm, through layer 0's
+    router — a cheap probe that skips the attention before it."""
+    from dlnetbench_tpu_torch.models import layers as L
+    from dlnetbench_tpu_torch.models import moe as moe_mod
+    with torch.no_grad():
+        lp = params["layers"]
+        y = L.rmsnorm(params["embed"][tokens.reshape(-1)], lp["norm2"][0])
+        stats = moe_mod.dispatch(y, lp["w_router"][0], cfg.num_experts,
+                                 cfg.top_k, cfg.moe_capacity_factor,
+                                 with_stats=True)[3]
+    return moe_mod.stats_globals(
+        stats, num_experts=cfg.num_experts, top_k=cfg.top_k,
+        capacity_factor=cfg.moe_capacity_factor, drop_seed=None,
+        group_tokens=0)
+
+
+def bench_moe_ab(card, hw_key, device_name: str, device) -> dict:
+    """Dense FFN vs MoE at matched active params: three train-step
+    chains under the pairing protocol — a dense model with ``ff = top_k *
+    f_e``, the capacity-dispatch MoE (``moe_impl="sparse"``) with E
+    experts of width ``f_e`` (the same per-token FFN parameters, so the
+    paired ratio prices routing, dispatch and combine, not model size),
+    and the same MoE through the grouped kernel K12
+    (``moe_impl="grouped"``).  The router stats are the layer-0 routing
+    of the benched MoE over the benched tokens' normalized embeddings."""
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    from dlnetbench_tpu_torch.models import transformer as tfm
+    from dlnetbench_tpu_torch.utils.timing import fence
+    sh = moe_ab_shape(card)
+    e, top_k, f_e, cf = (sh["experts"], sh["top_k"], sh["f_e"],
+                         sh["capacity_factor"])
+    layers, seq, k = sh["layers"], sh["seq"], sh["k"]
+    base = dict(vocab_size=bs.VOCAB, embed_dim=card.embed_dim,
+                num_heads=card.num_heads, num_kv_heads=card.num_kv_heads,
+                num_layers=layers, seq_len=seq, logits_f32=False)
+    cfgs = {
+        "dense": tfm.TransformerConfig(ff_dim=top_k * f_e, **base),
+        "moe": tfm.TransformerConfig(
+            ff_dim=f_e, num_experts=e, top_k=top_k, moe_impl="sparse",
+            moe_capacity_factor=cf, **base),
+        "moe_grouped": tfm.TransformerConfig(
+            ff_dim=f_e, num_experts=e, top_k=top_k, moe_impl="grouped",
+            moe_capacity_factor=cf, **base),
+    }
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, bs.VOCAB, (bs.BATCH, seq + 1), generator=gen,
+                           device=device)
+    progs = {}
+    for name, cfg in cfgs.items():
+        params = tfm.init_params(cfg, seed=0, device=device)
+        train_k = bs.make_train_k(cfg, k)
+
+        def prog(p=params, f=train_k):
+            return f(p, tokens)
+        prog()                                   # warm
+        progs[name] = prog
+    fence(device)
+    summaries, round_times = measure_paired(progs, k, device)
+    del progs
+
+    # the benched MoE's weights as they were before the chains trained
+    moe_info = router_probe(
+        tfm.init_params(cfgs["moe"], seed=0, device=device),
+        tokens[:, :-1], cfgs["moe"])
+    d = card.embed_dim
+    active = {"dense_ffn_params": 3 * d * top_k * f_e,
+              "moe_active_ffn_params": 3 * d * top_k * f_e,
+              "moe_total_ffn_params": 3 * d * e * f_e,
+              "router_params": d * e}
+    line = moe_ab_line(
+        summaries, round_times,
+        metric=f"moe A/B: dense FFN (ff={top_k * f_e}) vs {e}-expert "
+               f"top-{top_k} MoE (f_e={f_e}, cf={cf}; matched active "
+               f"params; sparse dispatch vs grouped Hopper expert-FFN "
+               f"kernel K12), {layers}L B={bs.BATCH} S={seq}, "
+               f"{device_name} ({hw_key})",
+        moe_info=moe_info, active_params=active)
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def bench_int8_step(card, hw_key, device_name: str, device,
                     bf16_step_s: float,
                     int8_backward: str = "master") -> dict:
@@ -400,6 +539,9 @@ def main(argv=None) -> int:
                          ("fp8_fused_ab", "float8")):
             aux[key] = bench_quant_fused_ab(card, hw_key, device_name,
                                             device, fmt)
+        aux["moe_ab"] = bench_moe_ab(card, hw_key, device_name, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         for key, mode in (("int8_step", "master"),
                           ("int8_switchback_step", "switchback")):
             aux[key] = bench_int8_step(card, hw_key, device_name, device,

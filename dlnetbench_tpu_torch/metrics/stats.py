@@ -3,9 +3,10 @@
 
     {"value": median, "best": min, "band": [lo, hi], "n": N}
 
-and ``flag_low_mode`` stamps a ``note`` on a line whose best sample sits
+``flag_low_mode`` stamps a ``note`` on a line whose best sample sits
 far below its median: the samples straddle two modes and the median is
-a mixture, not a central tendency.
+a mixture, not a central tendency.  ``bands_overlap`` says whether two
+such bands can be told apart.
 """
 from __future__ import annotations
 
@@ -34,6 +35,19 @@ def summarize(samples: list[float], ndigits: int | None = None) -> dict:
         out["best"] = round(out["best"], ndigits)
         out["band"] = [round(v, ndigits) for v in out["band"]]
     return out
+
+
+def bands_overlap(a, b) -> bool | None:
+    """Do two ``[lo, hi]`` bands overlap?  ``None`` when either side is
+    missing or malformed.  Bands that merely touch do overlap: with n=3
+    samples the edges are observations, and sharing one is the
+    indistinguishable-from-noise case."""
+    try:
+        alo, ahi = float(a[0]), float(a[1])
+        blo, bhi = float(b[0]), float(b[1])
+    except (TypeError, ValueError, IndexError):
+        return None
+    return blo <= ahi and alo <= bhi
 
 
 def flag_low_mode(line: dict, ratio: float = LOW_MODE_RATIO) -> dict:

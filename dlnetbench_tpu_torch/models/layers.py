@@ -1,9 +1,14 @@
-"""Building-block layers of the dense gated transformer, in PyTorch (the
-JAX package's ``models/layers.py``).  The cast points are the JAX
-package's: norm statistics and RoPE in f32, each projection rounded to
-the compute dtype, SwiGLU's gate in f32, softmax and the loss's
-logsumexp in f32."""
+"""Building-block layers of the gated transformer, in PyTorch (the JAX
+package's ``models/layers.py``): norms, RoPE, SwiGLU, attention, the
+loss, and the MoE router, capacity dispatch and combine.  The cast
+points are the JAX package's: norm statistics and RoPE in f32, each
+projection rounded to the compute dtype, SwiGLU's gate in f32, router
+logits, softmax and the loss's logsumexp in f32.  The capacity dispatch
+is held as indices (``Routing``): gathers and scatters in place of the
+JAX package's one-hot einsums, with the same values."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -134,16 +139,246 @@ def quantized_swiglu(x, w_gate, w_up, w_down, *, mlp_dtype: str,
                      f"{mlp_dtype!r}")
 
 
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched over the leading axis) with an f32
+    result and no autograd: two bf16 operands on the card in one library
+    product with f32 output, every other pair widened to f32 first."""
+    if a.is_cuda and a.dtype == b.dtype != _F32:
+        return (torch.bmm if a.dim() == 3 else torch.mm)(a, b,
+                                                         out_dtype=_F32)
+    return a.to(_F32) @ b.to(_F32)
+
+
+class _ProductF32(torch.autograd.Function):
+    """The card's f32-output product of two bf16 operands, made
+    differentiable (the library's ``mm``/``bmm`` with ``out_dtype`` has
+    no derivative).  The f32 cotangent is rounded to the operands' dtype
+    and each gradient product is again bf16 x bf16 with an f32 sum, then
+    cast to its operand's dtype: the tensor-core form of the JAX
+    transpose rule, which multiplies the f32 cotangent by the widened
+    operand (``ops/quantized_matmul.swiglu_bwd_impl`` rounds the same
+    way)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gc = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _product_f32(gc, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _product_f32(a.transpose(-1, -2), gc).to(b.dtype)
+        return da, db
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an f32 result (the JAX package's
-    ``preferred_element_type=f32``).  bf16 operands on the card keep
-    bf16 inputs and an f32 output in one matmul; on the CPU they are
-    widened first (exact: a bf16 value is an f32 value)."""
+    ``preferred_element_type=f32``), for 2-D operands or 3-D ones batched
+    over the leading axis.  Two bf16 operands on the card keep bf16
+    inputs and an f32 output in one product (``_ProductF32``, whose
+    backward rounds the cotangent to bf16); on the CPU, and for f32 or
+    mixed operands, they are widened first (exact: a bf16 value is an f32
+    value) and autograd follows the JAX formulas exactly."""
     if x.dtype == _F32 and w.dtype == _F32:
         return x @ w
-    if x.is_cuda:
-        return torch.mm(x, w, out_dtype=_F32)
+    if x.is_cuda and x.dtype == w.dtype:
+        return _ProductF32.apply(x, w)
     return x.to(_F32) @ w.to(_F32)
+
+
+# ------------------------------------------------------------------ MoE
+
+def router_logits(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
+    """The one spelling of the router projection, in f32 (router logits
+    are precision-sensitive): ``moe_router`` and the seeded grouped
+    routing of ``models/moe.py`` both build on it."""
+    return x.to(_F32) @ w_router.to(_F32)
+
+
+def moe_router(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
+    """Token router: ``(weights [T, k], expert indices [T, k])``, the
+    indices by descending logit (``torch.topk`` sorted, as
+    ``jax.lax.top_k``) and the weights a softmax over the selected top-k
+    logits (the Mixtral convention)."""
+    top_vals, top_idx = torch.topk(router_logits(x, w_router), top_k,
+                                   dim=-1)
+    return torch.softmax(top_vals, dim=-1), top_idx
+
+
+@dataclasses.dataclass
+class Routing:
+    """A capacity dispatch held as indices instead of one-hots.
+
+    ``weights``/``idx`` are the router's ``[T, k]`` output; ``slot[t, j]``
+    is the buffer slot of choice j of token t in expert ``idx[t, j]``'s
+    buffer of ``capacity`` slots, or -1 where the choice was dropped.
+    Each slot holds at most one token, so the gather in ``buffers`` gives
+    exactly the values of the JAX package's ``einsum("tec,td->ecd",
+    disp, x)``, and ``combine`` sums the same at most k products per
+    token as its ``einsum("ecd,tec->td", out, disp * gate)``.  ``disp``
+    builds the ``[T, E, C]`` one-hots for callers that need them."""
+    weights: torch.Tensor
+    idx: torch.Tensor
+    slot: torch.Tensor
+    num_experts: int
+    capacity: int
+
+    @property
+    def gate(self) -> torch.Tensor:
+        """``[T, E]`` f32 combine weights (zero where not routed)."""
+        t = self.weights.shape[0]
+        return torch.zeros((t, self.num_experts), dtype=_F32,
+                           device=self.weights.device).scatter(
+                               1, self.idx, self.weights.to(_F32))
+
+    def _flat(self) -> torch.Tensor:
+        """``[T, k]`` row of each choice in the flattened ``[E * C]``
+        buffer; a dropped choice points at the dummy row ``E * C``."""
+        dummy = self.num_experts * self.capacity
+        return torch.where(self.slot >= 0,
+                           self.idx * self.capacity + self.slot, dummy)
+
+    def buffers(self, x: torch.Tensor) -> torch.Tensor:
+        """``[E, C, d]`` expert buffers of x ``[T, d]``, in x's dtype;
+        empty slots are zeros."""
+        t, d = x.shape
+        n = self.num_experts * self.capacity
+        tok = torch.arange(t, device=x.device)[:, None].expand_as(self.slot)
+        src = torch.full((n + 1,), t, dtype=torch.long, device=x.device)
+        src.scatter_(0, self._flat().reshape(-1), tok.reshape(-1))
+        xp = torch.cat([x, x.new_zeros((1, d))])
+        return xp[src[:n]].reshape(self.num_experts, self.capacity, d)
+
+    def disp(self) -> torch.Tensor:
+        """``[T, E, C]`` f32 dispatch one-hots."""
+        t = self.slot.shape[0]
+        c = self.capacity
+        out = torch.zeros((t, self.num_experts, c + 1), dtype=_F32,
+                          device=self.slot.device)
+        idx = torch.where(self.slot >= 0, self.slot, c)
+        out[torch.arange(t, device=idx.device)[:, None], self.idx, idx] = 1.0
+        return out[..., :c]
+
+    def kept(self) -> torch.Tensor:
+        """``[E]`` f32 count of kept tokens per expert."""
+        hits = torch.zeros(self.num_experts + 1, dtype=_F32,
+                           device=self.slot.device)
+        dest = torch.where(self.slot >= 0, self.idx, self.num_experts)
+        hits.index_add_(0, dest.reshape(-1),
+                        torch.ones(dest.numel(), dtype=_F32,
+                                   device=dest.device))
+        return hits[:self.num_experts]
+
+    def combine(self, out: torch.Tensor) -> torch.Tensor:
+        """Expert outputs ``[E, C, d]`` -> tokens ``[T, d]`` in f32: each
+        token's kept choices, weighted by their gates, summed."""
+        d = out.shape[-1]
+        flat = torch.cat([out.reshape(-1, d).to(_F32),
+                          out.new_zeros((1, d), dtype=_F32)])
+        rows = flat[self._flat()]                            # [T, k, d]
+        return (rows * self.weights.to(_F32)[..., None]).sum(dim=1)
+
+
+def capacity_routing(weights, idx, num_experts: int, cap: int, *,
+                     n_groups: int = 1, order=None) -> Routing:
+    """Capacity slots for router choices: tokens are split into
+    ``n_groups`` groups of consecutive tokens, each with ``cap`` slots per
+    expert (group g owns slots ``[g * cap, (g + 1) * cap)``), and within
+    a group each expert's slots go to its tokens in queue order —
+    arrival order, or ``order`` (``[G, g]`` token positions within each
+    group, the seeded priority).  Positions are integer counts, the same
+    numbers as the JAX package's f32 cumsum; choices past capacity are
+    dropped (slot -1)."""
+    t, _ = idx.shape
+    g = t // n_groups
+    mask = torch.zeros((t, num_experts), dtype=torch.long,
+                       device=idx.device).scatter(1, idx, 1)
+    maskg = mask.reshape(n_groups, g, num_experts)
+    if order is None:
+        pos = torch.cumsum(maskg, dim=1) - 1
+    else:
+        sort_idx = order[..., None].expand_as(maskg)
+        pos_sorted = torch.cumsum(torch.gather(maskg, 1, sort_idx), dim=1) - 1
+        pos = torch.empty_like(pos_sorted).scatter_(1, sort_idx, pos_sorted)
+    base = (torch.arange(n_groups, device=idx.device) * cap)[:, None, None]
+    slot = torch.where((maskg > 0) & (pos < cap), pos + base, -1)
+    slot = torch.gather(slot.reshape(t, num_experts), 1, idx)
+    return Routing(weights=weights, idx=idx, slot=slot,
+                   num_experts=num_experts, capacity=n_groups * cap)
+
+
+def moe_capacity(tokens: int, top_k: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """Dispatch slots per expert: ``max(1, int(cf * T * k / E))``, the
+    JAX package's expression."""
+    return max(1, int(capacity_factor * tokens * top_k / num_experts))
+
+
+def moe_route(x2d, w_router, num_experts: int, top_k: int,
+              capacity_factor: float) -> Routing:
+    """The legacy capacity dispatch (one group, arrival order) as a
+    ``Routing``."""
+    weights, idx = moe_router(x2d, w_router, top_k)
+    cap = moe_capacity(x2d.shape[0], top_k, num_experts, capacity_factor)
+    return capacity_routing(weights, idx, num_experts, cap)
+
+
+def moe_dense(x2d, w_router, w_gate, w_up, w_down, top_k: int):
+    """Dense MoE (every expert computes every token, the selected ones
+    combined): experts stacked on the leading axis of ``w_*``.  Forms
+    ``[E, T, ff]`` f32 — for tests and small models."""
+    t, d = x2d.shape
+    e = w_gate.shape[0]
+    weights, idx = moe_router(x2d, w_router, top_k)
+    combine = torch.zeros((t, e), dtype=_F32, device=x2d.device).scatter(
+        1, idx, weights)                                     # [T, E]
+    xb = x2d.expand(e, t, d)
+    h = F.silu(dot_f32(xb, w_gate)) * dot_f32(xb, w_up)      # [E, T, ff]
+    y = dot_f32(h.to(x2d.dtype), w_down)                     # [E, T, D]
+    return (y * combine.t()[..., None]).sum(dim=0).to(x2d.dtype)
+
+
+def moe_dispatch(x2d, w_router, num_experts: int, top_k: int,
+                 capacity_factor: float):
+    """Capacity-based token dispatch (GShard/Switch style, arrival
+    order): ``(xe [E, C, d] f32 expert inputs, disp [T, E, C] one-hots,
+    gate [T, E] combine weights)``, C = ``moe_capacity``; tokens past
+    capacity are dropped (their combine weight is zero)."""
+    r = moe_route(x2d, w_router, num_experts, top_k, capacity_factor)
+    return r.buffers(x2d).to(_F32), r.disp(), r.gate
+
+
+def moe_combine(out, disp, gate):
+    """Scatter per-expert outputs ``[E, C, d]`` back to tokens ``[T, d]``
+    with ``moe_dispatch``'s one-hots and combine weights (f32)."""
+    return torch.einsum("ecd,tec->td", out.to(_F32),
+                        disp * gate[..., None])
+
+
+def expert_swiglu(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """The expert SwiGLU over dispatch buffers ``[E, C, d]`` -> ``[E, C,
+    d]`` f32: the two up products with f32 results, ``silu(g) * u`` in
+    f32 rounded to the buffers' dtype, the down product with an f32
+    result."""
+    h = F.silu(dot_f32(xe, w_gate)) * dot_f32(xe, w_up)
+    return dot_f32(h.to(xe.dtype), w_down)
+
+
+def moe_sparse(x2d, w_router, w_gate, w_up, w_down, top_k: int,
+               capacity_factor: float = 1.25):
+    """Capacity-based sparse MoE: expert work is E * C * ff, about
+    k * cf * T * ff, instead of ``moe_dense``'s E * T * ff; at
+    ``capacity_factor >= E / top_k`` nothing drops and the result is
+    ``moe_dense``'s."""
+    e = w_gate.shape[0]
+    r = moe_route(x2d, w_router, e, top_k, capacity_factor)
+    out = expert_swiglu(r.buffers(x2d), w_gate, w_up, w_down)
+    return r.combine(out).to(x2d.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

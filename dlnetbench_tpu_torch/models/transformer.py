@@ -1,13 +1,16 @@
-"""The dense gated (SwiGLU + RMSNorm + RoPE) decoder: configuration and
+"""The gated (SwiGLU + RMSNorm + RoPE) decoder: configuration and
 weights, and the full-sequence forward and loss the training step
-differentiates (the JAX package's ``models/transformer.py``, its dense
-path with the MLP recipes: bf16, int8 and e4m3 quantized SwiGLU, and the
-split and fused-kernel SwiGLU backwards).
+differentiates (the JAX package's ``models/transformer.py``: the dense
+path with the MLP recipes — bf16, int8 and e4m3 quantized SwiGLU, the
+split and fused-kernel SwiGLU backwards — and the MoE path, with the
+``dense``, ``sparse`` and ``grouped`` expert layers).
 
 ``init_params`` builds the JAX package's parameter tree with the same
 names and shapes — ``embed [V, D]``, ``layers.{wq, wk, wv, wo, norm1,
-norm2, w_gate, w_up, w_down}`` stacked on a leading layer axis,
-``final_norm [D]``, ``head [D, V]`` — from a seeded ``torch.Generator``
+norm2, w_gate, w_up, w_down}`` stacked on a leading layer axis (with
+experts, ``w_router [L, D, E]`` and ``w_gate/w_up [L, E, D, F]``,
+``w_down [L, E, F, D]``), ``final_norm [D]``, ``head [D, V]`` — from a
+seeded ``torch.Generator``
 (the draws differ from ``jax.random``'s).  ``params_from_numpy`` turns
 the JAX package's parameters, handed over as numpy arrays, into the
 port's, which is how the tests run both packages on the same weights.
@@ -15,6 +18,7 @@ port's, which is how the tests run both packages on the same weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -30,8 +34,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The dense gated subset of the JAX package's config.  Every knob
-    outside it raises (see ROADMAP.md for where each lands)."""
+    """The gated subset of the JAX package's config, dense and MoE.
+    Every knob outside it raises (see ROADMAP.md for where each
+    lands)."""
     vocab_size: int
     embed_dim: int
     num_heads: int
@@ -42,6 +47,7 @@ class TransformerConfig:
     gated: bool = True
     max_positions: int = 0
     num_experts: int = 1
+    top_k: int = 1
     tied_embeddings: bool = False
     dtype: str = "bfloat16"
     attention_window: int = 0
@@ -54,6 +60,11 @@ class TransformerConfig:
     quant_fusion: str = "composed"  # "fused": kernel K11
     quant_scaling: str = "dynamic"  # "delayed": amax carried as state
     mlp_backward: str = "fused"    # autograd; "split"; "pallas": K9/K10
+    # the MoE expert layer (num_experts > 1): "dense" (every expert
+    # computes every token), "sparse" (capacity dispatch, batched library
+    # products) or "grouped" (capacity dispatch, kernel K12)
+    moe_impl: str = "dense"
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if not self.gated or self.max_positions:
@@ -61,10 +72,6 @@ class TransformerConfig:
                 "TransformerConfig: the port covers the gated (SwiGLU + "
                 "RMSNorm + RoPE) family only; GELU / learned-position "
                 "models are not ported yet (ROADMAP.md queue 1)")
-        if self.num_experts > 1:
-            raise ValueError(
-                "TransformerConfig: num_experts > 1 (MoE) is not ported "
-                "yet (ROADMAP.md queue 1)")
         if self.attention_window or self.attention_seg_avg:
             raise ValueError(
                 "TransformerConfig: attention masks (window / segments) "
@@ -81,8 +88,11 @@ class TransformerConfig:
         self._check_mlp_knobs()
 
     def _check_mlp_knobs(self):
-        """The JAX package's validation of the MLP knobs, message for
-        message (its ``__post_init__``)."""
+        """The JAX package's validation of the MLP and MoE knobs, message
+        for message (its ``__post_init__``)."""
+        if self.moe_impl not in ("dense", "sparse", "grouped"):
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}; "
+                             f"expected 'dense', 'sparse' or 'grouped'")
         if self.mlp_dtype not in ("bfloat16", "float8", "int8"):
             raise ValueError(f"unknown mlp_dtype {self.mlp_dtype!r}; "
                              f"expected 'bfloat16', 'float8' or 'int8'")
@@ -149,6 +159,7 @@ class TransformerConfig:
             gated=card.gated_mlp,
             max_positions=card.max_position_embeddings,
             num_experts=card.num_experts,
+            top_k=card.top_k,
             tied_embeddings=card.tied_embeddings,
             dtype=dtype,
         )
@@ -203,10 +214,21 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
         "wo": dense((nl, d, d), s_d),
         "norm1": torch.ones((nl, d), dtype=dt, device=device),
         "norm2": torch.ones((nl, d), dtype=dt, device=device),
-        "w_gate": dense((nl, d, h), s_d),
-        "w_up": dense((nl, d, h), s_d),
-        "w_down": dense((nl, h, d), s_h),
     }
+    if cfg.num_experts > 1:
+        e = cfg.num_experts
+        layers.update({
+            "w_router": dense((nl, d, e), s_d),
+            "w_gate": dense((nl, e, d, h), s_d),
+            "w_up": dense((nl, e, d, h), s_d),
+            "w_down": dense((nl, e, h, d), s_h),
+        })
+    else:
+        layers.update({
+            "w_gate": dense((nl, d, h), s_d),
+            "w_up": dense((nl, d, h), s_d),
+            "w_down": dense((nl, h, d), s_h),
+        })
     params = {
         "embed": dense((v, d), 1.0),
         "layers": layers,
@@ -231,10 +253,30 @@ def params_from_numpy(tree, device="cuda"):
     return torch.from_numpy(arr).to(device)
 
 
-def _mlp(cfg: TransformerConfig, y, lp: dict, qs_row):
-    """The block's SwiGLU by the config's recipe; ``(y2, new_qs_row)``,
-    the row None unless delayed scaling carries state."""
+def _moe(cfg: TransformerConfig, y, lp: dict):
+    """The block's MoE expert layer by ``cfg.moe_impl`` over the
+    flattened tokens."""
     b, s, d = y.shape
+    if cfg.moe_impl == "dense":
+        fn = L.moe_dense
+    elif cfg.moe_impl == "grouped":
+        from dlnetbench_tpu_torch.models.moe import moe_grouped
+        fn = functools.partial(moe_grouped,
+                               capacity_factor=cfg.moe_capacity_factor)
+    else:
+        fn = functools.partial(L.moe_sparse,
+                               capacity_factor=cfg.moe_capacity_factor)
+    return fn(y.reshape(b * s, d), lp["w_router"], lp["w_gate"], lp["w_up"],
+              lp["w_down"], cfg.top_k).reshape(b, s, d)
+
+
+def _mlp(cfg: TransformerConfig, y, lp: dict, qs_row):
+    """The block's SwiGLU (or MoE expert layer) by the config's recipe;
+    ``(y2, new_qs_row)``, the row None unless delayed scaling carries
+    state."""
+    b, s, d = y.shape
+    if cfg.num_experts > 1:
+        return _moe(cfg, y, lp), None
     weights = (lp["w_gate"], lp["w_up"], lp["w_down"])
     if cfg.mlp_dtype in ("float8", "int8"):
         out = L.quantized_swiglu(y, *weights, mlp_dtype=cfg.mlp_dtype,

@@ -4,7 +4,11 @@
 * ``paged_attention_quant`` — K2, decode attention over int8/e4m3 pages;
 * ``flash_attention``       — K3/K4/K5, flash attention forward, dq and
   dk/dv (the training path);
-* ``quantized_matmul``      — the shared quantization recipes;
+* ``quantized_matmul``      — K11, the fused-quantization matmul, and
+  the shared quantization recipes (with ``int8``, ``fp8`` and
+  ``mlp_backward``, K9/K10, the MLP recipes);
+* ``grouped_matmul``        — K12, the grouped per-expert matmul of the
+  MoE expert FFN (bf16, f32, int8, e4m3) and the grouped SwiGLU;
 * ``common``                — the CUDA/CPU device split;
 * ``_build``                — builds ``csrc/*.cu`` with nvcc at first use.
 

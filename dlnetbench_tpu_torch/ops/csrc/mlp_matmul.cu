@@ -14,9 +14,17 @@
 //       du = dh * silu(g);
 //   K10 ops/mlp_backward.py::_dwd_kernel (:103, pallas_call :131) — dWd
 //       [F, D] f32 = h^T . dy over T, h = bf16(silu(g) * u) recomputed per
-//       tile in the prologue.
+//       tile in the prologue;
+//   K12 ops/grouped_matmul.py::_grouped_kernel (:82, pallas_call :206) — the
+//       MoE expert FFN's grouped product, x [E, C, K] . w [E, K, N] -> [E, C,
+//       N] per expert, every row at or past the expert's count counts[e]
+//       zero and never read; bf16 on the tensor cores (gmm_bf16_kernel), f32
+//       on the CUDA cores (gmm_f32_kernel, any shape), and int8 / e4m3 as
+//       K11's kernel launched over the experts (a per-expert scale sx[e] in
+//       the prologue, sx[e] * sw[e] in the epilogue, the weight K-major per
+//       expert).
 //
-// One GEMM skeleton serves all three: a 128 x 256 output tile per block of
+// One GEMM skeleton serves all four: a 128 x 256 output tile per block of
 // 8 warps (2 along M x 4 along N, 64 x 64 each; one block per SM), the
 // block's tile chosen by a grouped raster (8 row tiles share each column
 // sweep, so a wave of blocks reuses its operand panels from L2), operands
@@ -76,8 +84,17 @@
 // to device memory.  Not yet: wgmma, TMA, warp specialisation, a
 // persistent grid; the times stand in PERF.md.
 //
+// K12 (see Grouped launches below) at the MoE bench shape (E = 8 experts of
+// C = 1280 slots, D = 4096, F = 7168): 2 * E * C * D * F = 6.01e11
+// operations a product, 0.608 ms at the bf16 peak (0.70 GB moved, 0.21 ms),
+// 0.304 ms at the int8/e4m3 peak; bound by operations.  Rows past a count
+// cost no operations and no reads: a row tile wholly past it writes zeros
+// and returns, a partly live tile zero-fills its dead rows instead of
+// loading them.
+//
 // Plain C interface (nvcc -> .so -> ctypes): the wrappers
-// (ops/quantized_matmul.py, ops/mlp_backward.py) check device, dtype,
+// (ops/quantized_matmul.py, ops/mlp_backward.py, ops/grouped_matmul.py)
+// check device, dtype,
 // shapes, contiguity and alignment before calling; each entry returns the
 // cudaError_t of its launch.
 
@@ -111,6 +128,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
+}
+
+// the same, copying src_bytes (16 or 0) and zero-filling the rest
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -199,6 +224,57 @@ __device__ __forceinline__ void load_rows(void* dst, int p_bytes,
   }
 }
 
+// load_rows for a tile whose rows at or past `valid` are dead (past an
+// expert's count, or past the buffer's end): they are zero-filled and never
+// read; row 0 is always live when the tile is loaded
+template <int R, int BYTES>
+__device__ __forceinline__ void load_rows_live(void* dst, int p_bytes,
+                                               const void* src,
+                                               size_t ld_bytes, int tid,
+                                               int valid) {
+  constexpr int kChunks = BYTES / 16;
+  auto* d = static_cast<unsigned char*>(dst);
+  const auto* s = static_cast<const unsigned char*>(src);
+#pragma unroll
+  for (int c = tid; c < R * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 16;
+    const bool live = r < valid;
+    cp_async16_zfill(d + r * p_bytes + col, s + (live ? r : 0) * ld_bytes + col,
+                     live ? 16 : 0);
+  }
+}
+
+// Grouped launches (K12; K11 is the one-expert case): blockIdx.z is the
+// expert, whose operands sit `stride` elements after the previous
+// expert's; counts[e] (nullptr: every row) bounds its live rows.  A row
+// tile at or past the live rows writes zeros and returns; a live tile
+// zero-fills its dead rows (load_rows_live) and writes them as zeros.
+struct Group {
+  const int* counts;
+  size_t x_stride, w_stride, y_stride;
+};
+
+__device__ __forceinline__ int live_rows(const int* counts, int e, int M) {
+  return counts ? min(max(counts[e], 0), M) : M;
+}
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// zeros over rows [tm * kBM, min(tm * kBM + kBM, M)) of a kBN-column tile
+template <typename T>
+__device__ __forceinline__ void zero_tile(T* y, int M, int N, int tm, int tn,
+                                          int tid) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int rows = min(kBM, M - tm * kBM);
+  for (int c = tid; c < rows * (kBN / kVec); c += kThreads) {
+    const int r = c / (kBN / kVec), col = (c % (kBN / kVec)) * kVec;
+    *reinterpret_cast<uint4*>(y + static_cast<size_t>(tm * kBM + r) * N +
+                              tn * kBN + col) = make_uint4(0, 0, 0, 0);
+  }
+}
+
 // The warp's 64 x 64 accumulator (acc[m16 tile][n8 tile][4]): in a tile,
 // element e of lane L sits at row L/4 + 8*(e/2), column 2*(L%4) + e%2.
 template <typename Acc>
@@ -279,6 +355,34 @@ __device__ __forceinline__ void mma_cols_bf16(WarpAcc<float>& acc,
     for (int mt = 0; mt < kWM / 16; ++mt)
       ldsm4_t(af[mt], a + (ks * 16 + (j >> 1) * 8 + lane % 8) * pa +
                           mt * 16 + (j & 1) * 8);
+#pragma unroll
+    for (int nb = 0; nb < kWN / 16; ++nb) {
+      uint32_t bfr[4];
+      ldsm4_t(bfr, b + (ks * 16 + (j & 1) * 8 + lane % 8) * pb + nb * 16 +
+                       (lane / 16) * 8);
+#pragma unroll
+      for (int mt = 0; mt < kWM / 16; ++mt) {
+        mma_bf16(acc.v[mt][2 * nb], af[mt], bfr[0], bfr[1]);
+        mma_bf16(acc.v[mt][2 * nb + 1], af[mt], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// acc += A * B with A row-major (the warp's 64 rows of a [kBM][K] tile, as
+// mma_rows_bf16) and B stored K-major ([K][kBN] rows, the warp's 64 columns
+// at b, through ldmatrix.trans as mma_cols_bf16); bf16, KS steps of 16
+template <int KS>
+__device__ __forceinline__ void mma_rk_bf16(WarpAcc<float>& acc,
+                                            const bf16* a, int pa,
+                                            const bf16* b, int pb, int lane) {
+  const int j = lane / 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t af[kWM / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < kWM / 16; ++mt)
+      ldsm4(af[mt], a + (mt * 16 + lane % 16) * pa + ks * 16 + (lane / 16) * 8);
 #pragma unroll
     for (int nb = 0; nb < kWN / 16; ++nb) {
       uint32_t bfr[4];
@@ -420,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     qmm_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w_t,
                const float* __restrict__ sx_p, const float* __restrict__ sw_p,
                TX* __restrict__ y, float* __restrict__ amax_out, int M, int N,
-               int K) {
+               int K, Group grp) {
   using Acc = typename std::conditional<FMT == kInt8, int, float>::type;
   constexpr int S = q_stages<TX>();
   constexpr int XP = x_pitch<TX>();
@@ -433,22 +537,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sRed = reinterpret_cast<float*>(sA + 2 * AS);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;
+  const int e = blockIdx.z;
+  x += e * grp.x_stride;
+  w_t += e * grp.w_stride;
+  y += e * grp.y_stride;
+  const int live = live_rows(grp.counts, e, M);
   int tm, tn;
-  tile_of(blockIdx.x, M / kBM, N / kBN, tm, tn);
+  tile_of(blockIdx.x, ceil_div(M, kBM), N / kBN, tm, tn);
+  if (tm * kBM >= live) {
+    zero_tile(y, M, N, tm, tn, tid);
+    return;
+  }
+  const int valid = min(kBM, live - tm * kBM);
   const TX* xg = x + static_cast<size_t>(tm) * kBM * K;
   const uint8_t* wg = w_t + static_cast<size_t>(tn) * kBN * K;
   // the scales are read on the card: the caller never waits for them
-  const float sx = *sx_p;
+  const float sx = sx_p[e];
   const float r = __frcp_rn(sx);
-  const float s_out = sx * *sw_p;
+  const float s_out = sx * sw_p[e];
   const int nk = K / kQK;
 
   auto issue = [&](int kt) {
     const int st = kt % S;
-    load_rows<kBM, static_cast<int>(kQK * sizeof(TX))>(
+    load_rows_live<kBM, static_cast<int>(kQK * sizeof(TX))>(
         sX + st * XS, static_cast<int>(XP * sizeof(TX)),
         xg + static_cast<size_t>(kt) * kQK,
-        static_cast<size_t>(K) * sizeof(TX), tid);
+        static_cast<size_t>(K) * sizeof(TX), tid, valid);
     load_rows<kBN, kQK>(sW + st * WS, kQP,
                         wg + static_cast<size_t>(kt) * kQK,
                         static_cast<size_t>(K), tid);
@@ -493,7 +607,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // epilogue: float(acc) * (sx * sw), one write in x's dtype
+  // epilogue: float(acc) * (sx * sw), one write in x's dtype; dead rows
+  // are zeros, rows past the buffer are not written
   const int row0 = tm * kBM + wm * kWM, col0 = tn * kBN + wn * kWN;
 #pragma unroll
   for (int mt = 0; mt < kWM / 16; ++mt)
@@ -503,9 +618,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + mt * 16 + lane / 4 + 8 * h;
         const int col = col0 + nt * 8 + 2 * (lane % 4);
+        if (row >= M) continue;
+        const bool on = row < live;
         store2(y + static_cast<size_t>(row) * N + col,
-               to_f32(acc.v[mt][nt][2 * h]) * s_out,
-               to_f32(acc.v[mt][nt][2 * h + 1]) * s_out);
+               on ? to_f32(acc.v[mt][nt][2 * h]) * s_out : 0.f,
+               on ? to_f32(acc.v[mt][nt][2 * h + 1]) * s_out : 0.f);
       }
 }
 
@@ -692,6 +809,144 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 }
 
+
+// ------------------------------------------------------ K12 grouped bf16
+
+constexpr int kGP = kBN + 8;           // K-major weight tile pitch (elements)
+
+__host__ __device__ constexpr size_t gmm_smem() {
+  return static_cast<size_t>(kStages) * (kBM * kP + kBK * kGP) * sizeof(bf16);
+}
+
+// y[e] (bf16) = x[e] [M, K] . w[e] [K, N] (both as they lie: x rows
+// K-contiguous, w rows N-contiguous), f32 sums on the tensor cores; dead
+// rows (Group) are zeros
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    bf16* __restrict__ y, int M, int N, int K, Group grp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sA = reinterpret_cast<bf16*>(smem);             // x rows
+  bf16* sB = sA + kStages * kBM * kP;                   // w rows (K-major)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int e = blockIdx.z;
+  x += e * grp.x_stride;
+  w += e * grp.w_stride;
+  y += e * grp.y_stride;
+  const int live = live_rows(grp.counts, e, M);
+  int tm, tn;
+  tile_of(blockIdx.x, ceil_div(M, kBM), N / kBN, tm, tn);
+  if (tm * kBM >= live) {
+    zero_tile(y, M, N, tm, tn, tid);
+    return;
+  }
+  const int valid = min(kBM, live - tm * kBM);
+  const bf16* ag = x + static_cast<size_t>(tm) * kBM * K;
+  const bf16* bg = w + static_cast<size_t>(tn) * kBN;
+  const int nk = K / kBK;
+
+  auto issue = [&](int kt) {
+    const int st = kt % kStages;
+    load_rows_live<kBM, kBK * 2>(sA + st * kBM * kP, kP * 2, ag + kt * kBK,
+                                 static_cast<size_t>(K) * 2, tid, valid);
+    load_rows<kBK, kBN * 2>(sB + st * kBK * kGP, kGP * 2,
+                            bg + static_cast<size_t>(kt) * kBK * N,
+                            static_cast<size_t>(N) * 2, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_async_commit();
+  }
+
+  WarpAcc<float> acc = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kt + kStages - 1 < nk) issue(kt + kStages - 1);
+    cp_async_commit();
+    const int st = kt % kStages;
+    mma_rk_bf16<kBK / 16>(acc, sA + st * kBM * kP + wm * kWM * kP, kP,
+                          sB + st * kBK * kGP + wn * kWN, kGP, lane);
+  }
+
+  const int row0 = tm * kBM + wm * kWM, col0 = tn * kBN + wn * kWN;
+#pragma unroll
+  for (int mt = 0; mt < kWM / 16; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kWN / 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + mt * 16 + lane / 4 + 8 * h;
+        const int col = col0 + nt * 8 + 2 * (lane % 4);
+        if (row >= M) continue;
+        const bool on = row < live;
+        store2(y + static_cast<size_t>(row) * N + col,
+               on ? acc.v[mt][nt][2 * h] : 0.f,
+               on ? acc.v[mt][nt][2 * h + 1] : 0.f);
+      }
+}
+
+// ------------------------------------------------------- K12 grouped f32
+
+// CUDA cores, any shape: a 64 x 64 tile per block, 4 x 4 outputs a thread
+// (rows ty + 16 i, columns tx + 16 j), contraction staged 16 at a time;
+// each output is one sequential fmaf chain over K
+constexpr int kFT = 64, kFK = 16;
+
+__global__ void __launch_bounds__(kThreads)
+    gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ y, int M, int N, int K, Group grp) {
+  __shared__ float sA[kFK][kFT + 4];
+  __shared__ float sB[kFK][kFT + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int e = blockIdx.z;
+  x += e * grp.x_stride;
+  w += e * grp.w_stride;
+  y += e * grp.y_stride;
+  const int live = live_rows(grp.counts, e, M);
+  const int row0 = blockIdx.y * kFT, col0 = blockIdx.x * kFT;
+  float acc[4][4] = {};
+  if (row0 < live) {
+    for (int k0 = 0; k0 < K; k0 += kFK) {
+      for (int i = tid; i < kFT * kFK; i += kThreads) {
+        const int r = i / kFK, kk = i % kFK;
+        const int gr = row0 + r, gk = k0 + kk;
+        sA[kk][r] = (gr < live && gk < K)
+                        ? x[static_cast<size_t>(gr) * K + gk] : 0.f;
+      }
+      for (int i = tid; i < kFK * kFT; i += kThreads) {
+        const int kk = i / kFT, c = i % kFT;
+        const int gk = k0 + kk, gc = col0 + c;
+        sB[kk][c] = (gk < K && gc < N)
+                        ? w[static_cast<size_t>(gk) * N + gc] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kFK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = sA[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = sB[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + ty + 16 * i, col = col0 + tx + 16 * j;
+      if (row < M && col < N)
+        y[static_cast<size_t>(row) * N + col] = row < live ? acc[i][j] : 0.f;
+    }
+}
+
 // --------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -701,35 +956,37 @@ cudaError_t with_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// E experts of M rows each (K11: E = 1 with an empty Group)
 template <typename TX, int FMT, bool AMAX>
 cudaError_t qmm_launch(const void* x, const void* w_t, const float* sx,
                        const float* sw, void* y, float* amax, int M, int N,
-                       int K, cudaStream_t stream) {
+                       int K, int E, Group grp, cudaStream_t stream) {
   auto kernel = qmm_kernel<TX, FMT, AMAX>;
   const size_t smem = qmm_smem<TX>();
   cudaError_t err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(M / kBM) * (N / kBN), kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const uint8_t*>(w_t), sx, sw,
-      static_cast<TX*>(y), amax, M, N, K);
+  kernel<<<dim3(ceil_div(M, kBM) * (N / kBN), 1, E), kThreads, smem,
+           stream>>>(static_cast<const TX*>(x),
+                     static_cast<const uint8_t*>(w_t), sx, sw,
+                     static_cast<TX*>(y), amax, M, N, K, grp);
   return cudaGetLastError();
 }
 
 template <typename TX>
 cudaError_t qmm_dispatch(int fmt, int amax, const void* x, const void* w_t,
                          const float* sx, const float* sw, void* y,
-                         float* amax_out, int M, int N, int K,
-                         cudaStream_t st) {
+                         float* amax_out, int M, int N, int K, int E,
+                         Group grp, cudaStream_t st) {
   if (fmt == kInt8)
     return amax ? qmm_launch<TX, kInt8, true>(x, w_t, sx, sw, y, amax_out, M,
-                                              N, K, st)
+                                              N, K, E, grp, st)
                 : qmm_launch<TX, kInt8, false>(x, w_t, sx, sw, y, amax_out,
-                                               M, N, K, st);
+                                               M, N, K, E, grp, st);
   if (fmt == kE4M3)
     return amax ? qmm_launch<TX, kE4M3, true>(x, w_t, sx, sw, y, amax_out, M,
-                                              N, K, st)
+                                              N, K, E, grp, st)
                 : qmm_launch<TX, kE4M3, false>(x, w_t, sx, sw, y, amax_out,
-                                               M, N, K, st);
+                                               M, N, K, E, grp, st);
   return cudaErrorInvalidValue;
 }
 
@@ -746,12 +1003,13 @@ int dlnb_qmm(int dtype, int fmt, int amax, const void* x, const void* w_t,
   if (M % kBM || N % kBN || K % kQK || (amax && amax_out == nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const Group one = {nullptr, 0, 0, 0};
   if (dtype == kBF16)
     return qmm_dispatch<bf16>(fmt, amax, x, w_t, sx, sw, y, amax_out, M, N,
-                              K, st);
+                              K, 1, one, st);
   if (dtype == kF32)
     return qmm_dispatch<float>(fmt, amax, x, w_t, sx, sw, y, amax_out, M, N,
-                               K, st);
+                               K, 1, one, st);
   return cudaErrorInvalidValue;
 }
 
@@ -783,6 +1041,55 @@ int dlnb_dwd(const void* g, const void* u, const void* dy, float* dwd,
       static_cast<const bf16*>(g), static_cast<const bf16*>(u),
       static_cast<const bf16*>(dy), dwd, T, F, D);
   return cudaGetLastError();
+}
+
+// K12: y [E, M, N] (x's dtype) = x [E, M, K] . w per expert, every row at
+// or past counts[e] (int32 [E] on the card; null: none) zero.  fmt < 0: w
+// [E, K, N] in x's dtype (bf16: N % 256 == 0, K % 64 == 0; f32: any shape).
+// fmt int8 / e4m3: w_t [E, N, K] quantized (K-major), sx and sw f32 [E] on
+// the card, N % 256 == 0, K % 64 == 0.  M is free: rows past it are never
+// read.
+int dlnb_gmm(int dtype, int fmt, const void* x, const void* w,
+             const int* counts, const float* sx, const float* sw, void* y,
+             int E, int M, int N, int K, void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t mk = static_cast<size_t>(M) * K,
+               kn = static_cast<size_t>(K) * N,
+               mn = static_cast<size_t>(M) * N;
+  const Group grp = {counts, mk, kn, mn};
+  if (fmt >= 0) {
+    if (N % kBN || K % kQK || sx == nullptr || sw == nullptr)
+      return cudaErrorInvalidValue;
+    if (dtype == kBF16)
+      return qmm_dispatch<bf16>(fmt, 0, x, w, sx, sw, y, nullptr, M, N, K, E,
+                                grp, st);
+    if (dtype == kF32)
+      return qmm_dispatch<float>(fmt, 0, x, w, sx, sw, y, nullptr, M, N, K,
+                                 E, grp, st);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == kBF16) {
+    if (N % kBN || K % kBK) return cudaErrorInvalidValue;
+    const size_t smem = gmm_smem();
+    cudaError_t err = with_smem(gmm_bf16_kernel, smem);
+    if (err != cudaSuccess) return err;
+    gmm_bf16_kernel<<<dim3(ceil_div(M, kBM) * (N / kBN), 1, E), kThreads,
+                      smem, st>>>(static_cast<const bf16*>(x),
+                                  static_cast<const bf16*>(w),
+                                  static_cast<bf16*>(y), M, N, K, grp);
+    return cudaGetLastError();
+  }
+  if (dtype == kF32) {
+    if (ceil_div(M, kFT) > 65535) return cudaErrorInvalidValue;
+    gmm_f32_kernel<<<dim3(ceil_div(N, kFT), ceil_div(M, kFT), E), kThreads, 0,
+                     st>>>(static_cast<const float*>(x),
+                           static_cast<const float*>(w),
+                           static_cast<float*>(y), M, N, K, grp);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -37,7 +37,11 @@ _F32 = torch.float32
 def check_config(cfg: TransformerConfig) -> TransformerConfig:
     """The serving path covers the dense gated family without attention
     masks (``TransformerConfig`` already refuses everything else)."""
-    if not cfg.gated or cfg.max_positions or cfg.num_experts > 1:
+    if cfg.num_experts > 1:
+        raise ValueError("serving decode: MoE decode (the JAX package's "
+                         "serving/moe_decode.py) is not ported yet "
+                         "(ROADMAP.md queue 1)")
+    if not cfg.gated or cfg.max_positions:
         raise ValueError("serving decode covers the dense gated "
                          "(SwiGLU+RMSNorm+RoPE) family only")
     if cfg.attention_window or cfg.attention_seg_avg:

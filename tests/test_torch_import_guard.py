@@ -38,7 +38,7 @@ def test_importing_every_submodule_loads_no_jax():
     for m in ("serving.scheduler", "ops.flash_attention", "bench", "entry",
               "models.bench_step", "core.roofline", "core.hardware",
               "utils.timing", "ops.int8", "ops.fp8", "ops.mlp_backward",
-              "ops.quantized_matmul"):
+              "ops.quantized_matmul", "ops.grouped_matmul", "models.moe"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

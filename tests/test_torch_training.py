@@ -312,7 +312,7 @@ HEADLINE_KEYS = {"metric", "value", "best", "band", "n", "vs_baseline",
                  "tflops_executed", "loss", "logits_dtype"}
 
 
-AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "int8_step",
+AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "moe_ab", "int8_step",
             "int8_switchback_step", "recommended_step")
 
 
@@ -342,6 +342,8 @@ def test_bench_entry_prints_the_headline_line_on_cpu(argv):
             line[k]["metric"] for k in AUX_KEYS]
         for key in ("int8_fused_ab", "fp8_fused_ab"):
             assert {"composed", "fused", "fused_delayed"} <= set(line[key])
+        assert {"dense_ms", "moe_ms", "moe_grouped_ms",
+                "ratio_moe_grouped_vs_dense"} <= set(line["moe_ab"])
         assert abs(line["int8_step"]["loss"] - line["loss"]) \
             <= 0.02 * line["loss"]
     assert line["n"] == 3 and line["value"] > 0
