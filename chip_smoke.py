@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --profile  # also: kernel-time breakdowns of a
                                      # served run, of the train step
-                                     # under each MLP recipe and of the
-                                     # moe_ab grouped step
-                                     # (torch.profiler)
+                                     # under each MLP recipe and each
+                                     # mask and of the moe_ab grouped
+                                     # step (torch.profiler)
 
 Phases, in order; any failure exits non-zero:
 
@@ -41,6 +41,19 @@ Phases, in order; any failure exits non-zero:
    and D 1e-3 absolute.  Times as in 3, at the train shape; the yardsticks
    are SDPA's forward (K3) and SDPA's backward, which computes dq, dk
    and dv together (K4 and K5 both list it);
+5a. K6/K7/K8 (splash attention: K3-K5 driven by a BlockMask) at the
+   same train shape under five masks — window(1024), seg(avg=768),
+   their intersection, a non-causal seg(768) and plain causal — each
+   against the chunked plain versions at K3-K5's bars; under the
+   plain-causal mask bitwise equal to K3/K4/K5; two planted faults (a
+   tile dropped from a visit range, an interval widened by a key) must
+   break the bar in each kernel.  Every kernel timed under every mask
+   beside its bound over the mask's live pairs; for window(1024), the
+   kernels line's row, the plain versions and SDPA with the dense bool
+   mask (forward; forward + backward for K7 + K8) too; the f32
+   (CUDA-core) K6/K7/K8 at (2, 384, 4, 2, 128) under the JAX tests'
+   MASK_SPECS, every row within 4e-3 of its max-abs, and under the
+   plain-causal mask bitwise equal to the f32 K3/K4/K5;
 5b. K11 (the fused-quantization matmul) at the train step's MLP shapes
    (gate/up [12288, 4096] @ [4096, 14336], down [12288, 14336] @
    [14336, 4096]), int8 and e4m3, with and without amax, against its
@@ -108,7 +121,19 @@ Phases, in order; any failure exits non-zero:
    ratio bands and the routing globals; each of K3/K4/K5 launched layers
    x steps times (warm calls included, the moe_ab chains too), K11 as
    often as the A/B chains launch it and K12 3 x 2 layers x the grouped
-   chain's steps;
+   chain's steps; the ``longcontext_ab`` line (before ``moe_ab``) with
+   K3 launched K x (1 + rounds) more for its dense leg and K6 3 x as
+   often for its splash legs; then at its S=64k operands: K6 under the
+   causal mask bitwise equal to K3, and under the window and segment
+   masks against ``plain_splash_rows`` on four sampled q tiles;
+9a. tiny f32 models under a window and a segment mask (TF32 off) take 2
+   SGD steps on the card (K6/K7/K8 f32) and on the CPU: losses within
+   1e-5 relative, every parameter within 1e-5 of its leaf's max-abs;
+9b. the bench step at full width through ``bench_step.build`` under
+   window(1024) and seg(768) beside the unmasked step: losses finite and
+   within 1.5 of ln V, K6/K7/K8 launched layers x steps and K3-K5 never
+   in a masked run; ms a step in paired rounds; then B=1, S=32768 dense
+   causal against window(4096), paired rounds;
 10. ``dlnetbench_tpu_torch.entry.entry()`` forward once at S=1024: logits
    [1, 1024, 32768], finite, K3 launched once per layer;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
@@ -130,6 +155,9 @@ FLASH_SRC = "dlnetbench_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = {"fwd": "dlnetbench_tpu/ops/flash_attention.py:126",
                   "dq": "dlnetbench_tpu/ops/flash_attention.py:242",
                   "dkv": "dlnetbench_tpu/ops/flash_attention.py:279"}
+SPLASH_REPLACES = {"fwd": "dlnetbench_tpu/ops/flash_attention.py:648",
+                   "dq": "dlnetbench_tpu/ops/flash_attention.py:761",
+                   "dkv": "dlnetbench_tpu/ops/flash_attention.py:802"}
 
 # decode shapes of the served model (llama3_8b width)
 B, HQ, HKV, DH, PAGE, PMAX, NUM_PAGES = 8, 32, 8, 128, 16, 32, 512
@@ -151,6 +179,33 @@ FLASH_CASES = [(2, 6144, 32, 8, 128, True), (1, 1024, 32, 8, 128, False),
 # against 2^-6 of that row's own max-abs (floored at 1e-3 of the
 # tensor's); lse and D: absolute
 FLASH_TOL_ROW, FLASH_TOL_LSE = 2.0 ** -6, 1e-3
+
+# K6/K7/K8 at the train step's attention shape, under five masks: (label,
+# MaskSpec fields); the first is the row of the kernels line, the
+# segment mask carries the planted faults
+SPLASH_SHAPE = (2, 6144, 32, 8, 128)
+SPLASH_SPECS = [("window(1024)", {"window": 1024}),
+                ("seg(768)", {"seg_avg": 768}),
+                ("window(1024)&seg(768)", {"window": 1024, "seg_avg": 768}),
+                ("non-causal seg(768)", {"causal": False, "seg_avg": 768}),
+                ("causal", {})]
+# the f32 (CUDA-core) K6/K7/K8 at a small shape under the JAX tests'
+# MASK_SPECS and plain causal: every row within 4e-3 of its max-abs (f32
+# both sides, but a dq row that cancels to ~0 keeps the f32 rounding of
+# its terms against its 1e-3 floor)
+SPLASH_F32_SHAPE = (2, 384, 4, 2, 128)
+SPLASH_F32_SPECS = [{"window": 40}, {"seg_avg": 50, "seg_seed": 3},
+                    {"causal": False, "seg_avg": 64, "seg_seed": 1},
+                    {"window": 32, "seg_avg": 80, "seg_seed": 5}, {}]
+SPLASH_F32_TOL_ROW = 4e-3
+# the masked train steps: the bench step's knobs, and a long-context
+# pair at B=1, S=32768, dense causal vs the Mistral 7B window
+MASKED_STEPS = {"window(1024)": {"attention_window": 1024},
+                "seg(768)": {"attention_seg_avg": 768}}
+LONG_SEQ_STEP, LONG_WINDOW = 32768, 4096
+# the tiny f32 masked model, card vs CPU (f32 both sides; summation
+# order): losses 1e-5 relative, each parameter 1e-5 of its leaf's max-abs
+MASK_REF_TOL = 1e-5
 
 MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
@@ -476,20 +531,24 @@ def flash_operands(torch, b, s, hq, hkv, dh, seed=0):
             rand(b, s, hq, dh))
 
 
-def flash_bound(kind: str, b, s, hq, hkv, dh, causal,
-                peak: dict) -> tuple[float, str]:
+def flash_bound(kind: str, b, s, hq, hkv, dh, causal, peak: dict,
+                pairs: int | None = None,
+                mask_bytes: int = 0) -> tuple[float, str]:
     """Least time for one launch: each operand read once and each output
-    written once (bf16 rows, f32 lse/D), against 2 * B * Hq * Dh
-    operations per (query, key) pair this run attends (the causal
-    triangle, diagonal included) and per product — 2 products in the
-    forward, 3 in dq (s, dp, dq), 4 in dk/dv (s, dv, dp, dk)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+    written once (bf16 rows, f32 lse/D, the mask's int32 arrays), against
+    2 * B * Hq * Dh operations per (query, key) pair this run attends
+    (the causal triangle, diagonal included, or a mask's live ``pairs``)
+    and per product — 2 products in the forward, 3 in dq (s, dp, dq), 4
+    in dk/dv (s, dv, dp, dk)."""
+    if pairs is None:
+        pairs = s * (s + 1) // 2 if causal else s * s
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     ops = 2 * products * b * hq * dh * pairs
     big, small, row = b * s * hq * dh * 2, b * s * hkv * dh * 2, b * hq * s * 4
-    nbytes = {"fwd": big + 2 * small + big + row,
-              "dq": 3 * big + 2 * small + row + big + row,
-              "dkv": 2 * big + 2 * small + 2 * row + 2 * small}[kind]
+    nbytes = mask_bytes + {"fwd": big + 2 * small + big + row,
+                           "dq": 3 * big + 2 * small + row + big + row,
+                           "dkv": 2 * big + 2 * small + 2 * row
+                           + 2 * small}[kind]
     t_bytes = nbytes / peak["bytes"] * 1e3
     t_ops = ops / peak["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -584,6 +643,258 @@ def flash_phase(torch, case, peak: dict, timed: bool) -> dict:
     return results
 
 
+def splash_check(torch, label, got: dict, want: dict) -> dict:
+    """Every row of O, dq, dk, dv within 2^-6 of its max-abs and lse, D
+    within 1e-3 against the plain versions; finite.  Returns the row
+    and absolute errors."""
+    for name, t in got.items():
+        if not torch.isfinite(t).all():
+            fail(f"{label}: {name} not finite")
+    rows = {n: row_err(got[n], want[n]) for n in ("o", "dq", "dk", "dv")}
+    errs = {n: abs_err(got[n], want[n]) for n in got}
+    bad = [f"{n} row err {e:.3e} > {FLASH_TOL_ROW:.3e}"
+           for n, e in rows.items() if not e <= FLASH_TOL_ROW]
+    bad += [f"{n} max abs err {errs[n]:.3e} > {FLASH_TOL_LSE}"
+            for n in ("lse", "d") if not errs[n] <= FLASH_TOL_LSE]
+    if bad:
+        fail(f"{label}: kernels disagree with their plain versions: "
+             f"{'; '.join(bad)}")
+    return {"rows": rows, "errs": errs}
+
+
+def splash_faults(torch, spec, ops: tuple, got: dict, want: dict) -> None:
+    """Planted faults must fail the bars: one tile dropped from a visit
+    range (K6/K7: a q tile loses its diagonal kv tile, so the rows of a
+    document that starts inside it see no key; K8: a kv tile loses its
+    first q tile, so the keys of a document that ends inside that q tile
+    get no contribution), and one row interval widened by a key (the
+    first row of a document also sees the last key of the one before)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dlnetbench_tpu_torch.ops import attention_mask as M
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    q, k, v, do, out, lse, dcap = ops
+    s = q.shape[1]
+    ids = M.segment_ids(spec.seg_seed, spec.seg_avg, s)
+    starts = np.nonzero(np.diff(ids))[0] + 1       # first rows of docs
+    ends = starts - 1                              # last rows of docs
+    bq, bkd = FA.DKV_TILES
+    bm = M.block_mask(spec, s, *FA.FWD_TILES)
+    row = next(int(r) for r in starts if r % bq
+               and bm.q_first_k[r // bq] < bm.q_last_k[r // bq])
+    last = bm.q_last_k.copy()
+    last[row // bq] -= 1
+    lo = bm.lo.copy()
+    lo[row] -= 1
+    bmt = M.block_mask(spec, s, *FA.DKV_TILES)
+    j = next(int(e) // bkd for e in ends if e % bkd < bq - 1
+             and bmt.kv_first_q[e // bkd] == (e // bkd) * (bkd // bq)
+             and bmt.kv_first_q[e // bkd] < bmt.kv_last_q[e // bkd])
+    first_t = bmt.kv_first_q.copy()
+    first_t[j] += 1
+    lo_t = bmt.lo.copy()
+    lo_t[row] -= 1
+    dev = q.device
+    faults = {
+        "dropped tile": (
+            FA.pack_block_mask(dataclasses.replace(bm, q_last_k=last),
+                               False, dev),
+            FA.pack_block_mask(dataclasses.replace(bmt, kv_first_q=first_t),
+                               True, dev)),
+        "widened interval": (
+            FA.pack_block_mask(dataclasses.replace(bm, lo=lo), False, dev),
+            FA.pack_block_mask(dataclasses.replace(bmt, lo=lo_t), True,
+                               dev)),
+    }
+    for fault, (arr, arr_t) in faults.items():
+        o_bad, _ = FA.kernel_splash_forward(q, k, v, spec, arrays=arr)
+        dq_bad, _ = FA.kernel_splash_dq(q, k, v, out, lse, do, spec,
+                                        arrays=arr)
+        dk_bad, dv_bad = FA.kernel_splash_dkv(q, k, v, do, lse, dcap, spec,
+                                              arrays=arr_t)
+        torch.cuda.synchronize()
+        seen = {"K6 O": row_err(o_bad, want["o"]),
+                "K7 dq": row_err(dq_bad, want["dq"]),
+                "K8 dk/dv": max(row_err(dk_bad, want["dk"]),
+                                row_err(dv_bad, want["dv"]))}
+        missed = [n for n, e in seen.items() if e <= FLASH_TOL_ROW]
+        if missed:
+            fail(f"splash planted fault ({fault}): {missed} still within "
+                 f"the bar {seen}")
+        say(f"splash planted fault ({fault}; q row {row}, kv tile {j}): "
+            f"detected, worst row err " + ", ".join(
+                f"{n} {e:.3e}" for n, e in seen.items()))
+        del o_bad, dq_bad, dk_bad, dv_bad
+
+
+def splash_f32_phase(torch) -> None:
+    """The f32 K6/K7/K8 (CUDA cores; they carry the tiny masked models)
+    against their plain versions under ``SPLASH_F32_SPECS``, and under
+    the plain-causal mask bitwise against the f32 K3/K4/K5."""
+    from dlnetbench_tpu_torch.ops import attention_mask as M
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, hq, hkv, dh = SPLASH_F32_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    q, k, v, do = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+                   for h in (hq, hkv, hkv, hq))
+    worst = {}
+    for fields in SPLASH_F32_SPECS:
+        spec = M.MaskSpec(**fields)
+        out, lse = FA.kernel_splash_forward(q, k, v, spec)
+        dq, dcap = FA.kernel_splash_dq(q, k, v, out, lse, do, spec)
+        dk, dv = FA.kernel_splash_dkv(q, k, v, do, lse, dcap, spec)
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.plain_splash_forward(q, k, v, spec)
+        p_dq, p_dcap = FA.plain_splash_dq(q, k, v, out, lse, do, spec)
+        p_dk, p_dv = FA.plain_splash_dkv(q, k, v, do, lse, dcap, spec)
+        rows = {"o": row_err(out, p_out), "dq": row_err(dq, p_dq),
+                "dk": row_err(dk, p_dk), "dv": row_err(dv, p_dv)}
+        errs = {"lse": abs_err(lse, p_lse), "d": abs_err(dcap, p_dcap)}
+        if not (all(e <= SPLASH_F32_TOL_ROW for e in rows.values())
+                and all(e <= FLASH_TOL_LSE for e in errs.values())):
+            fail(f"splash f32 {spec.label()}: row errs {rows} (bar "
+                 f"{SPLASH_F32_TOL_ROW}), {errs} (bar {FLASH_TOL_LSE})")
+        if spec.is_plain_causal:
+            f_out, f_lse = FA.kernel_forward(q, k, v, True)
+            f_dq, f_dcap = FA.kernel_dq(q, k, v, f_out, f_lse, do, True)
+            f_dk, f_dv = FA.kernel_dkv(q, k, v, do, f_lse, f_dcap, True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in (
+                    (out, f_out), (lse, f_lse), (dq, f_dq), (dcap, f_dcap),
+                    (dk, f_dk), (dv, f_dv))):
+                fail("splash f32: K6/K7/K8 under the plain-causal mask not "
+                     "bitwise equal to K3/K4/K5")
+        worst[spec.label()] = {n: float(f"{e:.3e}") for n, e in rows.items()}
+    say(f"splash f32 {SPLASH_F32_SHAPE}: worst row err / row max-abs per "
+        f"mask {json.dumps(worst)} (bar {SPLASH_F32_TOL_ROW}); the "
+        f"plain-causal mask bitwise equal to the f32 K3/K4/K5")
+
+
+def splash_phase(torch, peak: dict) -> dict:
+    """K6/K7/K8 against their plain versions at the train step's
+    attention shape under five masks (the plain backward reads the
+    kernels' O, lse and D); the plain-causal mask bitwise against
+    K3/K4/K5; the planted faults; times of every kernel under every mask
+    beside the bound over the mask's live pairs, and for the window mask
+    (the kernels line's row) the plain versions' and the library's:
+    ``scaled_dot_product_attention`` with the boolean dense mask,
+    forward and forward + backward, on K/V expanded to the q heads
+    beforehand."""
+    import torch.nn.functional as F
+
+    from dlnetbench_tpu_torch.ops import attention_mask as M
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    b, s, hq, hkv, dh = SPLASH_SHAPE
+    q, k, v, do = flash_operands(torch, b, s, hq, hkv, dh, seed=3)
+    results = {}
+    for label, fields in SPLASH_SPECS:
+        spec = M.MaskSpec(**fields)
+        out, lse = FA.kernel_splash_forward(q, k, v, spec)
+        dq, dcap = FA.kernel_splash_dq(q, k, v, out, lse, do, spec)
+        dk, dv = FA.kernel_splash_dkv(q, k, v, do, lse, dcap, spec)
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.plain_splash_forward(q, k, v, spec)
+        p_dq, p_dcap = FA.plain_splash_dq(q, k, v, out, lse, do, spec)
+        p_dk, p_dv = FA.plain_splash_dkv(q, k, v, do, lse, dcap, spec)
+        got = {"o": out, "lse": lse, "d": dcap, "dq": dq, "dk": dk,
+               "dv": dv}
+        want = {"o": p_out, "lse": p_lse, "d": p_dcap, "dq": p_dq,
+                "dk": p_dk, "dv": p_dv}
+        tag = f"splash {label} {SPLASH_SHAPE}"
+        chk = splash_check(torch, tag, got, want)
+        note = ""
+        if spec.is_plain_causal:
+            f_out, f_lse = FA.kernel_forward(q, k, v, True)
+            f_dq, f_dcap = FA.kernel_dq(q, k, v, f_out, f_lse, do, True)
+            f_dk, f_dv = FA.kernel_dkv(q, k, v, do, f_lse, f_dcap, True)
+            torch.cuda.synchronize()
+            same = {n: torch.equal(a, b_) for n, a, b_ in (
+                ("o", out, f_out), ("lse", lse, f_lse), ("dq", dq, f_dq),
+                ("d", dcap, f_dcap), ("dk", dk, f_dk), ("dv", dv, f_dv))}
+            if not all(same.values()):
+                fail(f"{tag}: K6/K7/K8 under the plain-causal mask not "
+                     f"bitwise equal to K3/K4/K5: {same}")
+            note = "; bitwise equal to K3/K4/K5"
+            del f_out, f_lse, f_dq, f_dcap, f_dk, f_dv
+        if label == "seg(768)":
+            splash_faults(torch, spec, (q, k, v, do, out, lse, dcap), got,
+                          want)
+        del p_out, p_lse, p_dq, p_dcap, p_dk, p_dv, want
+        rows = chk["rows"]
+        lo, hi = M.row_intervals(spec, s)
+        pairs = int((hi - lo + 1).sum())
+        say(f"{tag}: worst row err / row max-abs O {rows['o']:.3e} dq "
+            f"{rows['dq']:.3e} dk {rows['dk']:.3e} dv {rows['dv']:.3e} "
+            f"(bar {FLASH_TOL_ROW:.3e}); lse {chk['errs']['lse']:.3e} D "
+            f"{chk['errs']['d']:.3e}; live pairs {pairs / (s * s):.4f} of "
+            f"S^2{note}")
+        runs = {
+            "fwd": lambda: FA.kernel_splash_forward(q, k, v, spec),
+            "dq": lambda: FA.kernel_splash_dq(q, k, v, out, lse, do, spec),
+            "dkv": lambda: FA.kernel_splash_dkv(q, k, v, do, lse, dcap,
+                                                spec),
+        }
+        plains = {
+            "fwd": lambda: FA.plain_splash_forward(q, k, v, spec),
+            "dq": lambda: FA.plain_splash_dq(q, k, v, out, lse, do, spec),
+            "dkv": lambda: FA.plain_splash_dkv(q, k, v, do, lse, dcap,
+                                               spec),
+        }
+        res = {}
+        for kind, kernel in runs.items():
+            arr = FA.splash_arrays(spec, s, kind, q.device)
+            b_ms, b_by = flash_bound(kind, b, s, hq, hkv, dh, spec.causal,
+                                     peak, pairs=pairs,
+                                     mask_bytes=arr.packed.numel() * 4)
+            err = {"fwd": chk["errs"]["o"], "dq": chk["errs"]["dq"],
+                   "dkv": max(chk["errs"]["dk"], chk["errs"]["dv"])}[kind]
+            res[kind] = {"max_abs_err": err, "ms": timed_ms(torch, kernel),
+                         "bound_ms": b_ms, "bound_by": b_by}
+        if label == SPLASH_SPECS[0][0]:
+            # the plain versions' and the library's times for the row
+            dense = torch.from_numpy(M.dense_mask(spec, s)).cuda()
+            g = hq // hkv
+            qt = q.transpose(1, 2)
+            kt, vt = (x.transpose(1, 2).repeat_interleave(g, dim=1)
+                      for x in (k, v))
+            leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=dense)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=dense)
+                return torch.autograd.grad(o, leaves, dot)
+            sdpa_err = abs_err(sdpa_fwd().transpose(1, 2), out)
+            lib_fwd = timed_ms(torch, sdpa_fwd)
+            lib_bwd = timed_ms(torch, sdpa_fwd_bwd) - lib_fwd
+            for kind in runs:
+                res[kind]["plain_ms"] = timed_ms(torch, plains[kind], reps=3)
+                res[kind]["library_ms"] = lib_fwd if kind == "fwd" \
+                    else lib_bwd
+            say(f"splash yardsticks ({label}): SDPA forward with the dense "
+                f"bool mask {lib_fwd:.4f} ms (err vs K6 {sdpa_err:.3e}), "
+                f"its backward (dq, dk, dv together) {lib_bwd:.4f} ms "
+                f"against K7 + K8 {res['dq']['ms'] + res['dkv']['ms']:.4f} "
+                f"ms; plain versions " + ", ".join(
+                    f"{kd} {res[kd]['plain_ms']:.2f} ms" for kd in runs))
+            del dense, kt, vt, leaves
+        say(f"splash {label} times: " + "; ".join(
+            f"{kd} kernel_ms {r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.3f} of bound"
+            for kd, r in res.items()))
+        results[label] = res
+        del out, lse, dq, dcap, dk, dv, got
+        torch.cuda.empty_cache()
+    return results
+
+
 def flash_counts() -> dict:
     from dlnetbench_tpu_torch.ops import flash_attention as FA
     return {"fwd": FA.fwd_launches, "dq": FA.dq_launches,
@@ -593,6 +904,14 @@ def flash_counts() -> dict:
 def reset_flash_counts() -> None:
     from dlnetbench_tpu_torch.ops import flash_attention as FA
     FA.fwd_launches = FA.dq_launches = FA.dkv_launches = 0
+    FA.splash_fwd_launches = FA.splash_dq_launches = 0
+    FA.splash_dkv_launches = 0
+
+
+def splash_counts() -> dict:
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    return {"fwd": FA.splash_fwd_launches, "dq": FA.splash_dq_launches,
+            "dkv": FA.splash_dkv_launches}
 
 
 def train_reference_phase(torch) -> None:
@@ -644,6 +963,223 @@ def train_reference_phase(torch) -> None:
         f"{cl.tolist()}; every weight's update within {worst:.3e} of its "
         f"bar (2 ulps + 1e-3 of the leaf's largest move); flash launches "
         f"{counts}")
+
+
+def mask_reference_phase(torch) -> dict:
+    """Tiny f32 models (TF32 off) under a window and under a segment
+    mask, same weights and tokens, 2 SGD steps on the card (K6/K7/K8
+    f32) and on the CPU (plain versions): losses within 1e-5 relative,
+    every parameter within 1e-5 of its leaf's max-abs."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for label, knobs in (("window(32)", {"attention_window": 32}),
+                         ("seg(40)", {"attention_seg_avg": 40,
+                                      "attention_seg_seed": 1})):
+        cfg = T.TransformerConfig(vocab_size=256, embed_dim=256, num_heads=2,
+                                  num_kv_heads=1, ff_dim=512, num_layers=2,
+                                  seq_len=128, dtype="float32",
+                                  logits_f32=False, **knobs)
+        cpu = T.init_params(cfg, seed=11, device="cpu")
+        gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in cpu.items()}
+        gen = torch.Generator()
+        gen.manual_seed(12)
+        tokens = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len + 1),
+                               generator=gen)
+        step = BS.make_train_k(cfg, 2)
+        reset_flash_counts()
+        gpu, gpu_losses = step(gpu, tokens.cuda())
+        torch.cuda.synchronize()
+        counts, flash = splash_counts(), flash_counts()
+        cpu, cpu_losses = step(cpu, tokens)
+        want = cfg.num_layers * 2
+        if counts != {"fwd": want, "dq": want, "dkv": want} \
+                or any(flash.values()):
+            fail(f"mask reference {label}: splash launches {counts} (want "
+                 f"{want} each), flash {flash} (want 0)")
+        gl = gpu_losses.cpu()
+        if not torch.allclose(gl, cpu_losses, rtol=MASK_REF_TOL, atol=0) \
+                or not gl[1] < gl[0]:
+            fail(f"mask reference {label}: card losses {gl.tolist()} vs CPU "
+                 f"{cpu_losses.tolist()}")
+        worst = 0.0
+        for c, g in zip(BS.leaves(cpu), BS.leaves(gpu)):
+            worst = max(worst, float((g.cpu() - c).abs().max()
+                                     / c.abs().max().clamp_min(1e-30)))
+        if not worst <= MASK_REF_TOL:
+            fail(f"mask reference {label}: a parameter differs by "
+                 f"{worst:.3e} of its leaf's max-abs (bar {MASK_REF_TOL})")
+        say(f"mask reference {label}: 2 f32 SGD steps, losses card "
+            f"{gl.tolist()} CPU {cpu_losses.tolist()}; worst parameter "
+            f"{worst:.3e} of its leaf's max-abs (bar {MASK_REF_TOL}); "
+            f"K6/K7/K8 f32 launches {counts}")
+        out[label] = counts
+    return out
+
+
+def masked_train_phase(torch) -> dict:
+    """The bench train step at full width (llama3_8b, 4 layers, B=2,
+    S=6144, vocab 32768) through ``bench_step.build`` under each mask of
+    ``MASKED_STEPS`` beside the unmasked step: the first call's losses
+    finite and near ln V, K6/K7/K8 launched layers x steps and K3-K5
+    never in a masked run; then ms a step in paired rounds.  Then a
+    long-context pair at B=1, S=32768 (4 layers): dense causal against
+    the Mistral 7B window, paired rounds.  Returns the splash launches of
+    the whole phase and the step times."""
+    from dlnetbench_tpu_torch import bench
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    layers, k = BS.LAYERS, 3
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def counted(name, masked, steps, run):
+        reset_flash_counts()
+        losses = run()
+        torch.cuda.synchronize()
+        sp, fl = splash_counts(), flash_counts()
+        for kd in total:
+            total[kd] += sp[kd]
+        want = layers * steps
+        mine, other = (sp, fl) if masked else (fl, sp)
+        if mine != {"fwd": want, "dq": want, "dkv": want} \
+                or any(other.values()):
+            fail(f"masked train {name}: splash launches {sp}, flash {fl} "
+                 f"(want {want} each on the {'splash' if masked else 'flash'}"
+                 f" kernels and none on the other)")
+        return losses
+
+    progs, first = {}, {}
+    for name, over in {"dense": {}, **MASKED_STEPS}.items():
+        train_k, params, tokens, _, cfg = BS.build(k, **over)
+        losses = counted(name, bool(over), k,
+                         lambda: train_k(params, tokens)[1]).cpu()
+        ln_v = math.log(cfg.vocab_size)
+        if not (torch.isfinite(losses).all()
+                and abs(float(losses[0]) - ln_v) < 1.5):
+            fail(f"masked train {name}: losses {losses.tolist()} (want "
+                 f"finite, within 1.5 of ln V {ln_v:.3f})")
+        first[name] = losses.tolist()
+        progs[name] = lambda p=params, f=train_k, t=tokens: f(p, t)
+    reset_flash_counts()
+    summ, _ = bench.measure_paired(progs, k, "cuda")
+    torch.cuda.synchronize()
+    sp = splash_counts()
+    for kd in total:
+        total[kd] += sp[kd]
+    del progs
+    torch.cuda.empty_cache()
+    ms = {n: v["value"] * 1e3 for n, v in summ.items()}
+    say(f"masked train (llama3_8b width, {layers} layers, B={BS.BATCH} "
+        f"S={BS.SEQ}): first losses {json.dumps(first)}; ms a step "
+        f"(median of {bench.ROUNDS} paired rounds of {k} steps) " + ", ".join(
+            f"{n} {v:.3f} (band {summ[n]['band'][0] * 1e3:.3f}-"
+            f"{summ[n]['band'][1] * 1e3:.3f})" for n, v in ms.items()))
+
+    # the long-context pair: B=1, S=32768
+    card = BS.bench_card()
+    k_long = 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, BS.VOCAB, (1, LONG_SEQ_STEP + 1),
+                           generator=gen, device="cuda")
+    progs = {}
+    for name, over in (("dense", {}),
+                       (f"window({LONG_WINDOW})",
+                        {"attention_window": LONG_WINDOW})):
+        cfg = BS.bench_cfg(card, seq_len=LONG_SEQ_STEP, **over)
+        params = T.init_params(cfg, seed=0, device="cuda")
+        train_k = BS.make_train_k(cfg, k_long)
+        losses = counted(f"S={LONG_SEQ_STEP} {name}", bool(over), k_long,
+                         lambda: train_k(params, tokens)[1]).cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"masked train S={LONG_SEQ_STEP} {name}: losses "
+                 f"{losses.tolist()}")
+        first[f"S={LONG_SEQ_STEP} {name}"] = losses.tolist()
+        progs[name] = lambda p=params, f=train_k: f(p, tokens)
+    reset_flash_counts()
+    long_summ, rounds = bench.measure_paired(progs, k_long, "cuda")
+    torch.cuda.synchronize()
+    sp = splash_counts()
+    for kd in total:
+        total[kd] += sp[kd]
+    del progs
+    torch.cuda.empty_cache()
+    names = list(long_summ)
+    ratio = [w / d for w, d in zip(rounds[names[1]], rounds[names[0]])]
+    say(f"masked train long context (B=1 S={LONG_SEQ_STEP}, {layers} "
+        f"layers): first losses dense {first[f'S={LONG_SEQ_STEP} dense']}, "
+        f"{names[1]} {first[f'S={LONG_SEQ_STEP} {names[1]}']}; ms a step "
+        + ", ".join(f"{n} {v['value'] * 1e3:.3f}" for n, v in
+                    long_summ.items())
+        + f"; paired ratio {names[1]}/dense per round "
+        f"{[round(r, 4) for r in ratio]}")
+    return {"launches": total, "ms": ms,
+            "long_ms": {n: v["value"] * 1e3 for n, v in long_summ.items()}}
+
+
+def longcontext_phase(torch, line: dict) -> None:
+    """The bench's ``longcontext_ab`` line (all four legs, finite), then
+    at its S=64k operands: K6 under the plain-causal mask bitwise equal
+    to K3 (the dense leg), and K6 under the window and segment masks
+    against the chunked plain version on sampled q tiles (the first, the
+    last and two in the middle)."""
+    from dlnetbench_tpu_torch import bench
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    legs = ("dense", "splash_causal", "splash_window", "splash_segment")
+    for leg in legs:
+        band = line.get(leg) or {}
+        if set(band) != {"value", "best", "band", "n"} \
+                or not (math.isfinite(band["value"]) and band["value"] > 0):
+            fail(f"longcontext: leg {leg} {band}")
+    for leg in legs[1:]:
+        r = line[f"ratio_{leg}_vs_dense"]["value"]
+        if not (math.isfinite(r) and r > 0):
+            fail(f"longcontext: ratio {leg} {r}")
+    sh = bench.longcontext_shape()
+    q, k, v = bench.longcontext_operands(sh, "cuda")
+    specs = bench.longcontext_specs(sh)
+    dense, dense_lse = FA.kernel_forward(q, k, v, True)
+    causal, causal_lse = FA.kernel_splash_forward(q, k, v,
+                                                  specs["splash_causal"])
+    torch.cuda.synchronize()
+    if not (torch.equal(dense, causal) and torch.equal(dense_lse,
+                                                       causal_lse)):
+        fail("longcontext: the splash_causal leg's output is not bitwise "
+             "the dense leg's")
+    del dense, dense_lse, causal, causal_lse
+    s, bq = sh["seq"], FA.FWD_TILES[0]
+    nq = s // bq
+    tiles = [0, nq // 3, 2 * nq // 3, nq - 1]
+    worst = {}
+    for name in ("splash_window", "splash_segment"):
+        spec = specs[name]
+        out, lse = FA.kernel_splash_forward(q, k, v, spec)
+        torch.cuda.synchronize()
+        for t in tiles:
+            c0 = t * bq
+            p_out, p_lse = FA.plain_splash_rows(q, k, v, spec, c0, c0 + bq)
+            e_row = row_err(out[:, c0:c0 + bq], p_out)
+            e_lse = abs_err(lse[:, :, c0:c0 + bq], p_lse)
+            if not (e_row <= FLASH_TOL_ROW and e_lse <= FLASH_TOL_LSE):
+                fail(f"longcontext {name}: q tile {t}: row err {e_row:.3e} "
+                     f"(bar {FLASH_TOL_ROW:.3e}), lse {e_lse:.3e}")
+            worst[name] = max(worst.get(name, 0.0), e_row)
+        del out, lse
+    torch.cuda.empty_cache()
+    say(f"longcontext: {json.dumps({k_: v_ for k_, v_ in line.items() if k_ not in ('metric', 'masks')})}")
+    say(f"longcontext: masks {json.dumps(line['masks'])}")
+    say(f"longcontext (S={s}): splash_causal bitwise equal to dense (K6 = "
+        f"K3); K6 against the chunked plain version on q tiles {tiles}: "
+        f"worst row err window {worst['splash_window']:.3e}, segment "
+        f"{worst['splash_segment']:.3e} (bar {FLASH_TOL_ROW:.3e}); window "
+        f"{line['splash_window']['value']} ms vs dense "
+        f"{line['dense']['value']} ms (ratio "
+        f"{line['ratio_splash_window_vs_dense']['value']}), speedup vs "
+        f"sparsity {line['speedup_vs_sparsity']}")
 
 
 def reset_mlp_counts() -> None:
@@ -1267,6 +1803,7 @@ def train_phase(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = flash_counts()
+    splash = splash_counts()
     k11 = mlp_counts()["k11"]
     k12 = gmm_counts()
     if rc != 0:
@@ -1276,8 +1813,8 @@ def train_phase(torch) -> dict:
     for ln in lines[:-1]:
         say(f"train aux line: {json.dumps(ln)}")
     say(f"train headline: {json.dumps({k: v for k, v in line.items() if not isinstance(v, dict)})}")
-    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "moe_ab", "int8_step",
-                "int8_switchback_step", "recommended_step")
+    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "longcontext_ab", "moe_ab",
+                "int8_step", "int8_switchback_step", "recommended_step")
     if [ln["metric"] for ln in lines[:-1]] != [line[k]["metric"]
                                               for k in aux_keys] \
             or line["recommended_step"]["metric"] != "recommended_step":
@@ -1319,16 +1856,23 @@ def train_phase(torch) -> dict:
              + 2 * bench.STEP_K) * (1 + bench.ROUNDS)
     # the moe_ab chains attend through the same kernels: 3 chains
     want = BS.LAYERS * steps + 3 * sh["layers"] * moe_steps
+    # longcontext_ab: K chained forwards a call, a warm call and ROUNDS
+    # timed ones per leg; the dense leg on K3, the three splash legs on K6
+    lc_calls = bench.longcontext_shape()["k"] * (1 + bench.ROUNDS)
+    if splash != {"fwd": 3 * lc_calls, "dq": 0, "dkv": 0}:
+        fail(f"train: splash launches {splash} != K6 {3 * lc_calls} (3 "
+             f"longcontext legs x {lc_calls} calls), K7/K8 0")
     loss = line["loss"]
     if not (math.isfinite(loss) and abs(loss - math.log(BS.VOCAB)) < 1.5):
         fail(f"train: loss {loss} not within 1.5 of ln({BS.VOCAB})")
     vs = line["vs_baseline"]
     if vs is None or not 0 < vs <= 1.05:
         fail(f"train: vs_baseline {vs} not in (0, 1.05]")
-    if counts != {"fwd": want, "dq": want, "dkv": want}:
+    if counts != {"fwd": want + lc_calls, "dq": want, "dkv": want}:
         fail(f"train: flash launches {counts}, want {BS.LAYERS} layers x "
              f"{steps} steps + 3 moe_ab chains x {sh['layers']} layers x "
-             f"{moe_steps} steps = {want} each")
+             f"{moe_steps} steps = {want} each, and K3 {lc_calls} more "
+             f"for the longcontext dense leg")
     say(f"train: {line['value']} ms/step, vs_baseline {vs}, loss {loss}; "
         f"int8_step {line['int8_step']['value']} ms (loss "
         f"{line['int8_step']['loss']}), int8_switchback_step "
@@ -1341,10 +1885,10 @@ def train_phase(torch) -> dict:
         f"launches {counts} = {BS.LAYERS} layers x {steps} steps "
         f"(headline and both int8 lines) + the moe_ab chains, warm calls "
         f"included; K11 {k11} in the A/B chains; K12 {k12} in the grouped "
-        f"chain; bench "
+        f"chain; K6 {splash['fwd']} in the longcontext splash legs; bench "
         f"wall {wall:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return {"counts": counts, "k12": k12, "line": line}
+    return {"counts": counts, "k12": k12, "line": line, "splash": splash}
 
 
 def entry_phase(torch) -> None:
@@ -1401,6 +1945,8 @@ PROFILE_RECIPES = {
     "train_e4m3_delayed": {"mlp_dtype": "float8", "quant_fusion": "fused",
                            "quant_scaling": "delayed"},
     "train_pallas_bwd": {"mlp_backward": "pallas"},
+    "train_window": {"attention_window": 1024},
+    "train_seg": {"attention_seg_avg": 768},
 }
 
 
@@ -1539,6 +2085,9 @@ def main(argv: list[str]) -> int:
     for case in FLASH_CASES[1:]:
         flash_phase(torch, case, peak, timed=False)
     torch.cuda.empty_cache()
+    splash = splash_phase(torch, peak)
+    splash_f32_phase(torch)
+    torch.cuda.empty_cache()
     qmm = {fmt: qmm_phase(torch, fmt, peak) for fmt in ("int8", "float8")}
     torch.cuda.empty_cache()
     mlp_bwd = mlp_bwd_phase(torch, peak)
@@ -1555,6 +2104,12 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     mixtral_phase(torch)
     trained = train_phase(torch)
+    torch.cuda.empty_cache()
+    longcontext_phase(torch, trained["line"]["longcontext_ab"])
+    torch.cuda.empty_cache()
+    # after the headline, as the heavy S=32768 steps would precede it
+    mask_reference_phase(torch)
+    masked = masked_train_phase(torch)
     torch.cuda.empty_cache()
     entry_phase(torch)
     torch.cuda.empty_cache()
@@ -1587,6 +2142,16 @@ def main(argv: list[str]) -> int:
                         "replaces": FLASH_REPLACES[kind],
                         "launches": trained["counts"][kind],
                         **flash[kind]})
+    row = splash[SPLASH_SPECS[0][0]]
+    for kind, label in (("fwd", "K6 splash_attention forward"),
+                        ("dq", "K7 splash_attention dq"),
+                        ("dkv", "K8 splash_attention dk/dv")):
+        # the masked steps' launches, and K6's in the longcontext legs
+        launches = masked["launches"][kind] + trained["splash"][kind]
+        kernels.append({"name": f"{label} ({SPLASH_SPECS[0][0]})",
+                        "route": "cuda", "source": FLASH_SRC,
+                        "replaces": SPLASH_REPLACES[kind],
+                        "launches": launches, **row[kind]})
     for key, label, res in (
             ("k9", "K9 dgdu (SwiGLU backward dg, du)", mlp_bwd["k9"]),
             ("k10", "K10 dwd (SwiGLU backward dWd)", mlp_bwd["k10"]),

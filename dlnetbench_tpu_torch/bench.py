@@ -27,7 +27,12 @@ with batched library products, and the same MoE through the grouped
 kernel K12 — with the layer-0 router stats as record globals; shapes
 from ``DLNB_BENCH_MOE_{EXPERTS,TOPK,FF,LAYERS,SEQ,K}``, default 8
 experts, top-2, f_e = ff / 2, 2 layers, S = min(S, 2048), K = 4),
-``int8_step`` and ``int8_switchback_step`` (the headline step with
+``longcontext_ab`` (printed before ``moe_ab``, as the JAX bench does:
+paired rounds of K=4 chained attention forwards at B=1, S=64k, Hq=8,
+Hkv=2, Dh=128 — the causal flash kernel K3 against the splash kernel K6
+under the plain-causal, window(S/16) and segment(avg=S/8) masks, with
+each mask's block accounting at K6's own tiles; shapes from
+``DLNB_BENCH_LC_{SEQ,HEADS,KV_HEADS,WINDOW,SEG,K}``), ``int8_step`` and ``int8_switchback_step`` (the headline step with
 ``mlp_dtype="int8"``, priced by the split-peak roofline), and
 ``recommended_step`` (the fastest of bf16, int8_master and
 int8_switchback whose loss is within 2 % of bf16's).  ``--skip-aux``
@@ -404,6 +409,159 @@ def bench_moe_ab(card, hw_key, device_name: str, device) -> dict:
     return line
 
 
+def longcontext_ab_line(summaries_s: dict, round_times_s: dict, *,
+                        metric: str, mask_info: dict) -> dict:
+    """The dense-vs-splash long-context A/B line (the JAX ``bench.py``'s
+    ``_longcontext_line``): ``value`` is the window-masked splash median
+    ms; every variant carries its ``{value, best, band, n}`` in ms, each
+    masked variant a paired per-round ratio band vs dense, and
+    ``speedup_vs_sparsity`` the measured speedup (from the paired ratio
+    median) over the mask's block-accounting expectation (1.0 = the win
+    is exactly the skipped work); ``mask_info`` carries each mask's
+    label, sparsity and tile skip stats."""
+    from dlnetbench_tpu_torch.metrics import stats
+    win = summaries_s["splash_window"]
+    dense_rounds = round_times_s["dense"]
+    line = {
+        "metric": metric,
+        "value": round(win["value"] * 1e3, 3),
+        "unit": "ms",
+        **band_ms(win),
+    }
+    for name, s in summaries_s.items():
+        line[name] = {"value": round(s["value"] * 1e3, 3), **band_ms(s)}
+    speedup_vs_sparsity = {}
+    for name, s in summaries_s.items():
+        if name == "dense":
+            continue
+        ratios = [t / d for t, d in zip(round_times_s[name], dense_rounds)
+                  if d > 0]
+        ratio_band = stats.summarize(ratios, ndigits=4)
+        line[f"ratio_{name}_vs_dense"] = ratio_band
+        info = mask_info.get(name)
+        if info and info.get("expected_speedup") and ratio_band["value"]:
+            measured = 1.0 / ratio_band["value"]
+            speedup_vs_sparsity[name] = round(
+                measured / info["expected_speedup"], 4)
+    line["speedup_vs_sparsity"] = speedup_vs_sparsity
+    line["masks"] = mask_info
+    # the window variant's win over dense with disjoint bands
+    line["band_disjoint_win"] = bool(
+        win["value"] < summaries_s["dense"]["value"]
+        and stats.bands_overlap(win["band"],
+                                summaries_s["dense"]["band"]) is False)
+    return stats.flag_low_mode(line)
+
+
+def longcontext_shape() -> dict:
+    """The ``longcontext_ab`` chains' shape knobs
+    (``DLNB_BENCH_LC_*``; the JAX bench's defaults)."""
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    s = bs.env_int("DLNB_BENCH_LC_SEQ", 64 * 1024)
+    hq = bs.env_int("DLNB_BENCH_LC_HEADS", 8)
+    return {"seq": s, "heads": hq,
+            "kv_heads": bs.env_int("DLNB_BENCH_LC_KV_HEADS",
+                                   max(1, hq // 4)),
+            "head_dim": 128,
+            "window": bs.env_int("DLNB_BENCH_LC_WINDOW", max(1, s // 16)),
+            "seg_avg": bs.env_int("DLNB_BENCH_LC_SEG", max(1, s // 8)),
+            "k": bs.env_int("DLNB_BENCH_LC_K", 4)}
+
+
+def longcontext_specs(sh: dict) -> dict:
+    """The three splash legs' masks."""
+    from dlnetbench_tpu_torch.ops.attention_mask import MaskSpec
+    return {"splash_causal": MaskSpec(causal=True),
+            "splash_window": MaskSpec(causal=True, window=sh["window"]),
+            "splash_segment": MaskSpec(causal=True, seg_avg=sh["seg_avg"],
+                                       seg_seed=0)}
+
+
+def longcontext_operands(sh: dict, device):
+    """Seeded q ``[1, S, Hq, Dh]``, k, v ``[1, S, Hkv, Dh]``: bf16 on the
+    card, f32 on the CPU (as the JAX bench runs bf16 on the TPU only)."""
+    dt = torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+    gen = torch.Generator(device=device)
+    out = []
+    for seed, h in ((20, sh["heads"]), (21, sh["kv_heads"]),
+                    (22, sh["kv_heads"])):
+        gen.manual_seed(seed)
+        out.append(torch.randn(1, sh["seq"], h, sh["head_dim"],
+                               generator=gen, device=device).to(dt))
+    return out
+
+
+def bench_longcontext_ab(card, hw_key, device_name: str, device) -> dict:
+    """Dense-vs-splash long-context A/B: B=1 attention forwards at S=64k
+    under the pairing protocol — per round every variant runs K chained
+    calls back to back, so the per-round ratios cancel drift.  The dense
+    leg is the causal flash kernel K3; the splash legs are K6 under the
+    plain-causal, window and segment masks, visiting only the tiles
+    their BlockMask leaves, so each leg's speedup should track its
+    mask's tile skip fraction; the line reports the ratio.  ``card`` is
+    unused (the shape is the line's own), as in the JAX bench."""
+    del card
+    from dlnetbench_tpu_torch.ops import attention_mask as amask
+    from dlnetbench_tpu_torch.ops import flash_attention as fa
+    from dlnetbench_tpu_torch.utils.timing import fence
+    sh = longcontext_shape()
+    s, hq, hkv, dh, k_chain = (sh["seq"], sh["heads"], sh["kv_heads"],
+                               sh["head_dim"], sh["k"])
+    q, k, v = longcontext_operands(sh, device)
+    specs = longcontext_specs(sh)
+
+    def chain_of(attn):
+        def run():
+            qc = q
+            for _ in range(k_chain):
+                # feed the output back so each call depends on the last
+                qc = (qc + attn(qc) * 1e-6).to(qc.dtype)
+            return qc
+        return run
+
+    progs = {"dense": chain_of(
+        lambda qc: fa.flash_attention(qc, k, v, True))}
+    for name, spec in specs.items():
+        progs[name] = chain_of(
+            lambda qc, _sp=spec: fa.splash_attention(qc, k, v, _sp))
+    for prog in progs.values():
+        prog()                                   # warm
+    fence(device)
+    summaries, round_times = measure_paired(progs, k_chain, device)
+
+    # tile accounting at K6's own tiles: tiles visited under each mask
+    # against the dense-causal tiles
+    bq, bk = fa.FWD_TILES
+    dense_stats = amask.block_mask(specs["splash_causal"], s, bq,
+                                   bk).stats()
+    dense_visited = dense_stats["blocks_total"] - dense_stats[
+        "blocks_skipped"]
+    mask_info = {}
+    for name, spec in specs.items():
+        st = amask.block_mask(spec, s, bq, bk).stats()
+        visited = st["blocks_total"] - st["blocks_skipped"]
+        mask_info[name] = {
+            **amask.record_globals(spec, s),
+            "block_skip_fraction": st["block_skip_fraction"],
+            "expected_speedup": round(dense_visited / max(visited, 1), 4),
+        }
+    flops = 2 * s * s * hq * dh          # the causal forward's two products
+    line = longcontext_ab_line(
+        summaries, round_times,
+        metric=f"longcontext A/B: dense causal flash K3 vs block-sparse "
+               f"splash K6 (causal / window({sh['window']}) / segment(avg="
+               f"{sh['seg_avg']}) masks; skipped tiles are neither loaded "
+               f"nor multiplied; tile accounting at K6's {bq}x{bk} tiles; "
+               f"paired interleaved rounds, forward only), B=1 S={s} "
+               f"Hq={hq} Hkv={hkv} Dh={dh}, {device_name} ({hw_key})",
+        mask_info=mask_info)
+    line["tflops_dense"] = round(flops / summaries["dense"]["value"] / 1e12,
+                                 2)
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def bench_int8_step(card, hw_key, device_name: str, device,
                     bf16_step_s: float,
                     int8_backward: str = "master") -> dict:
@@ -539,6 +697,10 @@ def main(argv=None) -> int:
                          ("fp8_fused_ab", "float8")):
             aux[key] = bench_quant_fused_ab(card, hw_key, device_name,
                                             device, fmt)
+        aux["longcontext_ab"] = bench_longcontext_ab(card, hw_key,
+                                                     device_name, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         aux["moe_ab"] = bench_moe_ab(card, hw_key, device_name, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()

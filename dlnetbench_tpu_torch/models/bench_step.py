@@ -11,7 +11,10 @@ call: loss, backward (``torch.autograd.grad``), then the update
 tree; updating in place is where the port saves a copy of the weights).
 ``build(k, device, **overrides)`` takes the JAX ``build``'s config
 overrides (``mlp_dtype``, ``quant_fusion``, ``quant_scaling``,
-``int8_backward``, ``mlp_backward``); with delayed scaling the carry is
+``int8_backward``, ``mlp_backward``, and the mask knobs
+``attention_window``, ``attention_seg_avg``, ``attention_seg_seed``,
+which route the step's attention through the splash kernels K6/K7/K8);
+with delayed scaling the carry is
 ``(params, qstate)``, the per-layer amax state riding the chain as it
 would ride a training loop.
 """

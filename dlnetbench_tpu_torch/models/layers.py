@@ -382,16 +382,26 @@ def moe_sparse(x2d, w_router, w_gate, w_up, w_down, top_k: int,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> torch.Tensor:
+              causal: bool, dense_mask=None) -> torch.Tensor:
     """The einsum reference: q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv,
     Dh]`` (GQA by reshape, KV never broadcast); scores and softmax in
-    f32, probabilities rounded to v's dtype before the AV product."""
+    f32, probabilities rounded to v's dtype before the AV product.
+
+    ``dense_mask`` (an ``[S, S]`` bool, True = attend, from
+    ``ops/attention_mask.dense_mask``) replaces the causal tril when
+    given: it already encodes the causal half.  This is the dense-masked
+    reference the splash op is held against; it pays the whole S x S
+    grid."""
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(_F32), k.to(_F32))
     scores = scores / torch.sqrt(torch.tensor(dh, dtype=_F32))
-    if causal:
+    if dense_mask is not None:
+        mask = torch.as_tensor(dense_mask, dtype=torch.bool,
+                               device=q.device)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    elif causal:
         mask = torch.ones((s, s), dtype=torch.bool,
                           device=q.device).tril()
         scores = scores.masked_fill(~mask, float("-inf"))

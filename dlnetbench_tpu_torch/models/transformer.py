@@ -2,8 +2,10 @@
 weights, and the full-sequence forward and loss the training step
 differentiates (the JAX package's ``models/transformer.py``: the dense
 path with the MLP recipes — bf16, int8 and e4m3 quantized SwiGLU, the
-split and fused-kernel SwiGLU backwards — and the MoE path, with the
-``dense``, ``sparse`` and ``grouped`` expert layers).
+split and fused-kernel SwiGLU backwards — the MoE path, with the
+``dense``, ``sparse`` and ``grouped`` expert layers, and the attention
+masks: a sliding window and seeded document segments, through the
+splash kernels).
 
 ``init_params`` builds the JAX package's parameter tree with the same
 names and shapes — ``embed [V, D]``, ``layers.{wq, wk, wv, wo, norm1,
@@ -28,6 +30,7 @@ from dlnetbench_tpu_torch import ops
 from dlnetbench_tpu_torch.core.model_card import ModelCard
 from dlnetbench_tpu_torch.models import layers as L
 from dlnetbench_tpu_torch.models.layers import init_dense
+from dlnetbench_tpu_torch.ops.attention_mask import MaskSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -50,8 +53,13 @@ class TransformerConfig:
     top_k: int = 1
     tied_embeddings: bool = False
     dtype: str = "bfloat16"
+    # attention masks (the JAX package's knobs): each token attends its
+    # attention_window most recent tokens (0 = full causal); tokens are
+    # split into documents of ~attention_seg_avg tokens by the seeded
+    # plan (attention_seg_seed) and never attend across one (0 = off)
     attention_window: int = 0
     attention_seg_avg: int = 0
+    attention_seg_seed: int = 0
     logits_f32: bool = True        # f32 logits, else the compute dtype
     # the MLP recipes (the JAX package's knobs, same values and checks):
     mlp_dtype: str = "bfloat16"    # "int8" / "float8": quantized SwiGLU
@@ -72,10 +80,11 @@ class TransformerConfig:
                 "TransformerConfig: the port covers the gated (SwiGLU + "
                 "RMSNorm + RoPE) family only; GELU / learned-position "
                 "models are not ported yet (ROADMAP.md queue 1)")
-        if self.attention_window or self.attention_seg_avg:
+        if self.attention_window < 0 or self.attention_seg_avg < 0:
             raise ValueError(
-                "TransformerConfig: attention masks (window / segments) "
-                "are not ported yet (ROADMAP.md queue 1)")
+                f"attention_window={self.attention_window} / "
+                f"attention_seg_avg={self.attention_seg_avg} must be "
+                f">= 0 (0 = off)")
         if self.dtype not in DTYPES:
             raise ValueError(f"TransformerConfig: dtype {self.dtype!r} "
                              f"(one of {tuple(DTYPES)})")
@@ -171,6 +180,14 @@ class TransformerConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+    @property
+    def mask_spec(self):
+        """The attention ``MaskSpec`` these knobs declare, or None for
+        the dense-causal default (ops.attention's mask=None path)."""
+        return MaskSpec.from_knobs(self.attention_window,
+                                   self.attention_seg_avg,
+                                   self.attention_seg_seed)
 
 
 def needs_qstate(cfg: TransformerConfig) -> bool:
@@ -305,7 +322,8 @@ def _block(cfg: TransformerConfig, x, lp: dict, tables, qs_row=None):
     k = (y @ lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = (y @ lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q, k = L.apply_rope(q, tables), L.apply_rope(k, tables)
-    att = ops.attention(q, k, v.contiguous(), causal=True).reshape(b, s, d)
+    att = ops.attention(q, k, v.contiguous(), causal=True,
+                        mask=cfg.mask_spec).reshape(b, s, d)
     x = x + att @ lp["wo"]
     y2, new_qs_row = _mlp(cfg, L.rmsnorm(x, lp["norm2"]), lp, qs_row)
     return x + y2, new_qs_row

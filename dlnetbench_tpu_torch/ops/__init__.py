@@ -3,7 +3,10 @@
 * ``paged_attention``       — K1, decode attention over bf16/f32 pages;
 * ``paged_attention_quant`` — K2, decode attention over int8/e4m3 pages;
 * ``flash_attention``       — K3/K4/K5, flash attention forward, dq and
-  dk/dv (the training path);
+  dk/dv (the training path), and K6/K7/K8, the same under a block-sparse
+  mask (``splash_attention``);
+* ``attention_mask``        — mask specs, row intervals and the
+  BlockMasks the splash kernels read;
 * ``quantized_matmul``      — K11, the fused-quantization matmul, and
   the shared quantization recipes (with ``int8``, ``fp8`` and
   ``mlp_backward``, K9/K10, the MLP recipes);
@@ -13,27 +16,33 @@
 * ``_build``                — builds ``csrc/*.cu`` with nvcc at first use.
 
 ``attention`` is the dispatcher the model calls (the JAX package's
-``ops.attention`` without masks).  Importing this package builds nothing
+``ops.attention``).  Importing this package builds nothing
 and needs no card: a kernel is compiled the first time a wrapper is
 called on a CUDA tensor.
 """
 from __future__ import annotations
 
 from dlnetbench_tpu_torch.models import layers as _L
+from dlnetbench_tpu_torch.ops import attention_mask as _M
 from dlnetbench_tpu_torch.ops import flash_attention as _FA
 from dlnetbench_tpu_torch.ops.common import on_card
 
 __all__ = ["attention"]
 
 
-def attention(q, k, v, causal: bool, impl: str = "auto"):
+def attention(q, k, v, causal: bool, impl: str = "auto", mask=None):
     """q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` -> ``[B, S, Hq, Dh]``.
 
     ``impl``: "auto" — the flash op (kernels K3/K4/K5 on a CUDA tensor,
-    their plain versions on a CPU tensor); "xla" — the
-    einsum reference ``layers.attention`` on a CPU tensor (the name is
-    the JAX package's; here it is for tests only, and a CUDA tensor is
-    refused, so nothing routes the card around the kernels).
+    their plain versions on a CPU tensor), or with ``mask`` the splash op
+    (K6/K7/K8, or their plain versions); "xla" — the einsum reference
+    ``layers.attention`` on a CPU tensor, with ``mask`` applied densely
+    (the name is the JAX package's; here it is for tests only, and a
+    CUDA tensor is refused, so nothing routes the card around the
+    kernels).
+
+    ``mask`` (a ``MaskSpec``, ops/attention_mask.py) must agree with
+    ``causal``; the plain-causal spec is the ``mask=None`` path itself.
 
     The JAX package's "auto" picks flash only on a TPU at S >= 2048, a
     threshold measured on the TPU; the port's "auto" takes the kernels
@@ -42,17 +51,27 @@ def attention(q, k, v, causal: bool, impl: str = "auto"):
     reference, as the JAX package does off the TPU, except at S >= 64k,
     where it refuses (the S^2 score matrix would materialize).
     """
+    s = q.shape[1]
+    if mask is not None:
+        if mask.causal != causal:
+            raise ValueError(
+                f"attention: mask spec {mask.label()!r} has "
+                f"causal={mask.causal} but the call says causal={causal}")
+        if mask.is_plain_causal:
+            mask = None   # the dense-causal default IS this mask
     if impl == "xla":
         if on_card(q):
             raise ValueError("attention: impl='xla' is the CPU reference; "
                              "a CUDA tensor runs the flash kernels "
                              "(impl='auto')")
-        return _L.attention(q, k, v, causal=causal)
+        return _L.attention(q, k, v, causal=causal,
+                            dense_mask=_dense(mask, s))
     if impl != "auto":
         raise ValueError(f"unknown attention impl {impl!r}")
     if _FA.flash_supported(q, k, v):
+        if mask is not None:
+            return _FA.splash_attention(q, k, v, mask)
         return _FA.flash_attention(q, k, v, causal)
-    s = q.shape[1]
     if s >= _FA.LONG_SEQ:
         raise ValueError(
             f"attention: impl='auto' refuses the dense fallback at "
@@ -64,4 +83,10 @@ def attention(q, k, v, causal: bool, impl: str = "auto"):
             f"attention: the flash kernels cannot take q {tuple(q.shape)}"
             f" / k {tuple(k.shape)} (seq_len a multiple of 128, head_dim "
             f"64 or 128) and a CUDA tensor has no other path")
-    return _L.attention(q, k, v, causal=causal)
+    return _L.attention(q, k, v, causal=causal, dense_mask=_dense(mask, s))
+
+
+def _dense(mask, s: int):
+    """The [S, S] bool of a spec for the dense reference (None without
+    one): built only where the reference runs."""
+    return None if mask is None else _M.dense_mask(mask, s)

@@ -1,13 +1,18 @@
-// Flash attention (forward, dq, dk/dv) for Hopper (sm_90a).
+// Flash and splash attention (forward, dq, dk/dv) for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of the JAX package
+// Replaces six TPU kernels of the JAX package
 // (dlnetbench_tpu/ops/flash_attention.py):
 //   K3  _fwd_kernel (:126, pallas_call :207) — causal/full attention
 //       forward, base-2 online softmax, f32 accumulator; emits O and the
 //       natural-log logsumexp;
 //   K4  _dq_kernel (:242, pallas_call :468) — dq from p = exp(s - lse)
 //       recomputed and D = rowsum(dO * O);
-//   K5  _dkv_kernel (:279, pallas_call :500) — dk, dv.
+//   K5  _dkv_kernel (:279, pallas_call :500) — dk, dv;
+//   K6  _splash_fwd_kernel (:648, pallas_call :746), K7
+//       _splash_dq_kernel (:761, :904), K8 _splash_dkv_kernel (:802,
+//       :955) — the same three under a BlockMask (ops/attention_mask.py):
+//       the loops of K3/K4/K5 (one template each, mode kSplash) driven
+//       by the mask's visit ranges.
 //
 // Layout (the JAX package's public one, no transpose): q [B, S, Hq, Dh],
 // k/v [B, S, Hkv, Dh], row stride H * Dh elements; lse and D are plain
@@ -47,6 +52,24 @@
 // Not yet: wgmma, TMA, warp specialisation, a persistent grid.  The
 // times stand in PERF.md.
 //
+// Splash (mode kSplash).  The wrapper hands each kernel the BlockMask
+// built at THAT kernel's tiles (forward and dq: 64 q rows x 64 keys;
+// dk/dv: 64 q rows x 128 keys), packed as one int32 array on the card
+// (MaskView below).  Per q tile (K6, K7) or per 128-key tile (K8) the
+// kernel walks only the tiles of its visit range [first, last]: a
+// skipped tile is neither loaded by cp.async nor multiplied, so the work
+// is what the mask leaves (a window of W keys costs ~W/S of the dense
+// grid).  A tile is FULL when blk_lo_max[i] <= j*bk and blk_hi_min[i] >=
+// (j+1)*bk - 1 and then skips the mask; a PARTIAL tile masks each
+// element against its row's [lo[q], hi[q]] (forward and dq: the lane's
+// two row bounds read once per q tile into registers; dk/dv: the q
+// tile's bounds staged in shared memory beside lse and D).  Numerics are
+// K3-K5's (same rounding points, the finite -1e30 mask; a row whose
+// first visited tile holds none of its keys gets p = 1 there and the
+// next tile's alpha = 0 wipes it), so under the plain-causal mask K6/K7/
+// K8 visit, mask and add exactly what K3/K4/K5 do: bitwise equal.  No
+// causality is assumed: a non-causal segment mask has hi[q] > q.
+//
 // float32 operands take simple CUDA-core kernels (one thread per query
 // or key row, same formulas): that path serves the small f32 reference
 // models that hold the card against the CPU, not the bf16 training path.
@@ -70,6 +93,9 @@ constexpr float kNegInf = -1e30f;   // finite mask: no NaN from -inf - -inf
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum Dtype { kF32 = 0, kBF16 = 1 };
+
+// which keys a query sees: all, the causal triangle, or a BlockMask
+enum Mode { kDense = 0, kCausal = 1, kSplash = 2 };
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -148,10 +174,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// n floats (a multiple of 4) -> shared
-template <int N, int NT>
-__device__ __forceinline__ void load_row(float* dst, const float* src,
-                                         int tid) {
+// n 4-byte values (a multiple of 4) -> shared
+template <int N, int NT, typename T>
+__device__ __forceinline__ void load_row(T* dst, const T* src, int tid) {
+  static_assert(sizeof(T) == 4, "4-byte rows");
   for (int c = tid; c < N / 4; c += NT) cp_async16(dst + 4 * c, src + 4 * c);
 }
 
@@ -232,6 +258,23 @@ __device__ __forceinline__ void causal_mask(float (&s)[N / 8][4], int row0,
     }
 }
 
+// mask s[row][col] = -1e30 where col lies outside the lane's row
+// interval [lo[r], hi[r]] (r: the row half; col0 the global position of
+// column 0)
+template <int N>
+__device__ __forceinline__ void interval_mask(float (&s)[N / 8][4],
+                                              const int (&lo)[2],
+                                              const int (&hi)[2], int col0,
+                                              int lane) {
+#pragma unroll
+  for (int t = 0; t < N / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + 8 * t + 2 * (lane % 4) + (e % 2);
+      if (col < lo[e / 2] || col > hi[e / 2]) s[t][e] = kNegInf;
+    }
+}
+
 // write a warp's 16 x DH accumulator, times mul[row half], as bf16 rows
 template <int DH>
 __device__ __forceinline__ void store_rows(bf16* dst, int ld,
@@ -252,18 +295,46 @@ __device__ __forceinline__ void store_rows(bf16* dst, int ld,
 // ------------------------------------------------------------ K3 forward
 
 constexpr int kFwdWarps = 4, kBQ = 64, kBK = 64;
+constexpr int kDkvWarps = 8, kBKd = kDkvWarps * 16;   // 128 keys a block
+
+// A BlockMask's int32 arrays as the wrapper packs them (ops/
+// flash_attention.py, SplashArrays): [first n | last n | blk_lo_max nq |
+// blk_hi_min nq | lo S | hi S], with nq = S / kBQ q tiles and n the
+// visit-range count (nq for the forward and dq, S / kBKd for dk/dv);
+// each of the four short arrays padded to a multiple of 4 entries, so
+// lo and hi (read by 16-byte cp.async in dk/dv) start 16-byte aligned
+struct MaskView {
+  const int* first;
+  const int* last;
+  const int* lo_max;
+  const int* hi_min;
+  const int* lo;
+  const int* hi;
+};
+
+__device__ __forceinline__ MaskView mask_view(const int* m, int n, int S) {
+  const int n4 = (n + 3) & ~3, nq4 = (S / kBQ + 3) & ~3;
+  return {m, m + n4, m + 2 * n4, m + 2 * n4 + nq4, m + 2 * n4 + 2 * nq4,
+          m + 2 * n4 + 2 * nq4 + S};
+}
+
+// is kv tile [c0, c0 + width) FULL for q tile qt (no element masked)?
+__device__ __forceinline__ bool full_tile(const MaskView& mv, int qt,
+                                          int c0, int width) {
+  return mv.lo_max[qt] <= c0 && mv.hi_min[qt] >= c0 + width - 1;
+}
 
 template <int DH>
 __host__ __device__ constexpr size_t fwd_smem() {
   return static_cast<size_t>(kBQ + 4 * kBK) * Tile<DH>::P * sizeof(bf16);
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(kFwdWarps * 32)
     fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, int S, int Hq, int Hkv,
-             float q_mul) {
+             float* __restrict__ lse, const int* __restrict__ mask, int S,
+             int Hq, int Hkv, float q_mul) {
   constexpr int NT = kFwdWarps * 32, P = Tile<DH>::P;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -279,11 +350,24 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
   const bf16* qg = q + (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
   const bf16* kg = k + static_cast<size_t>(b) * S * ldk + hk * DH;
   const bf16* vg = v + static_cast<size_t>(b) * S * ldk + hk * DH;
-  const int nkv = CAUSAL ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
+  // visit range [j0, j1) of kv tiles; splash: the lane's row bounds
+  int j0 = 0, j1 = MODE == kCausal ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
+  MaskView mv{};
+  int rlo[2] = {0, 0}, rhi[2] = {0, 0};
+  if (MODE == kSplash) {
+    mv = mask_view(mask, S / kBQ, S);
+    j0 = mv.first[qt];
+    j1 = mv.last[qt] + 1;
+    const int r = q0 + warp * 16 + lane / 4;
+    rlo[0] = mv.lo[r], rhi[0] = mv.hi[r];
+    rlo[1] = mv.lo[r + 8], rhi[1] = mv.hi[r + 8];
+  }
 
   load_tile<kBQ, DH, NT>(sQ, qg, ldq, tid);
-  load_tile<kBK, DH, NT>(sK, kg, ldk, tid);
-  load_tile<kBK, DH, NT>(sV, vg, ldk, tid);
+  load_tile<kBK, DH, NT>(sK, kg + static_cast<size_t>(j0) * kBK * ldk, ldk,
+                         tid);
+  load_tile<kBK, DH, NT>(sV, vg + static_cast<size_t>(j0) * kBK * ldk, ldk,
+                         tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -293,9 +377,9 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
   float acc[DH / 8][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const bf16* sQw = sQ + warp * 16 * P;
-  for (int j = 0; j < nkv; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nkv) {
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    if (j + 1 < j1) {
       const size_t off = static_cast<size_t>(j + 1) * kBK * ldk;
       load_tile<kBK, DH, NT>(sK + (st ^ 1) * kBK * P, kg + off, ldk, tid);
       load_tile<kBK, DH, NT>(sV + (st ^ 1) * kBK * P, vg + off, ldk, tid);
@@ -308,8 +392,10 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
 
     float s[kBK / 8][4] = {};
     mma_abt<kBK, DH>(s, sQw, sK + st * kBK * P, lane);
-    if (CAUSAL && j * kBK + kBK - 1 > q0)
+    if (MODE == kCausal && j * kBK + kBK - 1 > q0)
       causal_mask<kBK>(s, q0 + warp * 16, j * kBK, lane);
+    if (MODE == kSplash && !full_tile(mv, qt, j * kBK, kBK))
+      interval_mask<kBK>(s, rlo, rhi, j * kBK, lane);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
@@ -367,13 +453,14 @@ __host__ __device__ constexpr size_t dq_smem() {
          2 * kBQ * sizeof(float);
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(kDqWarps * 32)
     dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ o,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
-            float* __restrict__ dcap, bf16* __restrict__ dq, int S, int Hq,
-            int Hkv, float scale) {
+            float* __restrict__ dcap, bf16* __restrict__ dq,
+            const int* __restrict__ mask, int S, int Hq, int Hkv,
+            float scale) {
   constexpr int NT = kDqWarps * 32, P = Tile<DH>::P;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -394,13 +481,26 @@ __global__ void __launch_bounds__(kDqWarps * 32)
   const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
   const bf16* kg = k + static_cast<size_t>(b) * S * ldk + hk * DH;
   const bf16* vg = v + static_cast<size_t>(b) * S * ldk + hk * DH;
-  const int nkv = CAUSAL ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
+  // visit range [j0, j1) of kv tiles; splash: the lane's row bounds
+  int j0 = 0, j1 = MODE == kCausal ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
+  MaskView mv{};
+  int rlo[2] = {0, 0}, rhi[2] = {0, 0};
+  if (MODE == kSplash) {
+    mv = mask_view(mask, S / kBQ, S);
+    j0 = mv.first[qt];
+    j1 = mv.last[qt] + 1;
+    const int r = q0 + warp * 16 + lane / 4;
+    rlo[0] = mv.lo[r], rhi[0] = mv.hi[r];
+    rlo[1] = mv.lo[r + 8], rhi[1] = mv.hi[r + 8];
+  }
 
   load_tile<kBQ, DH, NT>(sQ, q + qoff, ldq, tid);
   load_tile<kBQ, DH, NT>(sO, dout + qoff, ldq, tid);
   load_row<kBQ, NT>(sL, lse + roff, tid);
-  load_tile<kBK, DH, NT>(sK, kg, ldk, tid);
-  load_tile<kBK, DH, NT>(sV, vg, ldk, tid);
+  load_tile<kBK, DH, NT>(sK, kg + static_cast<size_t>(j0) * kBK * ldk, ldk,
+                         tid);
+  load_tile<kBK, DH, NT>(sV, vg + static_cast<size_t>(j0) * kBK * ldk, ldk,
+                         tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -435,9 +535,9 @@ __global__ void __launch_bounds__(kDqWarps * 32)
   float acc[DH / 8][4] = {};
   const bf16* sQw = sQ + warp * 16 * P;
   const bf16* sOw = sO + warp * 16 * P;
-  for (int j = 0; j < nkv; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nkv) {
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    if (j + 1 < j1) {
       const size_t off = static_cast<size_t>(j + 1) * kBK * ldk;
       load_tile<kBK, DH, NT>(sK + (st ^ 1) * kBK * P, kg + off, ldk, tid);
       load_tile<kBK, DH, NT>(sV + (st ^ 1) * kBK * P, vg + off, ldk, tid);
@@ -450,8 +550,10 @@ __global__ void __launch_bounds__(kDqWarps * 32)
     const bf16* kt = sK + st * kBK * P;
     float s[kBK / 8][4] = {};
     mma_abt<kBK, DH>(s, sQw, kt, lane);
-    if (CAUSAL && j * kBK + kBK - 1 > q0)
+    if (MODE == kCausal && j * kBK + kBK - 1 > q0)
       causal_mask<kBK>(s, q0 + warp * 16, j * kBK, lane);
+    if (MODE == kSplash && !full_tile(mv, qt, j * kBK, kBK))
+      interval_mask<kBK>(s, rlo, rhi, j * kBK, lane);
     float dp[kBK / 8][4] = {};
     mma_abt<kBK, DH>(dp, sOw, sV + st * kBK * P, lane);   // dO V^T
 #pragma unroll
@@ -471,27 +573,28 @@ __global__ void __launch_bounds__(kDqWarps * 32)
 
 // ------------------------------------------------------------- K5 dk/dv
 
-constexpr int kDkvWarps = 8, kBKd = kDkvWarps * 16;   // 128 keys a block
-
-template <int DH>
+// a stage: q and dO tiles, lse and D rows, and (splash) the q tile's
+// row bounds lo and hi
+template <int DH, int MODE>
 __host__ __device__ constexpr size_t dkv_stage_bytes() {
   return static_cast<size_t>(2 * kBQ) * Tile<DH>::P * sizeof(bf16) +
-         2 * kBQ * sizeof(float);
+         (MODE == kSplash ? 4 : 2) * kBQ * sizeof(float);
 }
 
-template <int DH>
+template <int DH, int MODE>
 __host__ __device__ constexpr size_t dkv_smem() {
   return static_cast<size_t>(2 * kBKd + kBQ) * Tile<DH>::P * sizeof(bf16) +
-         2 * dkv_stage_bytes<DH>();
+         2 * dkv_stage_bytes<DH, MODE>();
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(kDkvWarps * 32, 1)
     dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ dcap,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq,
-             int Hkv, float scale) {
+             bf16* __restrict__ dk, bf16* __restrict__ dv,
+             const int* __restrict__ mask, int S, int Hq, int Hkv,
+             float scale) {
   constexpr int NT = kDkvWarps * 32, P = Tile<DH>::P;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -505,12 +608,20 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
   const int ldq = Hq * DH, ldk = Hkv * DH;
   const size_t koff = (static_cast<size_t>(b) * S + k0) * ldk + hk * DH;
   const int nq = S / kBQ;
-  const int first = CAUSAL ? k0 / kBQ : 0;
-  const int per_head = nq - first;
+  // visit range [first, last] of q tiles
+  int first = MODE == kCausal ? k0 / kBQ : 0, last = nq - 1;
+  MaskView mv{};
+  if (MODE == kSplash) {
+    mv = mask_view(mask, S / kBKd, S);
+    first = mv.first[blockIdx.y];
+    last = mv.last[blockIdx.y];
+  }
+  const int per_head = last + 1 - first;
   const int iters = G * per_head;
 
   auto stage_q = [&](int st) {
-    return reinterpret_cast<bf16*>(stages + st * dkv_stage_bytes<DH>());
+    return reinterpret_cast<bf16*>(stages +
+                                   st * dkv_stage_bytes<DH, MODE>());
   };
   auto issue = [&](int it, int st) {
     const int h = hk * G + it / per_head, q0 = (first + it % per_head) * kBQ;
@@ -523,6 +634,11 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
     load_tile<kBQ, DH, NT>(so, dout + qoff, ldq, tid);
     load_row<kBQ, NT>(sl, lse + roff, tid);
     load_row<kBQ, NT>(sl + kBQ, dcap + roff, tid);
+    if (MODE == kSplash) {
+      int* sb = reinterpret_cast<int*>(sl + 2 * kBQ);
+      load_row<kBQ, NT>(sb, mv.lo + q0, tid);
+      load_row<kBQ, NT>(sb + kBQ, mv.hi + q0, tid);
+    }
     cp_async_commit();
   };
 
@@ -550,11 +666,11 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
     const float* sd = sl + kBQ;
     scale_tile<kBQ, DH, NT>(sQs, sq, scale, tid);
     __syncthreads();
-    const int q0 = (first + it % per_head) * kBQ;
+    const int qt = first + it % per_head, q0 = qt * kBQ;
 
     float s[kBQ / 8][4] = {};                // s^T: keys x queries
     mma_abt<kBQ, DH>(s, sKw, sQs, lane);
-    if (CAUSAL && q0 < key0 + 15)
+    if (MODE == kCausal && q0 < key0 + 15)
 #pragma unroll
       for (int t = 0; t < kBQ / 8; ++t)
 #pragma unroll
@@ -563,6 +679,18 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
           const int qry = q0 + 8 * t + 2 * (lane % 4) + (e % 2);
           if (key > qry) s[t][e] = kNegInf;
         }
+    if (MODE == kSplash && !full_tile(mv, qt, k0, kBKd)) {
+      // the q tile's row bounds, staged with it
+      const int* sb = reinterpret_cast<const int*>(sd + kBQ);
+#pragma unroll
+      for (int t = 0; t < kBQ / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + lane / 4 + 8 * (e / 2);
+          const int c = 8 * t + 2 * (lane % 4) + (e % 2);
+          if (key < sb[c] || key > sb[kBQ + c]) s[t][e] = kNegInf;
+        }
+    }
 #pragma unroll
     for (int t = 0; t < kBQ / 8; ++t)
 #pragma unroll
@@ -587,15 +715,33 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
 }
 
 // -------------------------------------------- float32 (CUDA-core) kernels
+//
+// One thread per query (forward, dq) or key (dk/dv) row.  Each walks the
+// keys (queries) its row can see: all, the causal triangle, or under a
+// BlockMask the row's interval clipped to its tile's visit range.
 
 constexpr int kRowThreads = 128;
+
+// the keys [jb, je) query `row` visits
+__device__ __forceinline__ void key_range(int row, int S, int mode,
+                                          const int* mask, int& jb,
+                                          int& je) {
+  jb = 0;
+  je = mode == kCausal ? row + 1 : S;
+  if (mode == kSplash) {
+    const MaskView mv = mask_view(mask, S / kBQ, S);
+    const int qt = row / kBQ;
+    jb = max(mv.lo[row], mv.first[qt] * kBK);
+    je = min(mv.hi[row], mv.last[qt] * kBK + kBK - 1) + 1;
+  }
+}
 
 template <int DH>
 __global__ void __launch_bounds__(kRowThreads)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ lse, int S, int Hq, int Hkv, float q_mul,
-            int causal) {
+            float* __restrict__ lse, const int* __restrict__ mask, int S,
+            int Hq, int Hkv, float q_mul, int mode) {
   const int row = blockIdx.x * kRowThreads + threadIdx.x;
   if (row >= S) return;
   const int h = blockIdx.y % Hq, b = blockIdx.y / Hq;
@@ -609,8 +755,9 @@ __global__ void __launch_bounds__(kRowThreads)
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
-  const int end = causal ? row + 1 : S;
-  for (int j = 0; j < end; ++j) {
+  int jb, je;
+  key_range(row, S, mode, mask, jb, je);
+  for (int j = jb; j < je; ++j) {
     const float* kr = kb + static_cast<size_t>(j) * Hkv * DH;
     const float* vr = vb + static_cast<size_t>(j) * Hkv * DH;
     float s = 0.f;
@@ -630,8 +777,9 @@ __global__ void __launch_bounds__(kRowThreads)
     dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ o,
            const float* __restrict__ dout, const float* __restrict__ lse,
-           float* __restrict__ dcap, float* __restrict__ dq, int S, int Hq,
-           int Hkv, float scale, int causal) {
+           float* __restrict__ dcap, float* __restrict__ dq,
+           const int* __restrict__ mask, int S, int Hq, int Hkv,
+           float scale, int mode) {
   const int row = blockIdx.x * kRowThreads + threadIdx.x;
   if (row >= S) return;
   const int h = blockIdx.y % Hq, b = blockIdx.y / Hq;
@@ -650,8 +798,9 @@ __global__ void __launch_bounds__(kRowThreads)
   }
   dcap[roff] = dsum;
   const float l = lse[roff];
-  const int end = causal ? row + 1 : S;
-  for (int j = 0; j < end; ++j) {
+  int jb, je;
+  key_range(row, S, mode, mask, jb, je);
+  for (int j = jb; j < je; ++j) {
     const float* kr = kb + static_cast<size_t>(j) * Hkv * DH;
     const float* vr = vb + static_cast<size_t>(j) * Hkv * DH;
     float s = 0.f, dp = 0.f;
@@ -670,13 +819,23 @@ __global__ void __launch_bounds__(kRowThreads)
     dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dcap,
-            float* __restrict__ dk, float* __restrict__ dv, int S, int Hq,
-            int Hkv, float scale, int causal) {
+            float* __restrict__ dk, float* __restrict__ dv,
+            const int* __restrict__ mask, int S, int Hq, int Hkv,
+            float scale, int mode) {
   const int key = blockIdx.x * kRowThreads + threadIdx.x;
   if (key >= S) return;
   const int hk = blockIdx.y % Hkv, b = blockIdx.y / Hkv;
   const int G = Hq / Hkv;
   const size_t koff = (static_cast<size_t>(b) * S + key) * Hkv * DH + hk * DH;
+  // the queries [ib, ie) that may see this key; splash: the key tile's
+  // visit range, each query then held to its own interval
+  int ib = mode == kCausal ? key : 0, ie = S;
+  MaskView mv{};
+  if (mode == kSplash) {
+    mv = mask_view(mask, S / kBKd, S);
+    ib = mv.first[key / kBKd] * kBQ;
+    ie = (mv.last[key / kBKd] + 1) * kBQ;
+  }
   float kv[DH], vv[DH], dka[DH], dva[DH];
   for (int d = 0; d < DH; ++d) {
     kv[d] = k[koff + d];
@@ -688,7 +847,8 @@ __global__ void __launch_bounds__(kRowThreads)
     const int h = hk * G + gi;
     const float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * S;
     const float* drow = dcap + (static_cast<size_t>(b) * Hq + h) * S;
-    for (int i = causal ? key : 0; i < S; ++i) {
+    for (int i = ib; i < ie; ++i) {
+      if (mode == kSplash && (key < mv.lo[i] || key > mv.hi[i])) continue;
       const size_t qoff = (static_cast<size_t>(b) * S + i) * Hq * DH + h * DH;
       float s = 0.f, dp = 0.f;
       for (int d = 0; d < DH; ++d) {
@@ -718,54 +878,55 @@ cudaError_t with_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 cudaError_t fwd_bf16_launch(const void* q, const void* k, const void* v,
-                            void* o, float* lse, int B, int S, int Hq,
-                            int Hkv, float q_mul, cudaStream_t stream) {
-  auto kernel = fwd_bf16<DH, CAUSAL>;
+                            void* o, float* lse, const int* mask, int B,
+                            int S, int Hq, int Hkv, float q_mul,
+                            cudaStream_t stream) {
+  auto kernel = fwd_bf16<DH, MODE>;
   const size_t smem = fwd_smem<DH>();
   cudaError_t err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B * Hq, S / kBQ), kFwdWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, Hq, Hkv,
-      q_mul);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, mask, S, Hq,
+      Hkv, q_mul);
   return cudaGetLastError();
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 cudaError_t dq_bf16_launch(const void* q, const void* k, const void* v,
                            const void* o, const void* dout,
-                           const float* lse, float* dcap, void* dq, int B,
-                           int S, int Hq, int Hkv, float scale,
-                           cudaStream_t stream) {
-  auto kernel = dq_bf16<DH, CAUSAL>;
+                           const float* lse, float* dcap, void* dq,
+                           const int* mask, int B, int S, int Hq, int Hkv,
+                           float scale, cudaStream_t stream) {
+  auto kernel = dq_bf16<DH, MODE>;
   const size_t smem = dq_smem<DH>();
   cudaError_t err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B * Hq, S / kBQ), kDqWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, dcap, static_cast<bf16*>(dq), S,
-      Hq, Hkv, scale);
+      static_cast<const bf16*>(dout), lse, dcap, static_cast<bf16*>(dq),
+      mask, S, Hq, Hkv, scale);
   return cudaGetLastError();
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, int MODE>
 cudaError_t dkv_bf16_launch(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* dcap, void* dk, void* dv, int B,
-                            int S, int Hq, int Hkv, float scale,
-                            cudaStream_t stream) {
-  auto kernel = dkv_bf16<DH, CAUSAL>;
-  const size_t smem = dkv_smem<DH>();
+                            const float* dcap, void* dk, void* dv,
+                            const int* mask, int B, int S, int Hq, int Hkv,
+                            float scale, cudaStream_t stream) {
+  auto kernel = dkv_bf16<DH, MODE>;
+  const size_t smem = dkv_smem<DH, MODE>();
   cudaError_t err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B * Hkv, S / kBKd), kDkvWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      dcap, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv,
-      scale);
+      dcap, static_cast<bf16*>(dk), static_cast<bf16*>(dv), mask, S, Hq,
+      Hkv, scale);
   return cudaGetLastError();
 }
 
@@ -773,66 +934,63 @@ dim3 row_grid(int S, int BH) {
   return dim3((S + kRowThreads - 1) / kRowThreads, BH);
 }
 
-// Dh and causality are template parameters; these pick the instance
-#define DLNB_DISPATCH(DH_VAL, CAUSAL_VAL, CALL)                          \
+// Dh is a template parameter; this picks the instance
+#define DLNB_DISPATCH_DH(DH_VAL, CALL)                                  \
   do {                                                                  \
-    if ((DH_VAL) == 64) {                                               \
-      if (CAUSAL_VAL) { constexpr int DH = 64; constexpr bool C = true;  \
-                        return CALL; }                                  \
-      { constexpr int DH = 64; constexpr bool C = false; return CALL; } \
-    }                                                                   \
-    if ((DH_VAL) == 128) {                                              \
-      if (CAUSAL_VAL) { constexpr int DH = 128; constexpr bool C = true; \
-                        return CALL; }                                  \
-      { constexpr int DH = 128; constexpr bool C = false;               \
-        return CALL; }                                                  \
-    }                                                                   \
+    if ((DH_VAL) == 64) { constexpr int DH = 64; return CALL; }         \
+    if ((DH_VAL) == 128) { constexpr int DH = 128; return CALL; }       \
     return cudaErrorInvalidValue;                                       \
   } while (0)
 
-}  // namespace
+// the mode as a template parameter: dense, causal or splash
+#define DLNB_DISPATCH(DH_VAL, MODE_VAL, CALL)                           \
+  do {                                                                  \
+    if ((MODE_VAL) == kSplash) {                                        \
+      constexpr int M = kSplash; DLNB_DISPATCH_DH(DH_VAL, CALL);        \
+    }                                                                   \
+    if ((MODE_VAL) == kCausal) {                                        \
+      constexpr int M = kCausal; DLNB_DISPATCH_DH(DH_VAL, CALL);        \
+    }                                                                   \
+    constexpr int M = kDense; DLNB_DISPATCH_DH(DH_VAL, CALL);           \
+  } while (0)
 
-extern "C" {
-
-// O [B,S,Hq,Dh] and lse [B,Hq,S] f32 of attention over q/k/v
-int dlnb_flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                   void* o, float* lse, int B, int S, int Hq, int Hkv,
-                   int Dh, int causal, float scale, void* stream) {
+cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
+                void* o, float* lse, const int* mask, int mode, int B,
+                int S, int Hq, int Hkv, int Dh, float scale,
+                cudaStream_t st) {
   if (S % kBKd || Hq % Hkv) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
   const float q_mul = scale * kLog2e;
   if (dtype == kBF16) {
-    DLNB_DISPATCH(Dh, causal,
-                  (fwd_bf16_launch<DH, C>(q, k, v, o, lse, B, S, Hq, Hkv,
-                                          q_mul, st)));
+    DLNB_DISPATCH(Dh, mode,
+                  (fwd_bf16_launch<DH, M>(q, k, v, o, lse, mask, B, S, Hq,
+                                          Hkv, q_mul, st)));
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
   if (Dh == 64)
     fwd_f32<64><<<row_grid(S, B * Hq), kRowThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq,
-        Hkv, q_mul, causal);
+        qf, kf, vf, of, lse, mask, S, Hq, Hkv, q_mul, mode);
   else if (Dh == 128)
     fwd_f32<128><<<row_grid(S, B * Hq), kRowThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq,
-        Hkv, q_mul, causal);
+        qf, kf, vf, of, lse, mask, S, Hq, Hkv, q_mul, mode);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// dq [B,S,Hq,Dh]; also writes D = rowsum(dO * O) into dcap [B,Hq,S] f32
-int dlnb_flash_dq(int dtype, const void* q, const void* k, const void* v,
-                  const void* o, const void* dout, const float* lse,
-                  float* dcap, void* dq, int B, int S, int Hq, int Hkv,
-                  int Dh, int causal, float scale, void* stream) {
+cudaError_t dq(int dtype, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, const float* lse,
+               float* dcap, void* dq, const int* mask, int mode, int B,
+               int S, int Hq, int Hkv, int Dh, float scale,
+               cudaStream_t st) {
   if (S % kBKd || Hq % Hkv) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    DLNB_DISPATCH(Dh, causal,
-                  (dq_bf16_launch<DH, C>(q, k, v, o, dout, lse, dcap, dq, B,
-                                         S, Hq, Hkv, scale, st)));
+    DLNB_DISPATCH(Dh, mode,
+                  (dq_bf16_launch<DH, M>(q, k, v, o, dout, lse, dcap, dq,
+                                         mask, B, S, Hq, Hkv, scale, st)));
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
@@ -843,27 +1001,25 @@ int dlnb_flash_dq(int dtype, const void* q, const void* k, const void* v,
   auto* dqf = static_cast<float*>(dq);
   if (Dh == 64)
     dq_f32<64><<<row_grid(S, B * Hq), kRowThreads, 0, st>>>(
-        qf, kf, vf, of, gf, lse, dcap, dqf, S, Hq, Hkv, scale, causal);
+        qf, kf, vf, of, gf, lse, dcap, dqf, mask, S, Hq, Hkv, scale, mode);
   else if (Dh == 128)
     dq_f32<128><<<row_grid(S, B * Hq), kRowThreads, 0, st>>>(
-        qf, kf, vf, of, gf, lse, dcap, dqf, S, Hq, Hkv, scale, causal);
+        qf, kf, vf, of, gf, lse, dcap, dqf, mask, S, Hq, Hkv, scale, mode);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// dk, dv [B,S,Hkv,Dh], summed over each KV head's q-head group; reads
-// the D that dlnb_flash_dq wrote
-int dlnb_flash_dkv(int dtype, const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* dcap,
-                   void* dk, void* dv, int B, int S, int Hq, int Hkv,
-                   int Dh, int causal, float scale, void* stream) {
+cudaError_t dkv(int dtype, const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* dcap,
+                void* dk, void* dv, const int* mask, int mode, int B,
+                int S, int Hq, int Hkv, int Dh, float scale,
+                cudaStream_t st) {
   if (S % kBKd || Hq % Hkv) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    DLNB_DISPATCH(Dh, causal,
-                  (dkv_bf16_launch<DH, C>(q, k, v, dout, lse, dcap, dk, dv,
-                                          B, S, Hq, Hkv, scale, st)));
+    DLNB_DISPATCH(Dh, mode,
+                  (dkv_bf16_launch<DH, M>(q, k, v, dout, lse, dcap, dk, dv,
+                                          mask, B, S, Hq, Hkv, scale, st)));
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
@@ -874,13 +1030,73 @@ int dlnb_flash_dkv(int dtype, const void* q, const void* k, const void* v,
   auto* dvf = static_cast<float*>(dv);
   if (Dh == 64)
     dkv_f32<64><<<row_grid(S, B * Hkv), kRowThreads, 0, st>>>(
-        qf, kf, vf, gf, lse, dcap, dkf, dvf, S, Hq, Hkv, scale, causal);
+        qf, kf, vf, gf, lse, dcap, dkf, dvf, mask, S, Hq, Hkv, scale, mode);
   else if (Dh == 128)
     dkv_f32<128><<<row_grid(S, B * Hkv), kRowThreads, 0, st>>>(
-        qf, kf, vf, gf, lse, dcap, dkf, dvf, S, Hq, Hkv, scale, causal);
+        qf, kf, vf, gf, lse, dcap, dkf, dvf, mask, S, Hq, Hkv, scale, mode);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3: O [B,S,Hq,Dh] and lse [B,Hq,S] f32 of causal or full attention
+int dlnb_flash_fwd(int dtype, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int B, int S, int Hq, int Hkv,
+                   int Dh, int causal, float scale, void* stream) {
+  return fwd(dtype, q, k, v, o, lse, nullptr, causal ? kCausal : kDense, B,
+             S, Hq, Hkv, Dh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K4: dq [B,S,Hq,Dh]; also writes D = rowsum(dO * O) into dcap [B,Hq,S]
+int dlnb_flash_dq(int dtype, const void* q, const void* k, const void* v,
+                  const void* o, const void* dout, const float* lse,
+                  float* dcap, void* dq_out, int B, int S, int Hq, int Hkv,
+                  int Dh, int causal, float scale, void* stream) {
+  return dq(dtype, q, k, v, o, dout, lse, dcap, dq_out, nullptr,
+            causal ? kCausal : kDense, B, S, Hq, Hkv, Dh, scale,
+            static_cast<cudaStream_t>(stream));
+}
+
+// K5: dk, dv [B,S,Hkv,Dh], summed over each KV head's q-head group;
+// reads the D that dlnb_flash_dq wrote
+int dlnb_flash_dkv(int dtype, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* dcap,
+                   void* dk, void* dv, int B, int S, int Hq, int Hkv,
+                   int Dh, int causal, float scale, void* stream) {
+  return dkv(dtype, q, k, v, dout, lse, dcap, dk, dv, nullptr,
+             causal ? kCausal : kDense, B, S, Hq, Hkv, Dh, scale,
+             static_cast<cudaStream_t>(stream));
+}
+
+// K6: the forward under a BlockMask at 64 x 64 tiles (mask: MaskView's
+// packing with n = S / 64)
+int dlnb_splash_fwd(int dtype, const void* q, const void* k, const void* v,
+                    void* o, float* lse, const int* mask, int B, int S,
+                    int Hq, int Hkv, int Dh, float scale, void* stream) {
+  return fwd(dtype, q, k, v, o, lse, mask, kSplash, B, S, Hq, Hkv, Dh,
+             scale, static_cast<cudaStream_t>(stream));
+}
+
+// K7: dq and D under a BlockMask at 64 x 64 tiles
+int dlnb_splash_dq(int dtype, const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* dcap, void* dq_out, const int* mask, int B, int S,
+                   int Hq, int Hkv, int Dh, float scale, void* stream) {
+  return dq(dtype, q, k, v, o, dout, lse, dcap, dq_out, mask, kSplash, B,
+            S, Hq, Hkv, Dh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K8: dk, dv under a BlockMask at 64-row x 128-key tiles (n = S / 128)
+int dlnb_splash_dkv(int dtype, const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* dcap,
+                    void* dk, void* dv, const int* mask, int B, int S,
+                    int Hq, int Hkv, int Dh, float scale, void* stream) {
+  return dkv(dtype, q, k, v, dout, lse, dcap, dk, dv, mask, kSplash, B, S,
+             Hq, Hkv, Dh, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

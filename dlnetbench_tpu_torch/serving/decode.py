@@ -36,7 +36,11 @@ _F32 = torch.float32
 
 def check_config(cfg: TransformerConfig) -> TransformerConfig:
     """The serving path covers the dense gated family without attention
-    masks (``TransformerConfig`` already refuses everything else)."""
+    masks (``TransformerConfig`` already refuses everything else).  The
+    JAX package refuses a segment mask in serving and a window in decode
+    (its windowed prefill runs no Pallas kernel and is not ported yet),
+    with these messages; the port's engine always decodes, so it refuses
+    both."""
     if cfg.num_experts > 1:
         raise ValueError("serving decode: MoE decode (the JAX package's "
                          "serving/moe_decode.py) is not ported yet "
@@ -44,9 +48,18 @@ def check_config(cfg: TransformerConfig) -> TransformerConfig:
     if not cfg.gated or cfg.max_positions:
         raise ValueError("serving decode covers the dense gated "
                          "(SwiGLU+RMSNorm+RoPE) family only")
-    if cfg.attention_window or cfg.attention_seg_avg:
-        raise ValueError("serving decode has no attention-mask path in "
-                         "the port yet (ROADMAP.md queue 1)")
+    if cfg.attention_seg_avg:
+        raise ValueError(
+            "serving decode supports sliding-window attention masks "
+            "only (attention_window); document-segment masks have no "
+            "serving path — a request is one document")
+    if cfg.attention_window:
+        raise ValueError(
+            "serving decode has no sliding-window path yet (the paged "
+            "attention kernel attends the full cache): "
+            "attention_window covers the PREFILL chunk only — decode "
+            "under a window config would silently diverge from the "
+            "training mask")
     return cfg
 
 

@@ -213,11 +213,20 @@ def test_init_params_tree_matches_jax_and_seeds(weights):
 
 def test_config_refuses_knobs_outside_the_slice():
     for over in ({"gated": False}, {"max_positions": 64},
-                 {"attention_window": 8}, {"dtype": "float16"}):
+                 {"dtype": "float16"}):
         with pytest.raises(ValueError):
             ttfm.TransformerConfig(**{**MODEL, **over})
     from dlnetbench_tpu_torch.core.model_card import load_model_card
     from dlnetbench_tpu_torch.serving import decode as D
+    # attention masks train in the port (slice 5); serving refuses them
+    # as the JAX package's check_config does (a window in decode, a
+    # segment mask always)
+    with pytest.raises(ValueError, match="no sliding-window path"):
+        D.check_config(ttfm.TransformerConfig(**{**MODEL,
+                                                 "attention_window": 8}))
+    with pytest.raises(ValueError, match="document-segment masks"):
+        D.check_config(ttfm.TransformerConfig(**{**MODEL,
+                                                 "attention_seg_avg": 8}))
     cfg = ttfm.TransformerConfig.from_card(load_model_card("llama3_8b"),
                                            num_layers=4, vocab_size=32768)
     assert (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.ff_dim,
@@ -229,6 +238,22 @@ def test_config_refuses_knobs_outside_the_slice():
     with pytest.raises(ValueError, match="MoE"):
         D.check_config(ttfm.TransformerConfig(**{**MODEL,
                                                  "num_experts": 4}))
+
+
+def test_check_config_refuses_masks_with_the_jax_messages():
+    """A window and a segment mask are refused in serving with the JAX
+    package's decode-time messages."""
+    from dlnetbench_tpu.models import transformer as JT
+    from dlnetbench_tpu.serving import decode as JD
+    from dlnetbench_tpu_torch.serving import decode as D
+    for over in ({"attention_window": 8}, {"attention_seg_avg": 8},
+                 {"attention_window": 8, "attention_seg_avg": 16}):
+        with pytest.raises(ValueError) as te:
+            D.check_config(ttfm.TransformerConfig(**{**MODEL, **over}))
+        with pytest.raises(ValueError) as je:
+            JD.check_config(JT.TransformerConfig(
+                gated=True, max_positions=0, **MODEL, **over), decode=True)
+        assert str(te.value) == str(je.value)
 
 
 # ---------------------------------------------------------------------

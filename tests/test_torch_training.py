@@ -1,7 +1,10 @@
 """The torch port's training slice held against the JAX package: the
-tiny model's logits, loss, gradients and two chained SGD steps, the
-RMSNorm backward, the loss, the roofline counts, and the bench entry
-point's headline line.
+tiny model's logits, loss, gradients and two chained SGD steps (also
+under a sliding-window and a document-segment attention mask, where JAX
+runs its splash kernels in interpret mode and the port its splash op's
+plain versions), the RMSNorm backward, the loss, the roofline counts,
+the mask knobs, and the bench entry point's headline and
+``longcontext_ab`` lines.
 
 The model is a tiny f32 llama-style config (embed 512, 4/2 heads of
 128, ff 1024, 2 layers, vocab 512, S 256, B 2).  JAX runs it with
@@ -14,6 +17,7 @@ weight within two ulps of the weight plus 1e-3 of the leaf's largest
 update (f32 throughout; the gap is summation order)."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -100,7 +104,57 @@ def torch_params(tiny):
     return TT.params_from_numpy(tiny["np_params"], "cpu")
 
 
+# the masked tiny models: a window shorter than the sequence, and
+# documents (avg 50) shorter than a kernel tile
+MASKS = {"window": {"attention_window": 64},
+         "segments": {"attention_seg_avg": 50, "attention_seg_seed": 3}}
+
+
+@pytest.fixture(scope="module", params=sorted(MASKS))
+def masked(request):
+    knobs = MASKS[request.param]
+    jcfg = JT.TransformerConfig(gated=True, max_positions=0,
+                                attention_impl="flash", scan_layers=False,
+                                logits_f32=False, **TINY, **knobs)
+    tcfg = TT.TransformerConfig(logits_f32=False, **TINY, **knobs)
+    jp = JT.init_params(jax.random.key(1), jcfg)
+    tokens = np.random.default_rng(5).integers(
+        0, TINY["vocab_size"], (2, TINY["seq_len"] + 1)).astype(np.int32)
+    loss, grads = jax.value_and_grad(JT.loss_fn)(jp, jnp.asarray(tokens),
+                                                 jcfg)
+    logits = JT.forward(jp, jnp.asarray(tokens[:, :-1]), jcfg)
+    p2, losses = jax.jit(JB.make_train_k(jcfg, 2))(jp, jnp.asarray(tokens))
+    return {"jcfg": jcfg, "tcfg": tcfg,
+            "np_params": jax.tree.map(np.asarray, jp),
+            "tokens": tokens, "loss": float(loss), "logits": logits,
+            "grads": flat(jax.tree.map(np.asarray, grads)),
+            "p2": flat(jax.tree.map(np.asarray, p2)),
+            "losses": np.asarray(losses)}
+
+
+def test_masked_config_reaches_the_splash_op(masked):
+    spec = masked["tcfg"].mask_spec
+    assert spec is not None and not spec.is_plain_causal
+    assert spec.to_dict() == masked["jcfg"].mask_spec.to_dict()
+    # the masks change the model: the dense-causal loss differs
+    dense = dataclasses.replace(masked["tcfg"], attention_window=0,
+                                attention_seg_avg=0)
+    params = torch_params(masked)
+    tok = torch.from_numpy(masked["tokens"])
+    with torch.no_grad():
+        assert abs(float(TT.loss_fn(params, tok, dense))
+                   - masked["loss"]) > 1e-4
+
+
 def test_tiny_logits_and_loss_match_jax(tiny):
+    check_logits_and_loss(tiny)
+
+
+def test_masked_logits_and_loss_match_jax(masked):
+    check_logits_and_loss(masked)
+
+
+def check_logits_and_loss(tiny):
     params = torch_params(tiny)
     tok = torch.from_numpy(tiny["tokens"])
     with torch.no_grad():
@@ -113,6 +167,14 @@ def test_tiny_logits_and_loss_match_jax(tiny):
 
 
 def test_tiny_gradients_match_jax(tiny):
+    check_gradients(tiny)
+
+
+def test_masked_gradients_match_jax(masked):
+    check_gradients(masked)
+
+
+def check_gradients(tiny):
     params = torch_params(tiny)
     leaves = flat(params)
     for p in leaves.values():
@@ -124,6 +186,14 @@ def test_tiny_gradients_match_jax(tiny):
 
 
 def test_two_chained_steps_match_jax_make_train_k(tiny):
+    check_two_steps(tiny)
+
+
+def test_masked_two_chained_steps_match_jax_make_train_k(masked):
+    check_two_steps(masked)
+
+
+def check_two_steps(tiny):
     """The update itself, p2 - p0, against JAX's, element by element:
     two SGD steps at lr 1e-3 move a weight by ~1e-6-1e-5, far under any
     bar set on the weights.  Each side rounds p - lr * g to f32 at the
@@ -279,6 +349,118 @@ def test_transformer_config_knobs():
                                         == "delayed")
 
 
+def test_mask_knobs_match_jax():
+    """The three mask knobs: the JAX validation message for message, the
+    same ``mask_spec`` (None when off), and the bench config takes them
+    as overrides (what ``bench_step.build`` passes on), as the JAX
+    ``build`` does."""
+    for knobs in ({"attention_window": -1}, {"attention_seg_avg": -4},
+                  {"attention_window": -2, "attention_seg_avg": -1}):
+        with pytest.raises(ValueError) as te:
+            TT.TransformerConfig(**TINY, **knobs)
+        with pytest.raises(ValueError) as je:
+            JT.TransformerConfig(gated=True, max_positions=0, **TINY,
+                                 **knobs)
+        assert str(te.value) == str(je.value)
+    for knobs in ({}, {"attention_window": 64},
+                  {"attention_seg_avg": 50, "attention_seg_seed": 3},
+                  {"attention_window": 32, "attention_seg_avg": 80,
+                   "attention_seg_seed": 5}, {"attention_seg_seed": 9}):
+        got = TT.TransformerConfig(**TINY, **knobs).mask_spec
+        want = JT.TransformerConfig(gated=True, max_positions=0, **TINY,
+                                    **knobs).mask_spec
+        assert (got is None) == (want is None), knobs
+        if got is not None:
+            assert got.to_dict() == want.to_dict() \
+                and got.label() == want.label()
+    cfg = TB.bench_cfg(TB.bench_card(), attention_window=64,
+                       attention_seg_avg=50, attention_seg_seed=2)
+    assert (cfg.attention_window, cfg.attention_seg_avg,
+            cfg.attention_seg_seed) == (64, 50, 2)
+    assert cfg.mask_spec.label() == "causal&window(64)&seg(avg=50,seed=2)"
+
+
+LC_SUMMARIES = {
+    "dense": {"value": 0.020, "best": 0.019, "band": [0.019, 0.021],
+              "n": 3},
+    "splash_causal": {"value": 0.019, "best": 0.018,
+                      "band": [0.018, 0.020], "n": 3},
+    "splash_window": {"value": 0.005, "best": 0.0045,
+                      "band": [0.0045, 0.0055], "n": 3},
+    "splash_segment": {"value": 0.010, "best": 0.009,
+                       "band": [0.009, 0.011], "n": 3},
+}
+LC_ROUNDS = {"dense": [0.019, 0.020, 0.021],
+             "splash_causal": [0.018, 0.019, 0.020],
+             "splash_window": [0.0045, 0.005, 0.0055],
+             "splash_segment": [0.009, 0.010, 0.011]}
+
+
+@pytest.mark.parametrize("variant", ["win", "overlap", "bimodal"])
+def test_longcontext_line_matches_jax(variant):
+    """The ``longcontext_ab`` line from the same summaries: every key
+    and value of the JAX bench's ``_longcontext_line``."""
+    import copy
+
+    import bench as jbench
+    summ, rounds = copy.deepcopy(LC_SUMMARIES), copy.deepcopy(LC_ROUNDS)
+    if variant == "overlap":       # the window leg no faster than dense
+        summ["splash_window"] = dict(summ["dense"])
+        rounds["splash_window"] = list(rounds["dense"])
+    if variant == "bimodal":
+        summ["splash_window"]["best"] = 0.002
+    info = {name: {"attention_mask": name, "mask_sparsity": 0.5,
+                   "block_skip_fraction": 0.4, "expected_speedup": e}
+            for name, e in (("splash_causal", 1.0), ("splash_window", 4.0),
+                            ("splash_segment", 0.0))}
+    got = TBENCH.longcontext_ab_line(summ, rounds, metric="m",
+                                     mask_info=info)
+    want = jbench._longcontext_line(summ, rounds, metric="m",
+                                    mask_info=info)
+    # the low-mode note's wording is the port's (no tunnel on a card)
+    assert ("note" in got) == ("note" in want) == (variant == "bimodal")
+    got.pop("note", None)
+    want.pop("note", None)
+    assert got == want
+    assert isinstance(got["band_disjoint_win"], bool)
+    assert set(got["speedup_vs_sparsity"]) == {"splash_causal",
+                                               "splash_window"}
+
+
+def test_longcontext_line_runs_on_cpu(monkeypatch, capsys):
+    """``bench_longcontext_ab`` at a tiny ``DLNB_BENCH_LC_*`` shape on the
+    CPU (plain versions): all four legs, the paired ratio bands, the
+    tile accounting at K6's tiles; the CPU launches no kernel."""
+    from dlnetbench_tpu_torch.ops import attention_mask as TM
+    from dlnetbench_tpu_torch.ops import flash_attention as TFA
+    for knob, val in (("SEQ", "256"), ("HEADS", "2"), ("WINDOW", "64"),
+                      ("SEG", "96"), ("K", "2")):
+        monkeypatch.setenv(f"DLNB_BENCH_LC_{knob}", val)
+    before = (TFA.fwd_launches, TFA.splash_fwd_launches)
+    line = TBENCH.bench_longcontext_ab(None, None, "cpu",
+                                       torch.device("cpu"))
+    assert json.loads(capsys.readouterr().out.strip()) == line
+    assert (TFA.fwd_launches, TFA.splash_fwd_launches) == before
+    legs = ("dense", "splash_causal", "splash_window", "splash_segment")
+    for leg in legs:
+        assert set(line[leg]) == {"value", "best", "band", "n"}
+        assert line[leg]["n"] == TBENCH.ROUNDS and line[leg]["value"] > 0
+    for leg in legs[1:]:
+        assert line[f"ratio_{leg}_vs_dense"]["value"] > 0
+    assert line["value"] == line["splash_window"]["value"]
+    assert "B=1 S=256 Hq=2 Hkv=1 Dh=128" in line["metric"]
+    assert "64x64 tiles" in line["metric"]
+    spec = TM.MaskSpec(causal=True, window=64)
+    st = TM.block_mask(spec, 256, *TFA.FWD_TILES).stats()
+    assert line["masks"]["splash_window"]["block_skip_fraction"] \
+        == st["block_skip_fraction"]
+    assert line["masks"]["splash_window"]["attention_mask"] == spec.label()
+    assert line["masks"]["splash_causal"]["expected_speedup"] == 1.0
+    assert line["masks"]["splash_segment"]["attention_mask"] \
+        == "causal&seg(avg=96,seed=0)"
+    assert line["tflops_dense"] >= 0
+
+
 def test_flagship_cfg_matches_graft_entry():
     import __graft_entry__ as graft
     from dlnetbench_tpu_torch import entry
@@ -305,15 +487,16 @@ def test_cuda_default_without_a_card_is_an_error(monkeypatch, capsys):
 TINY_BENCH_ENV = {"DLNB_BENCH_SEQ": "128", "DLNB_BENCH_LAYERS": "2",
                   "DLNB_BENCH_VOCAB": "256", "DLNB_BENCH_EMBED": "256",
                   "DLNB_BENCH_FF": "512", "DLNB_BENCH_HEADS": "2",
-                  "DLNB_BENCH_KV_HEADS": "1", "DLNB_BENCH_K": "2"}
+                  "DLNB_BENCH_KV_HEADS": "1", "DLNB_BENCH_K": "2",
+                  "DLNB_BENCH_LC_SEQ": "256", "DLNB_BENCH_LC_HEADS": "2"}
 HEADLINE_KEYS = {"metric", "value", "best", "band", "n", "vs_baseline",
                  "vs_baseline_causal", "vs_baseline_bwd_aware",
                  "vs_baseline_decoder_only", "tflops_achieved",
                  "tflops_executed", "loss", "logits_dtype"}
 
 
-AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "moe_ab", "int8_step",
-            "int8_switchback_step", "recommended_step")
+AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "longcontext_ab", "moe_ab",
+            "int8_step", "int8_switchback_step", "recommended_step")
 
 
 @pytest.mark.parametrize("argv", [
@@ -344,6 +527,10 @@ def test_bench_entry_prints_the_headline_line_on_cpu(argv):
             assert {"composed", "fused", "fused_delayed"} <= set(line[key])
         assert {"dense_ms", "moe_ms", "moe_grouped_ms",
                 "ratio_moe_grouped_vs_dense"} <= set(line["moe_ab"])
+        assert {"dense", "splash_causal", "splash_window",
+                "splash_segment", "ratio_splash_window_vs_dense",
+                "speedup_vs_sparsity", "masks", "band_disjoint_win",
+                "tflops_dense"} <= set(line["longcontext_ab"])
         assert abs(line["int8_step"]["loss"] - line["loss"]) \
             <= 0.02 * line["loss"]
     assert line["n"] == 3 and line["value"] > 0
