@@ -7,6 +7,11 @@
                                      # under each MLP recipe and each
                                      # mask and of the moe_ab grouped
                                      # step (torch.profiler)
+    python3 chip_smoke.py --paired DIR  # also: K11 and K12 timed in
+                                     # turns (old, new, new, old) against
+                                     # DIR's mlp_matmul.cu (a checkout of
+                                     # an earlier commit, e.g. unpacked
+                                     # with git archive under build/)
 
 Phases, in order; any failure exits non-zero:
 
@@ -54,7 +59,8 @@ Phases, in order; any failure exits non-zero:
    (CUDA-core) K6/K7/K8 at (2, 384, 4, 2, 128) under the JAX tests'
    MASK_SPECS, every row within 4e-3 of its max-abs, and under the
    plain-causal mask bitwise equal to the f32 K3/K4/K5;
-5b. K11 (the fused-quantization matmul) at the train step's MLP shapes
+5b. K11 (the fused-quantization matmul; with K12 one warp-specialised
+   wgmma/TMA kernel) at the train step's MLP shapes
    (gate/up [12288, 4096] @ [4096, 14336], down [12288, 14336] @
    [14336, 4096]), int8 and e4m3, with and without amax, against its
    plain version on the card: int8 bit-exact; e4m3 every row within
@@ -62,7 +68,8 @@ Phases, in order; any failure exits non-zero:
    bar); amax exactly max |x|; a stale scale (0.1 x the amax) gives a
    finite, saturated output equal to the plain version's.  Yardstick:
    ``torch._int_mm`` / ``torch._scaled_mm`` on operands quantized
-   beforehand;
+   beforehand; the kernel also timed under each cluster size (1, 2, 4
+   blocks along N sharing one quantized x stage);
 5c. K9 (dg, du) and K10 (dWd) at the same shape against their plain
    versions: dg and du every row within 2^-6 of its max-abs, dWd within
    1e-3; yardsticks one ``torch.mm`` each (dy @ Wd^T, h^T @ dy);
@@ -75,7 +82,15 @@ Phases, in order; any failure exits non-zero:
    bit-exact; e4m3 every row within 2^-6 and Frobenius <= 1e-2.
    Yardsticks at the moe_ab gate/up shape, full counts: one
    ``torch.bmm`` (bf16), 8 per-expert ``torch._int_mm`` /
-   ``torch._scaled_mm`` products summed (int8 / e4m3);
+   ``torch._scaled_mm`` products summed (int8 / e4m3); int8 / e4m3 also
+   timed under each cluster size;
+5e. with ``--paired DIR``: K11 (int8, e4m3; up and down) and K12 (bf16,
+   int8, e4m3; gate/up and down, full counts, and gate/up skewed)
+   against the same C entry points built from DIR's mlp_matmul.cu, both
+   held to the plain version first, then timed old, new, new, old;
+5f. the card-only pytest cases (tests/test_torch_card_*.py, which import
+   no jax) in a subprocess, ``pytest --noconftest -m cuda``: rc 0 and at
+   least the 59 cases moved there from the jax-importing files passed;
 6. a tiny f32 model served on the card and on the CPU (plain versions)
    with the same weights: greedy token streams must be equal, for each
    cache dtype;
@@ -96,8 +111,11 @@ Phases, in order; any failure exits non-zero:
    ones, then holds it within 5 %; ``mlp_backward="pallas"`` gives the
    autograd loss bitwise and every gradient leaf within 2e-2 of its
    max-abs, with K9 and K10 launched layers x steps;
-8c. a tiny f32 MoE model (4 experts, top-2, ``moe_impl="grouped"``, TF32
-   off) takes 2 SGD steps on the card (K12 f32, K3/K4/K5 f32) and on the
+8c. the router's order on tied logits on the card (an all-zero token row
+   must route to experts [0, 1], as ``jax.lax.top_k`` orders ties, and
+   a row with duplicated router columns as on the CPU); then a tiny f32
+   MoE model (4 experts, top-2, ``moe_impl="grouped"``, TF32 off) takes
+   2 SGD steps on the card (K12 f32, K3/K4/K5 f32) and on the
    CPU from the same weights: the layers' expert choices are compared
    first (a routing flip is not a kernel fault), then losses within 1e-5
    relative and every parameter within 1e-5 of its leaf's max-abs, K12
@@ -137,6 +155,9 @@ Phases, in order; any failure exits non-zero:
 10. ``dlnetbench_tpu_torch.entry.entry()`` forward once at S=1024: logits
    [1, 1024, 32768], finite, K3 launched once per layer;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+
+``nvidia-smi``'s SM clock, power draw and temperature are printed beside
+the timed phases (lines starting ``smi``).
 """
 from __future__ import annotations
 
@@ -208,6 +229,12 @@ LONG_SEQ_STEP, LONG_WINDOW = 32768, 4096
 MASK_REF_TOL = 1e-5
 
 MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
+# K11 and K12 (bf16, int8, e4m3): one warp-specialised wgmma/TMA kernel
+WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
+# the card-only pytest cases, in files that import no jax; 59 of them
+# moved there from the jax-importing test files, and all must pass
+CARD_TESTS = "tests/test_torch_card_*.py"
+CARD_TESTS_MOVED = 59
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -287,6 +314,16 @@ def card_line() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi: rc {smi.returncode} {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def smi_sample(label: str) -> None:
+    """The card's SM clock, power draw and temperature beside a timed
+    phase (nvidia-smi; read-only)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    say(f"smi {label}: {smi.stdout.strip() or smi.stderr.strip()}")
 
 
 def timed_ms(torch, fn, reps: int = 30) -> float:
@@ -1306,6 +1343,11 @@ def qmm_times(torch, fmt, x, wq, w_t, sw, sx, peak) -> dict:
     del y, lib, ref
     ms = timed_ms(torch, lambda: Q.kernel_fused_matmul(x, w_t, sw, sx, fmt,
                                                        False))
+    by_cluster = cluster_ms(torch, lambda: Q.kernel_fused_matmul(
+        x, w_t, sw, sx, fmt, False))
+    say(f"K11 {kind} [{t}, {k}] x [{k}, {n}] by cluster size (blocks along "
+        f"N sharing one quantized x stage): "
+        + ", ".join(f"c={c} {v:.4f} ms" for c, v in by_cluster.items()))
     plain_ms = timed_ms(torch, lambda: Q.plain_fused_matmul(
         x, wq, sw, sx, fmt, False), reps=5)
     library_ms = timed_ms(torch, library)
@@ -1317,6 +1359,20 @@ def qmm_times(torch, fmt, x, wq, w_t, sw, sx, peak) -> dict:
         f"{b_ms / ms:.3f} of bound, {2 * t * k * n / ms / 1e9:.1f} T/s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
+
+
+def cluster_ms(torch, fn) -> dict:
+    """fn's time under each cluster size the 8-bit kernels are built
+    for; the preferred size is restored after."""
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    out = {}
+    for c in Q.CLUSTERS:
+        prev = Q.set_cluster(c)
+        try:
+            out[c] = timed_ms(torch, fn)
+        finally:
+            Q.set_cluster(prev)
+    return out
 
 
 def mlp_bwd_phase(torch, peak: dict) -> dict:
@@ -1493,6 +1549,11 @@ def gmm_times(torch, fmt, x, w, sx, sw, peak) -> dict:
             lib_name = f"{e} torch._scaled_mm, summed"
     ms = timed_ms(torch, lambda: GM.kernel_grouped_matmul(x, w_t, None, sx,
                                                           sw, fmt))
+    if fmt:
+        by_cluster = cluster_ms(torch, lambda: GM.kernel_grouped_matmul(
+            x, w_t, None, sx, sw, fmt))
+        say(f"K12 {kind} by cluster size: "
+            + ", ".join(f"c={c} {v:.4f} ms" for c, v in by_cluster.items()))
     plain_ms = timed_ms(torch, lambda: GM.plain_grouped_matmul(
         x, w, None, sx, sw, fmt), reps=5)
     library_ms = timed_ms(torch, library)
@@ -1550,10 +1611,31 @@ def moe_reference_phase(torch) -> None:
     compared first, so that a flipped expert is told apart from a
     kernel fault."""
     from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import layers as L
     from dlnetbench_tpu_torch.models import moe as M
     from dlnetbench_tpu_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # ties: jax.lax.top_k puts the lower index first among equal logits,
+    # and the router keeps that order through a stable sort; on the card
+    # that rests on torch.sort's stability there.  An all-zero token row
+    # (every logit 0) and one whose logits tie in pairs (duplicated
+    # router columns)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    wr = torch.randn(256, 8, generator=gen)
+    wr[:, 1], wr[:, 5] = wr[:, 0], wr[:, 2]
+    xt = torch.zeros(2, 256)
+    xt[1] = torch.randn(256, generator=gen)
+    cw, ci = L.moe_router(xt, wr, 2)
+    gw, gi = L.moe_router(xt.cuda(), wr.cuda(), 2)
+    if gi[0].tolist() != [0, 1] or not torch.equal(gi.cpu(), ci) \
+            or not torch.allclose(gw.cpu(), cw, rtol=0, atol=1e-6):
+        fail(f"moe router ties: card chose {gi.tolist()}, CPU "
+             f"{ci.tolist()}; an all-zero row must give [0, 1]")
+    say(f"moe router ties: an all-zero row routes to {gi[0].tolist()} on the "
+        f"card (jax.lax.top_k's order), a tied row to {gi[1].tolist()} as "
+        f"on the CPU")
     cfg = T.TransformerConfig(vocab_size=256, embed_dim=256, num_heads=2,
                               num_kv_heads=1, ff_dim=128, num_layers=2,
                               seq_len=128, dtype="float32", logits_f32=False,
@@ -1888,6 +1970,10 @@ def train_phase(torch) -> dict:
         f"chain; K6 {splash['fwd']} in the longcontext splash legs; bench "
         f"wall {wall:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    say(f"train on K11 / K12: the A/B up-projection chains, int8 fused "
+        f"{line['int8_fused_ab']['fused']['value']} ms, e4m3 fused delayed "
+        f"{line['fp8_fused_ab']['fused_delayed']['value']} ms; the moe_ab "
+        f"grouped step {moe['moe_grouped_ms']['value']} ms")
     return {"counts": counts, "k12": k12, "line": line, "splash": splash}
 
 
@@ -1909,6 +1995,161 @@ def entry_phase(torch) -> None:
         fail(f"entry: flash launches {counts}, want fwd {layers}")
     say(f"entry: logits {tuple(logits.shape)} finite, std "
         f"{float(logits.std()):.3f}; flash launches {counts}")
+
+
+def card_tests_phase() -> None:
+    """The card-only pytest cases (``CARD_TESTS``, files that import no
+    jax) in a subprocess, without tests/conftest.py (which imports jax):
+    rc 0 and at least the ``CARD_TESTS_MOVED`` cases passed."""
+    import glob
+    import re
+    files = sorted(glob.glob(str(ROOT / CARD_TESTS)))
+    if not files:
+        fail(f"card tests: no {CARD_TESTS} in {ROOT}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+         "-p", "no:cacheprovider", *files], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    m = re.search(r"(\d+) passed", tail)
+    passed = int(m.group(1)) if m else 0
+    if proc.returncode != 0 or passed < CARD_TESTS_MOVED:
+        fail(f"card tests: rc {proc.returncode}, {passed} passed (want rc 0 "
+             f"and >= {CARD_TESTS_MOVED}):\n{proc.stdout[-4000:]}"
+             f"{proc.stderr[-2000:]}")
+    say(f"card tests: pytest --noconftest -m cuda {CARD_TESTS}: {tail} in "
+        f"{time.perf_counter() - t0:.1f} s (>= {CARD_TESTS_MOVED} moved "
+        f"cases)")
+
+
+def paired_phase(torch, parent: Path) -> list:
+    """K11 and K12 timed in turns against the same kernels built from
+    another checkout's ``MLP_SRC`` (the same C interface): old, new, new,
+    old, each a ``timed_ms`` median, on the same operands; both outputs
+    held to the plain version by the kernels' own bars first."""
+    import ctypes
+
+    from dlnetbench_tpu_torch.ops import _build
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    out_dir = OUT / "paired"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libparent_mlp_matmul.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(parent / MLP_SRC)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"paired: the parent's {MLP_SRC} did not build:\n"
+             f"{proc.stdout[-3000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.dlnb_qmm.restype = lib.dlnb_gmm.restype = ctypes.c_int
+    lib.dlnb_qmm.argtypes = Q._fn().argtypes
+    lib.dlnb_gmm.argtypes = GM._fn().argtypes
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    rows = []
+
+    def turns(label, old, new, check):
+        old()
+        torch.cuda.synchronize()
+        check("old")
+        new()
+        torch.cuda.synchronize()
+        check("new")
+        t = [timed_ms(torch, f, reps=20) for f in (old, new, new, old)]
+        row = {"kernel": label, "old_ms": [t[0], t[3]],
+               "new_ms": [t[1], t[2]],
+               "speedup": (t[0] + t[3]) / (t[1] + t[2])}
+        rows.append(row)
+        say(f"paired {label}: old {t[0]:.4f} / {t[3]:.4f} ms, new "
+            f"{t[1]:.4f} / {t[2]:.4f} ms -> {row['speedup']:.2f}x")
+
+    rand = seeded(torch, 61)
+    smi_sample("paired start")
+    for fmt in ("int8", "float8"):
+        kind = "int8" if fmt == "int8" else "e4m3"
+        for proj, (k, n) in (("up", (MLP_D, MLP_F)),
+                             ("down", (MLP_F, MLP_D))):
+            x = rand(MLP_T, k)
+            wq, sw = Q.quantize_tensor(rand(k, n, scale=k ** -0.5), fmt)
+            w_t = Q.k_major(wq)
+            sx = Q.scale_from_amax(Q.amax_of(x), fmt)
+            ref, _ = Q.plain_fused_matmul(x, wq, sw, sx, fmt, False)
+            y_old = torch.empty_like(ref)
+            y_new = {}
+
+            def old():
+                rc = lib.dlnb_qmm(Q.DTYPE_CODES[x.dtype], Q.FMT_CODES[fmt],
+                                  0, x.data_ptr(), w_t.data_ptr(),
+                                  sx.data_ptr(), sw.data_ptr(),
+                                  y_old.data_ptr(), None, MLP_T, n, k,
+                                  stream())
+                if rc:
+                    fail(f"paired: parent dlnb_qmm rc {rc}")
+
+            def new():
+                y_new["y"] = Q.kernel_fused_matmul(x, w_t, sw, sx, fmt,
+                                                   False)[0]
+
+            def check(which):
+                got = y_old if which == "old" else y_new["y"]
+                qmm_check(torch, fmt, got, ref,
+                          f"paired K11 {kind} {proj} ({which})")
+
+            turns(f"K11 {kind} {proj} [{MLP_T}, {k}] x [{k}, {n}]", old,
+                  new, check)
+            del x, wq, w_t, ref, y_old, y_new
+            torch.cuda.empty_cache()
+    full = torch.full((GMM_E,), GMM_C, dtype=torch.int32, device="cuda")
+    skew = torch.tensor(GMM_SKEW, dtype=torch.int32, device="cuda")
+    for fmt in (None, "int8", "float8"):
+        kind = {None: "bf16", "int8": "int8", "float8": "e4m3"}[fmt]
+        for label, k, n in GMM_CASES[:2]:
+            x = rand(GMM_E, GMM_C, k)
+            w = rand(GMM_E, k, n, scale=k ** -0.5)
+            sx = sw = None
+            w_k = w
+            if fmt:
+                w, sw = GM.quantize_experts(w, fmt)
+                sx = Q.scale_from_amax(GM.expert_amax(x), fmt)
+                w_k = w.transpose(1, 2).contiguous()
+            for cname, counts in (("full", full), ("skewed", skew)):
+                if cname == "skewed" and label != GMM_CASES[0][0]:
+                    continue
+                ref = GM.plain_grouped_matmul(x, w, counts, sx, sw, fmt)
+                y_old = torch.empty_like(ref)
+                y_new = {}
+
+                def old():
+                    rc = lib.dlnb_gmm(
+                        Q.DTYPE_CODES[x.dtype], GM.FMT_CODES[fmt],
+                        x.data_ptr(), w_k.data_ptr(), counts.data_ptr(),
+                        sx.data_ptr() if fmt else None,
+                        sw.data_ptr() if fmt else None, y_old.data_ptr(),
+                        GMM_E, GMM_C, n, k, stream())
+                    if rc:
+                        fail(f"paired: parent dlnb_gmm rc {rc}")
+
+                def new():
+                    y_new["y"] = GM.kernel_grouped_matmul(x, w_k, counts,
+                                                          sx, sw, fmt)
+
+                def check(which):
+                    got = y_old if which == "old" else y_new["y"]
+                    gmm_check(torch, fmt, got, ref, counts,
+                              f"paired K12 {kind} {label} {cname} ({which})")
+
+                turns(f"K12 {kind} {label} {cname} counts", old, new, check)
+                del ref, y_old, y_new
+            del x, w, w_k
+            torch.cuda.empty_cache()
+    smi_sample("paired end")
+    say(json.dumps({"paired": rows}))
+    return rows
 
 
 def profile_rows(prof, wall: float, label: str) -> None:
@@ -2088,28 +2329,42 @@ def main(argv: list[str]) -> int:
     splash = splash_phase(torch, peak)
     splash_f32_phase(torch)
     torch.cuda.empty_cache()
+    smi_sample("K11")
     qmm = {fmt: qmm_phase(torch, fmt, peak) for fmt in ("int8", "float8")}
     torch.cuda.empty_cache()
+    smi_sample("K9/K10")
     mlp_bwd = mlp_bwd_phase(torch, peak)
     torch.cuda.empty_cache()
+    smi_sample("K12")
     gmm = gmm_phase(torch, peak)
     torch.cuda.empty_cache()
+    smi_sample("after K12")
+    if "--paired" in argv:
+        paired_phase(torch, Path(argv[argv.index("--paired") + 1]).resolve())
+        torch.cuda.empty_cache()
+    card_tests_phase()
     reference_phase(torch)
     served = {dt: serve_phase(torch, dt) for dt in ("bf16", "int8", "fp8")}
     torch.cuda.empty_cache()
     train_reference_phase(torch)
+    smi_sample("quant train")
     quant_launches = quant_train_phase(torch)
     moe_reference_phase(torch)
     moe_quant = moe_quant_phase(torch)
     torch.cuda.empty_cache()
+    smi_sample("mixtral")
     mixtral_phase(torch)
+    smi_sample("bench (headline and aux lines)")
     trained = train_phase(torch)
+    smi_sample("after bench")
     torch.cuda.empty_cache()
     longcontext_phase(torch, trained["line"]["longcontext_ab"])
     torch.cuda.empty_cache()
     # after the headline, as the heavy S=32768 steps would precede it
     mask_reference_phase(torch)
+    smi_sample("masked steps")
     masked = masked_train_phase(torch)
+    smi_sample("after masked steps")
     torch.cuda.empty_cache()
     entry_phase(torch)
     torch.cuda.empty_cache()
@@ -2155,15 +2410,20 @@ def main(argv: list[str]) -> int:
     for key, label, res in (
             ("k9", "K9 dgdu (SwiGLU backward dg, du)", mlp_bwd["k9"]),
             ("k10", "K10 dwd (SwiGLU backward dWd)", mlp_bwd["k10"]),
-            ("k11_int8", "K11 fused_matmul (int8)", qmm["int8"]),
-            ("k11_e4m3", "K11 fused_matmul (e4m3)", qmm["float8"])):
+            ("k11_int8", f"K11 fused_matmul (int8; {WG_DESIGN})",
+             qmm["int8"]),
+            ("k11_e4m3", f"K11 fused_matmul (e4m3; {WG_DESIGN})",
+             qmm["float8"])):
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": MLP_REPLACES[key.split("_")[0]],
                         "launches": quant_launches[key], **res})
     for kind, label, launches in (
-            ("bf16", "K12 grouped_matmul (bf16)", trained["k12"]),
-            ("int8", "K12 grouped_matmul (int8)", moe_quant["int8"]),
-            ("e4m3", "K12 grouped_matmul (e4m3)", moe_quant["float8"])):
+            ("bf16", f"K12 grouped_matmul (bf16; {WG_DESIGN})",
+             trained["k12"]),
+            ("int8", f"K12 grouped_matmul (int8; {WG_DESIGN})",
+             moe_quant["int8"]),
+            ("e4m3", f"K12 grouped_matmul (e4m3; {WG_DESIGN})",
+             moe_quant["float8"])):
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": GMM_REPLACES, "launches": launches,
                         **gmm[kind]})

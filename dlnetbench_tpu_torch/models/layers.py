@@ -202,12 +202,14 @@ def router_logits(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
 
 def moe_router(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
     """Token router: ``(weights [T, k], expert indices [T, k])``, the
-    indices by descending logit (``torch.topk`` sorted, as
-    ``jax.lax.top_k``) and the weights a softmax over the selected top-k
-    logits (the Mixtral convention)."""
-    top_vals, top_idx = torch.topk(router_logits(x, w_router), top_k,
-                                   dim=-1)
-    return torch.softmax(top_vals, dim=-1), top_idx
+    indices by descending logit and the weights a softmax over the
+    selected top-k logits (the Mixtral convention).  Among equal logits
+    the lower index comes first, as in ``jax.lax.top_k``: a stable
+    descending sort, cut to k columns (``torch.topk`` orders ties in no
+    stated way)."""
+    vals, idx = torch.sort(router_logits(x, w_router), dim=-1,
+                           descending=True, stable=True)
+    return torch.softmax(vals[..., :top_k], dim=-1), idx[..., :top_k]
 
 
 @dataclasses.dataclass

@@ -10,8 +10,10 @@ port of the JAX package's ``ops/grouped_matmul.py``).
   the per-expert scale ``sx[e]`` inside the kernel, with int32 (int8) or
   f32 (e4m3) sums and ``sx[e] * sw[e]`` applied to the result.  On a
   CUDA tensor it launches the hand-written Hopper kernel of
-  ``csrc/mlp_matmul.cu`` (counted in ``grouped_launches``); on a CPU
-  tensor it runs ``plain_grouped_matmul``.
+  ``csrc/mlp_matmul.cu`` (counted in ``grouped_launches``): for bf16,
+  int8 and e4m3 K11's persistent ``wgmma`` kernel over the live tiles
+  (``tile_schedule`` models its order), for f32 a CUDA-core kernel; on
+  a CPU tensor it runs ``plain_grouped_matmul``.
 * ``grouped_ffn`` — three grouped matmuls as the expert SwiGLU, with the
   JAX package's straight-through backward as a
   ``torch.autograd.Function`` (batched library products, h recomputed).
@@ -89,6 +91,52 @@ def plain_grouped_matmul(x, w, counts, sx, sw, fmt, out_dtype=None):
     if counts is not None:
         val = torch.where(_row_mask(counts, e, c, x.device), val, 0.0)
     return val.to(out_dtype or x.dtype)
+
+
+def _tile_of(b: int, mt: int, nt: int) -> tuple[int, int]:
+    """The kernel's grouped raster: unit b of an ``mt x nt`` grid ->
+    (row tile, column unit); 8 row tiles sweep the columns together."""
+    group = 8
+    first = b // (group * nt) * group
+    rows = min(mt - first, group)
+    inner = b % (group * nt)
+    return first + inner % rows, inner // rows
+
+
+def tile_schedule(counts, m: int, n: int, cluster: int, clusters: int):
+    """The persistent schedule of the card's K12 (and K11, one expert
+    with every row live) in plain Python, as ``Sched`` in
+    ``csrc/mlp_matmul.cu`` computes it: ``(computed, dead)``.
+
+    A unit is an expert's pair of row tiles times ``cluster`` column
+    tiles; cluster c (of ``clusters``, each 2 x ``cluster`` blocks)
+    takes units c, c + clusters, ...  ``computed[c]`` lists the tiles it
+    computes, in order, each ``(expert, row tile, column tile)``: every
+    live tile, and the second tile of a pair whose first holds an
+    expert's last live rows (its rows are written as zeros, or not at
+    all past the buffer).  ``dead[b]`` lists the tiles block b writes as
+    zeros: every row tile past its expert's last pair.  ``counts`` may be
+    None (every row live)."""
+    bm, bn, pair = 128, 256, 2
+    e_num = 1 if counts is None else len(counts)
+    mt, nt = -(-m // bm), n // bn
+    nu = nt // cluster
+    pairs = [-(-min(max(int(c), 0), m) // (pair * bm)) for c in
+             (counts if counts is not None else [m])]
+    units = []
+    for e in range(e_num):
+        for b in range(pairs[e] * nu):
+            p, tu = _tile_of(b, pairs[e], nu)
+            units.append((e, pair * p, tu))
+    computed = [[(e, tm + r, tu * cluster + x)
+                 for (e, tm, tu) in units[c::clusters]
+                 for r in range(pair) for x in range(cluster)]
+                for c in range(clusters)]
+    deads = [(e, tm, tn) for e in range(e_num)
+             for tm in range(pair * pairs[e], mt) for tn in range(nt)]
+    blocks = clusters * cluster * pair
+    dead = [deads[b::blocks] for b in range(blocks)]
+    return computed, dead
 
 
 def _fn():

@@ -8,10 +8,12 @@ around it (the port of the JAX package's ``ops/quantized_matmul.py``).
 * ``fused_matmul(x, wq, sw, sx, fmt=...)`` — x ``[..., K]`` in the master
   dtype times the pre-quantized ``wq [K, N]``: on a CUDA tensor the
   hand-written Hopper kernel of ``csrc/mlp_matmul.cu`` (counted in
-  ``fused_launches``), which quantizes each tile of x in shared memory
-  (the quantized activation never exists in device memory), accumulates
-  in int32 (int8) or f32 (e4m3) on the tensor cores and applies
-  ``sx * sw`` in registers; with ``collect_amax`` it also yields max |x|.
+  ``fused_launches``): TMA loads, a quantizer warpgroup that turns each
+  x stage into the 8-bit operand in shared memory (shared by a cluster
+  of blocks along N; the quantized activation never exists in device
+  memory), ``wgmma`` with int32 (int8) or f32 (e4m3) sums and ``sx *
+  sw`` applied in registers; with ``collect_amax`` it also yields max
+  |x|.
   On a CPU tensor it runs ``plain_fused_matmul``: the int8 product
   exactly (in float64, where every partial sum of int8 products at these
   widths is an exact integer), the e4m3 product in f32 from the
@@ -52,9 +54,13 @@ FORMATS = {
 # the C entry's codes (csrc/mlp_matmul.cu, enums Dtype and Fmt)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FMT_CODES = {"int8": 0, "float8": 1}
-# the kernel's tile: rows of the output a multiple of 128, columns of
-# 256, the contraction a multiple of 64
+# the kernel's contract: rows of the output a multiple of 128 (its
+# tile), columns of 256, the contraction a multiple of 64 (half of an
+# 8-bit stage: a half last stage is zero-filled)
 TILE_M, TILE_N, TILE_K = 128, 256, 64
+# the cluster sizes the 8-bit kernels are built for (blocks along N that
+# share one quantized x stage)
+CLUSTERS = (1, 2, 4)
 
 # kernel launches made by fused_matmul on the card (reset by the caller)
 fused_launches = 0
@@ -133,6 +139,18 @@ def _fn():
     return fn
 
 
+def set_cluster(size: int) -> int:
+    """The cluster size (one of ``CLUSTERS``) the card's 8-bit K11 and
+    K12 launches prefer from now on; returns the previous one.  A launch
+    takes the largest of size, size / 2, ... that divides N / 256.
+    Builds the kernels if needed."""
+    if size not in CLUSTERS:
+        raise ValueError(f"cluster size {size!r}: one of {CLUSTERS}")
+    fn = _build.library("mlp_matmul").dlnb_qmm_set_cluster
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return int(fn(size))
+
+
 def kernel_fused_matmul(x2, w_t, sw, sx, fmt: str, collect_amax: bool):
     """K11 on the card: ``(y, amax)`` from x2 ``[T, K]`` and the
     K-major quantized weight ``w_t [N, K]``; sw and sx are f32 scalars
@@ -195,7 +213,7 @@ def fused_matmul(x, wq, sw, sx, *, fmt: str, out_dtype=None,
     ``sx`` is the provided activation scale (fresh or carried), ``sw``
     the weight scale from ``quantize_tensor``.  The TPU kernel's grid
     blocks (``block_m``/``block_n``/``block_k``) do not exist here: the
-    card's kernel has one fixed 128 x 256 x 64 tile."""
+    card's kernel has one fixed 128 x 256 output tile."""
     _check_fmt(fmt)
     lead, kdim = x.shape[:-1], x.shape[-1]
     n = wq.shape[1]

@@ -5,9 +5,10 @@ On the CPU the port's op runs its plain versions (the forward's base-2
 softmax and the backward's recomputation formulas); JAX runs
 ``flash_attention(q, k, v, causal, 128, 128)`` in interpret mode, as
 tests/test_flash_attention.py does.  The bars are that file's: 2e-5 on
-the forward (and here on lse), 5e-4 on the gradients.  The cases marked
-``cuda`` hold the Hopper kernels against the plain versions on a card;
-they are collected everywhere and skip where no card is visible."""
+the forward (and here on lse), 5e-4 on the gradients.  The cases that
+need a card live in tests/test_torch_card_flash_attention.py, which
+imports no jax and runs on the card with ``pytest --noconftest -m
+cuda``."""
 from __future__ import annotations
 
 import importlib
@@ -159,51 +160,3 @@ def test_auto_refuses_the_dense_fallback_at_64k():
     q = torch.zeros(1, s, 1, 8)
     with pytest.raises(ValueError, match="refuses the dense fallback"):
         tops.attention(q, q, q, causal=True, impl="auto")
-
-
-# ---------------------------------------------------------------------
-# on the card: the Hopper kernels against their plain versions
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernels run only "
-                    "there (their plain versions are tested above)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,hq,hkv,dh,causal", CASES)
-def test_kernels_match_plain_on_card(cuda_device, dtype, b, s, hq, hkv,
-                                     dh, causal):
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
-               for x in qkv(9, b, s, hq, hkv, dh))
-    do = torch.randn_like(q)
-    out, lse = TFA.kernel_forward(q, k, v, causal)
-    grads = TFA.kernel_backward(q, k, v, out, lse, do, causal)
-    torch.cuda.synchronize()
-    p_out, p_lse = TFA.plain_forward(q, k, v, causal)
-    p_grads = TFA.plain_backward(q, k, v, out, lse, do, causal)
-    # each row (Dh values) against its own max-abs, floored at 1e-3 of
-    # the tensor's, as chip_smoke.py does
-    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
-    assert float((lse - p_lse).abs().max()) < 1e-3
-    for g, p in zip((out, *grads), (p_out, *p_grads)):
-        err = (g.float() - p.float()).abs().amax(dim=-1)
-        scale = p.float().abs().amax(dim=-1)
-        assert (err <= tol * scale.clamp_min(1e-3 * scale.max())).all()
-
-
-@pytest.mark.cuda
-def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
-    q = torch.zeros(2, 256, 2, 128, device=cuda_device,
-                    dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="contiguous"):
-        TFA.kernel_forward(q.transpose(0, 1).contiguous().transpose(0, 1),
-                           q, q, True)
-    with pytest.raises(ValueError, match="dtype"):
-        TFA.kernel_forward(q.half(), q.half(), q.half(), True)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        TFA.kernel_forward(q[:, :200], q[:, :200], q[:, :200], True)

@@ -2,15 +2,16 @@
 per-expert quantization, the grouped expert SwiGLU and its backward) held
 against the JAX package on the same numpy inputs.
 
-On the CPU the port's ``grouped_matmul`` runs its plain version; JAX runs
-its Pallas kernel in interpret mode, as tests/test_moe.py does.  Bars
-(tests/test_moe.py's): products within 1e-5 on the live rows, and zero
-wherever JAX zeroes (the port zeroes every row at or past a count, JAX
-whole blocks past it, so the rows between are compared only where the
-dispatch contract makes them zero in both); the int8 product bit-equal;
-e4m3 finite and within 1e-2 relative (Frobenius); the grouped SwiGLU's
-gradients within 1e-5.  The cases marked ``cuda`` hold the Hopper kernel
-against the plain version on a card; they skip where none is visible."""
+On the CPU the port's ``grouped_matmul`` runs its plain version; JAX
+runs its Pallas kernel in interpret mode, as tests/test_moe.py does.
+Bars (tests/test_moe.py's): products within 1e-5 on the live rows, and
+zero wherever JAX zeroes (the port zeroes every row at or past a count,
+JAX whole blocks past it, so the rows between are compared only where
+the dispatch contract makes them zero in both); the int8 product
+bit-equal; e4m3 finite and within 1e-2 relative (Frobenius); the grouped
+SwiGLU's gradients within 1e-5.  The cases that need a card live in
+tests/test_torch_card_grouped_matmul.py, which imports no jax and runs
+on the card with ``pytest --noconftest -m cuda``."""
 from __future__ import annotations
 
 import jax
@@ -205,51 +206,3 @@ def test_shape_and_ffn_fmt_messages_equal_jax():
         == _message(lambda: JG.grouped_matmul(jx, jd))
     assert _message(lambda: TG.grouped_ffn(tx, tw, tu, td, fmt="fp4")) \
         == _message(lambda: JG.grouped_ffn(jx, jw, ju, jd, fmt="fp4"))
-
-
-# ------------------------------------------------------- on the card
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the Hopper kernel K12 runs only there "
-                    "(held against its plain version by chip_smoke.py)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
-    (None, torch.bfloat16, 200, 256, 512), (None, torch.float32, 37, 48, 40),
-    ("int8", torch.bfloat16, 130, 128, 256),
-    ("float8", torch.bfloat16, 130, 128, 256)])
-def test_kernel_matches_plain_on_card(cuda_device, case):
-    fmt, dtype, c, k, n = case
-    x = torch.from_numpy(arr(5, (4, c, k))).to(cuda_device, dtype)
-    w = torch.from_numpy(arr(6, (4, k, n), k ** -0.5)).to(cuda_device, dtype)
-    sx = sw = None
-    if fmt:
-        w, sw = TG.quantize_experts(w, fmt)
-        sx = TQ.scale_from_amax(TG.expert_amax(x), fmt)
-    counts = torch.tensor([c, 0, 1, c // 2], dtype=torch.int32,
-                          device=cuda_device)
-    before = TG.grouped_launches
-    got = TG.grouped_matmul(x, w, counts=counts, sx=sx, sw=sw, fmt=fmt)
-    torch.cuda.synchronize()
-    assert TG.grouped_launches == before + 1
-    ref = TG.plain_grouped_matmul(x, w, counts, sx, sw, fmt)
-    for e, cnt in enumerate(counts.tolist()):
-        assert not got[e, cnt:].any()
-    if fmt == "int8":
-        assert torch.equal(got, ref)
-    else:
-        err = (got.float() - ref.float()).abs().amax(-1)
-        scale = ref.float().abs().amax(-1).clamp_min(1e-6)
-        assert float((err / scale).max()) <= 2.0 ** -6
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_what_it_cannot_take(cuda_device):
-    x = torch.zeros(2, 64, 100, device=cuda_device, dtype=torch.bfloat16)
-    w = torch.zeros(2, 100, 256, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of"):
-        TG.grouped_matmul(x, w)

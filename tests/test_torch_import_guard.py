@@ -56,9 +56,13 @@ def test_importing_every_submodule_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+CARD_TESTS = sorted(REPO.glob("tests/test_torch_card*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
-                                       REPO / "chip_smoke.py"]))
+                                       REPO / "chip_smoke.py",
+                                       *CARD_TESTS]))
 def test_no_port_file_imports_jax_or_the_jax_package(path):
     src = (REPO / path).read_text()
     assert not _BAD_IMPORT.search(src), path
@@ -70,6 +74,37 @@ def test_no_kernel_source_includes_jax_or_xla(path):
     src = (REPO / path).read_text()
     assert not _BAD_INCLUDE.search(src), path
     assert not _BAD_IMPORT.search(src), path
+
+
+def test_the_guard_covers_every_card_test_file():
+    names = {p.name for p in CARD_TESTS}
+    assert {f"test_torch_card_{m}.py" for m in (
+        "flash_attention", "splash_attention", "paged_attention",
+        "mlp_backward", "quantized_mlp", "grouped_matmul")} <= names
+
+
+def test_card_tests_collect_without_jax():
+    """The card files run on a machine without jax, as chip_smoke.py
+    runs them: ``pytest --noconftest -m cuda``.  Here jax and the JAX
+    package are made unimportable first; every card case must still be
+    collected (they skip at run time, in their fixture)."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'dlnetbench_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import pytest\n"
+            "sys.exit(pytest.main(['--noconftest', '-m', 'cuda', '-q',\n"
+            "                      '--collect-only', '-p', 'no:cacheprovider',\n"
+            f"                      *{[str(p) for p in CARD_TESTS]!r}]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={"PATH": "/usr/bin:/bin",
+                               "PYTHONPATH": str(REPO),
+                               "HOME": str(Path.home())})
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    n = int(proc.stdout.strip().splitlines()[-1].split()[0].split("/")[0])
+    # the 59 cases moved out of the jax-importing files, and 19 more for
+    # the wgmma K11 / K12 tiles, clusters and schedule
+    assert n >= 78, proc.stdout[-2000:]
 
 
 def test_the_guard_covers_every_kernel_source():

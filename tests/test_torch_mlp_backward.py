@@ -2,15 +2,15 @@
 versions, ``swiglu_pallas_bwd``) and the split-product backward held
 against the JAX package on the same numpy inputs.
 
-On the CPU the port's ``dgdu`` and ``dwd`` run their plain versions;
-JAX runs its Pallas kernels in interpret mode, as
-tests/test_mlp_backward.py does, whose bars hold here: dg/du 1e-4
-absolute (:52), dWd 2e-5 relative plus 1e-4 absolute (:65), gradients
-1e-5 of each tensor's max-abs (:37), all in f32.  The tiny model with
-``mlp_backward="pallas"`` and ``"split"`` takes the bars of
-tests/test_torch_training.py.  The cases marked ``cuda`` hold the Hopper
-kernels against the plain versions on a card; they are collected
-everywhere and skip where no card is visible."""
+On the CPU the port's ``dgdu`` and ``dwd`` run their plain versions; JAX
+runs its Pallas kernels in interpret mode, as tests/test_mlp_backward.py
+does, whose bars hold here: dg/du 1e-4 absolute (:52), dWd 2e-5 relative
+plus 1e-4 absolute (:65), gradients 1e-5 of each tensor's max-abs (:37),
+all in f32.  The tiny model with ``mlp_backward="pallas"`` and
+``"split"`` takes the bars of tests/test_torch_training.py.  The cases
+that need a card live in tests/test_torch_card_mlp_backward.py, which
+imports no jax and runs on the card with ``pytest --noconftest -m
+cuda``."""
 from __future__ import annotations
 
 import dataclasses
@@ -177,50 +177,6 @@ def test_wrappers_take_the_plain_versions_on_the_cpu_only(mlp):
     assert (TMB.dgdu_launches, TMB.dwd_launches) == before
     with pytest.raises(ValueError, match="bfloat16"):
         TMB.kernel_dgdu(torch.from_numpy(dy), torch.from_numpy(wd), g, u)
-
-
-# ---------------------------------------------------------------------
-# on the card: the Hopper kernels against their plain versions
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernels run only "
-                    "there (their plain versions are tested above)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,d,f", [(256, 256, 256), (384, 512, 512)])
-def test_kernels_match_plain_on_card(cuda_device, t, d, f):
-    """K9: dg, du each row within 2^-6 of its max-abs (bf16 outputs);
-    K10: dWd each row within 1e-3 of its max-abs (f32 sums in another
-    order), as chip_smoke.py holds them at the train shape."""
-    dev, bf = cuda_device, torch.bfloat16
-    dy = torch.from_numpy(arr(5, (t, d), 0.1)).to(dev, bf)
-    wd = torch.from_numpy(arr(6, (f, d), f ** -0.5)).to(dev, bf)
-    g = torch.from_numpy(arr(7, (t, f))).to(dev, bf)
-    u = torch.from_numpy(arr(8, (t, f))).to(dev, bf)
-    got = (*TMB.kernel_dgdu(dy, wd, g, u), TMB.kernel_dwd(g, u, dy))
-    torch.cuda.synchronize()
-    want = (*TMB.plain_dgdu(dy, wd, g, u), TMB.plain_dwd(g, u, dy))
-    for a, b, tol in zip(got, want, (2.0 ** -6, 2.0 ** -6, 1e-3)):
-        err = (a.float() - b.float()).abs().amax(dim=-1)
-        scale = b.float().abs().amax(dim=-1)
-        assert (err <= tol * scale.clamp_min(1e-3 * scale.max())).all()
-
-
-@pytest.mark.cuda
-def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
-    z = torch.zeros(200, 128, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples"):
-        TMB.kernel_dgdu(z, torch.zeros(256, 128, device=cuda_device,
-                                       dtype=torch.bfloat16),
-                        torch.zeros(200, 256, device=cuda_device,
-                                    dtype=torch.bfloat16),
-                        torch.zeros(200, 256, device=cuda_device,
-                                    dtype=torch.bfloat16))
 
 
 def test_config_knob_reaches_the_dispatch():

@@ -82,6 +82,38 @@ def test_router_choices_equal_and_weights_within_ulps():
                                atol=1e-6)
 
 
+def tied_routing_case(t=32, d=16, e=8):
+    """Exact ties: every fourth token row is zero (all logits 0) and
+    router columns 1, 5 and 6 repeat columns 0, 2 and 3."""
+    x, wr = arr(3, (t, d)), arr(103, (d, e), 0.3)
+    x[::4] = 0.0
+    wr[:, 1], wr[:, 5], wr[:, 6] = wr[:, 0], wr[:, 2], wr[:, 3]
+    return (jnp.asarray(x), jnp.asarray(wr)), (torch.from_numpy(x),
+                                               torch.from_numpy(wr))
+
+
+def test_router_and_dispatch_break_ties_as_jax():
+    """``jax.lax.top_k`` puts the lower index first among equal logits;
+    the router and the seeded grouped dispatch follow it exactly."""
+    (jx, jw), (tx, tw) = tied_routing_case()
+    jwt, jidx = JL.moe_router(jx, jw, 2)
+    twt, tidx = TL.moe_router(tx, tw, 2)
+    assert np.array_equal(tidx.numpy(), np.asarray(jidx))
+    assert np.array_equal(tidx[0].numpy(), [0, 1])      # an all-zero row
+    np.testing.assert_allclose(twt.numpy(), np.asarray(jwt), rtol=0,
+                               atol=1e-6)
+    kw = {"drop_seed": 3, "group_tokens": 16, "with_stats": True}
+    j = JM.dispatch(jx, jw, 8, 2, 1.0, **kw)
+    t = TM.dispatch(tx, tw, 8, 2, 1.0, **kw)
+    assert np.array_equal(t[0].numpy(), np.asarray(j[0]))       # xe
+    assert np.array_equal(t[1].numpy(), np.asarray(j[1]))       # slots
+    np.testing.assert_allclose(t[2].numpy(), np.asarray(j[2]), rtol=0,
+                               atol=1e-6)                       # gates
+    for key in ("routed", "kept", "dropped"):
+        assert np.array_equal(t[3][key].numpy(), np.asarray(j[3][key])), key
+    assert float(t[3]["dropped"]) > 0          # the ties move real drops
+
+
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -3])
 def test_token_priority_bits_equal(seed):
     gids = np.concatenate([np.arange(300), [2**31 - 1, -1, -2**31]]).astype(

@@ -4,11 +4,11 @@ numpy inputs.
 
 On the CPU the port's wrappers run their plain versions; those are what
 these tests compare with the JAX package (K1's with the gather fallback
-at the 1e-5 bar of tests/test_serving.py, K2's with the Pallas
-quantized kernel in interpret mode at the 1e-5 bar of
-tests/test_kv_density.py).  The cases marked ``cuda`` hold the Hopper
-kernels against those plain versions on a card; they are collected
-everywhere and skip where no card is visible."""
+at the 1e-5 bar of tests/test_serving.py, K2's with the Pallas quantized
+kernel in interpret mode at the 1e-5 bar of tests/test_kv_density.py).
+The cases that need a card live in
+tests/test_torch_card_paged_attention.py, which imports no jax and runs
+on the card with ``pytest --noconftest -m cuda``."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -273,64 +273,3 @@ def test_write_rows_gates_disabled_rows():
         (page_ids, rows), torch.tensor([False, False, False])))
     assert torch.equal(pages[0, :, 0, 1], new[1])
     assert int((pages != 0).sum()) == 16
-
-
-# ---------------------------------------------------------------------
-# on the card: the Hopper kernels against their plain versions
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernels run only "
-                    "there (their plain versions are tested above)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_kernel_matches_plain_on_card(cuda_device, dtype):
-    q, kp, vp, ln, bt = decode_inputs(6, b=4, hq=8, hkv=2, dh=64,
-                                      pages=64, psize=16, pmax=8,
-                                      lengths=(1, 17, 100, 128))
-    args = [to_torch(a).to(cuda_device) for a in (q, kp, vp)]
-    args = [a.to(dtype) for a in args] + [
-        to_torch(ln).to(cuda_device), to_torch(bt).to(cuda_device)]
-    before = PA.launches
-    got = PA.paged_attention(*args)
-    torch.cuda.synchronize()
-    assert PA.launches == before + 1
-    ref = PA.gather_attention(*args)
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cache_dtype", ["int8", "fp8"])
-def test_k2_kernel_matches_plain_on_card(cuda_device, cache_dtype):
-    q, kp, vp, ln, bt = decode_inputs(7, b=4, hq=8, hkv=2, dh=64,
-                                      pages=64, psize=16, pmax=8,
-                                      lengths=(1, 17, 100, 128))
-    kq, ks, vq, vs = quantize_pools(kp, vp, cache_dtype)
-    args = [to_torch(a).to(cuda_device)
-            for a in (q, kq, vq, ks, vs, ln, bt)]
-    before = PAQ.launches
-    got = PAQ.quant_paged_attention(*args, fmt=FMT[cache_dtype])
-    torch.cuda.synchronize()
-    assert PAQ.launches == before + 1
-    ref = PAQ.dequant_gather_attention(*args)
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.cuda
-def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
-    q, kp, vp, ln, bt = decode_inputs(8, dh=32)
-    q, kp, vp, ln, bt = (to_torch(a).to(cuda_device)
-                         for a in (q, kp, vp, ln, bt))
-    with pytest.raises(ValueError, match="int32"):
-        PA.paged_attention(q, kp, vp, ln.long(), bt)
-    with pytest.raises(ValueError, match="page dtype"):
-        PA.paged_attention(q, kp.bfloat16(), vp.bfloat16(), ln, bt)
-    with pytest.raises(ValueError, match="contiguous"):
-        PA.paged_attention(q, kp.transpose(1, 2), vp.transpose(1, 2), ln,
-                           bt)

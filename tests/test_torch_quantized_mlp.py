@@ -9,9 +9,9 @@ tests/test_quantized_matmul.py does.  Bars: quantization and int8
 products exact (JAX's own exact bars), e4m3 within 1e-2 relative
 (Frobenius, the JAX bar), the tiny model's loss 1e-5 relative and each
 gradient leaf within 1e-3 of its max-abs (tests/test_torch_training.py),
-widened only where stated below.  The cases marked ``cuda`` hold the
-Hopper kernel against the plain version on a card; they are collected
-everywhere and skip where no card is visible."""
+widened only where stated below.  The cases that need a card live in
+tests/test_torch_card_quantized_mlp.py, which imports no jax and runs on
+the card with ``pytest --noconftest -m cuda``."""
 from __future__ import annotations
 
 import dataclasses
@@ -510,54 +510,3 @@ def test_recommended_step_equals_bench_py():
     for c in cands:
         assert TBENCH.recommended_step(bf16, 10.42, c) == \
             JBENCH._recommended_step(bf16, 10.42, c)
-
-
-# ---------------------------------------------------------------------
-# on the card: the Hopper kernel against its plain version
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernels run only "
-                    "there (their plain versions are tested above)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("fmt", FMTS)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("collect", [False, True])
-def test_fused_kernel_matches_plain_on_card(cuda_device, fmt, dtype,
-                                            collect):
-    """K11 against its plain version: int8 bit-exact, e4m3 each row
-    within 2^-6 of its max-abs and 1e-2 Frobenius, amax exact — as
-    chip_smoke.py holds it at the train shape."""
-    x = torch.from_numpy(arr(21, (256, 192))).to(cuda_device, dtype)
-    w = torch.from_numpy(arr(22, (192, 512), 0.1)).to(cuda_device, dtype)
-    wq, sw = TQ.quantize_tensor(w, fmt)
-    sx = TQ.scale_from_amax(TQ.amax_of(x), fmt)
-    y, am = TQ.kernel_fused_matmul(x, TQ.k_major(wq), sw, sx, fmt, collect)
-    torch.cuda.synchronize()
-    ref, ram = TQ.plain_fused_matmul(x, wq, sw, sx, fmt, collect)
-    if fmt == "int8":
-        assert torch.equal(y, ref)
-    else:
-        err = (y.float() - ref.float()).abs().amax(dim=-1)
-        assert (err <= 2.0 ** -6 * ref.float().abs().amax(dim=-1)).all()
-        assert rel_fro(y.cpu(), ref.cpu()) <= 1e-2
-    if collect:
-        assert torch.equal(am, ram)
-
-
-@pytest.mark.cuda
-def test_fused_kernel_refuses_what_it_cannot_take(cuda_device):
-    x = torch.zeros(200, 128, device=cuda_device, dtype=torch.bfloat16)
-    wq, sw = TQ.quantize_tensor(torch.ones(128, 128, device=cuda_device),
-                                "int8")
-    sx = torch.ones((), device=cuda_device)
-    with pytest.raises(ValueError, match="multiples"):
-        TQ.kernel_fused_matmul(x, TQ.k_major(wq), sw, sx, "int8", False)
-    with pytest.raises(ValueError, match="dtype"):
-        TQ.kernel_fused_matmul(x[:128].half(), TQ.k_major(wq), sw, sx,
-                               "int8", False)

@@ -7,11 +7,11 @@ runs ``_splash_fwd`` / ``splash_attention(q, k, v, spec, 64, 64)`` in
 interpret mode, as tests/test_flash_attention.py does, over its
 MASK_SPECS — among them a segment mask whose documents (avg 50) are
 shorter than a 64-row tile, so rows meet a fully masked first tile, and
-the non-causal segment mask.  Bars: 2e-5 on the forward and lse, 5e-4
-on the gradients (tests/test_torch_flash_attention.py's), and JAX's own
-1e-5 / 1e-4 against the dense-masked reference.  The cases marked
-``cuda`` hold K6/K7/K8 against the plain versions on a card; they skip
-where no card is visible."""
+the non-causal segment mask.  Bars: 2e-5 on the forward and lse, 5e-4 on
+the gradients (tests/test_torch_flash_attention.py's), and JAX's own
+1e-5 / 1e-4 against the dense-masked reference.  The cases that need a
+card live in tests/test_torch_card_splash_attention.py, which imports no
+jax and runs on the card with ``pytest --noconftest -m cuda``."""
 from __future__ import annotations
 
 import importlib
@@ -235,58 +235,3 @@ def test_kernel_wrappers_refuse_foreign_mask_arrays():
     with pytest.raises(ValueError, match="do not fit"):
         TFA._arrays_for(q, spec, "fwd", other)
     assert TFA._arrays_for(q, spec, "dkv", arr) is arr
-
-
-# ---------------------------------------------------------------------
-# on the card: K6/K7/K8 against their plain versions
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernels run only "
-                    "there (their plain versions are tested above)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("spec", MASK_SPECS)
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernels_match_plain_on_card(cuda_device, dtype, spec, shape):
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
-               for x in qkv(9, *shape))
-    do = torch.randn_like(q)
-    t = TM.MaskSpec(*spec)
-    out, lse = TFA.kernel_splash_forward(q, k, v, t)
-    grads = TFA.kernel_splash_backward(q, k, v, out, lse, do, t)
-    torch.cuda.synchronize()
-    p_out, p_lse = TFA.plain_splash_forward(q, k, v, t)
-    p_grads = TFA.plain_splash_backward(q, k, v, out, lse, do, t)
-    # bf16: one output ulp; f32: a row of dq that cancels to ~0 (its
-    # interval's first key only) keeps f32 rounding of its terms against
-    # its 1e-3 floor (chip_smoke.py's f32 splash check reads up to 7.7e-4
-    # on an H100, for K4 and K7 alike)
-    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 4e-3
-    assert float((lse - p_lse).abs().max()) < 1e-3
-    for g, p in zip((out, *grads), (p_out, *p_grads)):
-        err = (g.float() - p.float()).abs().amax(dim=-1)
-        scale = p.float().abs().amax(dim=-1)
-        assert (err <= tol * scale.clamp_min(1e-3 * scale.max())).all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plain_causal_kernels_equal_flash_kernels_on_card(cuda_device,
-                                                          dtype):
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
-               for x in qkv(10, 2, 512, 4, 2, 128))
-    do = torch.randn_like(q)
-    spec = TM.MaskSpec(causal=True)
-    out, lse = TFA.kernel_forward(q, k, v, True)
-    s_out, s_lse = TFA.kernel_splash_forward(q, k, v, spec)
-    assert torch.equal(out, s_out) and torch.equal(lse, s_lse)
-    for a, b in zip(TFA.kernel_backward(q, k, v, out, lse, do, True),
-                    TFA.kernel_splash_backward(q, k, v, out, lse, do,
-                                               spec)):
-        assert torch.equal(a, b)
