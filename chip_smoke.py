@@ -7,7 +7,7 @@
                                      # under each MLP recipe and each
                                      # mask and of the moe_ab grouped
                                      # step (torch.profiler)
-    python3 chip_smoke.py --paired DIR  # also: K11 and K12 timed in
+    python3 chip_smoke.py --paired DIR  # also: K9-K12 timed in
                                      # turns (old, new, new, old) against
                                      # DIR's mlp_matmul.cu (a checkout of
                                      # an earlier commit, e.g. unpacked
@@ -70,9 +70,11 @@ Phases, in order; any failure exits non-zero:
    ``torch._int_mm`` / ``torch._scaled_mm`` on operands quantized
    beforehand; the kernel also timed under each cluster size (1, 2, 4
    blocks along N sharing one quantized x stage);
-5c. K9 (dg, du) and K10 (dWd) at the same shape against their plain
-   versions: dg and du every row within 2^-6 of its max-abs, dWd within
-   1e-3; yardsticks one ``torch.mm`` each (dy @ Wd^T, h^T @ dy);
+5c. K9 (dg, du) and K10 (dWd; on K11's wgmma/TMA skeleton, as K11 and
+   K12) at the same shape against their plain versions: dg and du every
+   row within 2^-6 of its max-abs, dWd within 1e-3; yardsticks one
+   ``torch.mm`` each (dy @ Wd^T, h^T @ dy); K10 also timed under each
+   cluster size (1, 2, 4 blocks along D sharing one h stage);
 5d. K12 (the grouped expert matmul) against its plain version: bf16 at
    the bench's moe_ab shapes (8 experts x 1280 slots, 4096 -> 7168 and
    7168 -> 4096) and at mixtral_8x7b width (4096 -> 14336), int8 and
@@ -84,13 +86,14 @@ Phases, in order; any failure exits non-zero:
    ``torch.bmm`` (bf16), 8 per-expert ``torch._int_mm`` /
    ``torch._scaled_mm`` products summed (int8 / e4m3); int8 / e4m3 also
    timed under each cluster size;
-5e. with ``--paired DIR``: K11 (int8, e4m3; up and down) and K12 (bf16,
+5e. with ``--paired DIR``: K9 and K10 at the train shape, K11 (int8,
+   e4m3; up and down) and K12 (bf16,
    int8, e4m3; gate/up and down, full counts, and gate/up skewed)
    against the same C entry points built from DIR's mlp_matmul.cu, both
    held to the plain version first, then timed old, new, new, old;
 5f. the card-only pytest cases (tests/test_torch_card_*.py, which import
    no jax) in a subprocess, ``pytest --noconftest -m cuda``: rc 0 and at
-   least the 59 cases moved there from the jax-importing files passed;
+   least CARD_TESTS_MIN cases passed (every case of those files);
 6. a tiny f32 model served on the card and on the CPU (plain versions)
    with the same weights: greedy token streams must be equal, for each
    cache dtype;
@@ -229,12 +232,13 @@ LONG_SEQ_STEP, LONG_WINDOW = 32768, 4096
 MASK_REF_TOL = 1e-5
 
 MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
-# K11 and K12 (bf16, int8, e4m3): one warp-specialised wgmma/TMA kernel
+# K9, K10, K11 and K12 (bf16, int8, e4m3): one warp-specialised wgmma/TMA
+# kernel
 WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
-# the card-only pytest cases, in files that import no jax; 59 of them
-# moved there from the jax-importing test files, and all must pass
+# the card-only pytest cases, in files that import no jax (59 of them
+# moved there from the jax-importing test files); all 86 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MOVED = 59
+CARD_TESTS_MIN = 86
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -1361,17 +1365,19 @@ def qmm_times(torch, fmt, x, wq, w_t, sw, sx, peak) -> dict:
             "bound_by": b_by, "library_ms": library_ms}
 
 
-def cluster_ms(torch, fn) -> dict:
-    """fn's time under each cluster size the 8-bit kernels are built
-    for; the preferred size is restored after."""
+def cluster_ms(torch, fn, set_cluster=None) -> dict:
+    """fn's time under each cluster size (1, 2, 4) that set_cluster (by
+    default the 8-bit kernels' setter) takes; the preferred size is
+    restored after."""
     from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    set_cluster = set_cluster or Q.set_cluster
     out = {}
     for c in Q.CLUSTERS:
-        prev = Q.set_cluster(c)
+        prev = set_cluster(c)
         try:
             out[c] = timed_ms(torch, fn)
         finally:
-            Q.set_cluster(prev)
+            set_cluster(prev)
     return out
 
 
@@ -1430,6 +1436,13 @@ def mlp_bwd_phase(torch, peak: dict) -> dict:
             f"library_ms {library_ms:.4f} (one torch.mm) bound_ms "
             f"{b_ms:.4f} ({b_by}) -> {b_ms / ms:.3f} of bound, "
             f"{2 * t * d * f / ms / 1e9:.1f} TFLOP/s")
+    smi_sample("K9/K10 timed")
+    by_cluster = cluster_ms(torch, lambda: MB.kernel_dwd(g, u, dy),
+                            MB.set_dwd_cluster)
+    say(f"K10 [{f}, {t}] x [{t}, {d}] by cluster size (blocks along D "
+        f"sharing one h stage): "
+        + ", ".join(f"c={c} {v:.4f} ms" for c, v in by_cluster.items()))
+    smi_sample("K10 cluster sweep")
     return out
 
 
@@ -2000,7 +2013,7 @@ def entry_phase(torch) -> None:
 def card_tests_phase() -> None:
     """The card-only pytest cases (``CARD_TESTS``, files that import no
     jax) in a subprocess, without tests/conftest.py (which imports jax):
-    rc 0 and at least the ``CARD_TESTS_MOVED`` cases passed."""
+    rc 0 and at least ``CARD_TESTS_MIN`` cases passed."""
     import glob
     import re
     files = sorted(glob.glob(str(ROOT / CARD_TESTS)))
@@ -2015,24 +2028,24 @@ def card_tests_phase() -> None:
         else ""
     m = re.search(r"(\d+) passed", tail)
     passed = int(m.group(1)) if m else 0
-    if proc.returncode != 0 or passed < CARD_TESTS_MOVED:
+    if proc.returncode != 0 or passed < CARD_TESTS_MIN:
         fail(f"card tests: rc {proc.returncode}, {passed} passed (want rc 0 "
-             f"and >= {CARD_TESTS_MOVED}):\n{proc.stdout[-4000:]}"
+             f"and >= {CARD_TESTS_MIN}):\n{proc.stdout[-4000:]}"
              f"{proc.stderr[-2000:]}")
     say(f"card tests: pytest --noconftest -m cuda {CARD_TESTS}: {tail} in "
-        f"{time.perf_counter() - t0:.1f} s (>= {CARD_TESTS_MOVED} moved "
-        f"cases)")
+        f"{time.perf_counter() - t0:.1f} s (>= {CARD_TESTS_MIN} cases)")
 
 
 def paired_phase(torch, parent: Path) -> list:
-    """K11 and K12 timed in turns against the same kernels built from
-    another checkout's ``MLP_SRC`` (the same C interface): old, new, new,
-    old, each a ``timed_ms`` median, on the same operands; both outputs
-    held to the plain version by the kernels' own bars first."""
+    """K9, K10, K11 and K12 timed in turns against the same kernels built
+    from another checkout's ``MLP_SRC`` (the same C interface): old,
+    new, new, old, each a ``timed_ms`` median, on the same operands; both
+    outputs held to the plain version by the kernels' own bars first."""
     import ctypes
 
     from dlnetbench_tpu_torch.ops import _build
     from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    from dlnetbench_tpu_torch.ops import mlp_backward as MB
     from dlnetbench_tpu_torch.ops import quantized_matmul as Q
     out_dir = OUT / "paired"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2047,6 +2060,9 @@ def paired_phase(torch, parent: Path) -> list:
     lib.dlnb_qmm.restype = lib.dlnb_gmm.restype = ctypes.c_int
     lib.dlnb_qmm.argtypes = Q._fn().argtypes
     lib.dlnb_gmm.argtypes = GM._fn().argtypes
+    lib.dlnb_dgdu.restype = lib.dlnb_dwd.restype = ctypes.c_int
+    lib.dlnb_dgdu.argtypes = MB._fn("dlnb_dgdu", 6).argtypes
+    lib.dlnb_dwd.argtypes = MB._fn("dlnb_dwd", 4).argtypes
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -2070,6 +2086,53 @@ def paired_phase(torch, parent: Path) -> list:
 
     rand = seeded(torch, 61)
     smi_sample("paired start")
+    t, d, f = MLP_T, MLP_D, MLP_F
+    dy = rand(t, d, scale=0.1)
+    wd = rand(f, d, scale=f ** -0.5)
+    g, u = rand(t, f), rand(t, f)
+    ref = {"k9": MB.plain_dgdu(dy, wd, g, u), "k10": MB.plain_dwd(g, u, dy)}
+    old_out = {"k9": (torch.empty_like(g), torch.empty_like(u)),
+               "k10": torch.empty(f, d, device="cuda")}
+    new_out = {}
+
+    def old_k9():
+        dg, du = old_out["k9"]
+        rc = lib.dlnb_dgdu(dy.data_ptr(), wd.data_ptr(), g.data_ptr(),
+                           u.data_ptr(), dg.data_ptr(), du.data_ptr(), t, f,
+                           d, stream())
+        if rc:
+            fail(f"paired: parent dlnb_dgdu rc {rc}")
+
+    def new_k9():
+        new_out["k9"] = MB.kernel_dgdu(dy, wd, g, u)
+
+    def old_k10():
+        rc = lib.dlnb_dwd(g.data_ptr(), u.data_ptr(), dy.data_ptr(),
+                          old_out["k10"].data_ptr(), t, f, d, stream())
+        if rc:
+            fail(f"paired: parent dlnb_dwd rc {rc}")
+
+    def new_k10():
+        new_out["k10"] = MB.kernel_dwd(g, u, dy)
+
+    def check_bwd(name, which):
+        got = (old_out if which == "old" else new_out)[name]
+        pairs = (zip(got, ref["k9"], ("dg", "du")) if name == "k9"
+                 else [(got, ref["k10"], "dWd")])
+        bar = DGDU_TOL_ROW if name == "k9" else DWD_TOL_ROW
+        for a, r, label in pairs:
+            err = row_err(a, r)
+            if not (torch.isfinite(a.float()).all() and err <= bar):
+                fail(f"paired {name.upper()} {label} ({which}): worst row "
+                     f"err {err:.3e} (bar {bar:.3e})")
+
+    turns(f"K9 dgdu [{t}, {d}] x [{f}, {d}]^T", old_k9, new_k9,
+          lambda which: check_bwd("k9", which))
+    turns(f"K10 dwd [{f}, {t}] x [{t}, {d}]", old_k10, new_k10,
+          lambda which: check_bwd("k10", which))
+    del dy, wd, g, u, ref, old_out, new_out
+    torch.cuda.empty_cache()
+    smi_sample("paired K9/K10 done")
     for fmt in ("int8", "float8"):
         kind = "int8" if fmt == "int8" else "e4m3"
         for proj, (k, n) in (("up", (MLP_D, MLP_F)),
@@ -2408,8 +2471,10 @@ def main(argv: list[str]) -> int:
                         "replaces": SPLASH_REPLACES[kind],
                         "launches": launches, **row[kind]})
     for key, label, res in (
-            ("k9", "K9 dgdu (SwiGLU backward dg, du)", mlp_bwd["k9"]),
-            ("k10", "K10 dwd (SwiGLU backward dWd)", mlp_bwd["k10"]),
+            ("k9", f"K9 dgdu (SwiGLU backward dg, du; {WG_DESIGN})",
+             mlp_bwd["k9"]),
+            ("k10", f"K10 dwd (SwiGLU backward dWd; {WG_DESIGN})",
+             mlp_bwd["k10"]),
             ("k11_int8", f"K11 fused_matmul (int8; {WG_DESIGN})",
              qmm["int8"]),
             ("k11_e4m3", f"K11 fused_matmul (e4m3; {WG_DESIGN})",

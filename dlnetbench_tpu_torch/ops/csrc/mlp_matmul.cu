@@ -20,26 +20,17 @@
 //       registers and the saved g, u: dg = dh * u * silu'(g),
 //       du = dh * silu(g);
 //   K10 ops/mlp_backward.py::_dwd_kernel (:103, pallas_call :131) — dWd
-//       [F, D] f32 = h^T . dy over T, h = bf16(silu(g) * u) recomputed per
-//       tile in the prologue.
+//       [F, D] f32 = h^T . dy over T, h = bf16(silu(g) * u) recomputed
+//       from g and u in shared memory (h never reaches device memory).
 //
-// K11 and K12 (bf16, int8, e4m3) are one warp-specialised template,
-// wg_gemm_kernel (K11 is K12 with one expert and every row live): TMA
-// loads into rings of mbarrier-guarded stages, wgmma.mma_async in two
-// consumer warpgroups, a producer warp, and for the 8-bit formats a
-// quantizer warpgroup whose work a thread-block cluster shares along N;
-// persistent over the live tiles.  Its own comment below has the design.
-//
-// K9 and K10 keep the first skeleton: a 128 x 256 output tile per block
-// of 8 warps (2 along M x 4 along N, 64 x 64 each; one block per SM),
-// the block's tile chosen by a grouped raster (8 row tiles share each
-// column sweep), operands staged through a ring of shared-memory stages
-// filled by 16-byte cp.async, fragments read with ldmatrix (rows padded
-// by 16 bytes) and multiplied with mma.sync.  Each adds its own
-// prologue (K10's recomputed h tile, written to one of two buffers while
-// the tensor cores drain the other) and epilogue.  K9's operands are
-// both D-contiguous (row.col as they lie); K10's are both T-major, so
-// its fragments come through ldmatrix.trans.
+// K9, K10, K11 and K12 (bf16, int8, e4m3) are one warp-specialised
+// template, wg_gemm_kernel (K11 is K12 with one expert and every row
+// live): TMA loads into rings of mbarrier-guarded stages,
+// wgmma.mma_async in two consumer warpgroups, a producer warp, and for
+// the 8-bit formats a quantizer warpgroup (for K10 a silu warpgroup in
+// its seat) whose work a thread-block cluster shares along N; persistent
+// over the live tiles.  K9 is K12 bf16 with a K-major weight and an
+// epilogue that reads g and u.  Its own comment below has the design.
 //
 // Numerics (the TPU kernels' rounding points):
 //   K11: x / sx rounded as IEEE division rounds it (never x * (1 / sx),
@@ -71,7 +62,10 @@
 // quantization (x / sx, clip, convert, pack: ~13 f32 instructions an
 // element) is ALU work on top, which the cluster divides by its size.
 // K9 on 1.63 GB and K10 on 1.04 GB at 989 TFLOP/s bf16: 1.459 ms each,
-// bound by operations.
+// bound by operations.  K10's silu pass (a sigmoid, four products and a
+// rounding an element) is ALU work on top, divided by the cluster size
+// as K11's quantization is; K9's epilogue moves 1.41 GB of g, u, dg and
+// du (0.42 ms at the memory rate) between mainloops.
 //
 // K12 at the MoE bench shape (E = 8 experts of C = 1280 slots, D = 4096,
 // F = 7168): 2 * E * C * D * F = 6.01e11 operations a product, 0.608 ms at
@@ -100,57 +94,15 @@ using bf16 = __nv_bfloat16;
 enum Dtype { kF32 = 0, kBF16 = 1 };
 enum Fmt { kInt8 = 0, kE4M3 = 1 };
 
-constexpr int kThreads = 256;          // K9/K10: 8 warps, 2 (M) x 4 (N)
+constexpr int kThreads = 256;          // the f32 kernel's block; the two
+                                       // consumer warpgroups' zero fill
 constexpr int kBM = 128, kBN = 256;    // block tile (every kernel but f32)
-constexpr int kWM = 64, kWN = 64;      // K9/K10 warp tile: 4 m16 x 8 n8
 constexpr int kGroupM = 8;             // raster group (row tiles)
 
 // ------------------------------------------------------------ PTX helpers
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices (or 8 x 16-byte rows of 8-bit values); lanes
-// 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------- shared skeleton
@@ -165,22 +117,6 @@ __device__ __forceinline__ void tile_of(int bid, int mt, int nt, int& tm,
   const int in = bid % per_group;
   tm = first + in % rows;
   tn = in / rows;
-}
-
-// R rows x BYTES bytes from global (row stride ld_bytes) -> shared (row
-// pitch p_bytes), 16 bytes per cp.async
-template <int R, int BYTES>
-__device__ __forceinline__ void load_rows(void* dst, int p_bytes,
-                                          const void* src, size_t ld_bytes,
-                                          int tid) {
-  constexpr int kChunks = BYTES / 16;
-  auto* d = static_cast<unsigned char*>(dst);
-  const auto* s = static_cast<const unsigned char*>(src);
-#pragma unroll
-  for (int c = tid; c < R * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 16;
-    cp_async16(d + r * p_bytes + col, s + r * ld_bytes + col);
-  }
 }
 
 // K12's f32 launch: blockIdx.z is the expert, whose operands sit
@@ -213,72 +149,6 @@ __device__ __forceinline__ void zero_tile(T* y, int M, int N, int tm, int tn,
   }
 }
 
-// The warp's 64 x 64 accumulator (acc[m16 tile][n8 tile][4]): in a tile,
-// element e of lane L sits at row L/4 + 8*(e/2), column 2*(L%4) + e%2.
-template <typename Acc>
-struct WarpAcc {
-  Acc v[kWM / 16][kWN / 8][4];
-};
-
-// acc += A (the warp's 64 rows of a row-major [kBM][K] tile) * B^T (the
-// warp's 32 rows of a row-major [kBN][K] tile); 16-bit elements, KS
-// contraction steps of 16; pitches in elements
-template <int KS>
-__device__ __forceinline__ void mma_rows_bf16(WarpAcc<float>& acc,
-                                              const bf16* a, int pa,
-                                              const bf16* b, int pb,
-                                              int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t af[kWM / 16][4];
-#pragma unroll
-    for (int mt = 0; mt < kWM / 16; ++mt)
-      ldsm4(af[mt], a + (mt * 16 + lane % 16) * pa + ks * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int nb = 0; nb < kWN / 16; ++nb) {
-      uint32_t bfr[4];
-      ldsm4(bfr, b + (nb * 16 + (lane / 16) * 8 + lane % 8) * pb + ks * 16 +
-                     ((lane / 8) & 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < kWM / 16; ++mt) {
-        mma_bf16(acc.v[mt][2 * nb], af[mt], bfr[0], bfr[1]);
-        mma_bf16(acc.v[mt][2 * nb + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
-// acc += A * B with A stored K-major ([K][kBM] rows, the warp's 64 columns
-// at a) and B stored K-major ([K][kBN] rows, the warp's 32 columns at b),
-// both fed through ldmatrix.trans; bf16, KS steps of 16; pitches in
-// elements
-template <int KS>
-__device__ __forceinline__ void mma_cols_bf16(WarpAcc<float>& acc,
-                                              const bf16* a, int pa,
-                                              const bf16* b, int pb,
-                                              int lane) {
-  const int j = lane / 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t af[kWM / 16][4];
-#pragma unroll
-    for (int mt = 0; mt < kWM / 16; ++mt)
-      ldsm4_t(af[mt], a + (ks * 16 + (j >> 1) * 8 + lane % 8) * pa +
-                          mt * 16 + (j & 1) * 8);
-#pragma unroll
-    for (int nb = 0; nb < kWN / 16; ++nb) {
-      uint32_t bfr[4];
-      ldsm4_t(bfr, b + (ks * 16 + (j & 1) * 8 + lane % 8) * pb + nb * 16 +
-                       (lane / 16) * 8);
-#pragma unroll
-      for (int mt = 0; mt < kWM / 16; ++mt) {
-        mma_bf16(acc.v[mt][2 * nb], af[mt], bfr[0], bfr[1]);
-        mma_bf16(acc.v[mt][2 * nb + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
@@ -307,13 +177,17 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// K9's sigmoid (the JAX _silu_parts): the precise expf, then 1 / x
+// rounded to nearest, which __frcp_rn(x) is (IEEE division's result
+// without its slow-path test)
 __device__ __forceinline__ float sigmoid(float g) {
-  return 1.f / (1.f + expf(-g));
+  return __frcp_rn(1.f + expf(-g));
 }
 
 // K10's sigmoid: exp from ex2.approx and the reciprocal from rcp.approx
-// (see Numerics); h is recomputed once per column tile, and the correctly
-// rounded forms took most of the kernel's time
+// (see Numerics); h is recomputed once per cluster of column tiles, by
+// three warps beside the tensor cores, and the precise forms would set
+// their pace
 __device__ __forceinline__ float sigmoid_fast(float g) {
   return __fdividef(1.f, 1.f + __expf(-g));
 }
@@ -363,7 +237,7 @@ __device__ __forceinline__ uint32_t quant4(const float* v, float sx,
   return lo | (hi << 16);
 }
 
-// ------------------------------------------ K11 / K12: the wgmma skeleton
+// ----------------------------------------- K9 - K12: the wgmma skeleton
 //
 // One output tile is 128 x 256.  A block is three warpgroups (384
 // threads: a 64 x 256 f32 accumulator is 128 registers a thread, more
@@ -384,6 +258,37 @@ __device__ __forceinline__ uint32_t quant4(const float* v, float sx,
 // setmaxnreg moves registers from WG 0 to the consumers.  The bf16
 // grouped product (K12 bf16) has no quantizer: the producer loads A (x)
 // with TMA beside W.
+//
+// K10 (FMT kSilu; dWd [F, D] = h^T . dy, so M = F, N = D, contraction
+// T) is K11 with a silu pass in the quantizer's seat:
+// - the x ring holds this block's slice of g and of u (64 T rows of the
+//   row tile's 128 F columns each, as two 64-column panels in TMA's
+//   128-byte swizzle: x_stage_bytes<bf16, CL>() = 2 * kStageA / CL);
+// - warps 1-3 write h = bf16(silu(g) * u) into the A stage at the very
+//   byte offsets where g and u landed: g, u and h are all F-contiguous
+//   and the swizzle moves whole 16-byte pieces of a row, so the pass is
+//   elementwise over 16-byte vectors with no layout change;
+// - the consumers read h M-major (F contiguous, the transpose bit of A
+//   set), panel ci for consumer ci, a K step of 16 T rows 2048 bytes on;
+//   dy [T, D] is B, N-major as K12 bf16's W, multicast to the pair;
+// - the cluster shares h along D as K11 shares its quantization: each
+//   block makes 1 / CL of the h stage (slice nx: CL = 1 both panels, 2
+//   panel nx, 4 half a panel) and bulk-copies it to its row peers, so h
+//   is recomputed once per CL column tiles (D / 256 / CL times in all).
+// K9 (FMT kDgdu; dg, du [T, F] from dh = dy [T, D] . Wd [F, D]^T, so
+// M = T, N = F, contraction D) is K12 bf16 with one expert and the
+// weight K-major (Wd as it lies: rows of 64 D values, 128 bytes, the
+// 8-bit W's layout and descriptor, the transpose bit of B clear).  Its
+// epilogue reads g and u and writes dg and du (64 KB each a tile, bf16)
+// through shared memory, a 64-column chunk at a time: a loader thread
+// (WG 0, warp 1) brings the chunk's g and u by TMA into an epilogue ring
+// of kEpiSlots slots while the mainloop runs; each consumer reads its
+// rows with ldmatrix in the accumulator's fragment layout, writes dg and
+// du over them with stmatrix, and stores them with TMA.  The ring's
+// room costs the mainloop its fourth stage.  Measured on an H100 against
+// the first design, which read g and u from global memory in the
+// fragment layout (4-byte pieces, eight 16-byte rows a warp access):
+// 2.28 against 2.65 ms at the train shape (PERF.md).
 //
 // A stage is 128 bytes of contraction a row: 64 bf16 or 128 8-bit
 // values.  The 8-bit contract is K % 64 == 0, so the last stage may be
@@ -453,12 +358,29 @@ constexpr int kRegConsumerE4M3 = 208; //   also hold the promotion's sums
 constexpr int kRegProducer = 40;      // WG 0, bf16 (no quantizer)
 constexpr int kRegConsumerBf16 = 232; //   and the consumers
 constexpr int kNoQuant = 2;           // FMT of the bf16 grouped product
+constexpr int kSilu = 3;              // FMT of K10: A = h, made in WG 0
+constexpr int kDgdu = 4;              // FMT of K9: bf16, the B K-major
 constexpr int kPairM = 2;             // row tiles a cluster pairs: they
                                       // share each W stage (multicast)
 
-// 8-bit: the depths of the x and A rings.  A cluster adds a bulk copy
-// and the peers' releases to each A stage's round trip, so its rings
-// are deeper (and its x stages smaller)
+// K9's epilogue ring: slots of one 64-column chunk of the tile's g and
+// u (kBM rows x 128 bytes each), dg and du written over them in place
+constexpr int kEpiSlots = 2;
+constexpr int kEpiSlot = 32768;      // 2 x kBM x kRowBytes
+// K10: TMA boxes of g (and of u) a block loads a stage, and their T rows
+template <int CL>
+__host__ __device__ constexpr int silu_boxes() {
+  return CL == 1 ? 2 : 1;
+}
+
+template <int CL>
+__host__ __device__ constexpr int silu_rows() {
+  return CL == 4 ? 32 : 64;
+}
+
+// 8-bit and K10: the depths of the x and A rings.  A cluster adds a
+// bulk copy and the peers' releases to each A stage's round trip, so
+// its rings are deeper (and its x stages smaller)
 template <int CL>
 __host__ __device__ constexpr int x_stages() {
   return CL == 1 ? 2 : CL == 2 ? 3 : 4;
@@ -474,9 +396,17 @@ __host__ __device__ constexpr int x_stage_bytes() {
   return kBM / CL * kQ8K * static_cast<int>(sizeof(TX));
 }
 
+// the bf16 products whose A the producer loads (K12 bf16, K9) beside
+// their weight; the 8-bit formats and K10 make A in WG 0 from an x ring
+__host__ __device__ constexpr bool a_by_tma(int fmt) {
+  return fmt == kNoQuant || fmt == kDgdu;
+}
+
 template <typename TX, int FMT, int CL>
 __host__ __device__ constexpr int w_stages() {
-  return FMT == kNoQuant
+  return FMT == kDgdu
+             ? (kSmemBudget - kEpiSlots * kEpiSlot) / (kStageA + kStageW)
+         : a_by_tma(FMT)
              ? kSmemBudget / (kStageA + kStageW)
              : (kSmemBudget - x_stages<CL>() * x_stage_bytes<TX, CL>() -
                 a_stages<CL>() * kStageA) / kStageW < kMaxWStages
@@ -488,8 +418,9 @@ __host__ __device__ constexpr int w_stages() {
 template <typename TX, int FMT, int CL>
 __host__ __device__ constexpr size_t wg_smem() {
   return kSmemExtra + static_cast<size_t>(w_stages<TX, FMT, CL>()) *
-                          (kStageW + (FMT == kNoQuant ? kStageA : 0)) +
-         (FMT == kNoQuant ? 0
+                          (kStageW + (a_by_tma(FMT) ? kStageA : 0)) +
+         (FMT == kDgdu ? static_cast<size_t>(kEpiSlots) * kEpiSlot : 0) +
+         (a_by_tma(FMT) ? 0
                           : static_cast<size_t>(a_stages<CL>()) * kStageA +
                                 x_stages<CL>() * x_stage_bytes<TX, CL>());
 }
@@ -569,6 +500,51 @@ __device__ __forceinline__ void tma_load_multicast(void* dst,
       : "memory");
 }
 
+// a 3-D box of shared memory -> a tensor map's box in global memory
+// (elements past the tensor are not written); one bulk group each
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the bulk groups but the last N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... and have completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 b16 matrices between shared memory and the mma fragment
+// layout (lane L: row L / 4, elements 2 (L % 4) and 2 (L % 4) + 1 of
+// each); lanes 8i .. 8i + 7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void stsm4(void* p, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
 // `bytes` of this block's shared memory at `src` -> the same offset in
 // block `rank` of the cluster, completing (transaction bytes) on the
 // barrier at bar's offset there
@@ -587,6 +563,11 @@ __device__ __forceinline__ void bulk_to_peer(const void* src, int bytes,
 // the quantizer warps' own barrier (0 is __syncthreads')
 __device__ __forceinline__ void quantizer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kQuantWarps * 32) : "memory");
+}
+
+// a consumer warpgroup's own barrier (K9's epilogue): ids 2 and 3
+__device__ __forceinline__ void consumer_sync(int ci) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + ci) : "memory");
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -714,10 +695,12 @@ __device__ __forceinline__ void acc_fence(float (&d)[64]) {
   "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), \
   "+r"(d[126]), "+r"(d[127])
 
-// d (64 x 256, f32) += A (64 x 16 bf16, K-major) * B (16 x 256 bf16,
-// N-major: the transpose bit of B set); scale_d = 0 overwrites d
+// d (64 x 256, f32) += A (64 x 16 bf16) * B (16 x 256 bf16); scale_d = 0
+// overwrites d.  TA, TB: the transpose bits, 1 for an M-major A (K10's
+// h) or an N-major B (K12's and K10's), 0 for K-major
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
-                                       uint64_t db, int scale_d) {
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -729,9 +712,9 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : WG_ACC_F(d)
-      : "l"(da), "l"(db), "r"(scale_d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
       : "memory");
 }
 
@@ -948,23 +931,101 @@ __device__ __forceinline__ void quantize(
   }
 }
 
+// K10's silu warps (thread qt of kQuantWarps * 32): each landed g, u
+// slice -> this block's slice of the h stage, h = bf16(silu(g) * u) at
+// the same byte offsets (see the skeleton's K10 notes), in every block of
+// its cluster row
+template <int CL>
+__device__ __forceinline__ void silu_h(
+    int units, int first, int step, int nk, unsigned char* sX,
+    unsigned char* sA, uint64_t* full_x, uint64_t* empty_x,
+    uint64_t* full_a, uint64_t* empty_a, uint32_t nx, uint32_t row0,
+    int qt) {
+  constexpr int XB = x_stage_bytes<bf16, CL>();   // g's slice, then u's
+  constexpr int HB = kStageA / CL;                 // the h slice
+  static_assert(2 * HB == XB, "the x stage is one slice of g and of u");
+  Ring x, a;
+  for (int u = first; u < units; u += step) {
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full_x[x.slot], x.phase);
+      mbar_wait(&empty_a[a.slot], a.phase ^ 1);
+      const unsigned char* gs = sX + x.slot * XB;
+      unsigned char* hs = sA + a.slot * kStageA + nx * HB;
+#pragma unroll 2
+      for (int i = qt * 16; i < HB; i += kQuantWarps * 32 * 16) {
+        float gv[8], uv[8];
+        load8(gv, reinterpret_cast<const bf16*>(gs + i));
+        load8(uv, reinterpret_cast<const bf16*>(gs + HB + i));
+        uint4 out;
+        auto* h2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          h2[j] = __floats2bfloat162_rn(
+              gv[2 * j] * sigmoid_fast(gv[2 * j]) * uv[2 * j],
+              gv[2 * j + 1] * sigmoid_fast(gv[2 * j + 1]) * uv[2 * j + 1]);
+        *reinterpret_cast<uint4*>(hs + i) = out;
+      }
+      fence_to_async();
+      quantizer_sync();
+      if (qt == 0) {
+        mbar_arrive(&empty_x[x.slot]);
+        if constexpr (CL == 1) {
+          mbar_arrive(&full_a[a.slot]);
+        } else {
+#pragma unroll
+          for (int p = 1; p < CL; ++p)
+            bulk_to_peer(hs, HB, &full_a[a.slot], row0 + (nx + p) % CL);
+          mbar_expect_tx(&full_a[a.slot], (CL - 1) * HB);
+        }
+      }
+      x.next(x_stages<CL>());
+      a.next(a_stages<CL>());
+    }
+  }
+}
+
+// K9's and K10's extra operands, for their TMA maps: g, u [T, F] and
+// K9's du (its dg is y; K10's g is x)
+struct Swiglu {
+  const bf16* g;
+  const bf16* u;
+  bf16* du;
+};
+
+// the output type: K10 writes f32 dWd from bf16 operands
+template <typename TX, int FMT>
+using OutT = typename std::conditional<FMT == kSilu, float, TX>::type;
+
 // K11 (E = 1, counts null) and K12: y [E, M, N] (TX) = x [E, M, K] . w
 // per expert.  FMT int8 / e4m3: x is quantized against sx[e], w_t [E, N,
 // K] 8-bit, the epilogue multiplies by sx[e] * sw[e].  FMT kNoQuant: x
 // and w [E, K, N] bf16.  map_x and map_w are the TMA maps of x and w
 // (3-D, the expert outermost).
+// K10 (kSilu, TX bf16, E = 1): map_g, map_u the maps of g, u [K = T, M =
+// F], map_w of dy [T, N = D]; y f32.  K9 (kDgdu, TX bf16, E = 1): map_x
+// of dy [M = T, K = D], map_w of Wd [N = F, K = D], map_g, map_u of g, u
+// [M = T, N = F] in 128-row chunks, map_dg, map_du of dg (y) and du in a
+// consumer's 64 rows.
 template <typename TX, int FMT, int CL>
 __global__ void __launch_bounds__(kWgThreads, 1)
     wg_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
                    const __grid_constant__ CUtensorMap map_w,
+                   const __grid_constant__ CUtensorMap map_g,
+                   const __grid_constant__ CUtensorMap map_u,
+                   const __grid_constant__ CUtensorMap map_dg,
+                   const __grid_constant__ CUtensorMap map_du,
                    const float* __restrict__ sx_p,
-                   const float* __restrict__ sw_p, TX* __restrict__ y,
+                   const float* __restrict__ sw_p,
+                   OutT<TX, FMT>* __restrict__ y,
                    float* __restrict__ amax_out,
                    const int* __restrict__ counts, int E, int M, int N,
                    int K) {
-  constexpr bool kQuant = FMT != kNoQuant;
+  constexpr bool kQuant = FMT == kInt8 || FMT == kE4M3;
+  constexpr bool kSiluA = FMT == kSilu;       // A made by the silu warps
+  constexpr bool kHelper = kQuant || kSiluA;  // WG 0's warps 1-3 work
+  constexpr bool kKMajorW = FMT != kNoQuant && FMT != kSilu;
   constexpr int SW = w_stages<TX, FMT, CL>();
-  constexpr int SA = kQuant ? a_stages<CL>() : SW;
+  constexpr int SA = kHelper ? a_stages<CL>() : SW;
   constexpr int SX = x_stages<CL>();
   constexpr int XB = x_stage_bytes<TX, CL>();
   constexpr int R = kBM / CL;             // x rows this block quantizes
@@ -975,13 +1036,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full_w = reinterpret_cast<uint64_t*>(base);
   uint64_t* empty_w = full_w + SW;
-  uint64_t* full_a = empty_w + SW;        // 8-bit only
+  uint64_t* full_a = empty_w + SW;        // 8-bit and K10 only
   uint64_t* empty_a = full_a + SA;
   uint64_t* full_x = empty_a + SA;
   uint64_t* empty_x = full_x + SX;
   unsigned char* sW = base + 1024;
   unsigned char* sA = sW + SW * kStageW;
-  unsigned char* sX = sA + SA * kStageA;  // 8-bit only
+  unsigned char* sX = sA + SA * kStageA;  // 8-bit and K10 only
+  unsigned char* sE = sX;                 // K9's epilogue ring
+  static_assert(FMT != kDgdu || kEpiSlots <= SX, "K9 epilogue barriers");
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const uint32_t rank = cluster_rank();
@@ -991,7 +1054,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(&full_w[s], 1);          // + the column's W parts, bytes
       mbar_init(&empty_w[s], 8 * kPairM);  // the column's consumer warps
     }
-    if constexpr (kQuant) {
+    if constexpr (FMT == kDgdu) {
+      for (int s = 0; s < kEpiSlots; ++s) {
+        mbar_init(&full_x[s], 1);        // + the chunk's bytes
+        mbar_init(&empty_x[s], 2);       // each consumer warpgroup
+      }
+    }
+    if constexpr (kHelper) {
       for (int s = 0; s < SA; ++s) {
         mbar_init(&full_a[s], 1);        // + the peers' rows, as bytes
         mbar_init(&empty_a[s], 8 * CL);  // each consumer warp
@@ -1013,12 +1082,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // of its column (who share each W stage)
   const uint16_t column = static_cast<uint16_t>((1u << nx) |
                                                 (1u << (nx + CL)));
-  const int nk = kQuant ? ceil_div(K, kQ8K) : K / kBf16K;
+  const int nk = kQuant   ? ceil_div(K, kQ8K)
+                 : kSiluA ? ceil_div(K, kBf16K)
+                          : K / kBf16K;
 
   if (wg == 0) {
-    reg_release<FMT == kInt8   ? kRegLoader
-                : FMT == kE4M3 ? kRegLoaderE4M3
-                               : kRegProducer>();
+    reg_release<FMT == kE4M3              ? kRegLoaderE4M3
+                : FMT == kInt8 || kSiluA ? kRegLoader
+                                          : kRegProducer>();
     if (tid == 0) {
       // --------------------------------------------------- producer
       Ring w, x;
@@ -1034,21 +1105,43 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             tma_load(sX + x.slot * XB, &map_x, &full_x[x.slot], kt * kQ8K,
                      row + static_cast<int>(nx) * R, e);
             x.next(SX);
+          } else if constexpr (kSiluA) {
+            // this block's slice of g and of u: box c = nx * NB + i of
+            // the stage is silu_rows T rows of one 64-column panel
+            constexpr int HR = silu_rows<CL>(), NB = silu_boxes<CL>();
+            mbar_wait(&empty_x[x.slot], x.phase ^ 1);
+            mbar_expect_tx(&full_x[x.slot], XB);
+            unsigned char* xs = sX + x.slot * XB;
+#pragma unroll
+            for (int i = 0; i < NB; ++i) {
+              const int c = static_cast<int>(nx) * NB + i;
+              const int panel = c / (64 / HR), r0 = c % (64 / HR) * HR;
+              tma_load(xs + i * HR * kRowBytes, &map_g, &full_x[x.slot],
+                       row + panel * 64, kt * kBf16K + r0, 0);
+              tma_load(xs + XB / 2 + i * HR * kRowBytes, &map_u,
+                       &full_x[x.slot], row + panel * 64, kt * kBf16K + r0,
+                       0);
+            }
+            x.next(SX);
           }
-          // W: this block loads its 1 / kPairM of the stage (rows of the
-          // 8-bit w_t, 64-column panels of the bf16 w) into every block
-          // of its column, once their consumers are all done with it
+          // W: this block loads its 1 / kPairM of the stage (rows of a
+          // K-major w, 64-column panels of an N-major one) into every
+          // block of its column, once their consumers are all done with it
           mbar_wait(&empty_w[w.slot], w.phase ^ 1);
           unsigned char* ws = sW + w.slot * kStageW;
-          if constexpr (kQuant) {
+          if constexpr (!a_by_tma(FMT)) {
             mbar_expect_tx(&full_w[w.slot], kStageW);
-            tma_load_multicast(ws + my * (kStageW / kPairM), &map_w,
-                               &full_w[w.slot], kt * kQ8K,
-                               tn * kBN + my * (kBN / kPairM), e, column);
           } else {
             mbar_expect_tx(&full_w[w.slot], kStageA + kStageW);
             tma_load(sA + w.slot * kStageA, &map_x, &full_w[w.slot],
                      kt * kBf16K, row, e);
+          }
+          if constexpr (kKMajorW) {
+            tma_load_multicast(ws + my * (kStageW / kPairM), &map_w,
+                               &full_w[w.slot],
+                               kt * (kQuant ? kQ8K : kBf16K),
+                               tn * kBN + my * (kBN / kPairM), e, column);
+          } else {
 #pragma unroll
             for (int j = 0; j < kBN / 64 / kPairM; ++j) {  // its panels
               const int panel = my * (kBN / 64 / kPairM) + j;
@@ -1066,16 +1159,42 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         quantize<TX, FMT, CL>(sc, first, step, nk, sX, sA, full_x, empty_x,
                               full_a, empty_a, sx_p, amax_out, nx, row0,
                               tid - 32);
+    } else if constexpr (FMT == kDgdu) {
+      if (tid == 32) {
+        // K9's epilogue loader: the unit's g and u, a 64-column chunk of
+        // the pair's tile at a time, into the epilogue ring (slots reach
+        // the next unit's chunks while its mainloop runs)
+        Ring ep;
+        for (int u = first; u < units; u += step) {
+          int e, tm, tu;
+          sc.unit(u, e, tm, tu);
+          const int row = (tm + static_cast<int>(my)) * kBM;
+          const int col = (tu * CL + static_cast<int>(nx)) * kBN;
+          for (int c = 0; c < kBN / 64; ++c) {
+            mbar_wait(&empty_x[ep.slot], ep.phase ^ 1);
+            mbar_expect_tx(&full_x[ep.slot], kEpiSlot);
+            unsigned char* es = sE + ep.slot * kEpiSlot;
+            tma_load(es, &map_g, &full_x[ep.slot], col + c * 64, row, 0);
+            tma_load(es + kEpiSlot / 2, &map_u, &full_x[ep.slot],
+                     col + c * 64, row, 0);
+            ep.next(kEpiSlots);
+          }
+        }
+      }
+    } else if constexpr (kSiluA) {
+      if (tid >= 32)
+        silu_h<CL>(units, first, step, nk, sX, sA, full_x, empty_x, full_a,
+                   empty_a, nx, row0, tid - 32);
     }
     cluster_sync();
   } else {
     // ---------------------------------------------------- consumers
-    reg_claim<FMT == kInt8   ? kRegConsumer
-              : FMT == kE4M3 ? kRegConsumerE4M3
-                             : kRegConsumerBf16>();
+    reg_claim<FMT == kE4M3              ? kRegConsumerE4M3
+              : FMT == kInt8 || kSiluA ? kRegConsumer
+                                        : kRegConsumerBf16>();
     const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
     Acc d[128];
-    Ring w, a;
+    Ring w, a, ep;
     for (int u = first; u < units; u += step) {
       int e, tm, tu;
       sc.unit(u, e, tm, tu);
@@ -1084,8 +1203,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       int w_prev = 0, a_prev = 0;
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(&full_w[w.slot], w.phase);
-        const int as = kQuant ? a.slot : w.slot;
-        if constexpr (kQuant) mbar_wait(&full_a[a.slot], a.phase);
+        const int as = kHelper ? a.slot : w.slot;
+        if constexpr (kHelper) mbar_wait(&full_a[a.slot], a.phase);
+        // consumer ci's 64 rows: 64 K-major rows of 128 bytes, or (K10)
+        // the 64-column panel ci of the M-major h stage
         const uint32_t a0 =
             smem_addr(sA + as * kStageA + ci * 64 * kRowBytes);
         const uint32_t b0 = smem_addr(sW + w.slot * kStageW);
@@ -1116,15 +1237,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           acc_fence(d);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {
-            const uint64_t da = sw128_desc(a0 + ks * 32, 16, 1024);
+            const int acc = kt > 0 || ks > 0;
             if constexpr (kQuant) {
-              wgmma_q8(d, da, sw128_desc(b0 + ks * 32, 16, 1024),
-                       kt > 0 || ks > 0);
+              wgmma_q8(d, sw128_desc(a0 + ks * 32, 16, 1024),
+                       sw128_desc(b0 + ks * 32, 16, 1024), acc);
+            } else if constexpr (kSiluA) {
+              wgmma_bf16<1, 1>(
+                  d, sw128_desc(a0 + ks * 16 * kRowBytes, kStageA / 2, 1024),
+                  sw128_desc(b0 + ks * 16 * kRowBytes, kStageW / 4, 1024),
+                  acc);
+            } else if constexpr (FMT == kDgdu) {
+              wgmma_bf16<0, 0>(d, sw128_desc(a0 + ks * 32, 16, 1024),
+                               sw128_desc(b0 + ks * 32, 16, 1024), acc);
             } else {
-              wgmma_bf16(d, da,
-                         sw128_desc(b0 + ks * 16 * kRowBytes, kStageW / 4,
-                                    1024),
-                         kt > 0 || ks > 0);
+              wgmma_bf16<0, 1>(
+                  d, sw128_desc(a0 + ks * 32, 16, 1024),
+                  sw128_desc(b0 + ks * 16 * kRowBytes, kStageW / 4, 1024),
+                  acc);
             }
           }
           wgmma_commit();
@@ -1133,41 +1262,105 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
         if (kt > 0 && lane == 0) {
           release_w<CL>(empty_w + w_prev, nx);
-          if constexpr (kQuant) release_a<CL>(empty_a + a_prev, row0);
+          if constexpr (kHelper) release_a<CL>(empty_a + a_prev, row0);
         }
         w_prev = w.slot;
         a_prev = a.slot;
         w.next(SW);
-        if constexpr (kQuant) a.next(SA);
+        if constexpr (kHelper) a.next(SA);
       }
       wgmma_wait<0>();
       acc_fence(d);
       if (lane == 0) {
         release_w<CL>(empty_w + w_prev, nx);
-        if constexpr (kQuant) release_a<CL>(empty_a + a_prev, row0);
+        if constexpr (kHelper) release_a<CL>(empty_a + a_prev, row0);
       }
 
-      // epilogue: float(acc) * (sx * sw) in x's dtype; rows at or past
-      // the live count are zeros, rows past the buffer are not written.
-      // d[4j + 2h + i] is row lane/4 + 8h, column 8j + 2(lane%4) + i of
-      // the warp's 16 x 256 slice
-      const float s_out = kQuant ? sx_p[e] * sw_p[e] : 1.f;
-      const int live = live_rows(counts, e, M);
-      TX* ye = y + static_cast<size_t>(e) * M * N;
-      const int row0 = tm * kBM + ci * 64 + warp * 16 + lane / 4;
-      const int col0 = tn * kBN + 2 * (lane % 4);
+      // epilogue.  d[4j + 2h + i] is row lane/4 + 8h, column 8j +
+      // 2(lane%4) + i of the warp's 16 x 256 slice; rows past the buffer
+      // are not written
+      const int r0 = tm * kBM + ci * 64 + warp * 16 + lane / 4;
+      const int c0 = tn * kBN + 2 * (lane % 4);
+      if constexpr (FMT == kDgdu) {
+        // K9: dh is d; dg = (dh * u) * silu'(g), du = dh * silu(g).  Per
+        // 64-column chunk: g and u from the epilogue ring by ldmatrix in
+        // the accumulator's fragment layout (matrices (j, h): rows 8h ..
+        // 8h + 7 of the warp's 16, columns 8j .. 8j + 7), dg and du back
+        // over them by stmatrix, then one TMA store each of this
+        // warpgroup's 64 rows (rows past M are not written)
+        const int lrow = warp * 16 + 8 * ((lane >> 3) & 1) + (lane & 7);
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
+        for (int c = 0; c < kBN / 64; ++c) {
+          mbar_wait(&full_x[ep.slot], ep.phase);
+          unsigned char* gsl = sE + ep.slot * kEpiSlot + ci * 64 * kRowBytes;
+          unsigned char* usl = gsl + kEpiSlot / 2;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + 8 * h;
-          if (row >= M) continue;
-          const bool on = row < live;
-          const float v0 = to_f32(d[4 * j + 2 * h]) * s_out;
-          const float v1 = to_f32(d[4 * j + 2 * h + 1]) * s_out;
-          store2(ye + static_cast<size_t>(row) * N + col0 + 8 * j,
-                 on ? v0 : 0.f, on ? v1 : 0.f);
+          for (int jj = 0; jj < 8; jj += 2) {
+            const int off = lrow * kRowBytes +
+                            (((jj + (lane >> 4)) ^ (lrow & 7)) << 4);
+            uint32_t gr[4], ur[4], dgr[4], dur[4];
+            ldsm4(gr, gsl + off);
+            ldsm4(ur, usl + off);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int j = 8 * c + jj + (m >> 1), h = m & 1;
+              const float2 gv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&gr[m]));
+              const float2 uv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&ur[m]));
+              const float gs[2] = {gv.x, gv.y}, us[2] = {uv.x, uv.y};
+              float dgv[2], duv[2];
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const float dh = d[4 * j + 2 * h + i];
+                const float sig = sigmoid(gs[i]);
+                const float silu = gs[i] * sig;
+                const float dsilu = sig + silu * (1.f - sig);
+                dgv[i] = dh * us[i] * dsilu;
+                duv[i] = dh * silu;
+              }
+              const __nv_bfloat162 dg2 = __floats2bfloat162_rn(dgv[0], dgv[1]);
+              const __nv_bfloat162 du2 = __floats2bfloat162_rn(duv[0], duv[1]);
+              dgr[m] = *reinterpret_cast<const uint32_t*>(&dg2);
+              dur[m] = *reinterpret_cast<const uint32_t*>(&du2);
+            }
+            stsm4(gsl + off, dgr);
+            stsm4(usl + off, dur);
+          }
+          fence_to_async();
+          consumer_sync(ci);
+          if (tid == 0) {
+            const int col = tn * kBN + c * 64, row = tm * kBM + ci * 64;
+            tma_store(&map_dg, gsl, col, row, 0);
+            tma_store(&map_du, usl, col, row, 0);
+            bulk_commit();
+            bulk_wait_read<0>();         // the slot may be loaded again
+            mbar_arrive(&empty_x[ep.slot]);
+          }
+          ep.next(kEpiSlots);
         }
+      } else {
+        // float(acc) * (sx * sw) in y's dtype; rows at or past the live
+        // count are zeros
+        const float s_out = kQuant ? sx_p[e] * sw_p[e] : 1.f;
+        const int live = live_rows(counts, e, M);
+        OutT<TX, FMT>* ye = y + static_cast<size_t>(e) * M * N;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 8 * h;
+            if (row >= M) continue;
+            const bool on = row < live;
+            const float v0 = to_f32(d[4 * j + 2 * h]) * s_out;
+            const float v1 = to_f32(d[4 * j + 2 * h + 1]) * s_out;
+            store2(ye + static_cast<size_t>(row) * N + c0 + 8 * j,
+                   on ? v0 : 0.f, on ? v1 : 0.f);
+          }
+      }
+    }
+    if constexpr (FMT == kDgdu) {
+      if (tid == 0) bulk_wait_all();     // dg, du written before exit
     }
     // the dead row tiles' zeros, dead tile t by block t mod grid
     const int dead = sc.dead();
@@ -1179,189 +1372,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     cluster_sync();
   }
-}
-
-// ------------------------------------------------------------- K9 dg/du
-
-constexpr int kBK = 64;                // contraction per stage (elements)
-constexpr int kP = kBK + 8;            // bf16 tile pitch (elements)
-constexpr int kStages = 3;
-
-__host__ __device__ constexpr size_t dgdu_smem() {
-  return static_cast<size_t>(kStages) * (kBM + kBN) * kP * sizeof(bf16);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    dgdu_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ wd,
-                const bf16* __restrict__ g, const bf16* __restrict__ u,
-                bf16* __restrict__ dg, bf16* __restrict__ du, int T, int F,
-                int D) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);             // dy rows
-  bf16* sB = sA + kStages * kBM * kP;                   // Wd rows
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  int tm, tn;
-  tile_of(blockIdx.x, T / kBM, F / kBN, tm, tn);
-  const bf16* ag = dy + static_cast<size_t>(tm) * kBM * D;
-  const bf16* bg = wd + static_cast<size_t>(tn) * kBN * D;
-  const int nk = D / kBK;
-
-  auto issue = [&](int kt) {
-    const int st = kt % kStages;
-    load_rows<kBM, kBK * 2>(sA + st * kBM * kP, kP * 2, ag + kt * kBK,
-                            static_cast<size_t>(D) * 2, tid);
-    load_rows<kBN, kBK * 2>(sB + st * kBN * kP, kP * 2, bg + kt * kBK,
-                            static_cast<size_t>(D) * 2, tid);
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-
-  WarpAcc<float> acc = {};
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kt + kStages - 1 < nk) issue(kt + kStages - 1);
-    cp_async_commit();
-    const int st = kt % kStages;
-    mma_rows_bf16<kBK / 16>(acc, sA + st * kBM * kP + wm * kWM * kP, kP,
-                            sB + st * kBN * kP + wn * kWN * kP, kP, lane);
-  }
-
-  // epilogue: dh stays in registers; read g, u, write dg, du
-  const int row0 = tm * kBM + wm * kWM, col0 = tn * kBN + wn * kWN;
-#pragma unroll
-  for (int mt = 0; mt < kWM / 16; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kWN / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + mt * 16 + lane / 4 + 8 * r;
-        const int col = col0 + nt * 8 + 2 * (lane % 4);
-        const size_t off = static_cast<size_t>(row) * F + col;
-        const float2 gv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(g + off));
-        const float2 uv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(u + off));
-        float dgv[2], duv[2];
-        const float gs[2] = {gv.x, gv.y}, us[2] = {uv.x, uv.y};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dh = acc.v[mt][nt][2 * r + e];
-          const float sig = sigmoid(gs[e]);
-          const float silu = gs[e] * sig;
-          const float dsilu = sig + silu * (1.f - sig);
-          dgv[e] = dh * us[e] * dsilu;
-          duv[e] = dh * silu;
-        }
-        store2(dg + off, dgv[0], dgv[1]);
-        store2(du + off, duv[0], duv[1]);
-      }
-}
-
-// --------------------------------------------------------------- K10 dWd
-
-constexpr int kTK = 32;                // tokens (contraction) per stage
-constexpr int kFP = kBM + 8;           // g, u, h tile pitch (elements)
-constexpr int kDP = kBN + 8;           // dy tile pitch (elements)
-constexpr int kWStages = 4;
-constexpr int kGS = kTK * kFP, kDS = kTK * kDP;   // elements a tile
-
-__host__ __device__ constexpr size_t dwd_smem() {
-  return (static_cast<size_t>(kWStages) * (2 * kGS + kDS) + 2 * kGS) *
-         sizeof(bf16);
-}
-
-// prologue: h = bf16(silu(g) * u) for a kTK x kBM tile
-__device__ __forceinline__ void silu_tile(bf16* sh, const bf16* sg,
-                                          const bf16* su, int tid) {
-#pragma unroll
-  for (int c = tid; c < kTK * kBM / 8; c += kThreads) {
-    const int row = c / (kBM / 8), col = (c % (kBM / 8)) * 8;
-    float gv[8], uv[8];
-    load8(gv, sg + row * kFP + col);
-    load8(uv, su + row * kFP + col);
-    uint4 out;
-    auto* h2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = gv[2 * i] * sigmoid_fast(gv[2 * i]) * uv[2 * i];
-      const float b =
-          gv[2 * i + 1] * sigmoid_fast(gv[2 * i + 1]) * uv[2 * i + 1];
-      h2[i] = __floats2bfloat162_rn(a, b);
-    }
-    *reinterpret_cast<uint4*>(sh + row * kFP + col) = out;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    dwd_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u,
-               const bf16* __restrict__ dy, float* __restrict__ dwd, int T,
-               int F, int D) {
-  constexpr int S = kWStages;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sG = reinterpret_cast<bf16*>(smem);             // [S][kTK][kFP]
-  bf16* sU = sG + S * kGS;
-  bf16* sD = sU + S * kGS;                              // [S][kTK][kDP] dy
-  bf16* sH = sD + S * kDS;                              // [2] h, recomputed
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  int tm, tn;
-  tile_of(blockIdx.x, F / kBM, D / kBN, tm, tn);
-  const int f0 = tm * kBM, d0 = tn * kBN;
-  const int nk = T / kTK;
-
-  auto issue = [&](int kt) {
-    const int st = kt % S;
-    const size_t t0 = static_cast<size_t>(kt) * kTK;
-    load_rows<kTK, kBM * 2>(sG + st * kGS, kFP * 2, g + t0 * F + f0,
-                            static_cast<size_t>(F) * 2, tid);
-    load_rows<kTK, kBM * 2>(sU + st * kGS, kFP * 2, u + t0 * F + f0,
-                            static_cast<size_t>(F) * 2, tid);
-    load_rows<kTK, kBN * 2>(sD + st * kDS, kDP * 2, dy + t0 * D + d0,
-                            static_cast<size_t>(D) * 2, tid);
-  };
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-
-  WarpAcc<float> acc = {};
-  cp_async_wait<S - 2>();               // stage 0 has landed
-  __syncthreads();
-  silu_tile(sH, sG, sU, tid);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S - 3>();             // stage kt + 1 has landed
-    // h tile kt is written, stage kt + 1 is visible to every thread, and
-    // every warp is done with the h buffer and the stage written below
-    __syncthreads();
-    if (kt + S - 1 < nk) issue(kt + S - 1);
-    cp_async_commit();
-    mma_cols_bf16<kTK / 16>(acc, sH + (kt & 1) * kGS + wm * kWM, kFP,
-                            sD + (kt % S) * kDS + wn * kWN, kDP, lane);
-    if (kt + 1 < nk) {
-      const int st = (kt + 1) % S;
-      silu_tile(sH + ((kt + 1) & 1) * kGS, sG + st * kGS, sU + st * kGS,
-                tid);
-    }
-  }
-
-  const int row0 = f0 + wm * kWM, col0 = d0 + wn * kWN;
-#pragma unroll
-  for (int mt = 0; mt < kWM / 16; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kWN / 8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + mt * 16 + lane / 4 + 8 * h;
-        const int col = col0 + nt * 8 + 2 * (lane % 4);
-        store2(dwd + static_cast<size_t>(row) * D + col,
-               acc.v[mt][nt][2 * h], acc.v[mt][nt][2 * h + 1]);
-      }
 }
 
 // ------------------------------------------------------- K12 grouped f32
@@ -1491,23 +1501,56 @@ int sm_count() {
   return n;
 }
 
-// the cluster size the 8-bit launches prefer (dlnb_qmm_set_cluster); a
-// launch takes the largest of it, half of it, ... that divides N / 256
+// the cluster sizes the 8-bit launches (dlnb_qmm_set_cluster) and K10
+// (dlnb_dwd_set_cluster) prefer; a launch takes the largest of it, half
+// of it, ... that divides N / 256
 int g_cluster = 4;
+int g_cluster_dwd = 4;
 
-// E experts of M rows; counts null: every row live
+// E experts of M rows; counts null: every row live.  K10: x is g, sg.u
+// u; K9: sg holds g, u and du
 template <typename TX, int FMT, int CL>
 cudaError_t wg_launch(const void* x, const void* w, const float* sx,
                       const float* sw, void* y, float* amax,
-                      const int* counts, int E, int M, int N, int K,
-                      cudaStream_t stream) {
+                      const int* counts, Swiglu sg, int E, int M, int N,
+                      int K, cudaStream_t stream) {
   auto kernel = wg_gemm_kernel<TX, FMT, CL>;
   constexpr size_t smem = wg_smem<TX, FMT, CL>();
-  constexpr bool kQuant = FMT != kNoQuant;
+  constexpr bool kQuant = FMT == kInt8 || FMT == kE4M3;
   static_assert(smem <= 232448, "shared memory");
-  CUtensorMap mx, mw;
+  CUtensorMap mx = {}, mw = {}, mg = {}, mu = {}, mdg = {}, mdu = {};
   cudaError_t err;
-  if constexpr (kQuant) {
+  if constexpr (FMT == kSilu) {
+    // g, u [K = T][M = F] in silu_rows x 64 boxes; dy [T][N = D] as K12
+    // bf16's w
+    err = make_map(&mg, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, M, K, 1, 64,
+                   silu_rows<CL>(), CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = make_map(&mu, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sg.u, 2, M, K, 1,
+                     64, silu_rows<CL>(), CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, N, K, 1,
+                     64, kBf16K, CU_TENSOR_MAP_SWIZZLE_128B);
+  } else if constexpr (FMT == kDgdu) {
+    // dy [T][D] as K12 bf16's x; Wd [F][D] K-major as the 8-bit w_t; g,
+    // u [T][F] in chunks of 64 columns x kBM rows, dg, du of 64 x 64
+    err = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, K, M, 1,
+                   kBf16K, kBM, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, K, N, 1,
+                     kBf16K, kBN / kPairM, CU_TENSOR_MAP_SWIZZLE_128B);
+    const void* gu[2] = {sg.g, sg.u};
+    const void* out[2] = {y, sg.du};
+    CUtensorMap* in_maps[2] = {&mg, &mu};
+    CUtensorMap* out_maps[2] = {&mdg, &mdu};
+    for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+      err = make_map(in_maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, gu[i], 2,
+                     N, M, 1, 64, kBM, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err == cudaSuccess)
+        err = make_map(out_maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out[i],
+                       2, N, M, 1, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+  } else if constexpr (kQuant) {
     err = make_map(&mx, sizeof(TX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                    x, sizeof(TX), K, M, E, kQ8K, kBM / CL,
@@ -1550,8 +1593,9 @@ cudaError_t wg_launch(const void* x, const void* w, const float* sx,
     clusters = min(clusters,
                    E * ceil_div(M, kPairM * kBM) * (N / kBN / CL));
   cfg.gridDim = dim3(clusters * CL * kPairM);
-  err = cudaLaunchKernelEx(&cfg, kernel, mx, mw, sx, sw,
-                           static_cast<TX*>(y), amax, counts, E, M, N, K);
+  err = cudaLaunchKernelEx(&cfg, kernel, mx, mw, mg, mu, mdg, mdu, sx, sw,
+                           static_cast<OutT<TX, FMT>*>(y), amax, counts, E,
+                           M, N, K);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1564,12 +1608,15 @@ cudaError_t q8_cluster(const void* x, const void* w, const float* sx,
   int cl = g_cluster;
   while (cl > 1 && (N / kBN) % cl) cl /= 2;
   if (cl == 4)
-    return wg_launch<TX, FMT, 4>(x, w, sx, sw, y, amax, counts, E, M, N, K,
+    return wg_launch<TX, FMT, 4>(x, w, sx, sw, y, amax, counts, {}, E, M,
+                                 N, K,
                                  st);
   if (cl == 2)
-    return wg_launch<TX, FMT, 2>(x, w, sx, sw, y, amax, counts, E, M, N, K,
+    return wg_launch<TX, FMT, 2>(x, w, sx, sw, y, amax, counts, {}, E, M,
+                                 N, K,
                                  st);
-  return wg_launch<TX, FMT, 1>(x, w, sx, sw, y, amax, counts, E, M, N, K,
+  return wg_launch<TX, FMT, 1>(x, w, sx, sw, y, amax, counts, {}, E, M, N,
+                               K,
                                st);
 }
 
@@ -1622,31 +1669,42 @@ int dlnb_qmm_set_cluster(int cl) {
 // K9: dg, du [T, F] bf16 from dy [T, D], Wd [F, D], g, u [T, F] (bf16)
 int dlnb_dgdu(const void* dy, const void* wd, const void* g, const void* u,
               void* dg, void* du, int T, int F, int D, void* stream) {
-  if (T % kBM || F % kBN || D % kBK) return cudaErrorInvalidValue;
-  const size_t smem = dgdu_smem();
-  cudaError_t err = with_smem(dgdu_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dgdu_kernel<<<(T / kBM) * (F / kBN), kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(wd),
-      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
-      static_cast<bf16*>(dg), static_cast<bf16*>(du), T, F, D);
-  return cudaGetLastError();
+  if (T <= 0 || F <= 0 || D <= 0 || T % kBM || F % kBN || D % kBf16K)
+    return cudaErrorInvalidValue;
+  const Swiglu sg = {static_cast<const bf16*>(g),
+                     static_cast<const bf16*>(u), static_cast<bf16*>(du)};
+  return wg_launch<bf16, kDgdu, 1>(dy, wd, nullptr, nullptr, dg, nullptr,
+                                   nullptr, sg, 1, T, F, D,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // K10: dWd [F, D] f32 = (bf16(silu(g) * u))^T . dy over T; g, u [T, F],
 // dy [T, D] bf16
 int dlnb_dwd(const void* g, const void* u, const void* dy, float* dwd,
              int T, int F, int D, void* stream) {
-  if (T % kTK || F % kBM || D % kBN) return cudaErrorInvalidValue;
-  const size_t smem = dwd_smem();
-  cudaError_t err = with_smem(dwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dwd_kernel<<<(F / kBM) * (D / kBN), kThreads, smem,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
-      static_cast<const bf16*>(dy), dwd, T, F, D);
-  return cudaGetLastError();
+  if (T <= 0 || F <= 0 || D <= 0 || T % 32 || F % kBM || D % kBN)
+    return cudaErrorInvalidValue;
+  const Swiglu sg = {nullptr, static_cast<const bf16*>(u), nullptr};
+  auto st = static_cast<cudaStream_t>(stream);
+  int cl = g_cluster_dwd;
+  while (cl > 1 && (D / kBN) % cl) cl /= 2;
+  if (cl == 4)
+    return wg_launch<bf16, kSilu, 4>(g, dy, nullptr, nullptr, dwd, nullptr,
+                                     nullptr, sg, 1, F, D, T, st);
+  if (cl == 2)
+    return wg_launch<bf16, kSilu, 2>(g, dy, nullptr, nullptr, dwd, nullptr,
+                                     nullptr, sg, 1, F, D, T, st);
+  return wg_launch<bf16, kSilu, 1>(g, dy, nullptr, nullptr, dwd, nullptr,
+                                   nullptr, sg, 1, F, D, T, st);
+}
+
+// The cluster size (1, 2 or 4) K10's launches prefer; returns the
+// previous one, or -1 for another value (nothing changes).
+int dlnb_dwd_set_cluster(int cl) {
+  if (cl != 1 && cl != 2 && cl != 4) return -1;
+  const int prev = g_cluster_dwd;
+  g_cluster_dwd = cl;
+  return prev;
 }
 
 // K12: y [E, M, N] (x's dtype) = x [E, M, K] . w per expert, every row at
@@ -1675,7 +1733,7 @@ int dlnb_gmm(int dtype, int fmt, const void* x, const void* w,
   if (dtype == kBF16) {
     if (N % kBN || K % kBf16K) return cudaErrorInvalidValue;
     return wg_launch<bf16, kNoQuant, 1>(x, w, nullptr, nullptr, y, nullptr,
-                                        counts, E, M, N, K, st);
+                                        counts, {}, E, M, N, K, st);
   }
   if (dtype == kF32) {
     if (ceil_div(M, kFT) > 65535) return cudaErrorInvalidValue;

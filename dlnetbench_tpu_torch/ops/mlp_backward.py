@@ -19,7 +19,11 @@ package's ``ops/mlp_backward.py``, ``_dgdu_kernel`` (:50) and
 
 On CUDA tensors (bf16, the bench dtype) the wrappers launch the
 hand-written Hopper kernels of ``csrc/mlp_matmul.cu`` (counted in
-``dgdu_launches`` and ``dwd_launches``); on CPU tensors they run
+``dgdu_launches`` and ``dwd_launches``): both run on the warp-specialised
+``wgmma``/TMA skeleton of K11 and K12, K9 as its bf16 product with the
+weight K-major and a silu-gradient epilogue, K10 with h made in shared
+memory by the warps that quantize in K11 and shared by a cluster of
+``DWD_CLUSTERS`` blocks along D; on CPU tensors they run
 ``plain_dgdu`` and ``plain_dwd``, with the same formulas (the JAX
 ``_silu_parts``).  There is no fall back from the card to the plain
 versions; a shape or dtype the kernels cannot take raises there.
@@ -36,10 +40,14 @@ from dlnetbench_tpu_torch.ops.common import on_card
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
-# the kernels' tiles (csrc/mlp_matmul.cu): K9 takes T, F and D multiples
-# of 128, 256 and 64; K10 takes F, D and T multiples of 128, 256 and 32
+# the kernels' contracts (csrc/mlp_matmul.cu): K9 takes T, F and D
+# multiples of 128, 256 and 64 (a 128 x 256 tile of dg/du, 64 D values a
+# stage); K10 takes F, D and T multiples of 128, 256 and 32 (a 128 x 256
+# tile of dWd, 64 T rows a stage, the last one zero-filled by TMA)
 K9_TILE = (128, 256, 64)
 K10_TILE = (128, 256, 32)
+# the cluster sizes K10 is built for: blocks along D sharing one h stage
+DWD_CLUSTERS = (1, 2, 4)
 
 # kernel launches made by the wrappers on the card (reset by the caller)
 dgdu_launches = 0
@@ -144,6 +152,18 @@ def kernel_dwd(g, u, dy):
                             out.data_ptr()], t, f, d, g.device)
     dwd_launches += 1
     return out
+
+
+def set_dwd_cluster(size: int) -> int:
+    """The cluster size (one of ``DWD_CLUSTERS``) the card's K10 launches
+    prefer (a launch halves it until it divides D / 256); returns the
+    previous one."""
+    if size not in DWD_CLUSTERS:
+        raise ValueError(f"cluster size {size!r}: one of {DWD_CLUSTERS}")
+    fn = _build.library("mlp_matmul").dlnb_dwd_set_cluster
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(size)
 
 
 def dgdu(dy, wd, g, u):

@@ -1,4 +1,4 @@
-"""The shared wgmma skeleton of kernels K11 and K12
+"""The shared wgmma skeleton of kernels K9, K10, K11 and K12
 (``dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu``, ``wg_gemm_kernel``),
 checked where a CPU can check it.
 
@@ -10,10 +10,14 @@ checked where a CPU can check it.
 * The quantizer's hand-built 128-byte swizzle of the 8-bit A tile is the
   layout TMA's ``CU_TENSOR_MAP_SWIZZLE_128B`` writes and ``wgmma``
   reads (byte bits 4-6 XOR bits 7-9), and a permutation of the tile.
+* K10's silu warps write h at the byte offsets where TMA's 128-byte
+  swizzle put g and u, which is where the consumers' M-major descriptor
+  reads h; the cluster's slices tile the h stage once.
 * ``grouped_matmul.tile_schedule``, the plain-Python model of the
   persistent schedule (units of a pair of row tiles times the cluster's
   column tiles): every live (expert, row tile, column tile) computed
-  once, every other tile zeroed once, over GMM_SKEW-like counts.
+  once, every other tile zeroed once, over GMM_SKEW-like counts, and
+  at K9's and K10's train grids.
 
 The kernel itself runs only on a card (tests/test_torch_card_*.py and
 chip_smoke.py)."""
@@ -25,6 +29,7 @@ from pathlib import Path
 import pytest
 
 from dlnetbench_tpu_torch.ops import grouped_matmul as TG
+from dlnetbench_tpu_torch.ops import mlp_backward as TMB
 from dlnetbench_tpu_torch.ops import quantized_matmul as TQ
 
 SRC = (Path(__file__).resolve().parent.parent / "dlnetbench_tpu_torch" /
@@ -47,7 +52,8 @@ C = {n: const(n) for n in (
     "kBM", "kBN", "kRowBytes", "kQ8K", "kBf16K", "kStageA", "kStageW",
     "kMaxWStages", "kSmemBudget", "kSmemExtra", "kWgThreads",
     "kQuantWarps", "kRegLoader", "kRegConsumer", "kRegLoaderE4M3",
-    "kRegConsumerE4M3", "kRegProducer", "kRegConsumerBf16")}
+    "kRegConsumerE4M3", "kRegProducer", "kRegConsumerBf16",
+    "kEpiSlots", "kEpiSlot")}
 
 
 def ring(name: str) -> dict:
@@ -64,6 +70,19 @@ def ring(name: str) -> dict:
 
 
 X_STAGES, A_STAGES = ring("x_stages"), ring("a_stages")
+
+
+def by_cluster(name: str) -> dict:
+    """K10's ``silu_rows<CL>()`` / ``silu_boxes<CL>()``, by CL."""
+    body = re.search(rf"constexpr int {name}\(\) {{\s*return ([^;]+);", SRC)
+    assert body, name
+    m = re.fullmatch(r"CL == (\d) \? (\d+) : (\d+)", body.group(1))
+    assert m, body.group(1)
+    hit, yes, no = map(int, m.groups())
+    return {cl: yes if cl == hit else no for cl in (1, 2, 4)}
+
+
+SILU_ROWS, SILU_BOXES = by_cluster("silu_rows"), by_cluster("silu_boxes")
 
 
 def x_stage(elt: int, cl: int) -> int:
@@ -88,8 +107,23 @@ def test_the_source_states_the_formulas_this_test_mirrors():
     assert "kBM / CL * kQ8K * static_cast<int>(sizeof(TX))" in SRC
     assert "kSmemBudget / (kStageA + kStageW)" in SRC
     assert re.search(r"int g_cluster = (\d+);", SRC)
-    assert "mma.sync" not in SRC[SRC.index("K11 / K12: the wgmma skeleton"):
-                                 SRC.index("K9 dg/du")]
+    assert re.search(r"int g_cluster_dwd = (\d+);", SRC)
+    # K9 loads A with TMA as K12 bf16 does; K10 makes it as K11 does
+    assert "return fmt == kNoQuant || fmt == kDgdu;" in SRC
+    # K10: the x stage is one slice of g and of u, its h slice kStageA / CL
+    assert "constexpr int HB = kStageA / CL;" in SRC
+    assert "static_assert(2 * HB == XB" in SRC
+    assert "const int c = static_cast<int>(nx) * NB + i;" in SRC
+    assert "const int panel = c / (64 / HR), r0 = c % (64 / HR) * HR;" in SRC
+    # the register splits each mode takes
+    assert "FMT == kInt8 || kSiluA ? kRegLoader" in SRC
+    assert "FMT == kInt8 || kSiluA ? kRegConsumer" in SRC
+    # the first skeleton (mma.sync fed by cp.async stages) is gone; K9's
+    # epilogue keeps ldmatrix, now beside stmatrix
+    for old in ("mma.sync", "cp.async.cg", "dgdu_kernel", "dwd_kernel",
+                "WarpAcc", "load_rows", "mma_rows_bf16", "mma_cols_bf16",
+                "silu_tile"):
+        assert not re.search(rf"\b{re.escape(old)}\b", SRC), old
 
 
 def test_contract_matches_the_tiles():
@@ -106,6 +140,28 @@ def test_contract_matches_the_tiles():
     # the default cluster is one of the built sizes
     assert int(re.search(r"int g_cluster = (\d+);", SRC).group(1)) \
         in TQ.CLUSTERS
+    assert int(re.search(r"int g_cluster_dwd = (\d+);", SRC).group(1)) \
+        in TMB.DWD_CLUSTERS == TQ.CLUSTERS
+
+
+def test_k9_k10_contracts_match_the_source():
+    """The wrappers refuse what the C entries refuse: K9 T, F, D
+    multiples of the tile and one bf16 stage (128, 256, 64); K10 F, D
+    multiples of the tile and T of 32 (TMA zero-fills a last stage)."""
+    assert TMB.K9_TILE == (C["kBM"], C["kBN"], C["kBf16K"])
+    assert "T % kBM || F % kBN || D % kBf16K" in SRC
+    assert TMB.K10_TILE[:2] == (C["kBM"], C["kBN"])
+    assert f"T % {TMB.K10_TILE[2]} || F % kBM || D % kBN" in SRC
+    # the shapes the first kernels took (chip_smoke.py's and the card
+    # tests') all fit the contract, the train shape first
+    for t, d, f in [(12288, 4096, 14336), (256, 256, 256), (384, 512, 512),
+                    (384, 256, 768), (4096, 2048, 4096)]:
+        assert t % TMB.K9_TILE[0] == f % TMB.K9_TILE[1] \
+            == d % TMB.K9_TILE[2] == 0
+        assert f % TMB.K10_TILE[0] == d % TMB.K10_TILE[1] \
+            == t % TMB.K10_TILE[2] == 0
+    for t in (32, 96, 160):
+        assert t % TMB.K10_TILE[2] == 0 and t % C["kBf16K"]
 
 
 @pytest.mark.parametrize("elt", [2, 4], ids=["bf16_master", "f32_master"])
@@ -132,11 +188,41 @@ def test_the_f32_master_ring_fits():
     assert max(smem_q8(4, cl) for cl in (1, 2, 4)) <= SMEM_LIMIT
 
 
-def test_the_bf16_instantiation_fits_shared_memory():
-    stages = C["kSmemBudget"] // (C["kStageA"] + C["kStageW"])
-    assert stages == 4
-    assert C["kSmemExtra"] + stages * (C["kStageA"] + C["kStageW"]) \
+@pytest.mark.parametrize("kernel", ["K12 bf16", "K9"])
+def test_the_bf16_instantiation_fits_shared_memory(kernel):
+    """K12 bf16 and K9 load A and the weight with TMA into one ring; K9
+    also holds its epilogue ring (kEpiSlots chunks of g and u)."""
+    epi = C["kEpiSlots"] * C["kEpiSlot"] if kernel == "K9" else 0
+    stages = (C["kSmemBudget"] - epi) // (C["kStageA"] + C["kStageW"])
+    assert stages == (3 if kernel == "K9" else 4)
+    assert C["kSmemExtra"] + stages * (C["kStageA"] + C["kStageW"]) + epi \
         <= SMEM_LIMIT
+    # K9's weight K-major: 256 rows of one 128-byte stage row, half a
+    # stage (128 rows) from each block of the pair
+    assert C["kStageW"] == C["kBN"] * C["kRowBytes"]
+    assert C["kBN"] // 2 <= 256
+    # an epilogue slot: g and u of the tile's kBM rows x 64 columns (a
+    # TMA box of 128-byte rows), 1024-byte aligned; its barriers are
+    # the x ring's (x_stages<1>() of them)
+    assert C["kEpiSlot"] == 2 * C["kBM"] * C["kRowBytes"]
+    assert C["kEpiSlot"] % 1024 == 0 and 2 <= C["kEpiSlots"] <= X_STAGES[1]
+
+
+@pytest.mark.parametrize("cl", TMB.DWD_CLUSTERS)
+def test_every_k10_instantiation_fits_shared_memory(cl):
+    """K10's rings are K11's with a bf16 master: the x stage holds this
+    block's slice of g and of u, 2 x kStageA / cl bytes."""
+    hb = C["kStageA"] // cl
+    assert x_stage(2, cl) == 2 * hb
+    assert w_stages_q8(2, cl) >= 3
+    assert smem_q8(2, cl) <= SMEM_LIMIT
+    # TMA boxes of 64 F columns (128 bytes, the swizzle span) by
+    # silu_rows T rows, 1024-byte aligned; the boxes fill the slice
+    assert SILU_BOXES[cl] * SILU_ROWS[cl] * C["kRowBytes"] == hb
+    assert SILU_ROWS[cl] % 8 == 0 and SILU_ROWS[cl] <= 64
+    assert (SILU_ROWS[cl] * C["kRowBytes"]) % 1024 == 0
+    # the silu warps' 16-byte passes tile the slice
+    assert hb % 16 == 0
 
 
 def test_register_split_fits_the_sm():
@@ -160,6 +246,8 @@ def test_register_split_fits_the_sm():
     assert 128 * (C["kRegLoader"] + 2 * C["kRegConsumer"]) <= pool
     assert 128 * (C["kRegLoaderE4M3"] + 2 * C["kRegConsumerE4M3"]) <= pool
     assert 128 * (C["kRegProducer"] + 2 * C["kRegConsumerBf16"]) <= pool
+    # K10 takes the int8 split (silu warps beside the producer), K9 the
+    # bf16 one (no helper warps): both among the splits checked above
     assert min(C["kRegConsumer"], C["kRegConsumerE4M3"],
                C["kRegConsumerBf16"]) >= 154
 
@@ -196,6 +284,73 @@ def test_quantizer_stores_are_bank_conflict_free():
             off = quantizer_offset(f >> 4, f & 15)
             banks |= {(off // 4) % 32, (off // 4 + 1) % 32}
         assert len(banks) == 32
+
+
+def silu_stage_offset(hr: int, t: int, fbyte: int) -> int:
+    """Where T row t, byte fbyte of the 128 F columns (two 64-column
+    panels) lies in the h stage: panel * 8192, then the TMA swizzle of
+    row t within the panel (the consumers' M-major descriptor)."""
+    panel, b = divmod(fbyte, 128)
+    return panel * 64 * C["kRowBytes"] + tma_swizzle_128b(
+        t * C["kRowBytes"] + b)
+
+
+@pytest.mark.parametrize("cl", TMB.DWD_CLUSTERS)
+def test_silu_warps_write_h_where_the_consumers_read_it(cl):
+    """Block nx of a cluster row loads boxes c = nx * boxes + i of g
+    and u (panel c // (64 / rows), T rows from c % (64 / rows) * rows)
+    into its x slice at i * rows * 128 bytes, TMA-swizzled; the silu
+    warps write byte j of h at byte nx * kStageA / cl + j of the h stage.
+    That is the logical element TMA put at byte j of g and u, at the
+    offset where the M-major descriptor reads it; the slices of the cl
+    blocks cover the stage once."""
+    hr, nb = SILU_ROWS[cl], SILU_BOXES[cl]
+    hb = C["kStageA"] // cl
+    covered = []
+    for nx in range(cl):
+        for j in range(0, hb, 16):
+            i, o = divmod(j, hr * C["kRowBytes"])
+            c = nx * nb + i
+            panel, r0 = c // (64 // hr), c % (64 // hr) * hr
+            r, b = divmod(tma_swizzle_128b(o), C["kRowBytes"])
+            want = silu_stage_offset(hr, r0 + r, panel * 128 + b)
+            assert nx * hb + j == want
+            covered.append(want)
+    assert sorted(covered) == list(range(0, C["kStageA"], 16))
+
+
+def test_k9_epilogue_ldmatrix_reads_the_tma_swizzle():
+    """K9's epilogue: lane L of warp w gives ldmatrix the row address of
+    matrix L // 8 = (column group jj + L // 16, rows 8 ((L // 8) % 2) ..
+    of the warp's 16); the matrices land in the accumulator's fragment
+    layout.  Each address is where TMA's 128-byte swizzle put that row's
+    eight columns, and each 8-lane phase hits 32 distinct banks."""
+    for warp in range(4):
+        for jj in range(0, 8, 2):
+            for phase in range(4):
+                banks = set()
+                for lane in range(8 * phase, 8 * phase + 8):
+                    lrow = warp * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)
+                    off = lrow * 128 + (((jj + (lane >> 4)) ^ (lrow & 7))
+                                        << 4)
+                    col = 8 * (jj + (lane >> 4))        # bf16 column
+                    assert off == tma_swizzle_128b(lrow * 128 + 2 * col)
+                    banks |= {(off // 4 + k) % 32 for k in range(4)}
+                assert len(banks) == 32
+    assert ("const int off = lrow * kRowBytes +\n"
+            "                            (((jj + (lane >> 4)) ^ (lrow & 7)) "
+            "<< 4);") in SRC
+    assert ("const int lrow = warp * 16 + 8 * ((lane >> 3) & 1) + "
+            "(lane & 7);") in SRC
+
+
+def test_k10_h_stage_is_the_m_major_wgmma_layout():
+    """The consumer ci reads panel ci (64 F columns) at ci * 8192 bytes
+    and steps K by 16 T rows (2048 bytes): 8-row core groups 1024 bytes
+    apart, as the N-major bf16 weight of K12."""
+    assert 64 * C["kRowBytes"] == C["kStageA"] // 2
+    assert "sw128_desc(a0 + ks * 16 * kRowBytes, kStageA / 2, 1024)" in SRC
+    assert "wgmma_bf16<1, 1>(" in SRC and "wgmma_bf16<0, 0>(" in SRC
 
 
 def check_schedule(counts, m, n, cluster, clusters):
@@ -276,3 +431,22 @@ def test_an_odd_tail_pairs_with_a_zeroed_tile():
     assert got == {(0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)}
     assert sorted(t for b in dead for t in b) == [(0, 2, 0), (0, 3, 0),
                                                   (1, 2, 0), (1, 3, 0)]
+
+
+@pytest.mark.parametrize("kernel,m,n,cluster", [
+    ("K9 train", 12288, 14336, 1), ("K10 train", 14336, 4096, 4),
+    ("K9 odd row tiles", 384, 512, 1), ("K10 odd row tiles", 640, 1024, 4)])
+@pytest.mark.parametrize("clusters", [7, 16, 66])
+def test_k9_k10_schedule_visits_each_tile_once(kernel, m, n, cluster,
+                                               clusters):
+    """K9 (M = T, N = F) and K10 (M = F, N = D) are one expert with every
+    row live: at the train grids (96 x 56 and 112 x 16 tiles) every tile
+    once; an odd row-tile count pairs its last tile with one wholly past
+    the buffer, which is computed (zeros from TMA) but never written."""
+    computed, dead = check_schedule(None, m, n, cluster, clusters)
+    assert not any(dead)
+    tiles = {t for c in computed for t in c}
+    mt, nt = m // 128, n // 256
+    assert {t for t in tiles if t[1] < mt} == {
+        (0, tm, tn) for tm in range(mt) for tn in range(nt)}
+    assert len(tiles) == (mt + mt % 2) * nt
