@@ -7,11 +7,13 @@
                                      # under each MLP recipe and each
                                      # mask and of the moe_ab grouped
                                      # step (torch.profiler)
-    python3 chip_smoke.py --paired DIR  # also: K9-K12 timed in
-                                     # turns (old, new, new, old) against
-                                     # DIR's mlp_matmul.cu (a checkout of
-                                     # an earlier commit, e.g. unpacked
-                                     # with git archive under build/)
+    python3 chip_smoke.py --paired DIR  # also: K3-K5, K7, K8 and
+                                     # K9-K12 timed in turns (old, new,
+                                     # new, old) against DIR's
+                                     # flash_attention.cu and
+                                     # mlp_matmul.cu (a checkout of an
+                                     # earlier commit, e.g. unpacked with
+                                     # git archive under build/)
 
 Phases, in order; any failure exits non-zero:
 
@@ -86,10 +88,13 @@ Phases, in order; any failure exits non-zero:
    ``torch.bmm`` (bf16), 8 per-expert ``torch._int_mm`` /
    ``torch._scaled_mm`` products summed (int8 / e4m3); int8 / e4m3 also
    timed under each cluster size;
-5e. with ``--paired DIR``: K9 and K10 at the train shape, K11 (int8,
-   e4m3; up and down) and K12 (bf16,
-   int8, e4m3; gate/up and down, full counts, and gate/up skewed)
-   against the same C entry points built from DIR's mlp_matmul.cu, both
+5e. with ``--paired DIR``: K4 and K5 at the train shape (causal), K7
+   and K8 under window(1024) (each side's BlockMask packed at the tiles
+   DIR's wrapper declares) and K3 as the control, against the same C
+   entry points built from DIR's flash_attention.cu; then K9 and K10 at
+   the train shape, K11 (int8, e4m3; up and down) and K12 (bf16, int8,
+   e4m3; gate/up and down, full counts, and gate/up skewed) against
+   DIR's mlp_matmul.cu (both sources compiled at once); both outputs
    held to the plain version first, then timed old, new, new, old;
 5f. the card-only pytest cases (tests/test_torch_card_*.py, which import
    no jax) in a subprocess, ``pytest --noconftest -m cuda``: rc 0 and at
@@ -231,14 +236,17 @@ LONG_SEQ_STEP, LONG_WINDOW = 32768, 4096
 # order): losses 1e-5 relative, each parameter 1e-5 of its leaf's max-abs
 MASK_REF_TOL = 1e-5
 
+# K4/K5 and their splash mode K7/K8: warp-specialised wgmma/TMA kernels
+BWD_DESIGN = "wgmma + TMA, warp-specialised"
+
 MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
 # K9, K10, K11 and K12 (bf16, int8, e4m3): one warp-specialised wgmma/TMA
 # kernel
 WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
-# moved there from the jax-importing test files); all 86 must pass
+# moved there from the jax-importing test files); all 124 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 86
+CARD_TESTS_MIN = 124
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -722,13 +730,23 @@ def splash_faults(torch, spec, ops: tuple, got: dict, want: dict) -> None:
     starts = np.nonzero(np.diff(ids))[0] + 1       # first rows of docs
     ends = starts - 1                              # last rows of docs
     bq, bkd = FA.DKV_TILES
-    bm = M.block_mask(spec, s, *FA.FWD_TILES)
-    row = next(int(r) for r in starts if r % bq
-               and bm.q_first_k[r // bq] < bm.q_last_k[r // bq])
-    last = bm.q_last_k.copy()
-    last[row // bq] -= 1
-    lo = bm.lo.copy()
-    lo[row] -= 1
+    # K6's mask at FWD_TILES, K7's at DQ_TILES: the same row's q tile
+    # loses its last kv tile in each, and the same row its first key
+    bms = {kind: M.block_mask(spec, s, *FA._KIND_TILES[kind])
+           for kind in ("fwd", "dq")}
+    row = next(int(r) for r in starts if r % bq and all(
+        bm.q_first_k[r // bm.block_q] < bm.q_last_k[r // bm.block_q]
+        and r % bm.block_q for bm in bms.values()))
+    dropped, widened = {}, {}
+    for kind, bm in bms.items():
+        last = bm.q_last_k.copy()
+        last[row // bm.block_q] -= 1
+        lo = bm.lo.copy()
+        lo[row] -= 1
+        dropped[kind] = FA.pack_block_mask(
+            dataclasses.replace(bm, q_last_k=last), False, q.device)
+        widened[kind] = FA.pack_block_mask(dataclasses.replace(bm, lo=lo),
+                                           False, q.device)
     bmt = M.block_mask(spec, s, *FA.DKV_TILES)
     j = next(int(e) // bkd for e in ends if e % bkd < bq - 1
              and bmt.kv_first_q[e // bkd] == (e // bkd) * (bkd // bq)
@@ -740,19 +758,19 @@ def splash_faults(torch, spec, ops: tuple, got: dict, want: dict) -> None:
     dev = q.device
     faults = {
         "dropped tile": (
-            FA.pack_block_mask(dataclasses.replace(bm, q_last_k=last),
-                               False, dev),
+            dropped,
             FA.pack_block_mask(dataclasses.replace(bmt, kv_first_q=first_t),
                                True, dev)),
         "widened interval": (
-            FA.pack_block_mask(dataclasses.replace(bm, lo=lo), False, dev),
+            widened,
             FA.pack_block_mask(dataclasses.replace(bmt, lo=lo_t), True,
                                dev)),
     }
     for fault, (arr, arr_t) in faults.items():
-        o_bad, _ = FA.kernel_splash_forward(q, k, v, spec, arrays=arr)
+        o_bad, _ = FA.kernel_splash_forward(q, k, v, spec,
+                                            arrays=arr["fwd"])
         dq_bad, _ = FA.kernel_splash_dq(q, k, v, out, lse, do, spec,
-                                        arrays=arr)
+                                        arrays=arr["dq"])
         dk_bad, dv_bad = FA.kernel_splash_dkv(q, k, v, do, lse, dcap, spec,
                                               arrays=arr_t)
         torch.cuda.synchronize()
@@ -2036,11 +2054,156 @@ def card_tests_phase() -> None:
         f"{time.perf_counter() - t0:.1f} s (>= {CARD_TESTS_MIN} cases)")
 
 
+def parent_tiles(parent: Path) -> dict:
+    """The BlockMask tiles (q rows, keys) each splash kernel of another
+    checkout walks, as its wrapper declares them (its own test pins them
+    to its CUDA source)."""
+    import re
+    src = (parent / "dlnetbench_tpu_torch/ops/flash_attention.py") \
+        .read_text()
+    tiles = {}
+    for kind, name in (("dq", "DQ_TILES"), ("dkv", "DKV_TILES")):
+        m = re.search(rf"^{name} = \((\d+), (\d+)\)", src, re.M)
+        if m is None:
+            fail(f"paired: no {name} in the parent's flash_attention.py")
+        tiles[kind] = (int(m.group(1)), int(m.group(2)))
+    return tiles
+
+
+def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
+    """K4 and K5 at the train shape (causal), K7 and K8 under
+    window(1024), and K3 (unchanged: the control) against another
+    checkout's flash kernels; each side's splash kernels read the
+    BlockMask packed at their own tiles."""
+    import ctypes
+
+    from dlnetbench_tpu_torch.ops import attention_mask as M
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    ptr = ctypes.c_void_p
+    for name, n_ptr in (("dlnb_flash_fwd", 5), ("dlnb_flash_dq", 8),
+                        ("dlnb_flash_dkv", 8)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = FA._fn(name, n_ptr).argtypes
+    for name, n_ptr in (("dlnb_splash_dq", 9), ("dlnb_splash_dkv", 9)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ptr] * n_ptr + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ptr])
+    b, s, hq, hkv, dh, causal = FLASH_CASES[0]
+    scale = dh ** -0.5
+    q, k, v, do = flash_operands(torch, b, s, hq, hkv, dh, seed=5)
+    out, lse = FA.kernel_forward(q, k, v, causal)
+    p_out, _ = FA.plain_forward(q, k, v, causal)
+    p_dq, p_dcap = FA.plain_dq(q, k, v, out, lse, do, causal)
+    p_dk, p_dv = FA.plain_dkv(q, k, v, do, lse, p_dcap, causal)
+    spec = M.MaskSpec(window=1024)
+    s_out, s_lse = FA.kernel_splash_forward(q, k, v, spec)
+    ps_dq, ps_dcap = FA.plain_splash_dq(q, k, v, s_out, s_lse, do, spec)
+    ps_dk, ps_dv = FA.plain_splash_dkv(q, k, v, do, s_lse, ps_dcap, spec)
+    tiles = parent_tiles(parent)
+    old_arr = {
+        "dq": FA.pack_block_mask(M.block_mask(spec, s, *tiles["dq"]), False,
+                                 q.device),
+        "dkv": FA.pack_block_mask(M.block_mask(spec, s, *tiles["dkv"]), True,
+                                  q.device)}
+    dims = (b, s, hq, hkv, dh)
+    old = {"o": torch.empty_like(q), "lse": torch.empty_like(lse),
+           "dq": torch.empty_like(q), "d": torch.empty_like(lse),
+           "dk": torch.empty_like(k), "dv": torch.empty_like(v)}
+    new = {}
+
+    def call(rc, name):
+        if rc:
+            fail(f"paired: parent {name} rc {rc}")
+
+    def bar(label, pairs):
+        for name, (a, r) in pairs.items():
+            bar_ = FLASH_TOL_LSE if name == "D" else FLASH_TOL_ROW
+            err = abs_err(a, r) if name == "D" else row_err(a, r)
+            if not (torch.isfinite(a.float()).all() and err <= bar_):
+                fail(f"paired {label} {name}: err {err:.3e} (bar {bar_})")
+
+    def old_k3():
+        call(lib.dlnb_flash_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                old["o"].data_ptr(), old["lse"].data_ptr(),
+                                *dims, int(causal), scale, stream()),
+             "dlnb_flash_fwd")
+
+    def new_k3():
+        new["o"] = FA.kernel_forward(q, k, v, causal)[0]
+
+    def old_k4():
+        call(lib.dlnb_flash_dq(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                               old["d"].data_ptr(), old["dq"].data_ptr(),
+                               *dims, int(causal), scale, stream()),
+             "dlnb_flash_dq")
+
+    def new_k4():
+        new["dq"], new["d"] = FA.kernel_dq(q, k, v, out, lse, do, causal)
+
+    def old_k5():
+        call(lib.dlnb_flash_dkv(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(),
+                                p_dcap.data_ptr(), old["dk"].data_ptr(),
+                                old["dv"].data_ptr(), *dims, int(causal),
+                                scale, stream()), "dlnb_flash_dkv")
+
+    def new_k5():
+        new["dk"], new["dv"] = FA.kernel_dkv(q, k, v, do, lse, p_dcap,
+                                             causal)
+
+    def old_k7():
+        call(lib.dlnb_splash_dq(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                s_out.data_ptr(), do.data_ptr(),
+                                s_lse.data_ptr(), old["d"].data_ptr(),
+                                old["dq"].data_ptr(),
+                                old_arr["dq"].packed.data_ptr(), *dims,
+                                scale, stream()), "dlnb_splash_dq")
+
+    def new_k7():
+        new["dq"], new["d"] = FA.kernel_splash_dq(q, k, v, s_out, s_lse, do,
+                                                  spec)
+
+    def old_k8():
+        call(lib.dlnb_splash_dkv(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 do.data_ptr(), s_lse.data_ptr(),
+                                 ps_dcap.data_ptr(), old["dk"].data_ptr(),
+                                 old["dv"].data_ptr(),
+                                 old_arr["dkv"].packed.data_ptr(), *dims,
+                                 scale, stream()), "dlnb_splash_dkv")
+
+    def new_k8():
+        new["dk"], new["dv"] = FA.kernel_splash_dkv(q, k, v, do, s_lse,
+                                                    ps_dcap, spec)
+
+    def side(which):
+        return old if which == "old" else new
+
+    shape = f"[{b}, {s}, {hq}/{hkv}, {dh}]"
+    turns(f"K4 flash dq {shape} causal", old_k4, new_k4,
+          lambda w: bar(f"K4 ({w})", {"dq": (side(w)["dq"], p_dq),
+                                      "D": (side(w)["d"], p_dcap)}))
+    turns(f"K5 flash dk/dv {shape} causal", old_k5, new_k5,
+          lambda w: bar(f"K5 ({w})", {"dk": (side(w)["dk"], p_dk),
+                                      "dv": (side(w)["dv"], p_dv)}))
+    turns(f"K7 splash dq {shape} window(1024)", old_k7, new_k7,
+          lambda w: bar(f"K7 ({w})", {"dq": (side(w)["dq"], ps_dq),
+                                      "D": (side(w)["d"], ps_dcap)}))
+    turns(f"K8 splash dk/dv {shape} window(1024)", old_k8, new_k8,
+          lambda w: bar(f"K8 ({w})", {"dk": (side(w)["dk"], ps_dk),
+                                      "dv": (side(w)["dv"], ps_dv)}))
+    turns(f"K3 flash forward {shape} causal (control)", old_k3, new_k3,
+          lambda w: bar(f"K3 ({w})", {"o": (side(w)["o"], p_out)}))
+
+
 def paired_phase(torch, parent: Path) -> list:
-    """K9, K10, K11 and K12 timed in turns against the same kernels built
-    from another checkout's ``MLP_SRC`` (the same C interface): old,
-    new, new, old, each a ``timed_ms`` median, on the same operands; both
-    outputs held to the plain version by the kernels' own bars first."""
+    """K3, K4, K5, K7, K8 and K9-K12 timed in turns against the same
+    kernels built from another checkout's ``FLASH_SRC`` and ``MLP_SRC``
+    (the same C interfaces, both compiled at once): old, new, new, old,
+    each a ``timed_ms`` median, on the same operands; both outputs held
+    to the plain version by the kernels' own bars first."""
     import ctypes
 
     from dlnetbench_tpu_torch.ops import _build
@@ -2049,14 +2212,20 @@ def paired_phase(torch, parent: Path) -> list:
     from dlnetbench_tpu_torch.ops import quantized_matmul as Q
     out_dir = OUT / "paired"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libparent_mlp_matmul.so"
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(lib_path), str(parent / MLP_SRC)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"paired: the parent's {MLP_SRC} did not build:\n"
-             f"{proc.stdout[-3000:]}")
-    lib = ctypes.CDLL(str(lib_path))
+    procs = {}
+    for src in (FLASH_SRC, MLP_SRC):
+        path = out_dir / f"libparent_{Path(src).stem}.so"
+        procs[src] = (path, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(path),
+             str(parent / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for src, (path, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"paired: the parent's {src} did not build:\n{log[-3000:]}")
+        libs[src] = ctypes.CDLL(str(path))
+    lib = libs[MLP_SRC]
     lib.dlnb_qmm.restype = lib.dlnb_gmm.restype = ctypes.c_int
     lib.dlnb_qmm.argtypes = Q._fn().argtypes
     lib.dlnb_gmm.argtypes = GM._fn().argtypes
@@ -2084,8 +2253,16 @@ def paired_phase(torch, parent: Path) -> list:
         say(f"paired {label}: old {t[0]:.4f} / {t[3]:.4f} ms, new "
             f"{t[1]:.4f} / {t[2]:.4f} ms -> {row['speedup']:.2f}x")
 
-    rand = seeded(torch, 61)
     smi_sample("paired start")
+    paired_flash(torch, libs[FLASH_SRC], parent, turns, stream)
+    for label, pair in (("K4 + K5", rows[0:2]), ("K7 + K8", rows[2:4])):
+        t_old = sum(sum(r["old_ms"]) for r in pair)
+        t_new = sum(sum(r["new_ms"]) for r in pair)
+        say(f"paired {label}: old {t_old / 2:.4f} ms, new {t_new / 2:.4f} "
+            f"ms -> {t_old / t_new:.2f}x")
+    torch.cuda.empty_cache()
+    smi_sample("paired flash done")
+    rand = seeded(torch, 61)
     t, d, f = MLP_T, MLP_D, MLP_F
     dy = rand(t, d, scale=0.1)
     wd = rand(f, d, scale=f ** -0.5)
@@ -2453,20 +2630,20 @@ def main(argv: list[str]) -> int:
                         "launches": served[dt]["launches"],
                         **results[dt]})
     for kind, label in (("fwd", "K3 flash_attention forward"),
-                        ("dq", "K4 flash_attention dq"),
-                        ("dkv", "K5 flash_attention dk/dv")):
+                        ("dq", f"K4 flash_attention dq ({BWD_DESIGN})"),
+                        ("dkv", f"K5 flash_attention dk/dv ({BWD_DESIGN})")):
         kernels.append({"name": label, "route": "cuda",
                         "source": FLASH_SRC,
                         "replaces": FLASH_REPLACES[kind],
                         "launches": trained["counts"][kind],
                         **flash[kind]})
     row = splash[SPLASH_SPECS[0][0]]
-    for kind, label in (("fwd", "K6 splash_attention forward"),
-                        ("dq", "K7 splash_attention dq"),
-                        ("dkv", "K8 splash_attention dk/dv")):
+    for kind, label in (("fwd", "K6 splash_attention forward ("),
+                        ("dq", f"K7 splash_attention dq ({BWD_DESIGN}; "),
+                        ("dkv", f"K8 splash_attention dk/dv ({BWD_DESIGN}; ")):
         # the masked steps' launches, and K6's in the longcontext legs
         launches = masked["launches"][kind] + trained["splash"][kind]
-        kernels.append({"name": f"{label} ({SPLASH_SPECS[0][0]})",
+        kernels.append({"name": f"{label}{SPLASH_SPECS[0][0]})",
                         "route": "cuda", "source": FLASH_SRC,
                         "replaces": SPLASH_REPLACES[kind],
                         "launches": launches, **row[kind]})

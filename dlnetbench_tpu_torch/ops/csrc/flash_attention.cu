@@ -26,48 +26,59 @@
 // base 2 with f32 m / l / accumulator and the finite -1e30 mask, then
 // converts lse back to natural log; the backward rounds q * scale to the
 // input type for s, p = exp(s - lse), ds = p * (dp - D) * scale, and
-// rounds p and ds to the input type before their products.  D is
-// computed by the dq kernel (rowsum of dO * O in f32, written to the D
-// buffer that the dk/dv kernel then reads).
+// rounds p and ds to the input type before their products; dk uses the
+// unscaled q.  D is computed by the dq kernel (rowsum of dO * O in f32,
+// written to the D buffer that the dk/dv kernel then reads).  The bf16
+// backward takes exp(s - lse) as exp2(s * log2(e) - lse * log2(e)) (f32,
+// a few ulp from expf, far under the bf16 rounding of p and ds that
+// follows; the precise expf's longer sequence showed in K4's and K5's
+// times on an H100).
 //
 // Bound on this card: at the training shape (B=2, S=6144, Hq=32, Hkv=8,
 // Dh=128, causal) each kernel does 0.6e12-1.2e12 tensor-core FLOP on
 // ~0.3 GB of operands: it is bound by operations (989 TFLOP/s bf16), not
 // by bytes.  What the design does about that:
-//   * every product runs on the tensor cores (mma.sync m16n8k16, bf16 in,
-//     f32 accumulate), operands fed by ldmatrix from shared memory rows
-//     padded by 16 bytes so the 8 row addresses of an 8x8 matrix fall in
-//     distinct banks;
-//   * tiles wholly above the causal diagonal are neither loaded nor
-//     computed; the forward and dq grids launch the longest (last) q
-//     tiles first, and dk/dv the longest (first) KV tiles first;
-//   * the streamed operand (K/V for forward and dq; Q, dO, lse, D for
-//     dk/dv) is double-buffered with 16-byte cp.async, so the next tile
-//     is in flight while this one is computed;
+//   * K4 and K5 (the backward, and K7 / K8, their splash mode) are
+//     warp-specialised wgmma / TMA kernels on the helpers of hopper.cuh
+//     (their comment below has the design): a producer warp keeps TMA
+//     loads in flight through mbarrier rings, two consumer warpgroups
+//     issue m64nN wgmma products with f32 accumulators in registers, and
+//     p and ds go back in as register A operands, never through shared
+//     memory.  Their first form (mma.sync m16n8k16 from ldmatrix, 16
+//     rows a warp, 16-byte cp.async) was bound by shared-memory traffic:
+//     each B fragment fed one m16 tile; K5's warps each re-read the whole
+//     q / dO stage and rescaled q behind two block barriers.  A wgmma
+//     reads each B tile once for 64 rows;
+//   * K3 (and K6) are still that first form: mma.sync m16n8k16, bf16 in,
+//     f32 accumulate, fed by ldmatrix from shared rows padded by 16 bytes,
+//     K/V double-buffered with 16-byte cp.async;
+//   * tiles wholly outside the causal triangle or the mask are neither
+//     loaded nor computed; the forward and dq grids launch the longest
+//     (last) q tiles first, and dk/dv the longest (first) KV tiles first;
 //   * the dk/dv kernel runs one block per (batch, KV head, 128-key tile)
 //     and loops over the GQA group's q heads itself, accumulating dk/dv
 //     in f32 registers and writing [B, S, Hkv, Dh] once: the TPU path's
 //     per-q-head dk/dv and the wrapper's group sum (:517-518) are gone,
 //     with no atomics (the result is deterministic).
-// Not yet: wgmma, TMA, warp specialisation, a persistent grid.  The
-// times stand in PERF.md.
+// Not yet: K3 / K6 on wgmma, a persistent grid.  The times stand in
+// PERF.md.
 //
 // Splash (mode kSplash).  The wrapper hands each kernel the BlockMask
 // built at THAT kernel's tiles (forward and dq: 64 q rows x 64 keys;
 // dk/dv: 64 q rows x 128 keys), packed as one int32 array on the card
 // (MaskView below).  Per q tile (K6, K7) or per 128-key tile (K8) the
 // kernel walks only the tiles of its visit range [first, last]: a
-// skipped tile is neither loaded by cp.async nor multiplied, so the work
-// is what the mask leaves (a window of W keys costs ~W/S of the dense
-// grid).  A tile is FULL when blk_lo_max[i] <= j*bk and blk_hi_min[i] >=
-// (j+1)*bk - 1 and then skips the mask; a PARTIAL tile masks each
-// element against its row's [lo[q], hi[q]] (forward and dq: the lane's
-// two row bounds read once per q tile into registers; dk/dv: the q
-// tile's bounds staged in shared memory beside lse and D).  Numerics are
-// K3-K5's (same rounding points, the finite -1e30 mask; a row whose
-// first visited tile holds none of its keys gets p = 1 there and the
-// next tile's alpha = 0 wipes it), so under the plain-causal mask K6/K7/
-// K8 visit, mask and add exactly what K3/K4/K5 do: bitwise equal.  No
+// skipped tile is neither loaded nor multiplied, so the work is what the
+// mask leaves (a window of W keys costs ~W/S of the dense grid).  A tile
+// is FULL when blk_lo_max[i] <= j*bk and blk_hi_min[i] >= (j+1)*bk - 1
+// and then skips the mask; a PARTIAL tile masks each element against its
+// row's [lo[q], hi[q]] (forward and dq: the thread's two row bounds read
+// once per q tile into registers; dk/dv: the q tile's bounds staged in
+// shared memory beside lse and D by a bulk copy).  Numerics are K3-K5's
+// (same rounding points, the finite -1e30 mask; a row whose first
+// visited tile holds none of its keys gets p = 1 there and the next
+// tile's alpha = 0 wipes it), so under the plain-causal mask K6/K7/K8
+// visit, mask and add exactly what K3/K4/K5 do: bitwise equal.  No
 // causality is assumed: a non-causal segment mask has hi[q] > q.
 //
 // float32 operands take simple CUDA-core kernels (one thread per query
@@ -79,11 +90,14 @@
 // alignment before calling; each entry returns the cudaError_t of its
 // launch.
 
+#include <cuda.h>            // CUtensorMap (types only: no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper.cuh"        // mbarrier, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -98,10 +112,6 @@ enum Dtype { kF32 = 0, kBF16 = 1 };
 enum Mode { kDense = 0, kCausal = 1, kSplash = 2 };
 
 // ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -144,11 +154,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ------------------------------------------------------ tile primitives
 //
 // A warp owns 16 rows of an M x N product.  Its accumulator is N/8 m16n8
@@ -172,13 +177,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
     const int r = c / kChunks, col = (c % kChunks) * 8;
     cp_async16(dst + r * P + col, src + static_cast<size_t>(r) * ld + col);
   }
-}
-
-// n 4-byte values (a multiple of 4) -> shared
-template <int N, int NT, typename T>
-__device__ __forceinline__ void load_row(T* dst, const T* src, int tid) {
-  static_assert(sizeof(T) == 4, "4-byte rows");
-  for (int c = tid; c < N / 4; c += NT) cp_async16(dst + 4 * c, src + 4 * c);
 }
 
 // in place: x = round(x * mul) over an R x DH shared tile
@@ -228,10 +226,10 @@ __device__ __forceinline__ void mma_xb(float (&out)[DH / 8][4],
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
     uint32_t af[4];
-    af[0] = pack(x[2 * kk][0], x[2 * kk][1]);
-    af[1] = pack(x[2 * kk][2], x[2 * kk][3]);
-    af[2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    af[3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    af[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    af[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    af[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    af[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
     for (int dp = 0; dp < DH / 16; ++dp) {
       uint32_t bfr[4];
@@ -295,7 +293,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, int ld,
 // ------------------------------------------------------------ K3 forward
 
 constexpr int kFwdWarps = 4, kBQ = 64, kBK = 64;
-constexpr int kDkvWarps = 8, kBKd = kDkvWarps * 16;   // 128 keys a block
+constexpr int kConsumers = 2, kBKd = kConsumers * 64;   // K5: 128 keys
 
 // A BlockMask's int32 arrays as the wrapper packs them (ops/
 // flash_attention.py, SplashArrays): [first n | last n | blk_lo_max nq |
@@ -442,172 +440,406 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
   }
 }
 
-// ----------------------------------------------------------------- K4 dq
+// -------------------------------------- K4 dq, K5 dk/dv: wgmma and TMA
+//
+// Both are one block of three warpgroups (kBwdThreads):
+//   WG 0, warp 0  producer: one thread issues every TMA load into rings
+//         of mbarrier-guarded stages (K4: K/V tiles; K5: the q tiles of
+//         the group's q heads, one after another, with their lse and D
+//         rows and, in splash mode, their lo / hi rows by 1-D bulk
+//         copies on the same barrier);
+//   WG 0, warps 1-3  (K5 only) write bf16(q * scale) of each landed q
+//         tile into the stage's third tile, at the same byte offsets;
+//   WG 1, WG 2  consumers: 64 rows of the block's work each, f32
+//         accumulators in registers, wgmma.mma_async for every product.
+// setmaxnreg moves registers from WG 0 to the consumers.
+//
+// A 64-row tile of Dh columns lies in shared memory as TMA's 128-byte
+// swizzle writes it: Dh / 64 panels of 64 rows x 128 bytes (a row
+// tile of 128 keys: panels of 128 rows), every panel 1024-byte aligned.
+// One tile is read two ways: K-major (rows of 64 contraction values per
+// panel, 8-row groups 1024 bytes apart; a K step of 16 moves the start
+// 32 bytes, and to the next panel every 4 steps) when Dh is the
+// contraction, and N-major (Dh is N: panels `panel` bytes apart as the
+// leading offset, 8-row K groups 1024 apart; a K step of 16 rows moves
+// the start 2048 bytes) when the tile's rows are the contraction.
+//
+// K4 (per consumer: 64 q rows of one q head; a 64-key K/V stage):
+//   S = (q * scale) K^T and dP = dO V^T (m64n64k16, both operands in
+//   shared memory, K-major), then in registers p = exp(S - lse) and
+//   dS = p (dP - D) scale, rounded to bf16 and packed into the register
+//   A fragment (pack_a), then dQ += dS K (m64nDHk16, A from registers,
+//   B the same K stage read N-major).  A block takes two (q head, q tile)
+//   items of one KV head, items 2p and 2p + 1 of the KV head's G x nq in
+//   (q tile, q head) order: with G even the two q heads of one q tile
+//   (one visit range), with G = 1 two neighbouring q tiles.  The K/V ring
+//   runs over the union of the two visit ranges; a consumer waits on and
+//   releases a stage outside its own range without computing it.  S and
+//   dP are two commit groups, so exp runs while dP is on the tensor
+//   cores; a stage's dQ product stays in flight while the next stage's S
+//   and dP are issued, and the stage is released when it retires (its
+//   dS registers are held live until then).  Both gained on an H100 at
+//   the train shape; in K5 the same splits lost time (its dK and dV
+//   accumulators leave fewer registers), so K5 issues its four products
+//   in two groups and waits on each.
+// K5 (per consumer: 64 keys of the block's 128; one q tile a stage):
+//   S^T = K (q * scale)^T and dP^T = V dO^T (K-major, in shared memory),
+//   p^T = exp(S^T - lse), dS^T = p^T (dP^T - D) scale, both rounded to
+//   bf16 and packed as register A fragments, then dV += p^T dO and dK +=
+//   dS^T q (B the dO and q tiles of the stage read N-major; dk uses the
+//   unscaled q).  dK and dV sum over the group's q heads in registers
+//   (64 + 64 accumulator registers a thread at Dh = 128) and are written
+//   once: no atomics, deterministic.
 
-constexpr int kDqWarps = 4;
+constexpr int kBwdThreads = 384;      // WG 0 + two consumer warpgroups
+constexpr int kHelperWarps = 3;       // K5: WG 0's warps 1-3
+constexpr int kDqStages = 3;          // K4's K/V ring
+constexpr int kDkvStages = 3;         // K5's q-tile ring
+constexpr int kBwdExtra = 2048;       // 1024-byte alignment, barriers and
+                                      // K4's D rows
+constexpr int kRowsBytes = 1024;      // K5 stage: lse, D, lo, hi (64 each)
+constexpr int kPanel = 8192;          // 64 rows x 128 bytes
+// setmaxnreg, registers a thread: WG 0 gives back, the consumers take,
+// within the block's pool at launch (384 x 168 = 64512; an inc past it
+// waits for ever)
+constexpr int kRegBwdProducer = 40;
+constexpr int kRegBwdConsumer = 232;
+
+// bytes of a 64-row tile of DH bf16 columns
+template <int DH>
+__host__ __device__ constexpr int tile_bytes() {
+  return 64 * DH * 2;
+}
 
 template <int DH>
 __host__ __device__ constexpr size_t dq_smem() {
-  return static_cast<size_t>(2 * kBQ + 4 * kBK) * Tile<DH>::P *
-             sizeof(bf16) +
-         2 * kBQ * sizeof(float);
+  return kBwdExtra + static_cast<size_t>(4 + 2 * kDqStages) *
+                         tile_bytes<DH>();
 }
 
+// a stage: the q tile, the dO tile, the q * scale tile, the rows
+template <int DH>
+__host__ __device__ constexpr int dkv_stage_bytes() {
+  return 3 * tile_bytes<DH>() + kRowsBytes;
+}
+
+template <int DH>
+__host__ __device__ constexpr size_t dkv_smem() {
+  return kBwdExtra + 4 * static_cast<size_t>(tile_bytes<DH>()) +
+         static_cast<size_t>(kDkvStages) * dkv_stage_bytes<DH>();
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// K step ks (16 of the Dh contraction) of a tile read K-major; `panel`:
+// the bytes between its 64-column panels (64 or 128 rows x 128)
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int ks,
+                                           int panel) {
+  return sw128_desc(addr + (ks / 4) * panel + (ks % 4) * 32, 16, 1024);
+}
+
+// K step kk (16 of the tile's 64 rows) of a 64-row tile read N-major
+__device__ __forceinline__ uint64_t nmajor(uint32_t addr, int kk) {
+  return sw128_desc(addr + kk * 16 * 128, kPanel, 1024);
+}
+
+// the WG 0 helpers' own barrier (0 is __syncthreads')
+__device__ __forceinline__ void helper_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kHelperWarps * 32) : "memory");
+}
+
+// x = round(x * mul) over n bytes of bf16 (16 per step, from thread t of
+// nt), src -> dst; the swizzle moves whole 16-byte pieces, so the pass
+// is elementwise in any of the tiles' layouts
+__device__ __forceinline__ void scale_bytes(unsigned char* dst,
+                                            const unsigned char* src, int n,
+                                            float mul, int t, int nt) {
+  for (int i = t * 16; i < n; i += nt * 16) {
+    uint4 v = *reinterpret_cast<const uint4*>(src + i);
+    auto* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      h[j] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+    }
+    *reinterpret_cast<uint4*>(dst + i) = v;
+  }
+}
+
+// An m64nN accumulator (N = 2 * NR / ... ; NR registers a thread):
+// element e of thread (warp w, lane L) is row 16w + L/4 + 8((e % 4) / 2),
+// column 8(e / 4) + 2(L % 4) + e % 2.
+__device__ __forceinline__ int acc_row(int e, int lane) {
+  return lane / 4 + 8 * ((e % 4) / 2);
+}
+__device__ __forceinline__ int acc_col(int e, int lane) {
+  return 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+}
+
+// write a consumer's 64 x DH accumulator as bf16 rows (its warp's 16
+// rows start at dst)
+template <int DH>
+__device__ __forceinline__ void store_acc(bf16* dst, int ld,
+                                          const float (&d)[DH / 2],
+                                          int lane) {
+#pragma unroll
+  for (int e = 0; e < DH / 2; e += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        dst + static_cast<size_t>(acc_row(e, lane)) * ld +
+        acc_col(e, lane)) = __floats2bfloat162_rn(d[e], d[e + 1]);
+}
+
+// K4 (K7 in splash mode).  map_q, map_do: [B S, Hq, Dh] in boxes of 64
+// columns x 1 head x 64 rows; map_k, map_v: [B S, Hkv, Dh], the same box
 template <int DH, int MODE>
-__global__ void __launch_bounds__(kDqWarps * 32)
-    dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ o,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            float* __restrict__ dcap, bf16* __restrict__ dq,
-            const int* __restrict__ mask, int S, int Hq, int Hkv,
-            float scale) {
-  constexpr int NT = kDqWarps * 32, P = Tile<DH>::P;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kBQ * P;          // dO
-  bf16* sK = sO + kBQ * P;          // 2 stages
-  bf16* sV = sK + 2 * kBK * P;      // 2 stages
-  float* sL = reinterpret_cast<float*>(sV + 2 * kBK * P);
-  float* sD = sL + kBQ;
-  static_assert(2 * kBQ == NT, "D takes two threads per row");
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nq = S / kBQ;
-  const int qt = nq - 1 - blockIdx.y;
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
-  const int hk = h / (Hq / Hkv);
-  const int ldq = Hq * DH, ldk = Hkv * DH;
-  const int q0 = qt * kBQ;
-  const size_t qoff = (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
-  const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
-  const bf16* kg = k + static_cast<size_t>(b) * S * ldk + hk * DH;
-  const bf16* vg = v + static_cast<size_t>(b) * S * ldk + hk * DH;
-  // visit range [j0, j1) of kv tiles; splash: the lane's row bounds
-  int j0 = 0, j1 = MODE == kCausal ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dq_bf16(const __grid_constant__ CUtensorMap map_q,
+            const __grid_constant__ CUtensorMap map_do,
+            const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v,
+            const bf16* __restrict__ o, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ dcap,
+            bf16* __restrict__ dq, const int* __restrict__ mask, int S,
+            int Hq, int Hkv, float scale) {
+  constexpr int TB = tile_bytes<DH>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kDqStages;
+  float* sD = reinterpret_cast<float*>(base + 512);     // [2][64]
+  unsigned char* sQ = base + 1024;      // the two items' q, then q * scale
+  unsigned char* sO = sQ + 2 * TB;      // their dO
+  unsigned char* sK = sO + 2 * TB;      // the K/V ring
+  unsigned char* sV = sK + kDqStages * TB;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int G = Hq / Hkv, nq = S / kBQ;
+  const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
+  const int pair = G * nq / 2 - 1 - blockIdx.y;     // longest first
   MaskView mv{};
-  int rlo[2] = {0, 0}, rhi[2] = {0, 0};
-  if (MODE == kSplash) {
-    mv = mask_view(mask, S / kBQ, S);
-    j0 = mv.first[qt];
-    j1 = mv.last[qt] + 1;
-    const int r = q0 + warp * 16 + lane / 4;
-    rlo[0] = mv.lo[r], rhi[0] = mv.hi[r];
-    rlo[1] = mv.lo[r + 8], rhi[1] = mv.hi[r + 8];
+  if (MODE == kSplash) mv = mask_view(mask, nq, S);
+  // the two items: q tile, q head, visit range [j0, j1) of kv tiles
+  int qt[2], hq[2], j0[2], j1[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int i = 2 * pair + c;
+    qt[c] = i / G;
+    hq[c] = hk * G + i % G;
+    j0[c] = 0;
+    j1[c] = MODE == kCausal ? (qt[c] * kBQ + kBQ - 1) / kBK + 1 : S / kBK;
+    if (MODE == kSplash) {
+      j0[c] = mv.first[qt[c]];
+      j1[c] = mv.last[qt[c]] + 1;
+    }
+  }
+  const int J0 = min(j0[0], j0[1]), J1 = max(j1[0], j1[1]);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);    // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    reg_release<kRegBwdProducer>();
+    if (tid == 0) {
+      mbar_expect_tx(full_q, 4 * TB);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p) {
+          const int row = b * S + qt[c] * kBQ;
+          tma_load(sQ + c * TB + p * kPanel, &map_q, full_q, p * 64, hq[c],
+                   row);
+          tma_load(sO + c * TB + p * kPanel, &map_do, full_q, p * 64, hq[c],
+                   row);
+        }
+      Ring r;
+      for (int j = J0; j < J1; ++j) {
+        mbar_wait(&empty[r.slot], r.phase ^ 1);
+        mbar_expect_tx(&full[r.slot], 2 * TB);
+#pragma unroll
+        for (int p = 0; p < DH / 64; ++p) {
+          tma_load(sK + r.slot * TB + p * kPanel, &map_k, &full[r.slot],
+                   p * 64, hk, b * S + j * kBK);
+          tma_load(sV + r.slot * TB + p * kPanel, &map_v, &full[r.slot],
+                   p * 64, hk, b * S + j * kBK);
+        }
+        r.next(kDqStages);
+      }
+    }
+    return;
   }
 
-  load_tile<kBQ, DH, NT>(sQ, q + qoff, ldq, tid);
-  load_tile<kBQ, DH, NT>(sO, dout + qoff, ldq, tid);
-  load_row<kBQ, NT>(sL, lse + roff, tid);
-  load_tile<kBK, DH, NT>(sK, kg + static_cast<size_t>(j0) * kBK * ldk, ldk,
-                         tid);
-  load_tile<kBK, DH, NT>(sV, vg + static_cast<size_t>(j0) * kBK * ldk, ldk,
-                         tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // D = rowsum(dO * O) in f32: two threads per row
+  // ------------------------------------------------------- consumers
+  reg_claim<kRegBwdConsumer>();
+  const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
+  const int q0 = qt[ci] * kBQ, h = hq[ci];
+  const int ldq = Hq * DH;
+  const size_t qoff = (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
+  const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
   {
+    // D = rowsum(dO * O) in f32: two threads per row
     const int r = tid / 2, half = tid % 2;
-    const bf16* orow = o + qoff + static_cast<size_t>(r) * ldq +
-                       half * (DH / 2);
-    const bf16* drow = sO + r * P + half * (DH / 2);
+    const size_t off = qoff + static_cast<size_t>(r) * ldq + half * (DH / 2);
     float d = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DH / 2; c += 2) {
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(orow + c));
-      const float2 g = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(drow + c));
-      d += a.x * g.x + a.y * g.y;
+#pragma unroll
+    for (int c = 0; c < DH / 2; c += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + off + c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + c);
+      const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const auto* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(o2[i]);
+        const float2 g = __bfloat1622float2(g2[i]);
+        d += a.x * g.x + a.y * g.y;
+      }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0) {
-      sD[r] = d;
+      sD[ci * 64 + r] = d;
       dcap[roff + r] = d;
     }
   }
-  scale_tile<kBQ, DH, NT>(sQ, sQ, scale, tid);   // q * scale, rounded
-  __syncthreads();
+  mbar_wait(full_q, 0);
+  scale_bytes(sQ + ci * TB, sQ + ci * TB, TB, scale, tid, 128);
+  fence_to_async();
+  consumer_sync(ci);
 
-  // this lane's two rows: lse and D
+  // this thread's two rows: lse, D and (splash) their key intervals
   const int rl = warp * 16 + lane / 4;
-  const float lrow[2] = {sL[rl], sL[rl + 8]};
-  const float drow[2] = {sD[rl], sD[rl + 8]};
-  float acc[DH / 8][4] = {};
-  const bf16* sQw = sQ + warp * 16 * P;
-  const bf16* sOw = sO + warp * 16 * P;
-  for (int j = j0; j < j1; ++j) {
-    const int st = (j - j0) & 1;
-    if (j + 1 < j1) {
-      const size_t off = static_cast<size_t>(j + 1) * kBK * ldk;
-      load_tile<kBK, DH, NT>(sK + (st ^ 1) * kBK * P, kg + off, ldk, tid);
-      load_tile<kBK, DH, NT>(sV + (st ^ 1) * kBK * P, vg + off, ldk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = sK + st * kBK * P;
-    float s[kBK / 8][4] = {};
-    mma_abt<kBK, DH>(s, sQw, kt, lane);
-    if (MODE == kCausal && j * kBK + kBK - 1 > q0)
-      causal_mask<kBK>(s, q0 + warp * 16, j * kBK, lane);
-    if (MODE == kSplash && !full_tile(mv, qt, j * kBK, kBK))
-      interval_mask<kBK>(s, rlo, rhi, j * kBK, lane);
-    float dp[kBK / 8][4] = {};
-    mma_abt<kBK, DH>(dp, sOw, sV + st * kBK * P, lane);   // dO V^T
-#pragma unroll
-    for (int t = 0; t < kBK / 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[t][e] - lrow[e / 2]);
-        s[t][e] = p * (dp[t][e] - drow[e / 2]) * scale;    // ds
-      }
-    mma_xb<kBK, DH>(acc, s, kt, lane);                     // += ds K
-    __syncthreads();
+  // lse * log2(e): p = exp2(s log2(e) - lse log2(e)) (see Numerics)
+  const float lrow[2] = {lse[roff + rl] * kLog2e,
+                         lse[roff + rl + 8] * kLog2e};
+  const float drow[2] = {sD[ci * 64 + rl], sD[ci * 64 + rl + 8]};
+  int rlo[2] = {0, 0}, rhi[2] = {0, 0};
+  if (MODE == kSplash) {
+    rlo[0] = mv.lo[q0 + rl], rhi[0] = mv.hi[q0 + rl];
+    rlo[1] = mv.lo[q0 + rl + 8], rhi[1] = mv.hi[q0 + rl + 8];
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<DH>(dq + qoff + static_cast<size_t>(warp) * 16 * ldq, ldq, acc,
-                 one, lane);
+  const uint32_t qa = smem_addr(sQ + ci * TB), oa = smem_addr(sO + ci * TB);
+  float acc[DH / 2];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) acc[e] = 0.f;
+  Ring r;
+  uint32_t a[4][4] = {};
+  int held = -1;             // the slot whose dQ product is in flight
+  for (int j = J0; j < J1; ++j) {
+    mbar_wait(&full[r.slot], r.phase);
+    if (j >= j0[ci] && j < j1[ci]) {
+      const uint32_t ka = smem_addr(sK + r.slot * TB);
+      const uint32_t va = smem_addr(sV + r.slot * TB);
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_ss_n64(s, kmajor(qa, ks, kPanel), kmajor(ka, ks, kPanel),
+                     ks > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_ss_n64(dp, kmajor(oa, ks, kPanel), kmajor(va, ks, kPanel),
+                     ks > 0);
+      wgmma_commit();
+      acc_fence(s);
+      acc_fence(dp);
+      wgmma_wait<1>();
+      acc_fence(s);
+      frag_fence(a);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      const int c0 = j * kBK;
+      if (MODE == kCausal && c0 + kBK - 1 > q0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (c0 + acc_col(e, lane) > q0 + warp * 16 + acc_row(e, lane))
+            s[e] = kNegInf;
+      }
+      if (MODE == kSplash && !full_tile(mv, qt[ci], c0, kBK)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = c0 + acc_col(e, lane), hh = (e % 4) / 2;
+          if (col < rlo[hh] || col > rhi[hh]) s[e] = kNegInf;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        s[e] = exp2f(fmaf(s[e], kLog2e, -lrow[(e % 4) / 2]));
+      wgmma_wait<0>();
+      acc_fence(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hh = (e % 4) / 2;
+        s[e] = s[e] * (dp[e] - drow[hh]) * scale;              // ds
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(a[kk], s, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DH>(acc, a[kk], nmajor(ka, kk), 1);      // += ds K
+      wgmma_commit();
+      acc_fence(acc);
+      held = r.slot;
+    } else {
+      // outside this item's range: free the held stage first, so that
+      // a run of skipped stages never leaves the producer waiting on it
+      if (held >= 0) {
+        wgmma_wait<0>();
+        acc_fence(acc);
+        frag_fence(a);
+        if (lane == 0) mbar_arrive(&empty[held]);
+        held = -1;
+      }
+      if (lane == 0) mbar_arrive(&empty[r.slot]);
+    }
+    r.next(kDqStages);
+  }
+  wgmma_wait<0>();
+  acc_fence(acc);
+  frag_fence(a);
+  if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+  store_acc<DH>(dq + qoff + static_cast<size_t>(warp) * 16 * ldq, ldq, acc,
+                lane);
 }
 
-// ------------------------------------------------------------- K5 dk/dv
-
-// a stage: q and dO tiles, lse and D rows, and (splash) the q tile's
-// row bounds lo and hi
+// K5 (K8 in splash mode).  map_q, map_do: as K4's; map_k, map_v: [B S,
+// Hkv, Dh] in boxes of 64 columns x 1 head x kBKd rows
 template <int DH, int MODE>
-__host__ __device__ constexpr size_t dkv_stage_bytes() {
-  return static_cast<size_t>(2 * kBQ) * Tile<DH>::P * sizeof(bf16) +
-         (MODE == kSplash ? 4 : 2) * kBQ * sizeof(float);
-}
-
-template <int DH, int MODE>
-__host__ __device__ constexpr size_t dkv_smem() {
-  return static_cast<size_t>(2 * kBKd + kBQ) * Tile<DH>::P * sizeof(bf16) +
-         2 * dkv_stage_bytes<DH, MODE>();
-}
-
-template <int DH, int MODE>
-__global__ void __launch_bounds__(kDkvWarps * 32, 1)
-    dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dkv_bf16(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_do,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
              const float* __restrict__ lse, const float* __restrict__ dcap,
              bf16* __restrict__ dk, bf16* __restrict__ dv,
              const int* __restrict__ mask, int S, int Hq, int Hkv,
              float scale) {
-  constexpr int NT = kDkvWarps * 32, P = Tile<DH>::P;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBKd * P;
-  bf16* sQs = sV + kBKd * P;                          // q * scale
-  unsigned char* stages = reinterpret_cast<unsigned char*>(sQs + kBQ * P);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int TB = tile_bytes<DH>();
+  constexpr int SB = dkv_stage_bytes<DH>();
+  constexpr int KP = 2 * kPanel;        // a 128-key tile's panel
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(base);
+  uint64_t* full = full_kv + 1;         // q, dO and rows landed
+  uint64_t* ready = full + kDkvStages;  // q * scale written
+  uint64_t* empty = ready + kDkvStages;
+  unsigned char* sK = base + 1024;      // 128 keys: DH / 64 panels of KP
+  unsigned char* sV = sK + 2 * TB;
+  unsigned char* stages = sV + 2 * TB;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
-  const int G = Hq / Hkv;
+  const int G = Hq / Hkv, nq = S / kBQ;
   const int k0 = blockIdx.y * kBKd;                   // longest first
-  const int ldq = Hq * DH, ldk = Hkv * DH;
-  const size_t koff = (static_cast<size_t>(b) * S + k0) * ldk + hk * DH;
-  const int nq = S / kBQ;
   // visit range [first, last] of q tiles
   int first = MODE == kCausal ? k0 / kBQ : 0, last = nq - 1;
   MaskView mv{};
@@ -617,101 +849,152 @@ __global__ void __launch_bounds__(kDkvWarps * 32, 1)
     last = mv.last[blockIdx.y];
   }
   const int per_head = last + 1 - first;
-  const int iters = G * per_head;
+  const int iters = per_head > 0 ? G * per_head : 0;
 
-  auto stage_q = [&](int st) {
-    return reinterpret_cast<bf16*>(stages +
-                                   st * dkv_stage_bytes<DH, MODE>());
-  };
-  auto issue = [&](int it, int st) {
-    const int h = hk * G + it / per_head, q0 = (first + it % per_head) * kBQ;
-    const size_t qoff = (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
-    const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
-    bf16* sq = stage_q(st);
-    bf16* so = sq + kBQ * P;
-    float* sl = reinterpret_cast<float*>(so + kBQ * P);
-    load_tile<kBQ, DH, NT>(sq, q + qoff, ldq, tid);
-    load_tile<kBQ, DH, NT>(so, dout + qoff, ldq, tid);
-    load_row<kBQ, NT>(sl, lse + roff, tid);
-    load_row<kBQ, NT>(sl + kBQ, dcap + roff, tid);
-    if (MODE == kSplash) {
-      int* sb = reinterpret_cast<int*>(sl + 2 * kBQ);
-      load_row<kBQ, NT>(sb, mv.lo + q0, tid);
-      load_row<kBQ, NT>(sb + kBQ, mv.hi + q0, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
     }
-    cp_async_commit();
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_tile<kBKd, DH, NT>(sK, k + koff, ldk, tid);
-  load_tile<kBKd, DH, NT>(sV, v + koff, ldk, tid);
-  cp_async_commit();
-  issue(0, 0);
-
-  float dka[DH / 8][4] = {}, dva[DH / 8][4] = {};
-  const bf16* sKw = sK + warp * 16 * P;
-  const bf16* sVw = sV + warp * 16 * P;
-  const int key0 = k0 + warp * 16;
-  for (int it = 0; it < iters; ++it) {
-    const int st = it & 1;
-    if (it + 1 < iters) {
-      issue(it + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sq = stage_q(st);
-    const bf16* so = sq + kBQ * P;
-    const float* sl = reinterpret_cast<const float*>(so + kBQ * P);
-    const float* sd = sl + kBQ;
-    scale_tile<kBQ, DH, NT>(sQs, sq, scale, tid);
-    __syncthreads();
-    const int qt = first + it % per_head, q0 = qt * kBQ;
-
-    float s[kBQ / 8][4] = {};                // s^T: keys x queries
-    mma_abt<kBQ, DH>(s, sKw, sQs, lane);
-    if (MODE == kCausal && q0 < key0 + 15)
+  if (wg == 0) {
+    reg_release<kRegBwdProducer>();
+    if (tid == 0) {
+      mbar_expect_tx(full_kv, 4 * TB);
 #pragma unroll
-      for (int t = 0; t < kBQ / 8; ++t)
+      for (int p = 0; p < DH / 64; ++p) {
+        tma_load(sK + p * KP, &map_k, full_kv, p * 64, hk, b * S + k0);
+        tma_load(sV + p * KP, &map_v, full_kv, p * 64, hk, b * S + k0);
+      }
+      Ring r;
+      for (int it = 0; it < iters; ++it) {
+        const int h = hk * G + it / per_head;
+        const int q0 = (first + it % per_head) * kBQ;
+        const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
+        unsigned char* st = stages + r.slot * SB;
+        mbar_wait(&empty[r.slot], r.phase ^ 1);
+        mbar_expect_tx(&full[r.slot],
+                       2 * TB + (MODE == kSplash ? 4 : 2) * kBQ * 4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + lane / 4 + 8 * (e / 2);
-          const int qry = q0 + 8 * t + 2 * (lane % 4) + (e % 2);
-          if (key > qry) s[t][e] = kNegInf;
+        for (int p = 0; p < DH / 64; ++p) {
+          tma_load(st + p * kPanel, &map_q, &full[r.slot], p * 64, h,
+                   b * S + q0);
+          tma_load(st + TB + p * kPanel, &map_do, &full[r.slot], p * 64, h,
+                   b * S + q0);
         }
+        float* rows = reinterpret_cast<float*>(st + 3 * TB);
+        bulk_load(rows, lse + roff, kBQ * 4, &full[r.slot]);
+        bulk_load(rows + kBQ, dcap + roff, kBQ * 4, &full[r.slot]);
+        if (MODE == kSplash) {
+          bulk_load(rows + 2 * kBQ, mv.lo + q0, kBQ * 4, &full[r.slot]);
+          bulk_load(rows + 3 * kBQ, mv.hi + q0, kBQ * 4, &full[r.slot]);
+        }
+        r.next(kDkvStages);
+      }
+    } else if (tid >= 32) {
+      // bf16(q * scale) beside each landed q tile
+      Ring r;
+      for (int it = 0; it < iters; ++it) {
+        unsigned char* st = stages + r.slot * SB;
+        mbar_wait(&full[r.slot], r.phase);
+        scale_bytes(st + 2 * TB, st, TB, scale, tid - 32,
+                    kHelperWarps * 32);
+        fence_to_async();
+        helper_sync();
+        if (tid == 32) mbar_arrive(&ready[r.slot]);
+        r.next(kDkvStages);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  reg_claim<kRegBwdConsumer>();
+  const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
+  const int key0 = k0 + ci * 64 + warp * 16;      // the warp's first key
+  const uint32_t ka = smem_addr(sK) + ci * kPanel;
+  const uint32_t va = smem_addr(sV) + ci * kPanel;
+  float dka[DH / 2], dva[DH / 2];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) dka[e] = dva[e] = 0.f;
+  mbar_wait(full_kv, 0);
+  Ring r;
+  for (int it = 0; it < iters; ++it) {
+    const int qt = first + it % per_head, q0 = qt * kBQ;
+    unsigned char* st = stages + r.slot * SB;
+    const uint32_t sqa = smem_addr(st), soa = sqa + TB, ssa = sqa + 2 * TB;
+    const float* sl = reinterpret_cast<const float*>(st + 3 * TB);
+    const float* sd = sl + kBQ;
+    mbar_wait(&full[r.slot], r.phase);
+    mbar_wait(&ready[r.slot], r.phase);
+    float s[32], dp[32];                 // s^T, dp^T: keys x queries
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      wgmma_ss_n64(s, kmajor(ka, ks, KP), kmajor(ssa, ks, kPanel), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      wgmma_ss_n64(dp, kmajor(va, ks, KP), kmajor(soa, ks, kPanel), ks > 0);
+    wgmma_commit();
+    acc_fence(s);
+    acc_fence(dp);
+    wgmma_wait<0>();
+    acc_fence(s);
+    acc_fence(dp);
+    if (MODE == kCausal && q0 < key0 + 15) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (key0 + acc_row(e, lane) > q0 + acc_col(e, lane)) s[e] = kNegInf;
+    }
     if (MODE == kSplash && !full_tile(mv, qt, k0, kBKd)) {
       // the q tile's row bounds, staged with it
-      const int* sb = reinterpret_cast<const int*>(sd + kBQ);
+      const int* sb = reinterpret_cast<const int*>(sl + 2 * kBQ);
 #pragma unroll
-      for (int t = 0; t < kBQ / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + lane / 4 + 8 * (e / 2);
-          const int c = 8 * t + 2 * (lane % 4) + (e % 2);
-          if (key < sb[c] || key > sb[kBQ + c]) s[t][e] = kNegInf;
-        }
+      for (int e = 0; e < 32; ++e) {
+        const int key = key0 + acc_row(e, lane), c = acc_col(e, lane);
+        if (key < sb[c] || key > sb[kBQ + c]) s[e] = kNegInf;
+      }
     }
 #pragma unroll
-    for (int t = 0; t < kBQ / 8; ++t)
+    for (int e = 0; e < 32; ++e) {
+      const int c = acc_col(e, lane);
+      const float p = exp2f(fmaf(s[e], kLog2e, -sl[c] * kLog2e));
+      s[e] = p;
+      dp[e] = p * (dp[e] - sd[c]) * scale;            // ds^T
+    }
+    uint32_t pa[4][4], da[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[t][e] = expf(s[t][e] - sl[8 * t + 2 * (lane % 4) + (e % 2)]);
-    mma_xb<kBQ, DH>(dva, s, so, lane);       // dv += p^T dO
-    float dp[kBQ / 8][4] = {};
-    mma_abt<kBQ, DH>(dp, sVw, so, lane);     // dp^T = V dO^T
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(pa[kk], s, kk);
+      pack_a(da[kk], dp, kk);
+    }
+    wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < kBQ / 8; ++t)
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DH>(dva, pa[kk], nmajor(soa, kk), 1);   // dv += p^T dO
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[t][e] = s[t][e] *
-                  (dp[t][e] - sd[8 * t + 2 * (lane % 4) + (e % 2)]) * scale;
-    mma_xb<kBQ, DH>(dka, s, sq, lane);       // dk += ds^T q
-    __syncthreads();
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DH>(dka, da[kk], nmajor(sqa, kk), 1);   // dk += ds^T q
+    wgmma_commit();
+    acc_fence(dva);
+    acc_fence(dka);
+    wgmma_wait<0>();
+    acc_fence(dva);
+    acc_fence(dka);
+    frag_fence(pa);
+    frag_fence(da);
+    if (lane == 0) mbar_arrive(&empty[r.slot]);
+    r.next(kDkvStages);
   }
-  const float one[2] = {1.f, 1.f};
-  const size_t woff = koff + static_cast<size_t>(warp) * 16 * ldk;
-  store_rows<DH>(dk + woff, ldk, dka, one, lane);
-  store_rows<DH>(dv + woff, ldk, dva, one, lane);
+  const int ldk = Hkv * DH;
+  const size_t woff = (static_cast<size_t>(b) * S + key0) * ldk + hk * DH;
+  store_acc<DH>(dk + woff, ldk, dka, lane);
+  store_acc<DH>(dv + woff, ldk, dva, lane);
 }
 
 // -------------------------------------------- float32 (CUDA-core) kernels
@@ -871,13 +1154,6 @@ __global__ void __launch_bounds__(kRowThreads)
 
 // --------------------------------------------------------------- launch
 
-template <typename Kernel>
-cudaError_t with_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int DH, int MODE>
 cudaError_t fwd_bf16_launch(const void* q, const void* k, const void* v,
                             void* o, float* lse, const int* mask, int B,
@@ -894,21 +1170,36 @@ cudaError_t fwd_bf16_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// a [B S, H, Dh] bf16 tensor's TMA map: boxes of 64 columns (128 bytes,
+// the swizzle's span) x 1 head x `rows` rows
+cudaError_t head_map(CUtensorMap* map, const void* p, int BS, int H, int DH,
+                     int rows) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 2, DH, H, BS,
+                  64, 1, CU_TENSOR_MAP_SWIZZLE_128B, rows);
+}
+
 template <int DH, int MODE>
 cudaError_t dq_bf16_launch(const void* q, const void* k, const void* v,
                            const void* o, const void* dout,
                            const float* lse, float* dcap, void* dq,
                            const int* mask, int B, int S, int Hq, int Hkv,
                            float scale, cudaStream_t stream) {
+  static_assert(dq_smem<DH>() <= 232448, "shared memory");
+  CUtensorMap mq = {}, mdo = {}, mk = {}, mv = {};
+  cudaError_t err = head_map(&mq, q, B * S, Hq, DH, kBQ);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, B * S, Hq, DH, kBQ);
+  if (err == cudaSuccess) err = head_map(&mk, k, B * S, Hkv, DH, kBK);
+  if (err == cudaSuccess) err = head_map(&mv, v, B * S, Hkv, DH, kBK);
+  if (err != cudaSuccess) return err;
   auto kernel = dq_bf16<DH, MODE>;
   const size_t smem = dq_smem<DH>();
-  cudaError_t err = with_smem(kernel, smem);
+  err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * Hq, S / kBQ), kDqWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, dcap, static_cast<bf16*>(dq),
-      mask, S, Hq, Hkv, scale);
+  // one block a pair of (q head, q tile) items of one KV head
+  kernel<<<dim3(B * Hkv, Hq / Hkv * (S / kBQ) / 2), kBwdThreads, smem,
+           stream>>>(mq, mdo, mk, mv, static_cast<const bf16*>(o),
+                     static_cast<const bf16*>(dout), lse, dcap,
+                     static_cast<bf16*>(dq), mask, S, Hq, Hkv, scale);
   return cudaGetLastError();
 }
 
@@ -918,15 +1209,20 @@ cudaError_t dkv_bf16_launch(const void* q, const void* k, const void* v,
                             const float* dcap, void* dk, void* dv,
                             const int* mask, int B, int S, int Hq, int Hkv,
                             float scale, cudaStream_t stream) {
-  auto kernel = dkv_bf16<DH, MODE>;
-  const size_t smem = dkv_smem<DH, MODE>();
-  cudaError_t err = with_smem(kernel, smem);
+  static_assert(dkv_smem<DH>() <= 232448, "shared memory");
+  CUtensorMap mq = {}, mdo = {}, mk = {}, mv = {};
+  cudaError_t err = head_map(&mq, q, B * S, Hq, DH, kBQ);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, B * S, Hq, DH, kBQ);
+  if (err == cudaSuccess) err = head_map(&mk, k, B * S, Hkv, DH, kBKd);
+  if (err == cudaSuccess) err = head_map(&mv, v, B * S, Hkv, DH, kBKd);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * Hkv, S / kBKd), kDkvWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      dcap, static_cast<bf16*>(dk), static_cast<bf16*>(dv), mask, S, Hq,
-      Hkv, scale);
+  auto kernel = dkv_bf16<DH, MODE>;
+  const size_t smem = dkv_smem<DH>();
+  err = with_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * Hkv, S / kBKd), kBwdThreads, smem, stream>>>(
+      mq, mdo, mk, mv, lse, dcap, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), mask, S, Hq, Hkv, scale);
   return cudaGetLastError();
 }
 

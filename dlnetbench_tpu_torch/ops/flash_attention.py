@@ -266,6 +266,10 @@ def _check_rows(q, *rows) -> None:
                              f"contiguous f32 {list(want)} on {q.device}, "
                              f"got {r.dtype} {tuple(r.shape)} on "
                              f"{r.device}")
+        if r.data_ptr() % 16:
+            # K5 and K8 load 64-row runs of them by 16-byte bulk copies
+            raise ValueError("flash attention: lse and D must be 16-byte "
+                             "aligned")
 
 
 def kernel_dq(q, k, v, out, lse, dout, causal: bool):
@@ -520,11 +524,13 @@ def _arrays_for(q, spec, kind: str, arrays):
     if (arrays.packed.device != q.device or arrays.seq_len != q.shape[1]
             or arrays.tiles != _KIND_TILES[kind]
             or arrays.transposed != (kind == "dkv")
-            or arrays.packed.dtype != torch.int32):
+            or arrays.packed.dtype != torch.int32
+            or arrays.packed.data_ptr() % 16):
         raise ValueError(f"splash attention: mask arrays for S="
                          f"{arrays.seq_len} tiles {arrays.tiles} on "
                          f"{arrays.packed.device} do not fit the {kind} "
-                         f"kernel at S={q.shape[1]} on {q.device}")
+                         f"kernel at S={q.shape[1]} on {q.device} (or are "
+                         f"not 16-byte aligned)")
     return arrays
 
 

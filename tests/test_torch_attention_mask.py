@@ -151,8 +151,9 @@ def test_kernel_tiles_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
     bq, bk = const("kBQ"), const("kBK")
-    bkd = const("kDkvWarps") * 16
-    assert re.search(r"kBKd = kDkvWarps \* 16", src)
+    # dk/dv: two consumer warpgroups of 64 keys each
+    bkd = const("kConsumers") * 64
+    assert re.search(r"kBKd = kConsumers \* 64", src)
     assert TFA.FWD_TILES == (bq, bk)
     assert TFA.DQ_TILES == (bq, bk)
     assert TFA.DKV_TILES == (bq, bkd)

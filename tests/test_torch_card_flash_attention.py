@@ -22,6 +22,16 @@ CASES = [
     (1, 256, 4, 1, 64, True),     # MQA, gpt2-style head dim 64
     (1, 256, 2, 2, 128, False),   # non-causal
     (1, 384, 2, 2, 128, True),    # seq that only 128 divides
+    # S = 640: ten 64-row q tiles, five 128-key tiles (not a power of
+    # two); GQA groups 1, 2 and 4 at Dh 128 and 64, and an odd group (3),
+    # whose K4 block pairs two q heads of neighbouring q tiles
+    (1, 640, 2, 2, 128, True),
+    (1, 640, 4, 2, 128, True),
+    (1, 640, 8, 2, 128, True),
+    (1, 640, 2, 2, 64, True),
+    (1, 640, 4, 2, 64, False),
+    (1, 640, 8, 2, 64, True),
+    (1, 640, 6, 2, 128, True),
 ]
 # each row (Dh values) against its own max-abs, floored at 1e-3 of the
 # tensor's, as chip_smoke.py holds it.  bf16: one output ulp.  f32: a

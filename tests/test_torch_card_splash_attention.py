@@ -18,12 +18,15 @@ from dlnetbench_tpu_torch.ops import attention_mask as TM
 from dlnetbench_tpu_torch.ops import flash_attention as TFA
 
 # tests/test_flash_attention.py MASK_SPECS: (causal, window, seg_avg,
-# seg_seed)
+# seg_seed); then short documents (seg(96)), where most tiles are
+# partial, and long non-causal ones (seg(300)), where the two q tiles of
+# a K7 block (GQA group 1 or 3) end their key ranges many tiles apart
 MASK_SPECS = [(True, 40, 0, 0), (True, 0, 50, 3), (False, 0, 64, 1),
-              (True, 32, 80, 5)]
+              (True, 32, 80, 5), (True, 0, 96, 2), (False, 0, 300, 3)]
 # b, s, hq, hkv, dh: the JAX splash tests' shape, GQA group 4 with
-# Dh=64, and one that only 128 divides
-SHAPES = [(2, 256, 4, 2, 128), (1, 256, 4, 1, 64), (1, 384, 2, 2, 128)]
+# Dh=64, one that only 128 divides, and GQA group 3 at S = 640
+SHAPES = [(2, 256, 4, 2, 128), (1, 256, 4, 1, 64), (1, 384, 2, 2, 128),
+          (1, 640, 3, 1, 128)]
 
 
 @pytest.fixture
