@@ -7,9 +7,9 @@
                                      # under each MLP recipe and each
                                      # mask and of the moe_ab grouped
                                      # step (torch.profiler)
-    python3 chip_smoke.py --paired DIR  # also: K3-K5, K7, K8 and
-                                     # K9-K12 timed in turns (old, new,
-                                     # new, old) against DIR's
+    python3 chip_smoke.py --paired DIR  # also: K1-K12 timed in turns
+                                     # (old, new, new, old) against
+                                     # DIR's paged_attention.cu,
                                      # flash_attention.cu and
                                      # mlp_matmul.cu (a checkout of an
                                      # earlier commit, e.g. unpacked with
@@ -21,7 +21,9 @@ Phases, in order; any failure exits non-zero:
 2. build: every ``dlnetbench_tpu_torch/ops/csrc/*.cu`` with nvcc for
    sm_90a (one nvcc per source, in parallel; seconds and ptxas resource
    lines printed);
-3. K1 (paged attention, bf16 pages) against its plain PyTorch version
+3. K1 (paged attention, bf16 pages; split over each slot's sequence in
+   blocks of 4 pages, the partials combined by the last block to
+   finish) against its plain PyTorch version
    on the card at the decode shapes of the served model (B=8 slots,
    Hq=32, Hkv=8, Dh=128, page 16, 32 pages per slot, lengths 1..512
    with ragged last pages); tolerance 2e-2 absolute and relative, the
@@ -88,10 +90,13 @@ Phases, in order; any failure exits non-zero:
    ``torch.bmm`` (bf16), 8 per-expert ``torch._int_mm`` /
    ``torch._scaled_mm`` products summed (int8 / e4m3); int8 / e4m3 also
    timed under each cluster size;
-5e. with ``--paired DIR``: K4 and K5 at the train shape (causal), K7
-   and K8 under window(1024) (each side's BlockMask packed at the tiles
-   DIR's wrapper declares) and K3 as the control, against the same C
-   entry points built from DIR's flash_attention.cu; then K9 and K10 at
+5e. with ``--paired DIR``: K1, K2 int8 and K2 e4m3 at the decode shape
+   against DIR's paged_attention.cu (called with its own C argument
+   list); K3 at the train shape (causal) and K6 under window(1024),
+   then K4 and K5 (causal) and K7 and K8 (window(1024)) as controls,
+   each side's BlockMask packed at the tiles DIR's wrapper declares,
+   against the same C entry points built from DIR's flash_attention.cu;
+   then K9 and K10 at
    the train shape, K11 (int8, e4m3; up and down) and K12 (bf16, int8,
    e4m3; gate/up and down, full counts, and gate/up skewed) against
    DIR's mlp_matmul.cu (both sources compiled at once); both outputs
@@ -236,17 +241,20 @@ LONG_SEQ_STEP, LONG_WINDOW = 32768, 4096
 # order): losses 1e-5 relative, each parameter 1e-5 of its leaf's max-abs
 MASK_REF_TOL = 1e-5
 
-# K4/K5 and their splash mode K7/K8: warp-specialised wgmma/TMA kernels
-BWD_DESIGN = "wgmma + TMA, warp-specialised"
+# K3/K4/K5 and their splash mode K6/K7/K8: warp-specialised wgmma/TMA
+# kernels; K1/K2: one kernel split over each slot's sequence
+FLASH_DESIGN = "wgmma + TMA, warp-specialised"
+PAGED_DESIGN = "split over the sequence, last-arriving block combines"
 
 MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
 # K9, K10, K11 and K12 (bf16, int8, e4m3): one warp-specialised wgmma/TMA
 # kernel
 WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
-# moved there from the jax-importing test files); all 124 must pass
+# moved there from the jax-importing test files, 46 added with the split
+# K1/K2 and the wgmma K3/K6); all 170 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 124
+CARD_TESTS_MIN = 170
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2062,7 +2070,8 @@ def parent_tiles(parent: Path) -> dict:
     src = (parent / "dlnetbench_tpu_torch/ops/flash_attention.py") \
         .read_text()
     tiles = {}
-    for kind, name in (("dq", "DQ_TILES"), ("dkv", "DKV_TILES")):
+    for kind, name in (("fwd", "FWD_TILES"), ("dq", "DQ_TILES"),
+                       ("dkv", "DKV_TILES")):
         m = re.search(rf"^{name} = \((\d+), (\d+)\)", src, re.M)
         if m is None:
             fail(f"paired: no {name} in the parent's flash_attention.py")
@@ -2071,8 +2080,8 @@ def parent_tiles(parent: Path) -> dict:
 
 
 def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
-    """K4 and K5 at the train shape (causal), K7 and K8 under
-    window(1024), and K3 (unchanged: the control) against another
+    """K3 at the train shape (causal) and K6 under window(1024), then K4
+    and K5 (causal) and K7 and K8 (window(1024)) against another
     checkout's flash kernels; each side's splash kernels read the
     BlockMask packed at their own tiles."""
     import ctypes
@@ -2085,7 +2094,8 @@ def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = FA._fn(name, n_ptr).argtypes
-    for name, n_ptr in (("dlnb_splash_dq", 9), ("dlnb_splash_dkv", 9)):
+    for name, n_ptr in (("dlnb_splash_fwd", 6), ("dlnb_splash_dq", 9),
+                        ("dlnb_splash_dkv", 9)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ptr] * n_ptr + [ctypes.c_int] * 5
@@ -2094,15 +2104,18 @@ def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
     scale = dh ** -0.5
     q, k, v, do = flash_operands(torch, b, s, hq, hkv, dh, seed=5)
     out, lse = FA.kernel_forward(q, k, v, causal)
-    p_out, _ = FA.plain_forward(q, k, v, causal)
+    p_out, p_lse = FA.plain_forward(q, k, v, causal)
     p_dq, p_dcap = FA.plain_dq(q, k, v, out, lse, do, causal)
     p_dk, p_dv = FA.plain_dkv(q, k, v, do, lse, p_dcap, causal)
     spec = M.MaskSpec(window=1024)
     s_out, s_lse = FA.kernel_splash_forward(q, k, v, spec)
+    ps_out, ps_lse = FA.plain_splash_forward(q, k, v, spec)
     ps_dq, ps_dcap = FA.plain_splash_dq(q, k, v, s_out, s_lse, do, spec)
     ps_dk, ps_dv = FA.plain_splash_dkv(q, k, v, do, s_lse, ps_dcap, spec)
     tiles = parent_tiles(parent)
     old_arr = {
+        "fwd": FA.pack_block_mask(M.block_mask(spec, s, *tiles["fwd"]),
+                                  False, q.device),
         "dq": FA.pack_block_mask(M.block_mask(spec, s, *tiles["dq"]), False,
                                  q.device),
         "dkv": FA.pack_block_mask(M.block_mask(spec, s, *tiles["dkv"]), True,
@@ -2119,8 +2132,9 @@ def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
 
     def bar(label, pairs):
         for name, (a, r) in pairs.items():
-            bar_ = FLASH_TOL_LSE if name == "D" else FLASH_TOL_ROW
-            err = abs_err(a, r) if name == "D" else row_err(a, r)
+            rows = name not in ("D", "lse")
+            bar_ = FLASH_TOL_ROW if rows else FLASH_TOL_LSE
+            err = row_err(a, r) if rows else abs_err(a, r)
             if not (torch.isfinite(a.float()).all() and err <= bar_):
                 fail(f"paired {label} {name}: err {err:.3e} (bar {bar_})")
 
@@ -2131,7 +2145,17 @@ def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
              "dlnb_flash_fwd")
 
     def new_k3():
-        new["o"] = FA.kernel_forward(q, k, v, causal)[0]
+        new["o"], new["lse"] = FA.kernel_forward(q, k, v, causal)
+
+    def old_k6():
+        call(lib.dlnb_splash_fwd(1, q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), old["o"].data_ptr(),
+                                 old["lse"].data_ptr(),
+                                 old_arr["fwd"].packed.data_ptr(), *dims,
+                                 scale, stream()), "dlnb_splash_fwd")
+
+    def new_k6():
+        new["o"], new["lse"] = FA.kernel_splash_forward(q, k, v, spec)
 
     def old_k4():
         call(lib.dlnb_flash_dq(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -2182,28 +2206,84 @@ def paired_flash(torch, lib, parent: Path, turns, stream) -> None:
         return old if which == "old" else new
 
     shape = f"[{b}, {s}, {hq}/{hkv}, {dh}]"
-    turns(f"K4 flash dq {shape} causal", old_k4, new_k4,
+    turns(f"K3 flash forward {shape} causal", old_k3, new_k3,
+          lambda w: bar(f"K3 ({w})", {"o": (side(w)["o"], p_out),
+                                      "lse": (side(w)["lse"], p_lse)}))
+    turns(f"K6 splash forward {shape} window(1024)", old_k6, new_k6,
+          lambda w: bar(f"K6 ({w})", {"o": (side(w)["o"], ps_out),
+                                      "lse": (side(w)["lse"], ps_lse)}))
+    del p_out, p_lse, ps_out, ps_lse
+    turns(f"K4 flash dq {shape} causal (control)", old_k4, new_k4,
           lambda w: bar(f"K4 ({w})", {"dq": (side(w)["dq"], p_dq),
                                       "D": (side(w)["d"], p_dcap)}))
-    turns(f"K5 flash dk/dv {shape} causal", old_k5, new_k5,
+    turns(f"K5 flash dk/dv {shape} causal (control)", old_k5, new_k5,
           lambda w: bar(f"K5 ({w})", {"dk": (side(w)["dk"], p_dk),
                                       "dv": (side(w)["dv"], p_dv)}))
-    turns(f"K7 splash dq {shape} window(1024)", old_k7, new_k7,
+    turns(f"K7 splash dq {shape} window(1024) (control)", old_k7, new_k7,
           lambda w: bar(f"K7 ({w})", {"dq": (side(w)["dq"], ps_dq),
                                       "D": (side(w)["d"], ps_dcap)}))
-    turns(f"K8 splash dk/dv {shape} window(1024)", old_k8, new_k8,
+    turns(f"K8 splash dk/dv {shape} window(1024) (control)", old_k8,
+          new_k8,
           lambda w: bar(f"K8 ({w})", {"dk": (side(w)["dk"], ps_dk),
                                       "dv": (side(w)["dv"], ps_dv)}))
-    turns(f"K3 flash forward {shape} causal (control)", old_k3, new_k3,
-          lambda w: bar(f"K3 ({w})", {"o": (side(w)["o"], p_out)}))
+
+
+def paired_paged(torch, lib, parent: Path, turns, stream) -> None:
+    """K1, K2 int8 and K2 e4m3 at the served decode shape against another
+    checkout's paged attention, each side's output held to the plain
+    version at ``TOL``.  A parent whose C entry takes no workspace (the
+    kernel before the split) is called with its own argument list; one
+    that does gets a workspace for one split a page and fresh
+    counters."""
+    import ctypes
+
+    from dlnetbench_tpu_torch.ops import paged_attention as PA
+    split = "void* workspace" in (parent / SRC).read_text()
+    fn = lib.dlnb_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (10 if split
+                                                              else 8)
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    scratch = ([torch.empty(B * HQ * PMAX * (DH + 2), device="cuda"),
+                torch.zeros(B * HKV, dtype=torch.int32, device="cuda")]
+               if split else [])
+    for dt, label in (("bf16", "K1 paged_attention (bf16 pages)"),
+                      ("int8", "K2 quant_paged_attention (int8 pages)"),
+                      ("fp8", "K2 quant_paged_attention (e4m3 pages)")):
+        q, (kp, vp), sc, lengths, bt = decode_operands(torch, dt)
+        sc = sc or (None, None)
+        ref = PA.gather_attention(q, kp, vp, lengths, bt, *sc)
+        got = {"old": torch.empty_like(q)}
+
+        def old():
+            rc = fn(PA.DTYPE_CODES[q.dtype], PA.DTYPE_CODES[kp.dtype],
+                    q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    *[x.data_ptr() if x is not None else None for x in sc],
+                    lengths.data_ptr(), bt.data_ptr(),
+                    got["old"].data_ptr(), *[x.data_ptr() for x in scratch],
+                    B, HQ, HKV, NUM_PAGES, PAGE, DH, PMAX, stream())
+            if rc:
+                fail(f"paired: parent dlnb_paged_attention rc {rc}")
+
+        def new():
+            got["new"] = PA.launch(q, kp, vp, lengths, bt, *sc)
+
+        def check(which):
+            a = got[which]
+            if not (torch.isfinite(a).all() and torch.allclose(
+                    a.float(), ref.float(), rtol=TOL, atol=TOL)):
+                fail(f"paired {label} ({which}): max abs err "
+                     f"{abs_err(a, ref):.3e} (bar {TOL})")
+
+        turns(f"{label} B={B} decode", old, new, check)
 
 
 def paired_phase(torch, parent: Path) -> list:
-    """K3, K4, K5, K7, K8 and K9-K12 timed in turns against the same
-    kernels built from another checkout's ``FLASH_SRC`` and ``MLP_SRC``
-    (the same C interfaces, both compiled at once): old, new, new, old,
-    each a ``timed_ms`` median, on the same operands; both outputs held
-    to the plain version by the kernels' own bars first."""
+    """K1, K2, K3, K6, then K4, K5, K7, K8 and K9-K12 timed in turns
+    against the same kernels built from another checkout's ``SRC``,
+    ``FLASH_SRC`` and ``MLP_SRC`` (all compiled at once): old, new, new,
+    old, each a ``timed_ms`` median, on the same operands; both outputs
+    held to the plain version by the kernels' own bars first."""
     import ctypes
 
     from dlnetbench_tpu_torch.ops import _build
@@ -2213,7 +2293,7 @@ def paired_phase(torch, parent: Path) -> list:
     out_dir = OUT / "paired"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for src in (FLASH_SRC, MLP_SRC):
+    for src in (SRC, FLASH_SRC, MLP_SRC):
         path = out_dir / f"libparent_{Path(src).stem}.so"
         procs[src] = (path, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(path),
@@ -2254,8 +2334,10 @@ def paired_phase(torch, parent: Path) -> list:
             f"{t[1]:.4f} / {t[2]:.4f} ms -> {row['speedup']:.2f}x")
 
     smi_sample("paired start")
+    paired_paged(torch, libs[SRC], parent, turns, stream)
+    smi_sample("paired K1/K2 done")
     paired_flash(torch, libs[FLASH_SRC], parent, turns, stream)
-    for label, pair in (("K4 + K5", rows[0:2]), ("K7 + K8", rows[2:4])):
+    for label, pair in (("K4 + K5", rows[5:7]), ("K7 + K8", rows[7:9])):
         t_old = sum(sum(r["old_ms"]) for r in pair)
         t_new = sum(sum(r["new_ms"]) for r in pair)
         say(f"paired {label}: old {t_old / 2:.4f} ms, new {t_new / 2:.4f} "
@@ -2619,28 +2701,32 @@ def main(argv: list[str]) -> int:
 
     kernels = []
     for dt, label, replaces in (
-            ("bf16", "K1 paged_attention (bf16 pages)",
+            ("bf16", f"K1 paged_attention (bf16 pages; {PAGED_DESIGN})",
              "dlnetbench_tpu/serving/kv_cache.py:768"),
-            ("int8", "K2 quant_paged_attention (int8 pages)",
+            ("int8", f"K2 quant_paged_attention (int8 pages; "
+             f"{PAGED_DESIGN})",
              "dlnetbench_tpu/ops/paged_attention_quant.py:48"),
-            ("fp8", "K2 quant_paged_attention (e4m3 pages)",
+            ("fp8", f"K2 quant_paged_attention (e4m3 pages; "
+             f"{PAGED_DESIGN})",
              "dlnetbench_tpu/ops/paged_attention_quant.py:48")):
         kernels.append({"name": label, "route": "cuda", "source": SRC,
                         "replaces": replaces,
                         "launches": served[dt]["launches"],
                         **results[dt]})
-    for kind, label in (("fwd", "K3 flash_attention forward"),
-                        ("dq", f"K4 flash_attention dq ({BWD_DESIGN})"),
-                        ("dkv", f"K5 flash_attention dk/dv ({BWD_DESIGN})")):
+    for kind, label in (
+            ("fwd", f"K3 flash_attention forward ({FLASH_DESIGN})"),
+            ("dq", f"K4 flash_attention dq ({FLASH_DESIGN})"),
+            ("dkv", f"K5 flash_attention dk/dv ({FLASH_DESIGN})")):
         kernels.append({"name": label, "route": "cuda",
                         "source": FLASH_SRC,
                         "replaces": FLASH_REPLACES[kind],
                         "launches": trained["counts"][kind],
                         **flash[kind]})
     row = splash[SPLASH_SPECS[0][0]]
-    for kind, label in (("fwd", "K6 splash_attention forward ("),
-                        ("dq", f"K7 splash_attention dq ({BWD_DESIGN}; "),
-                        ("dkv", f"K8 splash_attention dk/dv ({BWD_DESIGN}; ")):
+    for kind, label in (
+            ("fwd", f"K6 splash_attention forward ({FLASH_DESIGN}; "),
+            ("dq", f"K7 splash_attention dq ({FLASH_DESIGN}; "),
+            ("dkv", f"K8 splash_attention dk/dv ({FLASH_DESIGN}; ")):
         # the masked steps' launches, and K6's in the longcontext legs
         launches = masked["launches"][kind] + trained["splash"][kind]
         kernels.append({"name": f"{label}{SPLASH_SPECS[0][0]})",

@@ -38,20 +38,18 @@
 // Dh=128, causal) each kernel does 0.6e12-1.2e12 tensor-core FLOP on
 // ~0.3 GB of operands: it is bound by operations (989 TFLOP/s bf16), not
 // by bytes.  What the design does about that:
-//   * K4 and K5 (the backward, and K7 / K8, their splash mode) are
+//   * all three (and K6 / K7 / K8, their splash mode) are
 //     warp-specialised wgmma / TMA kernels on the helpers of hopper.cuh
 //     (their comment below has the design): a producer warp keeps TMA
 //     loads in flight through mbarrier rings, two consumer warpgroups
 //     issue m64nN wgmma products with f32 accumulators in registers, and
 //     p and ds go back in as register A operands, never through shared
 //     memory.  Their first form (mma.sync m16n8k16 from ldmatrix, 16
-//     rows a warp, 16-byte cp.async) was bound by shared-memory traffic:
-//     each B fragment fed one m16 tile; K5's warps each re-read the whole
-//     q / dO stage and rescaled q behind two block barriers.  A wgmma
-//     reads each B tile once for 64 rows;
-//   * K3 (and K6) are still that first form: mma.sync m16n8k16, bf16 in,
-//     f32 accumulate, fed by ldmatrix from shared rows padded by 16 bytes,
-//     K/V double-buffered with 16-byte cp.async;
+//     rows a warp, 16-byte cp.async behind a block barrier a stage, one
+//     q head a block) was bound by shared-memory traffic and barriers:
+//     each B fragment fed one m16 tile, and the GQA group's q heads each
+//     fetched every K/V tile.  A wgmma reads each B tile once for 64
+//     rows, and a K3 / K4 block's two q heads share each K/V stage;
 //   * tiles wholly outside the causal triangle or the mask are neither
 //     loaded nor computed; the forward and dq grids launch the longest
 //     (last) q tiles first, and dk/dv the longest (first) KV tiles first;
@@ -60,8 +58,8 @@
 //     in f32 registers and writing [B, S, Hkv, Dh] once: the TPU path's
 //     per-q-head dk/dv and the wrapper's group sum (:517-518) are gone,
 //     with no atomics (the result is deterministic).
-// Not yet: K3 / K6 on wgmma, a persistent grid.  The times stand in
-// PERF.md.
+// Not yet: a persistent grid for K4 / K5 (K3 has one).  The times stand
+// in PERF.md.
 //
 // Splash (mode kSplash).  The wrapper hands each kernel the BlockMask
 // built at THAT kernel's tiles (forward and dq: 64 q rows x 64 keys;
@@ -111,188 +109,10 @@ enum Dtype { kF32 = 0, kBF16 = 1 };
 // which keys a query sees: all, the causal triangle, or a BlockMask
 enum Mode { kDense = 0, kCausal = 1, kSplash = 2 };
 
-// ------------------------------------------------------------ PTX helpers
+// --------------------------------------------------- tiles and masks
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ------------------------------------------------------ tile primitives
-//
-// A warp owns 16 rows of an M x N product.  Its accumulator is N/8 m16n8
-// tiles; in tile t, element e of lane L sits at row L/4 + 8*(e/2) and
-// column 8t + 2*(L%4) + e%2.  Shared tiles are row-major with a pitch of
-// DH + 8 elements.
-
-template <int DH>
-struct Tile {
-  static constexpr int P = DH + 8;   // padded pitch (elements)
-};
-
-// R x DH tile, global row stride ld (elements) -> shared, 16 B per copy
-template <int R, int DH, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int ld, int tid) {
-  constexpr int kChunks = DH / 8;
-  constexpr int P = Tile<DH>::P;
-#pragma unroll 4
-  for (int c = tid; c < R * kChunks; c += NT) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    cp_async16(dst + r * P + col, src + static_cast<size_t>(r) * ld + col);
-  }
-}
-
-// in place: x = round(x * mul) over an R x DH shared tile
-template <int R, int DH, int NT>
-__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src,
-                                           float mul, int tid) {
-  constexpr int P = Tile<DH>::P;
-  for (int c = tid; c < R * DH / 2; c += NT) {
-    const int r = c / (DH / 2), col = (c % (DH / 2)) * 2;
-    const float2 x = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(src + r * P + col));
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * P + col) =
-        __floats2bfloat162_rn(x.x * mul, x.y * mul);
-  }
-}
-
-// acc[N/8] (16 x N) += A (16 rows of a, at row0, K = DH) * B^T where B is
-// N rows of b (row-major [N][DH]); a and b in shared memory
-template <int N, int DH>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
-                                        const bf16* a, const bf16* b,
-                                        int lane) {
-  constexpr int P = Tile<DH>::P;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    uint32_t af[4];
-    ldsm4(af, a + (lane % 16) * P + ks * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int nb = 0; nb < N / 16; ++nb) {
-      uint32_t bfr[4];
-      ldsm4(bfr, b + (nb * 16 + (lane / 16) * 8 + lane % 8) * P + ks * 16 +
-                     ((lane / 8) & 1) * 8);
-      mma(acc[2 * nb], af, bfr[0], bfr[1]);
-      mma(acc[2 * nb + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// out[DH/8] (16 x DH) += X (16 x K, in registers as an accumulator of
-// K/8 tiles, rounded to bf16 here) * B where B is K rows of b
-// (row-major [K][DH] in shared memory)
-template <int K, int DH>
-__device__ __forceinline__ void mma_xb(float (&out)[DH / 8][4],
-                                       const float (&x)[K / 8][4],
-                                       const bf16* b, int lane) {
-  constexpr int P = Tile<DH>::P;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    af[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    af[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    af[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    af[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < DH / 16; ++dp) {
-      uint32_t bfr[4];
-      ldsm4_t(bfr, b + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * P +
-                       dp * 16 + (lane / 16) * 8);
-      mma(out[2 * dp], af, bfr[0], bfr[1]);
-      mma(out[2 * dp + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// mask s[row][col] = -1e30 where col > row (global positions of the
-// warp's first row and of column 0)
-template <int N>
-__device__ __forceinline__ void causal_mask(float (&s)[N / 8][4], int row0,
-                                            int col0, int lane) {
-#pragma unroll
-  for (int t = 0; t < N / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + lane / 4 + 8 * (e / 2);
-      const int col = col0 + 8 * t + 2 * (lane % 4) + (e % 2);
-      if (col > row) s[t][e] = kNegInf;
-    }
-}
-
-// mask s[row][col] = -1e30 where col lies outside the lane's row
-// interval [lo[r], hi[r]] (r: the row half; col0 the global position of
-// column 0)
-template <int N>
-__device__ __forceinline__ void interval_mask(float (&s)[N / 8][4],
-                                              const int (&lo)[2],
-                                              const int (&hi)[2], int col0,
-                                              int lane) {
-#pragma unroll
-  for (int t = 0; t < N / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = col0 + 8 * t + 2 * (lane % 4) + (e % 2);
-      if (col < lo[e / 2] || col > hi[e / 2]) s[t][e] = kNegInf;
-    }
-}
-
-// write a warp's 16 x DH accumulator, times mul[row half], as bf16 rows
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, int ld,
-                                           const float (&acc)[DH / 8][4],
-                                           const float (&mul)[2], int lane) {
-#pragma unroll
-  for (int t = 0; t < DH / 8; ++t)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = lane / 4 + 8 * r, col = 8 * t + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(
-          dst + static_cast<size_t>(row) * ld + col) =
-          __floats2bfloat162_rn(acc[t][2 * r] * mul[r],
-                                acc[t][2 * r + 1] * mul[r]);
-    }
-}
-
-// ------------------------------------------------------------ K3 forward
-
-constexpr int kFwdWarps = 4, kBQ = 64, kBK = 64;
+constexpr int kBQ = 64, kBK = 64;     // q rows x keys of K4
+constexpr int kBKf = 128;             // keys of a K3 stage
 constexpr int kConsumers = 2, kBKd = kConsumers * 64;   // K5: 128 keys
 
 // A BlockMask's int32 arrays as the wrapper packs them (ops/
@@ -322,131 +142,13 @@ __device__ __forceinline__ bool full_tile(const MaskView& mv, int qt,
   return mv.lo_max[qt] <= c0 && mv.hi_min[qt] >= c0 + width - 1;
 }
 
-template <int DH>
-__host__ __device__ constexpr size_t fwd_smem() {
-  return static_cast<size_t>(kBQ + 4 * kBK) * Tile<DH>::P * sizeof(bf16);
-}
-
-template <int DH, int MODE>
-__global__ void __launch_bounds__(kFwdWarps * 32)
-    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, const int* __restrict__ mask, int S,
-             int Hq, int Hkv, float q_mul) {
-  constexpr int NT = kFwdWarps * 32, P = Tile<DH>::P;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * P;          // 2 stages
-  bf16* sV = sK + 2 * kBK * P;      // 2 stages
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nq = S / kBQ;
-  const int qt = nq - 1 - blockIdx.y;            // longest rows first
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
-  const int hk = h / (Hq / Hkv);
-  const int ldq = Hq * DH, ldk = Hkv * DH;
-  const int q0 = qt * kBQ;
-  const bf16* qg = q + (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
-  const bf16* kg = k + static_cast<size_t>(b) * S * ldk + hk * DH;
-  const bf16* vg = v + static_cast<size_t>(b) * S * ldk + hk * DH;
-  // visit range [j0, j1) of kv tiles; splash: the lane's row bounds
-  int j0 = 0, j1 = MODE == kCausal ? (q0 + kBQ - 1) / kBK + 1 : S / kBK;
-  MaskView mv{};
-  int rlo[2] = {0, 0}, rhi[2] = {0, 0};
-  if (MODE == kSplash) {
-    mv = mask_view(mask, S / kBQ, S);
-    j0 = mv.first[qt];
-    j1 = mv.last[qt] + 1;
-    const int r = q0 + warp * 16 + lane / 4;
-    rlo[0] = mv.lo[r], rhi[0] = mv.hi[r];
-    rlo[1] = mv.lo[r + 8], rhi[1] = mv.hi[r + 8];
-  }
-
-  load_tile<kBQ, DH, NT>(sQ, qg, ldq, tid);
-  load_tile<kBK, DH, NT>(sK, kg + static_cast<size_t>(j0) * kBK * ldk, ldk,
-                         tid);
-  load_tile<kBK, DH, NT>(sV, vg + static_cast<size_t>(j0) * kBK * ldk, ldk,
-                         tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  scale_tile<kBQ, DH, NT>(sQ, sQ, q_mul, tid);   // q * scale * log2(e)
-  __syncthreads();
-
-  float acc[DH / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const bf16* sQw = sQ + warp * 16 * P;
-  for (int j = j0; j < j1; ++j) {
-    const int st = (j - j0) & 1;
-    if (j + 1 < j1) {
-      const size_t off = static_cast<size_t>(j + 1) * kBK * ldk;
-      load_tile<kBK, DH, NT>(sK + (st ^ 1) * kBK * P, kg + off, ldk, tid);
-      load_tile<kBK, DH, NT>(sV + (st ^ 1) * kBK * P, vg + off, ldk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kBK / 8][4] = {};
-    mma_abt<kBK, DH>(s, sQw, sK + st * kBK * P, lane);
-    if (MODE == kCausal && j * kBK + kBK - 1 > q0)
-      causal_mask<kBK>(s, q0 + warp * 16, j * kBK, lane);
-    if (MODE == kSplash && !full_tile(mv, qt, j * kBK, kBK))
-      interval_mask<kBK>(s, rlo, rhi, j * kBK, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int t = 0; t < kBK / 8; ++t)
-        mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kBK / 8; ++t) {
-        s[t][2 * r] = exp2f(s[t][2 * r] - m_new);
-        s[t][2 * r + 1] = exp2f(s[t][2 * r + 1] - m_new);
-        sum += s[t][2 * r] + s[t][2 * r + 1];
-      }
-      l[r] = l[r] * alpha + sum;     // this lane's columns; summed below
-      m[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < DH / 8; ++t) {
-        acc[t][2 * r] *= alpha;
-        acc[t][2 * r + 1] *= alpha;
-      }
-    }
-    mma_xb<kBK, DH>(acc, s, sV + st * kBK * P, lane);   // += p (bf16) V
-    __syncthreads();
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.f / l[r];
-  }
-  const int row0 = q0 + warp * 16;
-  store_rows<DH>(o + (static_cast<size_t>(b) * S + row0) * ldq + h * DH,
-                 ldq, acc, inv, lane);
-  if (lane % 4 == 0) {
-    float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * S + row0;
-    lrow[lane / 4] = (m[0] + log2f(l[0])) / kLog2e;
-    lrow[lane / 4 + 8] = (m[1] + log2f(l[1])) / kLog2e;
-  }
-}
-
-// -------------------------------------- K4 dq, K5 dk/dv: wgmma and TMA
+// ---------------------- K3 forward, K4 dq, K5 dk/dv: wgmma and TMA
 //
-// Both are one block of three warpgroups (kBwdThreads):
+// All three are one block of three warpgroups (kWsThreads):
 //   WG 0, warp 0  producer: one thread issues every TMA load into rings
-//         of mbarrier-guarded stages (K4: K/V tiles; K5: the q tiles of
-//         the group's q heads, one after another, with their lse and D
-//         rows and, in splash mode, their lo / hi rows by 1-D bulk
+//         of mbarrier-guarded stages (K3, K4: K/V tiles; K5: the q tiles
+//         of the group's q heads, one after another, with their lse and
+//         D rows and, in splash mode, their lo / hi rows by 1-D bulk
 //         copies on the same barrier);
 //   WG 0, warps 1-3  (K5 only) write bf16(q * scale) of each landed q
 //         tile into the stage's third tile, at the same byte offsets;
@@ -464,6 +166,31 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
 // leading offset, 8-row K groups 1024 apart; a K step of 16 rows moves
 // the start 2048 bytes) when the tile's rows are the contraction.
 //
+// K3 (per consumer: 64 q rows of one q head; 128-key K and V stages):
+//   the work is K4's (q head, q tile) item pairs (below), taken by one
+//   persistent block an SM, longest pairs first; each pair's q tiles are
+//   loaded once by TMA into one of two q slots (the next pair's loads
+//   run while this one finishes) and rounded in place to bf16(q * scale
+//   * log2 e), the forward's rounding point.  S = Q K^T (m64n128k16, both
+//   operands K-major in shared memory: at 64 keys the S product read
+//   its 4 KB a k-step from shared memory at the SM's full rate), then in
+//   registers the causal or interval mask and the base-2 online softmax
+//   (ex2.approx.ftz) with f32 m, l and O in the accumulator's layout; p
+//   is rounded to bf16 and packed as the register A fragment, and O +=
+//   p V (m64nDHk16, V read N-major).  Stage j's S is issued before stage
+//   j - 1's p V, so the softmax of stage j runs while p V of j - 1 is on
+//   the tensor cores (FA3's intra-warpgroup overlap); O is rescaled once
+//   p V of j - 1 retires.  K and V have rings of their own: K j is freed
+//   as soon as its S retires, V j after its p V, and the producer loads
+//   K j before V j - 1.  On an H100 at the train shape, a third stage
+//   gained 17 % while K and V shared one ring (split, two K stages are
+//   as fast as three for K3 and 4 % faster for K6), persistence 7 %,
+//   ex2.approx.ftz for exp2f 4 %; lost: consumers taking turns on named
+//   barriers (FA3's ping-pong, 7-11 %), rescaling O between S's and p
+//   V's issue (1 %), a quarter of the exps by a polynomial on the FMA
+//   pipe (4 %: the SFU is not what bounds the softmax), skipping the
+//   rescale where no row's max moved (1 %).  The epilogue writes O / l
+//   as bf16 and lse = (m + log2 l) ln 2 as f32 [B, Hq, S].
 // K4 (per consumer: 64 q rows of one q head; a 64-key K/V stage):
 //   S = (q * scale) K^T and dP = dO V^T (m64n64k16, both operands in
 //   shared memory, K-major), then in registers p = exp(S - lse) and
@@ -491,19 +218,22 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
 //   (64 + 64 accumulator registers a thread at Dh = 128) and are written
 //   once: no atomics, deterministic.
 
-constexpr int kBwdThreads = 384;      // WG 0 + two consumer warpgroups
+constexpr int kWsThreads = 384;       // WG 0 + two consumer warpgroups
 constexpr int kHelperWarps = 3;       // K5: WG 0's warps 1-3
+constexpr int kFwdKStages = 2;        // K3's K ring (128-key tiles)
+constexpr int kFwdVStages = 2;        // ... its V ring
+constexpr int kFwdQSlots = 2;         // ... its q tiles, double-buffered
 constexpr int kDqStages = 3;          // K4's K/V ring
 constexpr int kDkvStages = 3;         // K5's q-tile ring
-constexpr int kBwdExtra = 2048;       // 1024-byte alignment, barriers and
+constexpr int kWsExtra = 2048;        // 1024-byte alignment, barriers and
                                       // K4's D rows
 constexpr int kRowsBytes = 1024;      // K5 stage: lse, D, lo, hi (64 each)
 constexpr int kPanel = 8192;          // 64 rows x 128 bytes
 // setmaxnreg, registers a thread: WG 0 gives back, the consumers take,
 // within the block's pool at launch (384 x 168 = 64512; an inc past it
 // waits for ever)
-constexpr int kRegBwdProducer = 40;
-constexpr int kRegBwdConsumer = 232;
+constexpr int kRegProducer = 40;
+constexpr int kRegConsumer = 232;
 
 // bytes of a 64-row tile of DH bf16 columns
 template <int DH>
@@ -511,9 +241,19 @@ __host__ __device__ constexpr int tile_bytes() {
   return 64 * DH * 2;
 }
 
+// two slots of the two items' q tiles, the K and V rings of 128-key
+// tiles
+template <int DH>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return kWsExtra +
+         static_cast<size_t>(2 * kFwdQSlots +
+                             2 * (kFwdKStages + kFwdVStages)) *
+             tile_bytes<DH>();
+}
+
 template <int DH>
 __host__ __device__ constexpr size_t dq_smem() {
-  return kBwdExtra + static_cast<size_t>(4 + 2 * kDqStages) *
+  return kWsExtra + static_cast<size_t>(4 + 2 * kDqStages) *
                          tile_bytes<DH>();
 }
 
@@ -525,7 +265,7 @@ __host__ __device__ constexpr int dkv_stage_bytes() {
 
 template <int DH>
 __host__ __device__ constexpr size_t dkv_smem() {
-  return kBwdExtra + 4 * static_cast<size_t>(tile_bytes<DH>()) +
+  return kWsExtra + 4 * static_cast<size_t>(tile_bytes<DH>()) +
          static_cast<size_t>(kDkvStages) * dkv_stage_bytes<DH>();
 }
 
@@ -541,9 +281,11 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t addr, int ks,
   return sw128_desc(addr + (ks / 4) * panel + (ks % 4) * 32, 16, 1024);
 }
 
-// K step kk (16 of the tile's 64 rows) of a 64-row tile read N-major
-__device__ __forceinline__ uint64_t nmajor(uint32_t addr, int kk) {
-  return sw128_desc(addr + kk * 16 * 128, kPanel, 1024);
+// K step kk (16 of the tile's rows) of a tile read N-major; `panel`:
+// the bytes between its 64-column panels (64 or 128 rows x 128)
+__device__ __forceinline__ uint64_t nmajor(uint32_t addr, int kk,
+                                           int panel = kPanel) {
+  return sw128_desc(addr + kk * 16 * 128, panel, 1024);
 }
 
 // the WG 0 helpers' own barrier (0 is __syncthreads')
@@ -579,6 +321,37 @@ __device__ __forceinline__ int acc_col(int e, int lane) {
   return 8 * (e / 4) + 2 * (lane % 4) + e % 2;
 }
 
+// the two (q head, q tile) items of block (KV head hk, pair index y) in
+// K3 and K4: items 2p and 2p + 1 of the KV head's G x nq in (q tile, q
+// head) order, the longest pair first; each with its visit range [j0,
+// j1) of kv tiles, and the union [J0, J1) the K/V ring runs over
+struct Items {
+  int qt[2], hq[2], j0[2], j1[2], J0, J1;
+};
+
+template <int MODE, int BK>
+__device__ __forceinline__ Items pair_items(const MaskView& mv, int hk,
+                                            int G, int nq, int y) {
+  Items it;
+  const int pair = G * nq / 2 - 1 - y;     // longest first
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int i = 2 * pair + c;
+    it.qt[c] = i / G;
+    it.hq[c] = hk * G + i % G;
+    it.j0[c] = 0;
+    it.j1[c] = MODE == kCausal ? (it.qt[c] * kBQ + kBQ - 1) / BK + 1
+                               : nq * kBQ / BK;
+    if (MODE == kSplash) {
+      it.j0[c] = mv.first[it.qt[c]];
+      it.j1[c] = mv.last[it.qt[c]] + 1;
+    }
+  }
+  it.J0 = min(it.j0[0], it.j0[1]);
+  it.J1 = max(it.j1[0], it.j1[1]);
+  return it;
+}
+
 // write a consumer's 64 x DH accumulator as bf16 rows (its warp's 16
 // rows start at dst)
 template <int DH>
@@ -592,10 +365,305 @@ __device__ __forceinline__ void store_acc(bf16* dst, int ld,
         acc_col(e, lane)) = __floats2bfloat162_rn(d[e], d[e + 1]);
 }
 
+// the same, each row half times mul[half] (O / l)
+template <int DH>
+__device__ __forceinline__ void store_acc(bf16* dst, int ld,
+                                          const float (&d)[DH / 2],
+                                          const float (&mul)[2], int lane) {
+#pragma unroll
+  for (int e = 0; e < DH / 2; e += 2) {
+    const float f = mul[(e % 4) / 2];
+    *reinterpret_cast<__nv_bfloat162*>(
+        dst + static_cast<size_t>(acc_row(e, lane)) * ld +
+        acc_col(e, lane)) = __floats2bfloat162_rn(d[e] * f, d[e + 1] * f);
+  }
+}
+
+// 2^x on the SFU: one ex2.approx.ftz (exp2f adds a range fix-up for
+// results under 2^-126, far below the bf16 rounding of p that follows)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O += p V over the 128-key V tile at va (p: its 8 K steps as register
+// A); one commit group
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&acc)[DH / 2],
+                                         uint32_t (&a)[kBKf / 16][4],
+                                         uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < kBKf / 16; ++kk)
+    wgmma_rs<DH>(acc, a[kk], nmajor(va, kk, 2 * kPanel), 1);
+  wgmma_commit();
+  acc_fence(acc);
+}
+
+// ... issued and waited for: then its V stage (`empty`) is freed
+template <int DH>
+__device__ __forceinline__ void retire_pv(float (&acc)[DH / 2],
+                                          uint32_t (&a)[kBKf / 16][4],
+                                          uint32_t va, uint64_t* empty,
+                                          int lane) {
+  wgmma_fence();
+  issue_pv<DH>(acc, a, va);
+  wgmma_wait<0>();
+  acc_fence(acc);
+  frag_fence(a);
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// K3 (K6 in splash mode), persistent: block k takes units k, k + grid,
+// ... of the B Hkv x G nq / 2 (pair, KV head) units, longest pairs
+// first, and its producer loads the next unit's q tiles and K/V stages
+// while the consumers finish this one.  map_q: [B S, Hq, Dh] in boxes of
+// 64 columns x 1 head x 64 rows; map_k, map_v: [B S, Hkv, Dh], boxes of
+// kBKf rows
+template <int DH, int MODE>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             bf16* __restrict__ o, float* __restrict__ lse,
+             const int* __restrict__ mask, int S, int Hq, int Hkv,
+             float q_mul, int units) {
+  constexpr int TB = tile_bytes<DH>();
+  constexpr int KT = 2 * TB;            // a 128-key tile
+  constexpr int KP = 2 * kPanel;        // ... its 64-column panels
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty_q = full_q + kFwdQSlots;
+  uint64_t* full_k = empty_q + kFwdQSlots;   // the K ring
+  uint64_t* empty_k = full_k + kFwdKStages;
+  uint64_t* full_v = empty_k + kFwdKStages;  // the V ring
+  uint64_t* empty_v = full_v + kFwdVStages;
+  unsigned char* sQ = base + 1024;      // [slot][item] q, rounded in place
+  unsigned char* sK = sQ + kFwdQSlots * 2 * TB;
+  unsigned char* sV = sK + kFwdKStages * KT;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int G = Hq / Hkv, nq = S / kBQ;
+  const int nbh = units / (G * nq / 2);      // B Hkv
+  MaskView mv{};
+  if (MODE == kSplash) mv = mask_view(mask, nq, S);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdQSlots; ++s) {
+      mbar_init(&full_q[s], 1);
+      mbar_init(&empty_q[s], 4 * kConsumers);    // each consumer warp
+    }
+    for (int s = 0; s < kFwdKStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], 4 * kConsumers);
+    }
+    for (int s = 0; s < kFwdVStages; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    reg_release<kRegProducer>();
+    if (tid == 0) {
+      Ring rq, rk, rv;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int hk = u % nbh % Hkv, b = u % nbh / Hkv;
+        const Items it = pair_items<MODE, kBKf>(mv, hk, G, nq, u / nbh);
+        mbar_wait(&empty_q[rq.slot], rq.phase ^ 1);
+        mbar_expect_tx(&full_q[rq.slot], 2 * TB);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int p = 0; p < DH / 64; ++p)
+            tma_load(sQ + (rq.slot * 2 + c) * TB + p * kPanel, &map_q,
+                     &full_q[rq.slot], p * 64, it.hq[c],
+                     b * S + it.qt[c] * kBQ);
+        rq.next(kFwdQSlots);
+        // K j, then V j - 1: V is used a stage after its K (p V runs
+        // behind the next stage's S), and each ring waits only on its own
+        for (int j = it.J0; j <= it.J1; ++j) {
+          if (j < it.J1) {
+            mbar_wait(&empty_k[rk.slot], rk.phase ^ 1);
+            mbar_expect_tx(&full_k[rk.slot], KT);
+#pragma unroll
+            for (int p = 0; p < DH / 64; ++p)
+              tma_load(sK + rk.slot * KT + p * KP, &map_k, &full_k[rk.slot],
+                       p * 64, hk, b * S + j * kBKf);
+            rk.next(kFwdKStages);
+          }
+          if (j > it.J0) {
+            mbar_wait(&empty_v[rv.slot], rv.phase ^ 1);
+            mbar_expect_tx(&full_v[rv.slot], KT);
+#pragma unroll
+            for (int p = 0; p < DH / 64; ++p)
+              tma_load(sV + rv.slot * KT + p * KP, &map_v, &full_v[rv.slot],
+                       p * 64, hk, b * S + (j - 1) * kBKf);
+            rv.next(kFwdVStages);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  reg_claim<kRegConsumer>();
+  const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
+  // the rings' positions run on from unit to unit, as the producer's
+  Ring rq, rk, rv;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int hk = u % nbh % Hkv, b = u % nbh / Hkv;
+    const Items it = pair_items<MODE, kBKf>(mv, hk, G, nq, u / nbh);
+    const int q0 = ci ? it.qt[1] * kBQ : it.qt[0] * kBQ;
+    const int h = ci ? it.hq[1] : it.hq[0];
+    const int j0 = ci ? it.j0[1] : it.j0[0], j1 = ci ? it.j1[1] : it.j1[0];
+    const int r0 = q0 + warp * 16;      // the warp's first row
+    unsigned char* sq = sQ + (rq.slot * 2 + ci) * TB;
+    mbar_wait(&full_q[rq.slot], rq.phase);
+    scale_bytes(sq, sq, TB, q_mul, tid, 128);
+    fence_to_async();
+    consumer_sync(ci);
+
+    // splash: this thread's two rows' key intervals
+    int rlo[2] = {0, 0}, rhi[2] = {0, 0};
+    if (MODE == kSplash) {
+      rlo[0] = mv.lo[r0 + lane / 4], rhi[0] = mv.hi[r0 + lane / 4];
+      rlo[1] = mv.lo[r0 + lane / 4 + 8], rhi[1] = mv.hi[r0 + lane / 4 + 8];
+    }
+    const uint32_t qa = smem_addr(sq);
+    float acc[DH / 2];
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) acc[e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    // the pending stage (p packed as register A, p V not yet retired):
+    // its V in slot pr of the V ring, at parity pp
+    uint32_t a[kBKf / 16][4] = {};
+    int pr = -1, pp = 0;
+    for (int j = it.J0; j < it.J1; ++j) {
+      mbar_wait(&full_k[rk.slot], rk.phase);
+      if (j >= j0 && j < j1) {
+        const uint32_t ka = smem_addr(sK + rk.slot * KT);
+        float s[64];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < DH / 16; ++ks)
+          wgmma_ss_n128(s, kmajor(qa, ks, kPanel), kmajor(ka, ks, KP),
+                        ks > 0);
+        wgmma_commit();
+        acc_fence(s);
+        if (pr >= 0) {
+          // the pending stage's p V runs behind this stage's S and on
+          // through its softmax
+          mbar_wait(&full_v[pr], pp);
+          issue_pv<DH>(acc, a, smem_addr(sV + pr * KT));
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        acc_fence(s);
+        if (lane == 0) mbar_arrive(&empty_k[rk.slot]);   // S has read K
+        const int c0 = j * kBKf;
+        if (MODE == kCausal && c0 + kBKf - 1 > q0) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e)
+            if (c0 + acc_col(e, lane) > r0 + acc_row(e, lane))
+              s[e] = kNegInf;
+        }
+        if (MODE == kSplash && !full_tile(mv, ci ? it.qt[1] : it.qt[0], c0,
+                                          kBKf)) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e) {
+            const int col = c0 + acc_col(e, lane), hh = (e % 4) / 2;
+            if (col < rlo[hh] || col > rhi[hh]) s[e] = kNegInf;
+          }
+        }
+        // base-2 online softmax, a row half at a time (columns 8t + ...)
+        float alpha[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int t = 0; t < 16; ++t)
+            mx = fmaxf(mx, fmaxf(s[4 * t + 2 * hh], s[4 * t + 2 * hh + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[hh], mx);
+          alpha[hh] = ex2(m[hh] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int t = 0; t < 16; ++t) {
+            s[4 * t + 2 * hh] = ex2(s[4 * t + 2 * hh] - m_new);
+            s[4 * t + 2 * hh + 1] = ex2(s[4 * t + 2 * hh + 1] - m_new);
+            sum += s[4 * t + 2 * hh] + s[4 * t + 2 * hh + 1];
+          }
+          l[hh] = l[hh] * alpha[hh] + sum;   // this lane's columns
+          m[hh] = m_new;
+        }
+        if (pr >= 0) {
+          wgmma_wait<0>();
+          acc_fence(acc);
+          frag_fence(a);
+          if (lane == 0) mbar_arrive(&empty_v[pr]);
+        }
+#pragma unroll
+        for (int e = 0; e < DH / 2; ++e) acc[e] *= alpha[(e % 4) / 2];
+#pragma unroll
+        for (int kk = 0; kk < kBKf / 16; ++kk) pack_a(a[kk], s, kk);
+        pr = rv.slot;
+        pp = rv.phase;
+      } else {
+        // outside this item's range: retire and free the pending stage
+        // first, so that a run of skipped stages never leaves the
+        // producer waiting on it; then this stage's K and V
+        if (pr >= 0) {
+          mbar_wait(&full_v[pr], pp);
+          retire_pv<DH>(acc, a, smem_addr(sV + pr * KT), &empty_v[pr],
+                        lane);
+          pr = -1;
+        }
+        mbar_wait(&full_v[rv.slot], rv.phase);
+        if (lane == 0) {
+          mbar_arrive(&empty_k[rk.slot]);
+          mbar_arrive(&empty_v[rv.slot]);
+        }
+      }
+      rk.next(kFwdKStages);
+      rv.next(kFwdVStages);
+    }
+    if (pr >= 0) {
+      mbar_wait(&full_v[pr], pp);
+      retire_pv<DH>(acc, a, smem_addr(sV + pr * KT), &empty_v[pr], lane);
+    }
+    // every S of this unit has retired: its q slot is free
+    if (lane == 0) mbar_arrive(&empty_q[rq.slot]);
+    rq.next(kFwdQSlots);
+
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      inv[hh] = 1.f / l[hh];
+    }
+    const int ldq = Hq * DH;
+    store_acc<DH>(o + (static_cast<size_t>(b) * S + r0) * ldq + h * DH,
+                  ldq, acc, inv, lane);
+    if (lane % 4 == 0) {
+      float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * S + r0;
+      lrow[lane / 4] = (m[0] + log2f(l[0])) / kLog2e;
+      lrow[lane / 4 + 8] = (m[1] + log2f(l[1])) / kLog2e;
+    }
+  }
+}
+
 // K4 (K7 in splash mode).  map_q, map_do: [B S, Hq, Dh] in boxes of 64
 // columns x 1 head x 64 rows; map_k, map_v: [B S, Hkv, Dh], the same box
 template <int DH, int MODE>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
     dq_bf16(const __grid_constant__ CUtensorMap map_q,
             const __grid_constant__ CUtensorMap map_do,
             const __grid_constant__ CUtensorMap map_k,
@@ -619,24 +687,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int G = Hq / Hkv, nq = S / kBQ;
   const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
-  const int pair = G * nq / 2 - 1 - blockIdx.y;     // longest first
   MaskView mv{};
   if (MODE == kSplash) mv = mask_view(mask, nq, S);
-  // the two items: q tile, q head, visit range [j0, j1) of kv tiles
-  int qt[2], hq[2], j0[2], j1[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int i = 2 * pair + c;
-    qt[c] = i / G;
-    hq[c] = hk * G + i % G;
-    j0[c] = 0;
-    j1[c] = MODE == kCausal ? (qt[c] * kBQ + kBQ - 1) / kBK + 1 : S / kBK;
-    if (MODE == kSplash) {
-      j0[c] = mv.first[qt[c]];
-      j1[c] = mv.last[qt[c]] + 1;
-    }
-  }
-  const int J0 = min(j0[0], j0[1]), J1 = max(j1[0], j1[1]);
+  const Items it = pair_items<MODE, kBK>(mv, hk, G, nq, blockIdx.y);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -649,21 +702,21 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   __syncthreads();
 
   if (wg == 0) {
-    reg_release<kRegBwdProducer>();
+    reg_release<kRegProducer>();
     if (tid == 0) {
       mbar_expect_tx(full_q, 4 * TB);
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
         for (int p = 0; p < DH / 64; ++p) {
-          const int row = b * S + qt[c] * kBQ;
-          tma_load(sQ + c * TB + p * kPanel, &map_q, full_q, p * 64, hq[c],
-                   row);
-          tma_load(sO + c * TB + p * kPanel, &map_do, full_q, p * 64, hq[c],
-                   row);
+          const int row = b * S + it.qt[c] * kBQ;
+          tma_load(sQ + c * TB + p * kPanel, &map_q, full_q, p * 64,
+                   it.hq[c], row);
+          tma_load(sO + c * TB + p * kPanel, &map_do, full_q, p * 64,
+                   it.hq[c], row);
         }
       Ring r;
-      for (int j = J0; j < J1; ++j) {
+      for (int j = it.J0; j < it.J1; ++j) {
         mbar_wait(&empty[r.slot], r.phase ^ 1);
         mbar_expect_tx(&full[r.slot], 2 * TB);
 #pragma unroll
@@ -680,9 +733,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 
   // ------------------------------------------------------- consumers
-  reg_claim<kRegBwdConsumer>();
+  reg_claim<kRegConsumer>();
   const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
-  const int q0 = qt[ci] * kBQ, h = hq[ci];
+  const int q0 = it.qt[ci] * kBQ, h = it.hq[ci];
   const int ldq = Hq * DH;
   const size_t qoff = (static_cast<size_t>(b) * S + q0) * ldq + h * DH;
   const size_t roff = (static_cast<size_t>(b) * Hq + h) * S + q0;
@@ -733,9 +786,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   Ring r;
   uint32_t a[4][4] = {};
   int held = -1;             // the slot whose dQ product is in flight
-  for (int j = J0; j < J1; ++j) {
+  for (int j = it.J0; j < it.J1; ++j) {
     mbar_wait(&full[r.slot], r.phase);
-    if (j >= j0[ci] && j < j1[ci]) {
+    if (j >= it.j0[ci] && j < it.j1[ci]) {
       const uint32_t ka = smem_addr(sK + r.slot * TB);
       const uint32_t va = smem_addr(sV + r.slot * TB);
       float s[32], dp[32];
@@ -763,7 +816,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           if (c0 + acc_col(e, lane) > q0 + warp * 16 + acc_row(e, lane))
             s[e] = kNegInf;
       }
-      if (MODE == kSplash && !full_tile(mv, qt[ci], c0, kBK)) {
+      if (MODE == kSplash && !full_tile(mv, it.qt[ci], c0, kBK)) {
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int col = c0 + acc_col(e, lane), hh = (e % 4) / 2;
@@ -814,7 +867,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // K5 (K8 in splash mode).  map_q, map_do: as K4's; map_k, map_v: [B S,
 // Hkv, Dh] in boxes of 64 columns x 1 head x kBKd rows
 template <int DH, int MODE>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
     dkv_bf16(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_do,
              const __grid_constant__ CUtensorMap map_k,
@@ -863,7 +916,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   __syncthreads();
 
   if (wg == 0) {
-    reg_release<kRegBwdProducer>();
+    reg_release<kRegProducer>();
     if (tid == 0) {
       mbar_expect_tx(full_kv, 4 * TB);
 #pragma unroll
@@ -914,7 +967,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 
   // ------------------------------------------------------- consumers
-  reg_claim<kRegBwdConsumer>();
+  reg_claim<kRegConsumer>();
   const int ci = wg - 1, warp = tid / 32, lane = tid % 32;
   const int key0 = k0 + ci * 64 + warp * 16;      // the warp's first key
   const uint32_t ka = smem_addr(sK) + ci * kPanel;
@@ -1005,17 +1058,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
 constexpr int kRowThreads = 128;
 
-// the keys [jb, je) query `row` visits
+// the keys [jb, je) query `row` visits; bk: the key tiles of the
+// BlockMask's visit ranges (the forward's kBKf, dq's kBK)
 __device__ __forceinline__ void key_range(int row, int S, int mode,
-                                          const int* mask, int& jb,
+                                          const int* mask, int bk, int& jb,
                                           int& je) {
   jb = 0;
   je = mode == kCausal ? row + 1 : S;
   if (mode == kSplash) {
     const MaskView mv = mask_view(mask, S / kBQ, S);
     const int qt = row / kBQ;
-    jb = max(mv.lo[row], mv.first[qt] * kBK);
-    je = min(mv.hi[row], mv.last[qt] * kBK + kBK - 1) + 1;
+    jb = max(mv.lo[row], mv.first[qt] * bk);
+    je = min(mv.hi[row], mv.last[qt] * bk + bk - 1) + 1;
   }
 }
 
@@ -1039,7 +1093,7 @@ __global__ void __launch_bounds__(kRowThreads)
   }
   float m = kNegInf, l = 0.f;
   int jb, je;
-  key_range(row, S, mode, mask, jb, je);
+  key_range(row, S, mode, mask, kBKf, jb, je);
   for (int j = jb; j < je; ++j) {
     const float* kr = kb + static_cast<size_t>(j) * Hkv * DH;
     const float* vr = vb + static_cast<size_t>(j) * Hkv * DH;
@@ -1082,7 +1136,7 @@ __global__ void __launch_bounds__(kRowThreads)
   dcap[roff] = dsum;
   const float l = lse[roff];
   int jb, je;
-  key_range(row, S, mode, mask, jb, je);
+  key_range(row, S, mode, mask, kBK, jb, je);
   for (int j = jb; j < je; ++j) {
     const float* kr = kb + static_cast<size_t>(j) * Hkv * DH;
     const float* vr = vb + static_cast<size_t>(j) * Hkv * DH;
@@ -1154,28 +1208,41 @@ __global__ void __launch_bounds__(kRowThreads)
 
 // --------------------------------------------------------------- launch
 
-template <int DH, int MODE>
-cudaError_t fwd_bf16_launch(const void* q, const void* k, const void* v,
-                            void* o, float* lse, const int* mask, int B,
-                            int S, int Hq, int Hkv, float q_mul,
-                            cudaStream_t stream) {
-  auto kernel = fwd_bf16<DH, MODE>;
-  const size_t smem = fwd_smem<DH>();
-  cudaError_t err = with_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * Hq, S / kBQ), kFwdWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, mask, S, Hq,
-      Hkv, q_mul);
-  return cudaGetLastError();
-}
-
 // a [B S, H, Dh] bf16 tensor's TMA map: boxes of 64 columns (128 bytes,
 // the swizzle's span) x 1 head x `rows` rows
 cudaError_t head_map(CUtensorMap* map, const void* p, int BS, int H, int DH,
                      int rows) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 2, DH, H, BS,
                   64, 1, CU_TENSOR_MAP_SWIZZLE_128B, rows);
+}
+
+template <int DH, int MODE>
+cudaError_t fwd_bf16_launch(const void* q, const void* k, const void* v,
+                            void* o, float* lse, const int* mask, int B,
+                            int S, int Hq, int Hkv, float q_mul,
+                            cudaStream_t stream) {
+  static_assert(fwd_smem<DH>() <= 232448, "shared memory");
+  CUtensorMap mq = {}, mk = {}, mv = {};
+  cudaError_t err = head_map(&mq, q, B * S, Hq, DH, kBQ);
+  if (err == cudaSuccess) err = head_map(&mk, k, B * S, Hkv, DH, kBKf);
+  if (err == cudaSuccess) err = head_map(&mv, v, B * S, Hkv, DH, kBKf);
+  if (err != cudaSuccess) return err;
+  auto kernel = fwd_bf16<DH, MODE>;
+  const size_t smem = fwd_smem<DH>();
+  err = with_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // units: a pair of (q head, q tile) items of one KV head, as K4's
+  // blocks; one persistent block an SM
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int units = B * Hkv * (Hq / Hkv * (S / kBQ) / 2);
+  kernel<<<units < sms ? units : sms, kWsThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, mask, S, Hq, Hkv, q_mul,
+      units);
+  return cudaGetLastError();
 }
 
 template <int DH, int MODE>
@@ -1196,7 +1263,7 @@ cudaError_t dq_bf16_launch(const void* q, const void* k, const void* v,
   err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   // one block a pair of (q head, q tile) items of one KV head
-  kernel<<<dim3(B * Hkv, Hq / Hkv * (S / kBQ) / 2), kBwdThreads, smem,
+  kernel<<<dim3(B * Hkv, Hq / Hkv * (S / kBQ) / 2), kWsThreads, smem,
            stream>>>(mq, mdo, mk, mv, static_cast<const bf16*>(o),
                      static_cast<const bf16*>(dout), lse, dcap,
                      static_cast<bf16*>(dq), mask, S, Hq, Hkv, scale);
@@ -1220,7 +1287,7 @@ cudaError_t dkv_bf16_launch(const void* q, const void* k, const void* v,
   const size_t smem = dkv_smem<DH>();
   err = with_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * Hkv, S / kBKd), kBwdThreads, smem, stream>>>(
+  kernel<<<dim3(B * Hkv, S / kBKd), kWsThreads, smem, stream>>>(
       mq, mdo, mk, mv, lse, dcap, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), mask, S, Hq, Hkv, scale);
   return cudaGetLastError();
@@ -1368,7 +1435,7 @@ int dlnb_flash_dkv(int dtype, const void* q, const void* k, const void* v,
              static_cast<cudaStream_t>(stream));
 }
 
-// K6: the forward under a BlockMask at 64 x 64 tiles (mask: MaskView's
+// K6: the forward under a BlockMask at 64 x 128 tiles (mask: MaskView's
 // packing with n = S / 64)
 int dlnb_splash_fwd(int dtype, const void* q, const void* k, const void* v,
                     void* o, float* lse, const int* mask, int B, int S,

@@ -1,6 +1,6 @@
 // PTX helpers shared by the Hopper kernels of this directory
-// (mlp_matmul.cu: K9-K12; flash_attention.cu: K4/K5 and their splash
-// mode K7/K8): mbarriers, TMA tile loads and stores, 1-D bulk copies,
+// (mlp_matmul.cu: K9-K12; flash_attention.cu: K3/K4/K5 and their splash
+// mode K6/K7/K8): mbarriers, TMA tile loads and stores, 1-D bulk copies,
 // the generic-to-async proxy fence, setmaxnreg, the 128-byte-swizzle
 // shared-memory descriptor, the wgmma forms the kernels issue with
 // their accumulator fences, the accumulator-to-register-A packing, and
@@ -377,6 +377,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "memory");
 }
 
+// d (64 x 128, f32) = (scale_d ? d : 0) + A (64 x 16 bf16) * B (16 x 128
+// bf16), both from shared memory, K-major: the flash forward's S = Q K^T
+// over a 128-key stage (K3)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC64_F(d)
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
 // d (64 x 64, f32) = (scale_d ? d : 0) + A (64 x 16 bf16, from registers:
 // the m16n8k16 A fragment of each warp's 16 rows, see pack_a) * B (16 x
 // 64 bf16, shared memory, N-major: the transpose bit set)
@@ -446,11 +464,12 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4],
   }
 }
 
-// keeps four K steps of register A fragments live (and unmoved) until
-// the wgmma that reads them has retired: put it after the wait_group
-__device__ __forceinline__ void frag_fence(uint32_t (&a)[4][4]) {
+// keeps KS K steps of register A fragments live (and unmoved) until the
+// wgmma that reads them has retired: put it after the wait_group
+template <int KS>
+__device__ __forceinline__ void frag_fence(uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }

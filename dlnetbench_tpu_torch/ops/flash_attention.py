@@ -62,9 +62,9 @@ HEAD_DIMS = (64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernels' tiles (q rows, keys) in csrc/flash_attention.cu: the
-# forward and dq kBQ x kBK, dk/dv kBQ x kBKd; each splash kernel reads the
-# BlockMask built at its own
-FWD_TILES = (64, 64)
+# forward kBQ x kBKf, dq kBQ x kBK, dk/dv kBQ x kBKd; each splash kernel
+# reads the BlockMask built at its own
+FWD_TILES = (64, 128)
 DQ_TILES = (64, 64)
 DKV_TILES = (64, 128)
 SPLASH_CHUNK = 512              # q rows a plain-splash chunk takes

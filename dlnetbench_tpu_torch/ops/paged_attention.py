@@ -13,6 +13,13 @@ Shapes (the JAX package's layout): q ``[B, Hq, Dh]`` pre-scaled by
 ``Dh**-0.5``; k/v pages ``[Hkv, P, S, Dh]``; lengths ``[B]`` int32 (valid
 tokens, the one just written included); page_indices ``[B, Pmax]``
 int32 (each slot's block table).  Returns ``[B, Hq, Dh]`` in q's dtype.
+
+The kernel splits each slot's sequence over blocks of whole pages
+(``split_pages``) and combines the partials in split order in the block
+that finishes last; the wrapper hands it an f32 workspace for the
+partials (``workspace_floats``) and a zeroed int32 counter per (slot,
+KV head) that the kernel leaves zero (``counters``, one buffer per
+device and stream, grown when needed).
 """
 from __future__ import annotations
 
@@ -31,8 +38,51 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
 
+# the split of csrc/paged_attention.cu: a split takes the fewest whole
+# pages holding SPLIT_TOKENS tokens (more if a block-table row would need
+# over MAX_SPLITS of them); tests pin these to the CUDA constants
+SPLIT_TOKENS = 64
+MAX_SPLITS = 65535
+
 # kernel launches made by ``paged_attention`` (reset by the caller)
 launches = 0
+
+# (device index, stream handle) -> zeroed int32 counters of the combine
+_counters: dict = {}
+
+
+def split_pages(page_size: int, pmax: int) -> int:
+    """Pages a split of the kernel takes (csrc/paged_attention.cu,
+    ``split_pages``): sized from the block table's width, never from the
+    lengths, which stay on the card."""
+    pps = -(-SPLIT_TOKENS // page_size)
+    pps = max(pps, -(-pmax // MAX_SPLITS))
+    return min(pps, pmax)
+
+
+def num_splits(page_size: int, pmax: int) -> int:
+    """The grid's split count (its z dimension)."""
+    return -(-pmax // split_pages(page_size, pmax))
+
+
+def workspace_floats(batch: int, hq: int, hkv: int, head_dim: int,
+                     page_size: int, pmax: int) -> int:
+    """f32 values of the kernel's workspace: every split's partial
+    ``acc [G, Dh]`` and ``(m, l) [G, 2]`` per (slot, KV head)."""
+    return (batch * hkv * num_splits(page_size, pmax) * (hq // hkv)
+            * (head_dim + 2))
+
+
+def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The combine's per-(slot, KV head) counters for calls on
+    ``stream``: zero between calls (the combining block resets its own),
+    so the buffer is zeroed once, when it is made or grown."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def take_pages(pages, idx):
@@ -133,20 +183,24 @@ def launch(q, k_pages, v_pages, lengths, page_indices, k_scale=None,
     fn = _build.library("paged_attention").dlnb_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     out = torch.empty_like(q)
     b, hq, dh = q.shape
     hkv, p, s, _ = k_pages.shape
+    pmax = page_indices.shape[1]
+    ws = torch.empty(workspace_floats(b, hq, hkv, dh, s, pmax),
+                     dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    cnt = counters(q.device, stream, b * hkv)
     with torch.cuda.device(q.device):
         rc = fn(DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr() if k_scale is not None else None,
                 v_scale.data_ptr() if v_scale is not None else None,
                 lengths.data_ptr(), page_indices.data_ptr(),
-                out.data_ptr(), b, hq, hkv, p, s, dh,
-                page_indices.shape[1], stream)
+                out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, hq, hkv,
+                p, s, dh, pmax, stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel: cudaError_t {rc} "
                            f"(q {tuple(q.shape)} {q.dtype}, pages "

@@ -151,10 +151,12 @@ def test_kernel_tiles_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
     bq, bk = const("kBQ"), const("kBK")
-    # dk/dv: two consumer warpgroups of 64 keys each
+    # the forward's 128-key stages; dk/dv: two consumer warpgroups of 64
+    # keys each
+    bkf = const("kBKf")
     bkd = const("kConsumers") * 64
     assert re.search(r"kBKd = kConsumers \* 64", src)
-    assert TFA.FWD_TILES == (bq, bk)
+    assert TFA.FWD_TILES == (bq, bkf)
     assert TFA.DQ_TILES == (bq, bk)
     assert TFA.DKV_TILES == (bq, bkd)
 

@@ -32,6 +32,13 @@ CASES = [
     (1, 640, 4, 2, 64, False),
     (1, 640, 8, 2, 64, True),
     (1, 640, 6, 2, 128, True),
+    # S = 128: one pair of 64-row q tiles; GQA groups 1, 2 and 4 (K3's
+    # block pairs the two q tiles of one head when the group is 1)
+    (1, 128, 2, 2, 128, True),
+    (2, 128, 4, 2, 128, True),
+    (1, 128, 8, 2, 64, True),
+    (1, 128, 4, 1, 128, False),
+    (2, 128, 2, 2, 64, False),
 ]
 # each row (Dh values) against its own max-abs, floored at 1e-3 of the
 # tensor's, as chip_smoke.py holds it.  bf16: one output ulp.  f32: a

@@ -106,3 +106,108 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         PA.paged_attention(q, kp.transpose(1, 2), vp.transpose(1, 2), ln,
                            bt)
+
+
+def split_inputs(seed, *, dh, group, q_dtype, pages, lengths, psize=16,
+                 pmax=10, hkv=2):
+    """Card operands for the split kernel: ``pages`` is "same" (K1, pages
+    in q's dtype), "int8" or "fp8" (K2)."""
+    q, kp, vp, ln, bt = decode_inputs(seed, b=len(lengths), hq=hkv * group,
+                                      hkv=hkv, dh=dh, pages=len(lengths)
+                                      * pmax + 3, psize=psize, pmax=pmax,
+                                      lengths=lengths)
+    dev = torch.device("cuda")
+    qt = torch.from_numpy(q).to(dev, q_dtype)
+    idx = [torch.from_numpy(ln).to(dev), torch.from_numpy(bt).to(dev)]
+    if pages == "same":
+        return qt, [torch.from_numpy(a).to(dev, q_dtype) for a in (kp, vp)], \
+            None, idx
+    kq, ks, vq, vs = quantize_pools(kp, vp, pages)
+    return qt, [kq.to(dev), vq.to(dev)], [ks.to(dev), vs.to(dev)], idx
+
+
+def run_split(q, pools, scales, idx, pages):
+    if pages == "same":
+        return (PA.paged_attention(q, *pools, *idx),
+                PA.gather_attention(q, *pools, *idx))
+    got = PAQ.quant_paged_attention(q, pools[0], pools[1], *scales, *idx,
+                                    fmt=FMT[pages])
+    return got, PAQ.dequant_gather_attention(q, pools[0], pools[1], *scales,
+                                             *idx)
+
+
+# page 16 and 10 pages a slot: splits of 4 pages (64 tokens), the last
+# of 2 (pmax not a multiple of the split); lengths at the split's and
+# the page's edges, an empty slot, and the block table's full width
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 64, 65, 160)
+# the output's dtype: f32 within 1e-4 (summation order), bf16 2e-2
+SPLIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["same", "int8", "fp8"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_split_kernel_matches_plain_at_split_edges(cuda_device, pages,
+                                                   q_dtype, group):
+    q, pools, scales, idx = split_inputs(11, dh=128, group=group,
+                                         q_dtype=q_dtype, pages=pages,
+                                         lengths=EDGE_LENGTHS)
+    got, ref = run_split(q, pools, scales, idx, pages)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    # the empty slot gets zeros (the plain version's all-masked softmax
+    # averages V there: the kernels' convention differs by design)
+    assert EDGE_LENGTHS[0] == 0
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    tol = SPLIT_TOL[q_dtype]
+    torch.testing.assert_close(got[1:].float(), ref[1:].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["same", "int8", "fp8"])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_split_kernel_matches_plain_at_other_head_dims(cuda_device, pages,
+                                                       dh):
+    q, pools, scales, idx = split_inputs(12, dh=dh, group=4,
+                                         q_dtype=torch.bfloat16, pages=pages,
+                                         lengths=EDGE_LENGTHS)
+    got, ref = run_split(q, pools, scales, idx, pages)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))   # empty slot
+    torch.testing.assert_close(got[1:].float(), ref[1:].float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("psize,pmax,lengths", [
+    (16, 160, (2560, 1, 1000, 2047)),   # 40 splits: a chunked combine
+    (128, 4, (512, 129, 300, 1)),       # a split of 1 page, 2 stages
+    (3, 50, (150, 64, 66, 67))])        # 22 pages a split, ragged pages
+@pytest.mark.parametrize("pages", ["same", "int8"])
+def test_split_kernel_long_rows_and_odd_pages(cuda_device, psize, pmax,
+                                              lengths, pages):
+    q, pools, scales, idx = split_inputs(13, dh=128, group=4,
+                                         q_dtype=torch.float32, pages=pages,
+                                         lengths=lengths, psize=psize,
+                                         pmax=pmax)
+    got, ref = run_split(q, pools, scales, idx, pages)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_combine_is_deterministic_and_leaves_counters_zero(
+        cuda_device):
+    """The last-arriving block combines the splits in split order: two
+    calls give the same bits, and every (slot, KV head) counter is back
+    at zero after the call."""
+    q, pools, scales, idx = split_inputs(14, dh=128, group=4,
+                                         q_dtype=torch.bfloat16,
+                                         pages="same", lengths=(160,) * 8)
+    outs = [PA.paged_attention(q, *pools, *idx) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(PA.counters(q.device, stream, 16)[:16].abs().sum()) == 0

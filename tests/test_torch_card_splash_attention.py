@@ -85,3 +85,39 @@ def test_plain_causal_kernels_equal_flash_kernels_on_card(cuda_device,
                     TFA.kernel_splash_backward(q, k, v, out, lse, do,
                                                spec)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("seg", [300, 700])
+def test_odd_group_long_documents_on_card(cuda_device, dh, seg):
+    """GQA group 3 under non-causal documents of a few hundred keys: a K6
+    (and K7) block pairs q tiles whose key ranges end many tiles apart,
+    the case where a consumer holding its last stage across skipped
+    stages hung the ring.  K6 with K7/K8 against the plain versions."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in qkv(12, 1, 1024, 3, 1, dh))
+    do = torch.randn_like(q)
+    t = TM.MaskSpec(causal=False, seg_avg=seg, seg_seed=4)
+    out, lse = TFA.kernel_splash_forward(q, k, v, t)
+    grads = TFA.kernel_splash_backward(q, k, v, out, lse, do, t)
+    torch.cuda.synchronize()
+    p_out, p_lse = TFA.plain_splash_forward(q, k, v, t)
+    p_grads = TFA.plain_splash_backward(q, k, v, out, lse, do, t)
+    assert float((lse - p_lse).abs().max()) < 1e-3
+    for g, p in zip((out, *grads), (p_out, *p_grads)):
+        err = (g.float() - p.float()).abs().amax(dim=-1)
+        scale = p.float().abs().amax(dim=-1)
+        assert (err <= 2.0 ** -6 * scale.clamp_min(1e-3 * scale.max())).all()
+
+
+@pytest.mark.cuda
+def test_plain_causal_forward_equals_flash_forward_odd_group(cuda_device):
+    """K6 under the plain-causal mask is K3 bitwise at Dh 64 with GQA
+    group 3 too (one template over the mode)."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in qkv(13, 1, 640, 3, 1, 64))
+    out, lse = TFA.kernel_forward(q, k, v, True)
+    s_out, s_lse = TFA.kernel_splash_forward(q, k, v,
+                                             TM.MaskSpec(causal=True))
+    assert torch.equal(out, s_out) and torch.equal(lse, s_lse)

@@ -1,5 +1,6 @@
-"""The wgmma/TMA flash backward, kernels K4 (dq) and K5 (dk/dv) and their
-splash mode K7/K8 (``dlnetbench_tpu_torch/ops/csrc/flash_attention.cu``,
+"""The wgmma/TMA flash kernels, K3 (forward), K4 (dq) and K5 (dk/dv) and
+their splash mode K6/K7/K8
+(``dlnetbench_tpu_torch/ops/csrc/flash_attention.cu``, ``fwd_bf16``,
 ``dq_bf16`` and ``dkv_bf16``, on the helpers of ``csrc/hopper.cuh``),
 checked where a CPU can check it.
 
@@ -13,10 +14,15 @@ checked where a CPU can check it.
   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q).
 * The accumulator-to-register-A packing (``pack_a``) is the wgmma A
   fragment, over a numpy model of both layouts.
-* The visit ranges at the kernels' tiles: K4's pairs of (q head, q
-  tile) items cover every item once, and with K5's key tiles every live
-  tile is computed exactly once, and every allowed (query, key) pair of
-  the mask lies in a computed tile.
+* The visit ranges at the kernels' tiles: K3's and K4's pairs of (q
+  head, q tile) items cover every item once, and with K5's key tiles
+  every live tile is computed exactly once, and every allowed (query,
+  key) pair of the mask lies in a computed tile; K3's and K4's K/V rings
+  never wait on a stage a consumer holds.
+
+A numpy model of K3's tile loop at its rounding points is held against
+the plain versions and JAX's forward kernel in
+tests/test_torch_flash_forward_model.py.
 
 The kernels themselves run only on a card (tests/test_torch_card_*.py
 and chip_smoke.py)."""
@@ -50,9 +56,9 @@ def const(name: str) -> int:
 
 
 C = {n: const(n) for n in (
-    "kBQ", "kBK", "kConsumers", "kBwdThreads", "kHelperWarps",
-    "kDqStages", "kDkvStages", "kBwdExtra", "kRowsBytes", "kPanel",
-    "kRegBwdProducer", "kRegBwdConsumer")}
+    "kBQ", "kBK", "kConsumers", "kWsThreads", "kHelperWarps",
+    "kBKf", "kFwdKStages", "kFwdVStages", "kFwdQSlots", "kDqStages", "kDkvStages", "kWsExtra", "kRowsBytes", "kPanel",
+    "kRegProducer", "kRegConsumer")}
 BKD = C["kConsumers"] * 64
 
 
@@ -67,8 +73,15 @@ def tile_bytes(dh: int) -> int:
     return 64 * dh * 2
 
 
+def fwd_smem(dh: int) -> int:
+    """kFwdQSlots slots of the two items' q tiles, then the K and V rings
+    of 128-key tiles (2 tile_bytes each)."""
+    return C["kWsExtra"] + (2 * C["kFwdQSlots"] + 2 * (
+        C["kFwdKStages"] + C["kFwdVStages"])) * tile_bytes(dh)
+
+
 def dq_smem(dh: int) -> int:
-    return C["kBwdExtra"] + (4 + 2 * C["kDqStages"]) * tile_bytes(dh)
+    return C["kWsExtra"] + (4 + 2 * C["kDqStages"]) * tile_bytes(dh)
 
 
 def dkv_stage(dh: int) -> int:
@@ -76,26 +89,28 @@ def dkv_stage(dh: int) -> int:
 
 
 def dkv_smem(dh: int) -> int:
-    return (C["kBwdExtra"] + 4 * tile_bytes(dh)
+    return (C["kWsExtra"] + 4 * tile_bytes(dh)
             + C["kDkvStages"] * dkv_stage(dh))
 
 
 def test_the_source_states_the_formulas_this_test_mirrors():
     assert "kConsumers = 2, kBKd = kConsumers * 64;" in SRC
-    assert ("return kBwdExtra + static_cast<size_t>(4 + 2 * kDqStages) *\n"
+    assert ("return kWsExtra + static_cast<size_t>(4 + 2 * kDqStages) *\n"
             "                         tile_bytes<DH>();") in SRC
     assert "return 3 * tile_bytes<DH>() + kRowsBytes;" in SRC
-    assert ("return kBwdExtra + 4 * static_cast<size_t>(tile_bytes<DH>()) "
+    assert ("return kWsExtra + 4 * static_cast<size_t>(tile_bytes<DH>()) "
             "+\n         static_cast<size_t>(kDkvStages) * "
             "dkv_stage_bytes<DH>();") in SRC
     assert "return 64 * DH * 2;" in SRC
     # the descriptors the consumers build
     assert ("return sw128_desc(addr + (ks / 4) * panel + (ks % 4) * 32, 16, "
             "1024);") in SRC
-    assert "return sw128_desc(addr + kk * 16 * 128, kPanel, 1024);" in SRC
+    assert "return sw128_desc(addr + kk * 16 * 128, panel, 1024);" in SRC
+    assert "int panel = kPanel) {" in SRC
     assert "const int e = 4 * (2 * kk + r / 2) + 2 * (r % 2);" in HDR
     # the grids and K4's pairing
-    assert "const int pair = G * nq / 2 - 1 - blockIdx.y;" in SRC
+    assert "const int pair = G * nq / 2 - 1 - y;     // longest first" in SRC
+    assert "pair_items<MODE, kBK>(mv, hk, G, nq, blockIdx.y);" in SRC
     assert "dim3(B * Hkv, Hq / Hkv * (S / kBQ) / 2)" in SRC
     assert "dim3(B * Hkv, S / kBKd)" in SRC
     # the PTX helpers live once, in hopper.cuh, included by both sources
@@ -123,8 +138,8 @@ def test_the_backward_kernels_are_wgmma_and_tma_only(kernel):
                 "cp_async", "scale_tile", "__syncthreads();\n    "):
         assert old not in src, old
     for new in ("tma_load(", "wgmma_ss_n64(", "wgmma_rs<DH>(",
-                "reg_release<kRegBwdProducer>()",
-                "reg_claim<kRegBwdConsumer>()", "mbar_wait(&empty[r.slot]"):
+                "reg_release<kRegProducer>()",
+                "reg_claim<kRegConsumer>()", "mbar_wait(&empty[r.slot]"):
         assert new in src, new
 
 
@@ -143,7 +158,7 @@ def test_every_instantiation_fits_shared_memory(dh, mode):
     # the extra: 1024 for alignment, then the barriers and K4's D rows
     barriers = 8 * (1 + 3 * C["kDkvStages"])
     assert barriers <= 512 and 8 * (1 + 2 * C["kDqStages"]) <= 512
-    assert 512 + 2 * 64 * 4 <= 1024 == C["kBwdExtra"] - 1024
+    assert 512 + 2 * 64 * 4 <= 1024 == C["kWsExtra"] - 1024
     # TMA boxes: 64 columns (128 bytes, the swizzle span) x 1 head x at
     # most 256 rows; a panel is 64 rows x 128 bytes
     assert C["kPanel"] == 64 * 128
@@ -151,10 +166,10 @@ def test_every_instantiation_fits_shared_memory(dh, mode):
 
 
 def test_register_split_fits_the_sm():
-    threads = C["kBwdThreads"]
+    threads = C["kWsThreads"]
     assert threads == 3 * 128
     cap = REGS_PER_SM // threads // 8 * 8           # 168 at launch
-    prod, cons = C["kRegBwdProducer"], C["kRegBwdConsumer"]
+    prod, cons = C["kRegProducer"], C["kRegConsumer"]
     assert all(24 <= r <= 256 and r % 8 == 0 for r in (prod, cons))
     # setmaxnreg moves registers within the block's pool at launch; an
     # inc past it waits for ever
@@ -212,7 +227,7 @@ def kmajor(addr: int, ks: int, panel: int) -> int:
 
 
 def nmajor(addr: int, kk: int) -> int:
-    return addr + kk * 16 * 128                          # nmajor()
+    return addr + kk * 16 * 128        # nmajor(); the panel is the LBO
 
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
@@ -366,18 +381,14 @@ def live_tiles(spec, s: int, bq: int, bk: int) -> set:
     return live
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda t: getattr(
-    t, "label", lambda: str(t))())
-@pytest.mark.parametrize("s,group", [(256, 1), (256, 2), (640, 3),
-                                     (640, 4), (384, 1)])
-def test_k4_pairs_cover_every_item_and_live_tile_once(spec, s, group):
+def pairs_cover_every_item_and_live_tile_once(spec, s, group, ranges,
+                                              bk):
     """Block (KV head, y) takes items 2p, 2p + 1 (p = pairs - 1 - y) of
     the KV head's group x nq items in (q tile, q head) order; its ring
     runs over the union of their ranges; a consumer computes the stages
     of its own range.  Every item is taken once, every live (q tile, kv
     tile) of each q head computed once, every allowed pair inside."""
     nq = s // C["kBQ"]
-    ranges = dq_ranges(spec, s)
     assert (group * nq) % 2 == 0
     items, computed = [], []
     for y in range(group * nq // 2):
@@ -397,7 +408,7 @@ def test_k4_pairs_cover_every_item_and_live_tile_once(spec, s, group):
     assert sorted(items) == [(g, qt) for g in range(group)
                              for qt in range(nq)]
     assert len(computed) == len(set(computed))
-    live = live_tiles(spec, s, C["kBQ"], C["kBK"])
+    live = live_tiles(spec, s, C["kBQ"], bk)
     got = {(qt, j) for g, qt, j in computed if g == 0}
     assert live <= got
     for g in range(group):
@@ -405,6 +416,15 @@ def test_k4_pairs_cover_every_item_and_live_tile_once(spec, s, group):
     # the longest first: the first blocks take the last q tiles
     if spec == "causal":
         assert max(qt for _, qt in items[:2]) == nq - 1
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda t: getattr(
+    t, "label", lambda: str(t))())
+@pytest.mark.parametrize("s,group", [(256, 1), (256, 2), (640, 3),
+                                     (640, 4), (384, 1)])
+def test_k4_pairs_cover_every_item_and_live_tile_once(spec, s, group):
+    pairs_cover_every_item_and_live_tile_once(spec, s, group,
+                                              dq_ranges(spec, s), C["kBK"])
 
 
 def k4_ring_runs_to_the_end(own: list, stages: int,
@@ -506,5 +526,159 @@ def test_k5_key_tiles_cover_every_live_tile_once(spec, s):
 
 
 def test_wrapper_tiles_are_the_kernels_tiles():
+    assert TFA.FWD_TILES == (C["kBQ"], C["kBKf"])
     assert TFA.DQ_TILES == (C["kBQ"], C["kBK"])
     assert TFA.DKV_TILES == (C["kBQ"], BKD)
+
+
+# ------------------------------------------------------------ K3 forward
+
+def fwd_ranges(spec, s: int) -> list:
+    """K3's visit range [j0, j1) of 128-key tiles per q tile (the
+    BlockMask at FWD_TILES under a mask)."""
+    nq, bkf = s // C["kBQ"], C["kBKf"]
+    if spec is None:
+        return [(0, s // bkf)] * nq
+    if spec == "causal":
+        return [(0, (qt * C["kBQ"] + C["kBQ"] - 1) // bkf + 1)
+                for qt in range(nq)]
+    bm = TM.block_mask(spec, s, *TFA.FWD_TILES)
+    return [(int(bm.q_first_k[qt]), int(bm.q_last_k[qt]) + 1)
+            for qt in range(s // C["kBQ"])]
+
+
+def test_the_forward_source_states_the_formulas_this_test_mirrors():
+    assert ("static_cast<size_t>(2 * kFwdQSlots +\n"
+            "                             2 * (kFwdKStages + kFwdVStages)) *\n"
+            "             tile_bytes<DH>();") in SRC
+    src = body("fwd_bf16")
+    # K4's pairing over persistent units (longest pairs first), the q
+    # tiles loaded by TMA into a slot freed when the unit's S retired
+    assert src.count("const Items it = pair_items<MODE, kBKf>(mv, hk, G, "
+                     "nq, u / nbh);") == 2
+    assert src.count("for (int u = blockIdx.x; u < units; u += gridDim.x)"
+                     ) == 2
+    assert "const int units = B * Hkv * (Hq / Hkv * (S / kBQ) / 2);" in SRC
+    assert "kernel<<<units < sms ? units : sms, kWsThreads, smem, stream>>>" \
+        in SRC
+    assert "mbar_expect_tx(&full_q[rq.slot], 2 * TB);" in src
+    assert src.index("if (lane == 0) mbar_arrive(&empty_q[rq.slot]);") > \
+        src.rindex("retire_pv<DH>(")
+    # separate K and V rings: V j - 1 is loaded after K j
+    assert "mbar_expect_tx(&full_k[rk.slot], KT);" in src
+    assert "mbar_expect_tx(&full_v[rv.slot], KT);" in src
+    assert "b * S + (j - 1) * kBKf);" in src
+    assert SRC.count("dim3(B * Hkv, Hq / Hkv * (S / kBQ) / 2)") == 1
+    # q rounded in place to bf16(q * scale * log2 e), S from Q and K
+    # K-major, p V from register A and V N-major
+    assert "scale_bytes(sq, sq, TB, q_mul, tid, 128);" in src
+    assert ("wgmma_ss_n128(s, kmajor(qa, ks, kPanel), kmajor(ka, ks, KP),\n"
+            "                        ks > 0);") in src
+    assert "wgmma_rs<DH>(acc, a[kk], nmajor(va, kk, 2 * kPanel), 1);" in SRC
+    assert "const float q_mul = scale * kLog2e;" in SRC
+
+
+def test_no_mma_sync_is_left_in_the_flash_kernels():
+    """K3/K6 left mma.sync, ldmatrix and cp.async with their first
+    design: the bf16 forward is the warp-specialised wgmma/TMA template
+    too."""
+    code = re.sub(r"//[^\n]*", "", SRC)
+    for old in ("mma.sync", "ldmatrix", "cp.async", "load_tile", "mma_abt",
+                "mma_xb"):
+        assert old not in code, old
+    src = body("fwd_bf16")
+    for new in ("tma_load(", "wgmma_ss_n128(", "reg_release<kRegProducer>()",
+                "reg_claim<kRegConsumer>()", "mbar_wait(&empty_k[rk.slot]",
+                "mbar_wait(&empty_v[rv.slot]"):
+        assert new in src, new
+    assert "static_assert(fwd_smem<DH>() <= 232448" in SRC
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_the_forward_fits_shared_memory(dh, mode):
+    """K3 holds two slots of the two items' q tiles (the next unit's
+    loads while this one finishes) and rings of 128-key K and V tiles."""
+    del mode                    # the layout is the same in every mode
+    assert C["kFwdKStages"] >= 2 and C["kFwdVStages"] >= 2
+    assert C["kFwdQSlots"] == 2
+    assert fwd_smem(dh) <= SMEM_LIMIT
+    # barriers: full and empty per q slot and per stage of the K ring and
+    # the V ring, under the 512 bytes before the tiles
+    assert 16 * (C["kFwdQSlots"] + C["kFwdKStages"] + C["kFwdVStages"]) \
+        <= 512
+    assert tile_bytes(dh) % 1024 == 0
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_the_forward_consumer_fits_its_registers(dh):
+    """A K3 consumer holds O (64 x Dh f32), S (64 x 128 f32) and the
+    packed p of the stage whose p V is on the tensor cores (8 K steps x 4
+    registers) while S is in its softmax, with room left for addresses,
+    m, l and the row bounds."""
+    o, s, frags = dh // 2, 64, 8 * 4
+    assert o + s + frags + 32 <= C["kRegConsumer"]
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_k3_reads_q_and_k_kmajor_and_v_nmajor(dh):
+    """S = Q K^T reads the q tile and the 128-key K stage K-major (N =
+    128 rows, panels of 128 rows); O += p V reads the V stage N-major (Dh
+    is N, the stage's 128 keys the contraction, 8 K steps)."""
+    bkf, kp = C["kBKf"], 2 * C["kPanel"]
+    q, k, v = ids(64, dh, 6), ids(bkf, dh, 7), ids(bkf, dh, 8)
+    qi, ki, vi = tma_image(q), tma_image(k), tma_image(v)
+    for ks in range(dh // 16):
+        a = kmajor_read(qi, kmajor(0, ks, C["kPanel"]), 64)
+        b = kmajor_read(ki, kmajor(0, ks, kp), bkf)
+        assert (a == q[:, 16 * ks:16 * ks + 16]).all()
+        assert (b == k[:, 16 * ks:16 * ks + 16]).all()
+    for kk in range(bkf // 16):
+        b = nmajor_read(vi, nmajor(0, kk), dh, kp)
+        assert (b == v[16 * kk:16 * kk + 16, :]).all()
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda t: getattr(
+    t, "label", lambda: str(t))())
+@pytest.mark.parametrize("s,group", [(128, 1), (256, 2), (640, 3),
+                                     (640, 4), (384, 1)])
+def test_k3_pairs_cover_every_item_and_live_tile_once(spec, s, group):
+    """K3 pairs items as K4 does, over its 128-key tiles (FWD_TILES)."""
+    pairs_cover_every_item_and_live_tile_once(spec, s, group,
+                                              fwd_ranges(spec, s),
+                                              C["kBKf"])
+
+
+@pytest.mark.parametrize("spec", SPECS + LONG_DOCS, ids=lambda t: getattr(
+    t, "label", lambda: str(t))())
+@pytest.mark.parametrize("s,group", [(256, 1), (640, 1), (640, 3),
+                                     (1024, 3)])
+def test_k3_ring_never_waits_on_a_held_stage(spec, s, group):
+    """A K3 consumer frees a stage's K once its S retires, and holds the
+    V of the stage whose p V is pending until its next stage's S
+    retires; over a stage outside its range it retires that p V and
+    frees the pending V first, then the stage's K and V, so the V ring
+    (modelled) runs to its end."""
+    src = body("fwd_bf16")
+    skip = src.index("// outside this item's range")
+    assert src.index("retire_pv<DH>(acc, a,", skip) < src.index(
+        "mbar_arrive(&empty_v[rv.slot]);", skip)
+    assert src.index("if (lane == 0) mbar_arrive(&empty_k[rk.slot]);") < \
+        src.index("ex2(m[hh] - m_new)")
+    ranges = fwd_ranges(spec, s)
+    nq = s // C["kBQ"]
+    for pair in range(group * nq // 2):
+        own = [ranges[(2 * pair + c) // group] for c in range(2)]
+        assert k4_ring_runs_to_the_end(own, C["kFwdVStages"])
+
+
+@pytest.mark.parametrize("units,sms", [(3072, 132), (16, 132), (133, 132),
+                                       (1, 132)])
+def test_k3_persistent_blocks_take_every_unit_once(units, sms):
+    """min(units, SMs) blocks, block k taking units k, k + grid, ...: every
+    (pair, KV head) unit once, the longest pairs (the first units) spread
+    one a block."""
+    grid = min(units, sms)
+    taken = [u for k in range(grid) for u in range(k, units, grid)]
+    assert sorted(taken) == list(range(units))
+    assert all(k < units for k in range(grid))

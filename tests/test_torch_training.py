@@ -449,7 +449,7 @@ def test_longcontext_line_runs_on_cpu(monkeypatch, capsys):
         assert line[f"ratio_{leg}_vs_dense"]["value"] > 0
     assert line["value"] == line["splash_window"]["value"]
     assert "B=1 S=256 Hq=2 Hkv=1 Dh=128" in line["metric"]
-    assert "64x64 tiles" in line["metric"]
+    assert "{}x{} tiles".format(*TFA.FWD_TILES) in line["metric"]
     spec = TM.MaskSpec(causal=True, window=64)
     st = TM.block_mask(spec, 256, *TFA.FWD_TILES).stats()
     assert line["masks"]["splash_window"]["block_skip_fraction"] \
