@@ -167,6 +167,22 @@ Phases, in order; any failure exits non-zero:
    causal against window(4096), paired rounds;
 10. ``dlnetbench_tpu_torch.entry.entry()`` forward once at S=1024: logits
    [1, 1024, 32768], finite, K3 launched once per layer;
+10a. the DP and FSDP proxies at world 1 and full size, in process,
+   through ``cli.main(["dp" | "fsdp", ...])`` (NCCL; no Hopper kernel:
+   the compute is the burn, a CUDA-graph-replayed matmul chain): the
+   H100 stats file llama3_8b_16_bfloat16, bf16 buffers at --size_scale 1
+   (DP buckets of 8 030 261 248 elements), --time_scale 0.05, -w 3 -r 5,
+   8 buckets / 8 units.  Bars: the record complete with every timer
+   (FSDP: also allgather_time, reduce_scatter_time) and sum(bucket_bytes)
+   = 2 x model_size; the run's collective counters equal 8 allreduces
+   (DP), 15 allgathers and 8 reduce-scatters (FSDP) per full step times
+   the steps it called, and one full step of a bundle built again issues
+   exactly those; the median compute_time within 10 % of (fwd_us +
+   bwd_us) x time_scale; issuing a full step returns to Python within
+   10 % of its fenced time; energy_source nvml and a mean power between
+   50 W and the card's limit; the medians and the phase's wall time
+   printed, and the compute leg's burn timed six times 0.5 s apart
+   against its calibration (printed, no bar);
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -252,9 +268,9 @@ MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
 WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
 # moved there from the jax-importing test files, 46 added with the split
-# K1/K2 and the wgmma K3/K6); all 170 must pass
+# K1/K2 and the wgmma K3/K6, 11 with the proxies); all 181 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 170
+CARD_TESTS_MIN = 181
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -334,6 +350,25 @@ def card_line() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi: rc {smi.returncode} {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def idle_draw_w() -> float:
+    """The card's power draw at rest (nvidia-smi): the least of five
+    readings 0.2 s apart, the card idle since the last fence."""
+    import torch
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(5):
+        time.sleep(0.2)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        try:
+            reads.append(float(smi.stdout.strip().splitlines()[0]))
+        except (ValueError, IndexError):
+            fail(f"nvidia-smi power.draw: {smi.stdout!r} {smi.stderr!r}")
+    return min(reads)
 
 
 def smi_sample(label: str) -> None:
@@ -2036,6 +2071,153 @@ def entry_phase(torch) -> None:
         f"{float(logits.std()):.3f}; flash launches {counts}")
 
 
+PROXY_MODEL = "llama3_8b_16_bfloat16"
+PROXY_TIME_SCALE = 0.05
+PROXY_FLAGS = ["--model", PROXY_MODEL, "--buffer_dtype", "bfloat16",
+               "--size_scale", "1", "--time_scale", str(PROXY_TIME_SCALE),
+               "-w", "3", "-r", "5"]
+PROXY_RUNS = {"dp": (["--num_buckets", "8"],
+                     {"allreduce": 8, "allgather": 0, "reduce_scatter": 0}),
+              "fsdp": (["--num_units", "8"],
+                       {"allreduce": 0, "allgather": 15,
+                        "reduce_scatter": 8})}
+PROXY_TIMERS = ["runtimes", "compute_time", "barrier_time", "comm_time",
+                "overlap_fraction", "energy_consumed"]
+PROXY_BURN_TOL = 0.10      # compute leg vs (fwd + bwd) x time_scale
+PROXY_ISSUE_MAX = 0.10     # host issue time over the fenced step
+PROXY_POWER_MIN_W = 50.0   # or the card's idle draw before the phase
+
+
+def proxy_phase(torch, card: str) -> None:
+    """The DP and FSDP proxies at world 1 and full size through
+    ``cli.main(["dp" | "fsdp", ...])``: llama3_8b_16_bfloat16's H100
+    stats file, bf16 buffers at --size_scale 1 (the DP buckets hold the
+    model's 8 030 261 248 elements), --time_scale 0.05, -w 3 -r 5.
+    Bars: the record is complete, every timer present and ``sum(
+    bucket_bytes)`` = 2 x model_size; one full step issues 8 allreduces
+    (DP) or 15 allgathers and 8 reduce-scatters (FSDP), and the run's
+    counters equal that per step times the steps it called; the median
+    compute_time is within 10 % of (fwd_us + bwd_us) x time_scale;
+    issuing one full step returns to Python in under 10 % of its fenced
+    time; energy_source is nvml and the runs' energy over their runtime
+    gives a mean power between the card's idle draw (nvidia-smi, read
+    before the phase; at least 50 W) and its limit.  Printed: each
+    run's compute leg against the stats time and against the burn's
+    plan, beside the SM clock and power NVML read after each chain."""
+    from dlnetbench_tpu_torch import cli
+    from dlnetbench_tpu_torch.core.model_stats import load_model_stats
+    from dlnetbench_tpu_torch.parallel import collectives as col
+    from dlnetbench_tpu_torch.parallel import multihost
+    from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
+    from dlnetbench_tpu_torch.proxies import dp, fsdp
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
+    stats = load_model_stats(PROXY_MODEL)
+    want_compute = (stats.fwd_us + stats.bwd_us) * PROXY_TIME_SCALE
+    limit_w = float(card.split(",")[-1].strip().split()[0])
+    t_phase = time.perf_counter()
+    idle_w = idle_draw_w()
+    min_w = max(PROXY_POWER_MIN_W, idle_w)
+    say(f"proxy phase: idle draw {idle_w:.1f} W before it (the power "
+        f"bar's floor {min_w:.1f} W)")
+    device = multihost.initialize("cuda")
+    for proxy, (extra, per_step) in PROXY_RUNS.items():
+        path = OUT / f"proxy_{proxy}.jsonl"
+        path.unlink(missing_ok=True)
+        smi_sample(f"proxy {proxy}")
+        t0 = time.perf_counter()
+        col.reset_counts()
+        rc = cli.main([proxy, *PROXY_FLAGS, *extra, "--out", str(path)])
+        got = col.counts()
+        wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if rc != 0 or not path.is_file():
+            fail(f"proxy {proxy}: cli rc {rc}, record {path.is_file()}")
+        rec = json.loads(path.read_text().strip().splitlines()[-1])
+        g, row = rec["global"], rec["ranks"][0]
+        timers = PROXY_TIMERS + (["allgather_time", "reduce_scatter_time"]
+                                 if proxy == "fsdp" else [])
+        missing = [t for t in timers
+                   if len(row.get(t) or []) != rec["num_runs"]]
+        if rec["num_runs"] != 5 or missing or len(rec["ranks"]) != 1:
+            fail(f"proxy {proxy}: record incomplete: runs "
+                 f"{rec['num_runs']}, missing timers {missing}")
+        if proxy == "dp" and sum(g["bucket_bytes"]) != 2 * stats.model_size:
+            fail(f"proxy dp: sum(bucket_bytes) {sum(g['bucket_bytes'])} != "
+                 f"2 x {stats.model_size}")
+        # full: build + 3 warmup + 5 runs; comm-only and the FSDP
+        # variant holding each kind: build + 1 warm + 5 runs
+        want = {k: v * (9 + 7 + (7 if proxy == "fsdp" else 0))
+                for k, v in per_step.items()}
+        if got != want:
+            fail(f"proxy {proxy}: collectives in the cli run {got}, want "
+                 f"{want}")
+        med = {t: statistics.median(row[t]) for t in timers}
+        if abs(med["compute_time"] / want_compute - 1) > PROXY_BURN_TOL:
+            fail(f"proxy {proxy}: compute_time median "
+                 f"{med['compute_time']:.0f} us vs (fwd + bwd) x "
+                 f"time_scale {want_compute:.0f} us (bar "
+                 f"{PROXY_BURN_TOL:.0%})")
+        if g.get("energy_source") != "nvml":
+            fail(f"proxy {proxy}: energy_source {g.get('energy_source')}")
+        # NVML's energy counter moves every ~100 ms, so one 0.36 s step
+        # sees 3 or 4 of its updates: the power is all the steps' joules
+        # over all their time, not a median step's
+        watts = sum(row["energy_consumed"]) / (sum(row["runtimes"]) * 1e-6)
+        if not min_w <= watts <= limit_w:
+            fail(f"proxy {proxy}: mean power {watts:.1f} W outside "
+                 f"[{min_w:.1f}, {limit_w}]")
+        burn, state = row["burn"], row.get("card_state", {})
+        say(f"proxy {proxy}: cli run {wall:.1f} s; medians " + ", ".join(
+            f"{t} {v:.1f}" for t, v in med.items())
+            + f" (us; J; overlap); {watts:.1f} W; compute leg "
+            f"{med['compute_time'] / want_compute:.4f} x stats (burn "
+            f"{burn['ns_per_iter']:.1f} ns an iteration); collectives "
+            f"{got}")
+        say(f"proxy {proxy}: per run, compute leg x stats "
+            f"{[round(c / want_compute, 4) for c in row['compute_time']]}, "
+            f"x the burn's plan "
+            f"{[round(c / burn['planned_us'], 4) for c in row['compute_time']]}"
+            f"; SM clock after the full / compute chain "
+            f"{state.get('sm_clock_mhz')} / "
+            f"{state.get('compute_sm_clock_mhz')} MHz; power "
+            f"{state.get('power_w')} / {state.get('compute_power_w')} W")
+        smi_sample(f"after proxy {proxy}")
+
+    # one full step, built again: its collectives and its issue time
+    cfg = ProxyConfig(size_scale=1.0, time_scale=PROXY_TIME_SCALE)
+    for proxy, (extra, per_step) in PROXY_RUNS.items():
+        if proxy == "dp":
+            bundle = dp.build(stats, 8, cfg, make_flat_mesh(device),
+                              dtype=torch.bfloat16)
+        else:
+            bundle = fsdp.build(stats, 8, cfg, device,
+                                dtype=torch.bfloat16)
+        col.reset_counts()
+        bundle.full()
+        torch.cuda.synchronize()
+        if col.counts() != per_step:
+            fail(f"proxy {proxy}: one full step issued {col.counts()}, "
+                 f"want {per_step}")
+        shares = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundle.full()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            shares.append((t1 - t0) / (time.perf_counter() - t0))
+        share = statistics.median(shares)
+        if share >= PROXY_ISSUE_MAX:
+            fail(f"proxy {proxy}: issuing a step took {share:.3f} of its "
+                 f"fenced time (bar {PROXY_ISSUE_MAX})")
+        say(f"proxy {proxy}: one step issues {per_step}; host issue "
+            f"{share:.4f} of the fenced step ({[round(x, 4) for x in shares]})")
+        del bundle
+        torch.cuda.empty_cache()
+    multihost.shutdown()
+    say(f"proxy phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def card_tests_phase() -> None:
     """The card-only pytest cases (``CARD_TESTS``, files that import no
     jax) in a subprocess, without tests/conftest.py (which imports jax):
@@ -2689,6 +2871,9 @@ def main(argv: list[str]) -> int:
     smi_sample("after masked steps")
     torch.cuda.empty_cache()
     entry_phase(torch)
+    torch.cuda.empty_cache()
+    smi_sample("proxies")
+    proxy_phase(torch, card)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         profile_phase(torch)

@@ -9,9 +9,13 @@ its own copy (the model cards under ``data/models`` included).
 
 Slice 1 — the serving path of ``cli serve`` (classic one-token-per-step
 greedy decode over a paged KV cache); slice 2 — the headline training
-step (forward, backward, SGD) and the flagship forward:
+step (forward, backward, SGD) and the flagship forward; slices 3–9 —
+the MLP recipes, MoE, masks and the kernels' Hopper redesigns; slice
+10 — the proxy spine and the DP and FSDP proxies:
 
-  core/      model cards, hardware presets, the roofline model
+  core/      model cards, hardware presets, the roofline model, stats
+             files (``data/model_stats``: H100 rooflines), the schedule
+             algebra, build-time warming of step programs
   models/    the dense gated transformer's layers, config, weights,
              forward and loss; the bench train step
   ops/       hand-written Hopper kernels (``csrc/*.cu``: paged decode
@@ -20,12 +24,18 @@ step (forward, backward, SGD) and the flagship forward:
              beside each kernel, and the ``attention`` dispatcher
   serving/   arrival plans, the paged KV cache, prefill/decode programs,
              the continuous-batching engine and its metrics
-  metrics/   sample summaries and schema-v2 record emission
-  proxies/   the ``ProxyResult`` record carrier
-  utils/     timing
+  metrics/   sample summaries, overlap, energy (NVML first) and
+             schema-v2 record emission
+  parallel/  ``torch.distributed`` bring-up, process groups in the
+             JAX meshes' shape, collectives on a comm stream, buffers
+  proxies/   the harness (``run_proxy``), the calibrated burn (CUDA
+             graphs), the DP and FSDP proxies
+  utils/     timing, a free loopback port
+  stats_gen.py  ``python -m dlnetbench_tpu_torch.stats_gen``
   bench.py   ``python -m dlnetbench_tpu_torch.bench`` (headline line)
   entry.py   ``entry()``, the flagship forward
-  cli.py     ``python -m dlnetbench_tpu_torch.cli serve|train ...``
+  cli.py     ``python -m dlnetbench_tpu_torch.cli
+             dp|fsdp|serve|train ...``
 
 Every entry point runs on ``cuda`` unless the caller asks for ``cpu``;
 with no card and no explicit ``cpu`` it raises.  On a CUDA tensor each

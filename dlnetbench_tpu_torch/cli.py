@@ -1,7 +1,21 @@
 """Command line of the torch package:
 
+    python -m dlnetbench_tpu_torch.cli dp --model MODEL --num_buckets N
+    python -m dlnetbench_tpu_torch.cli fsdp --model MODEL --num_units N \
+        [--sharding_factor S]
+    torchrun --nproc_per_node W -m dlnetbench_tpu_torch.cli dp ...
     python -m dlnetbench_tpu_torch.cli serve --arrival PLAN [flags]
     python -m dlnetbench_tpu_torch.cli train [--platform cuda|cpu]
+
+``dp`` and ``fsdp`` are the reference's proxies with the JAX package's
+flags: the schedule of the stats file ``--model``
+(``data/model_stats/<model>.txt``) replayed with real collectives on
+buffers of the model's size (``--size_scale 1``) and a calibrated burn
+for the compute, timed full / compute-only / comm-only.  The world
+comes from the launcher (``torchrun``: NCCL on the cards, gloo with
+``--platform cpu``); started alone, a process is world 1.  Rank 0
+appends one schema-v2 record to ``--out`` (or stdout), each rank's own
+timers in its row.
 
 ``serve`` is the JAX package's ``cli serve`` (same flag names and
 defaults) for the slice the port covers: the classic greedy engine with
@@ -68,11 +82,58 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                    help="cuda (default; an error without a card) or cpu")
 
 
+# --buffer_dtype -> torch dtype (the JAX package's float8 is e4m3)
+BUFFER_DTYPES = {"float32": "float32", "bfloat16": "bfloat16",
+                 "float8": "float8_e4m3fn", "int8": "int8"}
+# gloo has no float8 type: its allreduce, allgather and reduce-scatter
+# of e4m3 raise "Invalid scalar type".  NCCL reduces e4m3 on the card.
+GLOO_REFUSED_DTYPES = ("float8",)
+
+
+def _add_proxy(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", required=True,
+                   help="stats-file name, e.g. llama3_8b_16_bfloat16")
+    p.add_argument("-w", "--warmup", type=int, default=3)
+    p.add_argument("-r", "--runs", type=int, default=5)
+    p.add_argument("-m", "--min_exectime", type=float, default=0.0,
+                   help="seconds; when set, runs are estimated from warmup")
+    p.add_argument("-k", "--reps_per_fence", type=int, default=1,
+                   help="K step calls per fence (utils/timing.time_chain); "
+                        "1 = fence per rep (reference parity)")
+    p.add_argument("--loop", action="store_true",
+                   help="run the schedule forever (congestor mode)")
+    p.add_argument("-d", "--devices", default=None,
+                   help="refused: the world comes from the launcher "
+                        "(torchrun --nproc_per_node N)")
+    p.add_argument("--platform", default="cuda", choices=list(PLATFORMS),
+                   help="cuda (default; NCCL, an error without a card) or "
+                        "cpu (gloo)")
+    p.add_argument("--buffer_dtype", default="float32",
+                   choices=[*BUFFER_DTYPES, "stats"],
+                   help="collective-buffer element type; 'stats' follows "
+                        "the stats file's Dtype (float8 = e4m3, refused "
+                        "with --platform cpu: gloo has no float8 type)")
+    p.add_argument("--size_scale", type=float, default=1.0)
+    p.add_argument("--time_scale", type=float, default=1.0)
+    p.add_argument("--stats_dir", default=None)
+    p.add_argument("--out", default=None, help="append JSON record to file")
+    p.add_argument("--tag", action="append", default=[], metavar="KEY=VALUE",
+                   help="attach a variable to the emitted record")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="dlnetbench_tpu_torch",
         description="PyTorch/CUDA port of dlnetbench_tpu")
     sub = parser.add_subparsers(dest="proxy", required=True)
+    p_dp = sub.add_parser("dp", help="bucketed data-parallel allreduce")
+    _add_proxy(p_dp)
+    p_dp.add_argument("--num_buckets", type=int, required=True)
+    p_fsdp = sub.add_parser("fsdp", help="ZeRO-3 allgather/reduce-scatter")
+    _add_proxy(p_fsdp)
+    p_fsdp.add_argument("--num_units", type=int, required=True)
+    p_fsdp.add_argument("--sharding_factor", type=int, default=0,
+                        help="0 = whole world (no replicas)")
     _add_serve(sub.add_parser(
         "serve", help="serving tier: paged-KV decode under continuous "
                       "batching + an open-loop arrival plan"))
@@ -92,24 +153,111 @@ def main(argv=None) -> int:
         from dlnetbench_tpu_torch import bench
         return bench.main(["--platform", args.platform]
                           + (["--skip-aux"] if args.skip_aux else []))
+    if args.proxy in ("dp", "fsdp"):
+        return _run_proxy(args, parser)
     return _run_serve(args, parser)
 
 
-def _run_serve(args, parser) -> int:
-    from dlnetbench_tpu_torch.metrics.emit import (emit_result,
-                                                   scheduler_variables)
-    from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
-                                                         init_params)
-    from dlnetbench_tpu_torch.ops.common import resolve_device
-    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
-    from dlnetbench_tpu_torch.serving.scheduler import (ServingConfig,
-                                                        run_serving)
+def _tags(args, parser) -> dict:
+    from dlnetbench_tpu_torch.metrics.emit import scheduler_variables
     variables = scheduler_variables()
     for tag in args.tag:
         key, sep, value = tag.partition("=")
         if not sep or not key:
             parser.error(f"--tag wants KEY=VALUE, got {tag!r}")
         variables[key] = value
+    return variables
+
+
+def _run_proxy(args, parser) -> int:
+    import torch
+
+    from dlnetbench_tpu_torch.core.model_stats import load_model_stats
+    from dlnetbench_tpu_torch.metrics.emit import emit_result
+    from dlnetbench_tpu_torch.parallel import multihost
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig, run_proxy
+    if args.devices is not None:
+        parser.error("-d/--devices is not taken: the world comes from the "
+                     "launcher — torchrun --nproc_per_node N -m "
+                     "dlnetbench_tpu_torch.cli ... (one card per rank)")
+    if args.reps_per_fence < 1:
+        parser.error("--reps_per_fence must be >= 1")
+    variables = _tags(args, parser)
+    try:
+        stats = load_model_stats(args.model, args.stats_dir)
+    except (FileNotFoundError, ValueError) as e:
+        parser.error(str(e))
+    dtype_name = (stats.dtype if args.buffer_dtype == "stats"
+                  else args.buffer_dtype)
+    if dtype_name not in BUFFER_DTYPES:
+        parser.error(f"stats file dtype {dtype_name!r} has no buffer "
+                     f"mapping; supported: {list(BUFFER_DTYPES)}")
+    if args.platform == "cpu" and dtype_name in GLOO_REFUSED_DTYPES:
+        parser.error(f"buffer dtype {dtype_name} (e4m3) is refused with "
+                     f"--platform cpu: gloo has no float8 type (its "
+                     f"collectives raise 'Invalid scalar type'); NCCL on "
+                     f"a card reduces it")
+    dtype = getattr(torch, BUFFER_DTYPES[dtype_name])
+    cfg = ProxyConfig(warmup=args.warmup, runs=args.runs,
+                      min_exectime_s=args.min_exectime, loop=args.loop,
+                      size_scale=args.size_scale,
+                      time_scale=args.time_scale,
+                      reps_per_fence=args.reps_per_fence)
+    owned = not torch.distributed.is_initialized()
+    try:
+        device = multihost.initialize(args.platform)
+    except RuntimeError as e:
+        parser.error(str(e))
+    try:
+        bundle = _build_proxy(args, parser, stats, cfg, device, dtype)
+        bundle.global_meta["buffer_dtype"] = dtype_name
+        if variables:
+            bundle.global_meta["variables"] = variables
+        result = run_proxy(args.proxy, bundle, cfg)
+        # every rank's own timers and meta, in rank order, into rank
+        # 0's record
+        per_rank = multihost.all_ranks((result.timers_us,
+                                        bundle.rank_meta))
+        if multihost.rank() == 0:
+            record = emit_result(
+                result, path=args.out,
+                rank_timers_us=[t for t, _ in per_rank],
+                rank_meta=[m for _, m in per_rank])
+            g = record["global"]
+            print(f"{args.proxy}: {g['model']} world {g['world_size']} on "
+                  f"{record['mesh']['device_kind']} — runtime median "
+                  f"{record['ranks'][0]['summary']['runtimes']['value']} "
+                  f"us", file=sys.stderr)
+    finally:
+        if owned:
+            multihost.shutdown()
+    return 0
+
+
+def _build_proxy(args, parser, stats, cfg, device, dtype):
+    try:
+        if args.proxy == "dp":
+            from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
+            from dlnetbench_tpu_torch.proxies import dp
+            return dp.build(stats, args.num_buckets, cfg,
+                            make_flat_mesh(device), dtype=dtype)
+        from dlnetbench_tpu_torch.proxies import fsdp
+        return fsdp.build(stats, args.num_units, cfg, device,
+                          sharding_factor=args.sharding_factor or None,
+                          dtype=dtype)
+    except ValueError as e:
+        parser.error(str(e))     # configuration-invariant violations
+
+
+def _run_serve(args, parser) -> int:
+    from dlnetbench_tpu_torch.metrics.emit import emit_result
+    from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from dlnetbench_tpu_torch.ops.common import resolve_device
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.scheduler import (ServingConfig,
+                                                        run_serving)
+    variables = _tags(args, parser)
     try:
         plan = ArrivalPlan.loads(args.arrival)
     except (ValueError, OSError, KeyError) as e:

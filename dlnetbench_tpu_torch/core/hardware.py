@@ -43,6 +43,8 @@ HARDWARE: dict[str, HardwareSpec] = {
     ),
 }
 
+DEFAULT_DEVICE = "h100_sxm"
+
 BYTES_PER_ELEMENT = {"bfloat16": 2.0, "float8": 1.0, "float32": 4.0,
                      "int8": 1.0, "nvfp4": 0.5}
 

@@ -125,3 +125,18 @@ def load_model_card(name: str, card_dir: Path | str | None = None) -> ModelCard:
         raw = json.load(f)
     return _parse_card(name, raw)
 
+
+
+def list_model_cards(card_dir: Path | str | None = None) -> list[str]:
+    """Names of the cards in ``card_dir`` (default: the port's), sorted."""
+    d = Path(card_dir) if card_dir else CARD_DIR
+    return sorted(p.stem for p in d.glob("*.json"))
+
+
+def arch_name_from_stats_name(stats_name: str) -> str:
+    """``llama3_8b_16_bfloat16`` -> ``llama3_8b``: the card name is the
+    stats name without its trailing ``_<batch>_<dtype>``."""
+    parts = stats_name.split("_")
+    if len(parts) < 3:
+        raise ValueError(f"not a stats name: {stats_name!r}")
+    return "_".join(parts[:-2])

@@ -81,3 +81,25 @@ def forward_time_s(card: ModelCard, batch: int, dtype: str,
     hw = HARDWARE[device]
     return roofline_time_s(model_flops(card, batch),
                            model_bytes(card, batch, dtype), hw, dtype)
+
+
+def train_step_time_s(card: ModelCard, batch: int, dtype: str,
+                      device: str) -> float:
+    """Roofline time of one train step: the step's FLOPs (forward plus
+    ``BWD_FWD_RATIO`` forwards) over ``train_step_bytes``'s traffic."""
+    hw = HARDWARE[device]
+    flops = int(model_flops(card, batch) * (1.0 + BWD_FWD_RATIO))
+    return roofline_time_s(flops, train_step_bytes(card, batch, dtype),
+                           hw, dtype)
+
+
+def ffn_forward_time_s(card: ModelCard, batch: int, dtype: str,
+                       device: str) -> float:
+    """Roofline time of the FFN blocks alone, their share of the
+    forward's traffic in proportion to their FLOPs (the stats files'
+    ``FFN_Average_Forward_Time``)."""
+    hw = HARDWARE[device]
+    fl = mlp_flops(card, batch)
+    total_bytes = model_bytes(card, batch, dtype)
+    frac = fl / max(model_flops(card, batch), 1)
+    return roofline_time_s(fl, int(total_bytes * frac), hw, dtype)

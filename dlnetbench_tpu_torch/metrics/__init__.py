@@ -1,1 +1,2 @@
-"""Sample summaries and schema-v2 record emission."""
+"""Sample summaries, overlap, energy sampling and schema-v2 record
+emission."""

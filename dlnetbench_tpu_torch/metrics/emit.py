@@ -8,8 +8,12 @@ One run becomes one self-describing JSON object:
      "ranks": [{"rank": 0, "device_id": ..., "<timer>": [...],
                 "summary": {"<timer>": {"value", "best", "band", "n"}}}]}
 
-The JAX package's ``metrics/parser.py`` reads these records as it reads
-its own.  Not ported yet: the tuning, telemetry and attribution stamps.
+A proxy record written by rank 0 of a multi-process world carries each
+rank's own timers in its row (``rank_timers_us``), beside the rank's
+dict-valued ``rank_meta`` (its burn plan, the card's state), which the
+parser reads no column from.  The JAX package's
+``metrics/parser.py`` reads these records as it reads its own.  Not
+ported yet: the tuning, telemetry and attribution stamps.
 """
 from __future__ import annotations
 
@@ -51,29 +55,46 @@ def _process_identity() -> tuple[int, int]:
 
 def transport_label(mesh_info: dict) -> str:
     """What timed bytes moved over: nothing but the device itself for a
-    one-device run."""
+    one-device run, loopback between CPU processes (gloo), NCCL between
+    cards."""
     if mesh_info.get("num_devices", 1) <= 1:
         return "local"
-    return mesh_info.get("platform") or "unknown"
+    platform = mesh_info.get("platform")
+    if platform == "cpu":
+        return "virtual-host"
+    if platform == "gpu":
+        return "nccl"
+    return platform or "unknown"
 
 
-def result_to_record(result: ProxyResult) -> dict:
+def result_to_record(result: ProxyResult,
+                     rank_timers_us: list | None = None,
+                     rank_meta: list | None = None) -> dict:
+    """The record of ``result``; ``rank_timers_us`` holds every rank's
+    own timers in rank order (None: ``result.timers_us`` on every row),
+    ``rank_meta`` every rank's dict-valued meta (None: none)."""
     mesh_info = result.global_meta.get("mesh", {})
     devices = mesh_info.get("devices", [{"id": 0, "process": 0}])
     hostname = socket.gethostname()
     proc, num_procs = _process_identity()
-    summary = {name: summarize(vals, ndigits=3)
-               for name, vals in result.timers_us.items()}
+    if rank_timers_us is not None and len(rank_timers_us) != len(devices):
+        raise ValueError(f"{len(rank_timers_us)} ranks' timers for "
+                         f"{len(devices)} devices")
     ranks = []
     for i, dev in enumerate(devices):
+        timers = (rank_timers_us[i] if rank_timers_us is not None
+                  else result.timers_us)
         row = {
             "rank": i,
             "device_id": dev.get("id", i),
             "process_index": dev.get("process", 0),
-            "hostname": hostname,
+            "hostname": dev.get("hostname", hostname),
         }
-        row.update(result.timers_us)
-        row["summary"] = dict(summary)
+        if rank_meta is not None:
+            row.update(rank_meta[i])
+        row.update(timers)
+        row["summary"] = {name: summarize(vals, ndigits=3)
+                          for name, vals in timers.items()}
         ranks.append(row)
     g = {k: v for k, v in result.global_meta.items() if k != "mesh"}
     g.setdefault("transport", transport_label(mesh_info))
@@ -91,11 +112,12 @@ def result_to_record(result: ProxyResult) -> dict:
     }
 
 
-def emit_result(result: ProxyResult, stream=None,
-                path: str | None = None) -> dict:
+def emit_result(result: ProxyResult, stream=None, path: str | None = None,
+                rank_timers_us: list | None = None,
+                rank_meta: list | None = None) -> dict:
     """Append the record as one JSON line to ``path`` (or write it to
     ``stream``, stdout by default); returns the record."""
-    record = result_to_record(result)
+    record = result_to_record(result, rank_timers_us, rank_meta)
     line = json.dumps(record)
     if path:
         with open(path, "a") as f:

@@ -3,7 +3,8 @@
 
     {"value": median, "best": min, "band": [lo, hi], "n": N}
 
-``flag_low_mode`` stamps a ``note`` on a line whose best sample sits
+``overlap_fraction`` reads the proxies' A/B decomposition as the
+measured communication-compute overlap.  ``flag_low_mode`` stamps a ``note`` on a line whose best sample sits
 far below its median: the samples straddle two modes and the median is
 a mixture, not a central tendency.  ``bands_overlap`` says whether two
 such bands can be told apart.
@@ -34,6 +35,28 @@ def summarize(samples: list[float], ndigits: int | None = None) -> dict:
         out["value"] = round(out["value"], ndigits)
         out["best"] = round(out["best"], ndigits)
         out["band"] = [round(v, ndigits) for v in out["band"]]
+    return out
+
+
+def overlap_fraction(full, compute, comm) -> list[float]:
+    """Measured communication-compute overlap per matched sample of the
+    full / compute-only / comm-only legs (``proxies/base.run_proxy``):
+
+        overlap_i = (Tc_i + Tm_i - T_both_i) / min(Tc_i, Tm_i)
+
+    1.0 = the shorter leg fully hidden behind the longer, 0.0 = fully
+    serialized, negative = running together is slower than back to back
+    (contention).  Not clamped.  A sample whose shorter leg is ~0 (below
+    0.1 % of the largest leg) yields 0.0: nothing to hide, and an
+    unbounded ratio from a degenerate denominator must never dominate a
+    summary."""
+    out = []
+    for f, c, m in zip(full, compute, comm):
+        denom = min(c, m)
+        if denom <= 0 or denom <= 1e-3 * max(f, c, m):
+            out.append(0.0)
+        else:
+            out.append((c + m - f) / denom)
     return out
 
 

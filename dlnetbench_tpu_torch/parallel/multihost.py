@@ -1,0 +1,100 @@
+"""Bringing up ``torch.distributed`` — the counterpart of the JAX
+package's ``parallel/multihost.py`` (``jax.distributed.initialize``).
+
+One process per rank, started by a launcher (``torchrun
+--nproc_per_node N``) that sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``.  The backend is
+NCCL on the card (each rank takes ``cuda:LOCAL_RANK``) and gloo on the
+CPU.  A process started without a launcher is world 1: it brings up a
+one-rank group on a free loopback port, so the proxies run the same
+collectives at every world size.
+"""
+from __future__ import annotations
+
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+
+from dlnetbench_tpu_torch.ops.common import resolve_device
+from dlnetbench_tpu_torch.utils.net import free_port
+
+
+def initialize(platform: str = "cuda") -> torch.device:
+    """Join (or, at world 1, create) the default process group; returns
+    this rank's device.  Raises when ``cuda`` is asked for without a
+    card, and when ``WORLD_SIZE > 1`` comes without the launcher's
+    rendezvous address."""
+    env = os.environ
+    device = resolve_device(platform)
+    world = int(env.get("WORLD_SIZE", "1"))
+    rank = int(env.get("RANK", "0"))
+    local = int(env.get("LOCAL_RANK", "0"))
+    if device.type == "cuda":
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK {local} but only {torch.cuda.device_count()} "
+                f"CUDA card(s) are visible")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group is already up; "
+                f"platform {platform!r} needs {backend}")
+        return device
+    if env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    elif world == 1:
+        init = f"tcp://localhost:{free_port()}"
+    else:
+        raise RuntimeError(
+            f"WORLD_SIZE={world} without MASTER_ADDR/MASTER_PORT: start "
+            f"the ranks with torchrun --nproc_per_node {world}")
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    return device
+
+
+def shutdown() -> None:
+    """Tear the default process group down (no-op when none is up)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def barrier(device: torch.device | None = None) -> None:
+    """Every rank of the default group rendezvous (MPI_Barrier); a no-op
+    without a group."""
+    if not dist.is_initialized():
+        return
+    if device is not None and device.type == "cuda":
+        dist.barrier(device_ids=[device.index])
+    else:
+        dist.barrier()
+
+
+def all_ranks(obj) -> list:
+    """``obj`` from every rank, in rank order (``all_gather_object``);
+    ``[obj]`` without a group."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def host_metadata(device: torch.device | None = None) -> list[dict]:
+    """One record per rank: its index, hostname and local device."""
+    local = {"process": rank(), "hostname": socket.gethostname(),
+             "local_device_ids": [device.index or 0]
+             if device is not None and device.type == "cuda" else []}
+    return all_ranks(local)

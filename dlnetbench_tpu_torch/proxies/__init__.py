@@ -1,1 +1,2 @@
-"""The record carrier shared by every workload (``ProxyResult``)."""
+"""The proxy harness (``base.run_proxy``, ``ProxyResult``), the
+calibrated burn and the reference's DP and FSDP proxies."""

@@ -1,9 +1,82 @@
-"""``ProxyResult`` — what a measured run hands to ``metrics.emit`` (the
-JAX package's ``proxies/base.py`` dataclass; the proxy runner itself is
-not ported yet)."""
+"""Proxy harness: warmup, run estimation, timed runs, loop mode (the JAX
+package's ``proxies/base.py``; reference cpp/data_parallel/dp.cpp
+:234-264):
+
+  barrier -> warmup (default 3) -> [runs estimated from the warmup
+  times, skipping the first 2, when min_exectime is set] -> timed runs
+  (default 5) -> emit.
+
+Each proxy builds up to three variants of its step:
+
+  full      the real schedule (compute overlapped with collectives)
+  compute   the collectives stripped (burns only)
+  comm      the compute stripped (collectives only)
+
+timed whole, fenced on the rank's device.  Then
+
+  runtime        = t(full)
+  exposed comm   = max(0, t(full) - t(compute))   the reference's
+                   "barrier" timer (dp.cpp:191), from a compute sample
+                   taken right after its full sample
+  wire comm      = t(comm)
+  overlap        = (t(compute) + t(comm) - t(full)) / min(...)
+                   (metrics/stats.overlap_fraction)
+
+Besides its timers each rank keeps its bundle's ``rank_meta``: the
+proxy's burn calibration and plan (``burn``: ns an iteration and the µs
+a compute-only step should take) and, where the energy sampler reads
+the card's state (NVML), the card's SM clock and power draw read after
+each full and each compute chain (``card_state``), so a compute leg
+that drifts from its plan can be told apart from a clock that moved.
+Its values are dicts, from which the JAX package's parser makes no
+column.
+
+Every rank runs this loop on its own device and keeps its own timers
+(the reference's per-rank arrays); the run count is agreed across ranks,
+since every step holds collectives.  Loop mode (reference
+``-DPROXY_LOOP``, dp.cpp:251-256) runs the full step forever.
+"""
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections.abc import Callable
+
+from dlnetbench_tpu_torch.metrics import energy
+from dlnetbench_tpu_torch.metrics.stats import overlap_fraction
+from dlnetbench_tpu_torch.parallel import multihost
+from dlnetbench_tpu_torch.utils import timing
+
+DEFAULT_WARMUP = 3   # reference dp.cpp:65
+DEFAULT_RUNS = 5     # reference dp.cpp:66
+
+
+@dataclasses.dataclass
+class ProxyConfig:
+    warmup: int = DEFAULT_WARMUP
+    runs: int = DEFAULT_RUNS
+    min_exectime_s: float = 0.0    # reference -m flag -> estimate_runs
+    loop: bool = False             # reference PROXY_LOOP
+    size_scale: float = 1.0        # shrink buffers for small runs
+    time_scale: float = 1.0        # shrink burn durations for small runs
+    # K step calls per fence: the fence's host cost is paid once per K
+    # iterations (utils/timing.time_chain); 1 = the reference's
+    reps_per_fence: int = 1
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """What a proxy's ``build()`` returns."""
+    full: Callable          # () -> None, issues one step on the device
+    compute: Callable | None
+    comm: Callable | None
+    global_meta: dict       # model/grid/message-size metadata
+    device: object = None   # the rank's torch.device
+    # comm-only sub-schedules timed into "<name>_time" (reference
+    # fsdp.cpp:61-66 allgather / reduce_scatter timers)
+    variants: dict | None = None
+    # this rank's own facts, beside its timers in the record
+    rank_meta: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -13,3 +86,117 @@ class ProxyResult:
     timers_us: dict          # timer name -> list of per-iteration values
     warmup_times_us: list
     num_runs: int
+
+
+def estimate_runs(warmup_times_s: list[float], min_exectime_s: float,
+                  skip: int = 2) -> int:
+    """Runs needed for the measured time to reach ``min_exectime_s``,
+    from the mean warmup iteration past the first ``skip`` (reference
+    cpp/utils.hpp:121-135, its intent rather than its
+    divide-by-the-wrong-count)."""
+    usable = warmup_times_s[skip:] or warmup_times_s[-1:]
+    mean = sum(usable) / len(usable)
+    if mean <= 0:
+        return 1
+    return max(1, math.ceil(min_exectime_s / mean))
+
+
+def _chain_sizes(runs: int, k: int) -> list[int]:
+    """Partition ``runs`` iterations into fence chains of at most ``k``."""
+    if k <= 1:
+        return [1] * runs
+    sizes = [k] * (runs // k)
+    if runs % k:
+        sizes.append(runs % k)
+    return sizes
+
+
+def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
+              energy_sampler=None) -> ProxyResult:
+    dev = bundle.device
+    multihost.barrier(dev)                        # reference dp.cpp:234
+    warmup_s = timing.time_callable(bundle.full, reps=max(cfg.warmup, 1),
+                                    device=dev)
+    runs = cfg.runs
+    if cfg.min_exectime_s > 0:
+        # every step holds collectives: all ranks run the same count
+        runs = max(multihost.all_ranks(
+            estimate_runs(warmup_s, cfg.min_exectime_s)))
+
+    if cfg.loop:                                  # reference PROXY_LOOP
+        while True:
+            bundle.full()
+
+    if energy_sampler is None:            # reference PROXY_ENERGY_PROFILING
+        energy_sampler = energy.detect_sampler(dev)
+    if energy_sampler is not None:
+        bundle.global_meta["energy_source"] = getattr(
+            energy_sampler, "source", type(energy_sampler).__name__)
+
+    # Interleaved A/B: each full chain is followed by a compute-only
+    # chain, so barrier_time[i] = full[i] - compute[i] subtracts a
+    # matched sample and run-to-run drift cannot leak into it.
+    measure_compute = bundle.compute is not None
+    if measure_compute:
+        timing.time_callable(bundle.compute, reps=1, device=dev)
+    k_max = max(cfg.reps_per_fence, 1)
+    chains = _chain_sizes(runs, k_max)
+    bundle.global_meta["reps_per_fence"] = k_max
+    bundle.global_meta["host_rtt_us"] = round(
+        timing.fence_rtt_s(dev) * 1e6, 1)
+
+    timers: dict[str, list] = {}
+    full_s, comp_s, energy_j = [], [], []
+    read_state = getattr(energy_sampler, "read_state", None)
+    states: dict[str, list] = {"": [], "compute_": []}
+    for k in chains:
+        # energy brackets the fenced full chain only, per iteration
+        if energy_sampler is not None:
+            e0 = energy_sampler.read_joules()
+        full_s.append(timing.time_chain(bundle.full, k=k, device=dev))
+        if energy_sampler is not None:
+            energy_j.append(max(0.0, energy_sampler.read_joules() - e0) / k)
+        if read_state is not None:
+            states[""].append(read_state())
+        if measure_compute:
+            comp_s.append(timing.time_chain(bundle.compute, k=k,
+                                            device=dev))
+            if read_state is not None:
+                states["compute_"].append(read_state())
+    timers["runtimes"] = [t * 1e6 for t in full_s]
+    if energy_sampler is not None:
+        timers["energy_consumed"] = energy_j
+        energy.close_sampler(energy_sampler)
+    if read_state is not None:
+        bundle.rank_meta["card_state"] = {
+            prefix + key: [st[key] for st in seen]
+            for prefix, seen in states.items() if seen
+            for key in ("sm_clock_mhz", "power_w")}
+    if measure_compute:
+        timers["compute_time"] = [t * 1e6 for t in comp_s]
+        timers["barrier_time"] = [max(0.0, f - c) * 1e6
+                                  for f, c in zip(full_s, comp_s)]
+
+    if bundle.comm is not None:
+        timing.time_callable(bundle.comm, reps=1, device=dev)
+        comm_s = [timing.time_chain(bundle.comm, k=k, device=dev)
+                  for k in chains]
+        timers["comm_time"] = [t * 1e6 for t in comm_s]
+        if measure_compute:
+            timers["overlap_fraction"] = [
+                round(v, 4) for v in overlap_fraction(full_s, comp_s,
+                                                      comm_s)]
+
+    if bundle.variants:
+        for vname, vfn in bundle.variants.items():
+            timing.time_callable(vfn, reps=1, device=dev)
+            v_s = [timing.time_chain(vfn, k=k, device=dev) for k in chains]
+            timers[f"{vname}_time"] = [t * 1e6 for t in v_s]
+
+    return ProxyResult(
+        name=name,
+        global_meta=bundle.global_meta,
+        timers_us=timers,
+        warmup_times_us=[t * 1e6 for t in warmup_s],
+        num_runs=runs,
+    )

@@ -1,0 +1,220 @@
+"""Calibrated on-device compute burn — the reference's ``usleep`` made
+into device work (reference cpp/data_parallel/dp.cpp:93, 98; the JAX
+package's ``proxies/burn.py``).
+
+A host sleep between collective launches would put the host on the
+critical path and stop the collectives overlapping the compute the
+benchmark exists to measure.  The burn instead keeps the device busy
+with a strictly sequential chain on a small matrix:
+
+    state <- tanh(state @ state / n)      x iters
+
+with the JAX package's rounding: the product summed in f32, scaled and
+passed through ``tanh`` in f32, then rounded to the bf16 state.  One
+iteration is three launches (a cast to f32, one ``addmm`` with the
+scale as alpha, ``tanh`` written into the bf16 state), a few
+microseconds each: issued eagerly from Python, the host would be slower
+than the card.
+
+The product is an f32 GEMM, on the CUDA cores, where JAX's runs on the
+matrix unit.  A bf16 product with an f32 output (the tensor cores; the
+same sums) was measured against it on an H100 by
+``python -m dlnetbench_tpu_torch.burn_probe``: 2.5x fewer ns an
+iteration, but its cost an iteration differs between graph sizes by up
+to 7 %, so the calibration misses long burns, and its two speed modes
+lie 8 % apart against the f32 form's 5.5 %.  What the burn must give is
+a calibrated time, so it keeps the f32 form.  On the card the chain is therefore captured as CUDA
+graphs on the current stream: one graph of ``CHUNK`` iterations,
+replayed ``iters // CHUNK`` times, and one graph for each remainder, so
+a burn of any length is a handful of graph launches and no graph grows
+past ``CHUNK`` iterations.  Collectives stay outside the graphs.  On the
+CPU the same three ops run eagerly.
+
+The per-iteration cost is calibrated once per (shape, dtype, device
+name) by differencing two trip counts, so launch overheads cancel, and
+any microsecond budget maps to a trip count (``BurnCalibration``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+
+import torch
+
+from dlnetbench_tpu_torch.utils.timing import time_callable
+
+DEFAULT_SHAPE = (256, 256)
+DEFAULT_DTYPE = torch.bfloat16
+CHUNK = 512          # iterations in the replayed graph
+CAL_ITERS = (64, 256)
+ENV_CACHE_DIR = "DLNB_COMPILE_CACHE_DIR"
+
+
+def make_state(shape=DEFAULT_SHAPE, dtype=DEFAULT_DTYPE,
+               device="cpu") -> torch.Tensor:
+    """Deterministic, well-conditioned initial state in (-1, 1) — made on
+    the CPU, so every device starts from the same bits."""
+    n, m = shape
+    i = torch.arange(n, dtype=torch.float32)[:, None]
+    j = torch.arange(m, dtype=torch.float32)[None, :]
+    return (torch.sin(i * 0.7 + j * 1.3).to(dtype) * 0.5).to(device)
+
+
+class Burner:
+    """The burn chain on one device: the state, its f32 scratch and, on
+    the card, the captured graphs (by trip count)."""
+
+    def __init__(self, device, shape=DEFAULT_SHAPE, dtype=DEFAULT_DTYPE):
+        self.device = torch.device(device)
+        self.state = make_state(shape, dtype, self.device)
+        self._x = torch.empty(shape, dtype=torch.float32,
+                              device=self.device)
+        self._p = torch.zeros(shape, dtype=torch.float32,
+                              device=self.device)
+        self._scale = 1.0 / shape[-1]
+        self._graphs = {}
+
+    def _iteration(self) -> None:
+        self._x.copy_(self.state)
+        self._p.addmm_(self._x, self._x, beta=0.0, alpha=self._scale)
+        torch.tanh(self._p, out=self.state)
+
+    def eager(self, iters: int) -> None:
+        for _ in range(iters):
+            self._iteration()
+
+    def _graph(self, iters: int):
+        g = self._graphs.get(iters)
+        if g is None:
+            # warm the library handles on a side stream, then put the
+            # state back: a replay must continue the chain where it was
+            saved = self.state.clone()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._iteration()
+                self.state.copy_(saved)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            # thread_local: NCCL's watchdog thread may query its events
+            # while this thread captures
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                self.eager(iters)
+            self._graphs[iters] = g
+        return g
+
+    def __call__(self, iters: int) -> None:
+        """Advance the chain ``iters`` times on the current stream."""
+        if iters <= 0:
+            return
+        if self.device.type != "cuda":
+            self.eager(iters)
+            return
+        full, rem = divmod(iters, CHUNK)
+        if full:
+            g = self._graph(CHUNK)
+            for _ in range(full):
+                g.replay()
+        if rem:
+            self._graph(rem).replay()
+
+
+@dataclasses.dataclass(frozen=True)
+class BurnCalibration:
+    ns_per_iter: float
+    shape: tuple
+    dtype: str
+    device_kind: str
+
+    def iters_for_us(self, us: float) -> int:
+        if us <= 0:
+            return 0
+        return max(1, round(us * 1000.0 / self.ns_per_iter))
+
+    def us_for_iters(self, iters: int) -> float:
+        return iters * self.ns_per_iter / 1000.0
+
+
+def plan(cal: BurnCalibration, iters: int) -> dict:
+    """A step's burn as a record states it: the calibration and the µs
+    its ``iters`` iterations should take, against which the measured
+    compute leg shows the burn's drift."""
+    return {"ns_per_iter": cal.ns_per_iter, "iters": iters,
+            "planned_us": cal.us_for_iters(iters)}
+
+
+def device_kind(device) -> str:
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def _measure(burner: Burner, kind: str) -> BurnCalibration:
+    n_lo, n_hi = CAL_ITERS
+    dev = burner.device
+    burner(n_lo)                      # capture both graphs, warm
+    burner(n_hi)
+    t_lo = min(time_callable(burner, n_lo, reps=5, device=dev))
+    t_hi = min(time_callable(burner, n_hi, reps=5, device=dev))
+    ns = (t_hi - t_lo) * 1e9 / (n_hi - n_lo)
+    if ns <= 0:                       # timer noise: widen the gap
+        t_hi = min(time_callable(burner, n_hi * 8, reps=3, device=dev))
+        ns = max((t_hi - t_lo) * 1e9 / (n_hi * 8 - n_lo), 1.0)
+    return BurnCalibration(ns_per_iter=ns,
+                           shape=tuple(burner.state.shape),
+                           dtype=str(burner.state.dtype).split(".")[-1],
+                           device_kind=kind)
+
+
+_CAL_CACHE: dict = {}
+
+
+def _persist_path() -> Path | None:
+    d = os.environ.get(ENV_CACHE_DIR)
+    return Path(d) / "burn_calibration.json" if d else None
+
+
+def _load_persisted(path: Path, key) -> BurnCalibration | None:
+    try:
+        entry = json.loads(path.read_text())[":".join(map(str, key))]
+        return BurnCalibration(ns_per_iter=float(entry), shape=key[0],
+                               dtype=key[1], device_kind=key[2])
+    except (OSError, KeyError, TypeError, ValueError):
+        return None
+
+
+def _store_persisted(path: Path, key, cal: BurnCalibration) -> None:
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        try:
+            data = json.loads(path.read_text())
+        except (OSError, ValueError):
+            data = {}
+        if not isinstance(data, dict):
+            data = {}
+        data[":".join(map(str, key))] = cal.ns_per_iter
+        tmp = path.with_suffix(f".{os.getpid()}-{os.urandom(4).hex()}.tmp")
+        tmp.write_text(json.dumps(data))
+        tmp.replace(path)             # readers never see a torn file
+    except OSError:
+        pass                          # persistence is an optimization
+
+
+def calibrate(burner: Burner) -> BurnCalibration:
+    """ns per iteration of ``burner``'s chain on its device, cached in
+    the process per (shape, dtype, device name) and, when
+    ``DLNB_COMPILE_CACHE_DIR`` is set, persisted there."""
+    kind = device_kind(burner.device)
+    key = (tuple(burner.state.shape),
+           str(burner.state.dtype).split(".")[-1], kind)
+    if key not in _CAL_CACHE:
+        persist = _persist_path()
+        cal = _load_persisted(persist, key) if persist else None
+        if cal is None:
+            cal = _measure(burner, kind)
+            if persist:
+                _store_persisted(persist, key, cal)
+        _CAL_CACHE[key] = cal
+    return _CAL_CACHE[key]

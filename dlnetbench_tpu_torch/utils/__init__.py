@@ -1,1 +1,2 @@
-"""Small utilities of the torch package (timing)."""
+"""Small utilities of the torch package (timing, a free loopback
+port)."""

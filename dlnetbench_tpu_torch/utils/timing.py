@@ -8,10 +8,13 @@ The JAX package's ``utils/timing.py`` fences its remote TPU backend
 with a device-to-host transfer and subtracts the measured round trip,
 because ``block_until_ready`` there only acknowledges dispatch.  None of
 that applies here: ``synchronize()`` waits for the device, and there is
-no round trip to subtract.
+no round trip to subtract.  ``fence_rtt_s`` measures what an empty
+fence costs the host, which the proxies' records carry as
+``host_rtt_us``.
 """
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -37,3 +40,35 @@ def time_callable(fn, *args, reps: int = 1, device=None,
         fence(device)
         out.append(time.perf_counter() - t0)
     return out
+
+
+def time_chain(fn, *args, k: int = 1, device=None, **kwargs) -> float:
+    """Run ``fn(*args)`` ``k`` times back to back with one fence after
+    the last call (and one before the first); returns seconds per
+    iteration.  Each call's device work queues behind the previous
+    call's, so the chain is k honest iterations, and the fence's host
+    cost is paid once per chain instead of once per iteration."""
+    if k <= 1:
+        return time_callable(fn, *args, device=device, **kwargs)[0]
+    fence(device)
+    t0 = time.perf_counter()
+    for _ in range(k):
+        fn(*args, **kwargs)
+    fence(device)
+    return (time.perf_counter() - t0) / k
+
+
+def fence_rtt_s(device=None, reps: int = 5) -> float:
+    """Host time of a fence with nothing queued (the least of ``reps``
+    samples): the floor every fenced sample pays once."""
+    fence(device)
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fence(device)
+        out.append(time.perf_counter() - t0)
+    return min(out)
+
+
+def median_us(samples_s: list[float]) -> float:
+    return statistics.median(samples_s) * 1e6

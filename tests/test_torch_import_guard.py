@@ -38,7 +38,12 @@ def test_importing_every_submodule_loads_no_jax():
     for m in ("serving.scheduler", "ops.flash_attention", "bench", "entry",
               "models.bench_step", "core.roofline", "core.hardware",
               "utils.timing", "ops.int8", "ops.fp8", "ops.mlp_backward",
-              "ops.quantized_matmul", "ops.grouped_matmul", "models.moe"):
+              "ops.quantized_matmul", "ops.grouped_matmul", "models.moe",
+              "stats_gen", "core.model_stats", "core.schedule",
+              "core.executor", "parallel.multihost", "parallel.mesh",
+              "parallel.collectives", "parallel.buffers", "proxies.base",
+              "proxies.burn", "proxies.dp", "proxies.fsdp",
+              "metrics.energy", "utils.net"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -80,7 +85,8 @@ def test_the_guard_covers_every_card_test_file():
     names = {p.name for p in CARD_TESTS}
     assert {f"test_torch_card_{m}.py" for m in (
         "flash_attention", "splash_attention", "paged_attention",
-        "mlp_backward", "quantized_mlp", "grouped_matmul")} <= names
+        "mlp_backward", "quantized_mlp", "grouped_matmul",
+        "proxies")} <= names
 
 
 def test_card_tests_collect_without_jax():
