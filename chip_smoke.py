@@ -183,6 +183,16 @@ Phases, in order; any failure exits non-zero:
    50 W and the card's limit; the medians and the phase's wall time
    printed, and the compute leg's burn timed six times 0.5 s apart
    against its calibration (printed, no bar);
+10b. the pipeline hybrids and sequence-parallel proxies the same way,
+   each at world 1 and -w 2 -r 3: ``hybrid_2d`` (gpipe, 4 microbatches),
+   ``hybrid_3d`` (--tp 1) and ``ring_attention`` / ``ulysses`` (--sp 1,
+   full depth) on llama3_8b at full size, ``hybrid_3d_moe`` on
+   mixtral_8x7b_16_bfloat16 at --size_scale 0.5 (its 45.1 G-element
+   expert shard fits one card only halved) and --time_scale 0.01, with
+   the same bars: every program's collectives (the variants' too) per
+   step times the steps it ran, the compute leg within 10 % of the
+   stats time (at world 1 each burns exactly one step of it), host
+   issue and power;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -268,9 +278,10 @@ MLP_SRC = "dlnetbench_tpu_torch/ops/csrc/mlp_matmul.cu"
 WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
 # moved there from the jax-importing test files, 46 added with the split
-# K1/K2 and the wgmma K3/K6, 11 with the proxies); all 181 must pass
+# K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
+# and sequence-parallel proxies); all 194 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 181
+CARD_TESTS_MIN = 194
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2074,13 +2085,46 @@ def entry_phase(torch) -> None:
 PROXY_MODEL = "llama3_8b_16_bfloat16"
 PROXY_TIME_SCALE = 0.05
 PROXY_FLAGS = ["--model", PROXY_MODEL, "--buffer_dtype", "bfloat16",
-               "--size_scale", "1", "--time_scale", str(PROXY_TIME_SCALE),
-               "-w", "3", "-r", "5"]
-PROXY_RUNS = {"dp": (["--num_buckets", "8"],
-                     {"allreduce": 8, "allgather": 0, "reduce_scatter": 0}),
-              "fsdp": (["--num_units", "8"],
-                       {"allreduce": 0, "allgather": 15,
-                        "reduce_scatter": 8})}
+               "--size_scale", "1", "--time_scale", str(PROXY_TIME_SCALE)]
+MOE_MODEL, MOE_SIZE_SCALE, MOE_TIME_SCALE = \
+    "mixtral_8x7b_16_bfloat16", 0.5, 0.01
+PIPE = ["--num_stages", "1", "--num_microbatches", "4"]
+# proxy -> (subcommand and flags, warmup, runs, per-step collectives of
+# each program that issues any); at world 1 no program hops.  The
+# hybrids' grad sync is one allreduce (the MoE's two); hybrid_3d adds 2
+# TP allreduces a wave (2 x 4 waves); the MoE 2 x 32 layers all-to-alls
+# a wave; Ulysses 4 a layer (32 layers); ring_attention at sp = 1 and
+# dp = 1 issues nothing
+PROXY_RUNS = {
+    "dp": (["dp", *PROXY_FLAGS, "--num_buckets", "8"], 3, 5,
+           {"full": {"allreduce": 8}, "comm": {"allreduce": 8}}),
+    "fsdp": (["fsdp", *PROXY_FLAGS, "--num_units", "8"], 3, 5,
+             {"full": {"allgather": 15, "reduce_scatter": 8},
+              "comm": {"allgather": 15, "reduce_scatter": 8},
+              "allgather": {"allgather": 15},
+              "reduce_scatter": {"reduce_scatter": 8}}),
+    "hybrid_2d": (["hybrid_2d", *PROXY_FLAGS, *PIPE], 2, 3,
+                  {"full": {"allreduce": 1}, "comm": {"allreduce": 1},
+                   "pp_comm": {}, "dp_comm": {"allreduce": 1}}),
+    "hybrid_3d": (["hybrid_3d", *PROXY_FLAGS, *PIPE, "--tp", "1"], 2, 3,
+                  {"full": {"allreduce": 17}, "comm": {"allreduce": 17},
+                   "pp_comm": {}, "dp_comm": {"allreduce": 1},
+                   "tp_comm": {"allreduce": 16}}),
+    "hybrid_3d_moe": (["hybrid_3d_moe", "--model", MOE_MODEL,
+                       "--buffer_dtype", "bfloat16", "--size_scale",
+                       str(MOE_SIZE_SCALE), "--time_scale",
+                       str(MOE_TIME_SCALE), *PIPE,
+                       "--num_expert_shards", "1"], 2, 3,
+                      {"full": {"alltoall": 512, "allreduce": 2},
+                       "comm": {"alltoall": 512, "allreduce": 2},
+                       "pp_comm": {}, "ep_comm": {"alltoall": 512},
+                       "dp_ep_comm": {"allreduce": 2}}),
+    "ring_attention": (["ring_attention", *PROXY_FLAGS, "--sp", "1"], 2, 3,
+                       {"full": {}, "comm": {}, "ring_comm": {}}),
+    "ulysses": (["ulysses", *PROXY_FLAGS, "--sp", "1"], 2, 3,
+                {"full": {"alltoall": 128}, "comm": {"alltoall": 128},
+                 "a2a_comm": {"alltoall": 128}}),
+}
 PROXY_TIMERS = ["runtimes", "compute_time", "barrier_time", "comm_time",
                 "overlap_fraction", "energy_consumed"]
 PROXY_BURN_TOL = 0.10      # compute leg vs (fwd + bwd) x time_scale
@@ -2088,31 +2132,70 @@ PROXY_ISSUE_MAX = 0.10     # host issue time over the fenced step
 PROXY_POWER_MIN_W = 50.0   # or the card's idle draw before the phase
 
 
-def proxy_phase(torch, card: str) -> None:
-    """The DP and FSDP proxies at world 1 and full size through
-    ``cli.main(["dp" | "fsdp", ...])``: llama3_8b_16_bfloat16's H100
-    stats file, bf16 buffers at --size_scale 1 (the DP buckets hold the
-    model's 8 030 261 248 elements), --time_scale 0.05, -w 3 -r 5.
-    Bars: the record is complete, every timer present and ``sum(
-    bucket_bytes)`` = 2 x model_size; one full step issues 8 allreduces
-    (DP) or 15 allgathers and 8 reduce-scatters (FSDP), and the run's
-    counters equal that per step times the steps it called; the median
-    compute_time is within 10 % of (fwd_us + bwd_us) x time_scale;
-    issuing one full step returns to Python in under 10 % of its fenced
-    time; energy_source is nvml and the runs' energy over their runtime
-    gives a mean power between the card's idle draw (nvidia-smi, read
-    before the phase; at least 50 W) and its limit.  Printed: each
+def proxy_counts(per_step: dict) -> dict:
+    """The collectives of a program's per-step counts, every key."""
+    from dlnetbench_tpu_torch.parallel import collectives as col
+    return {k: per_step.get(k, 0) for k in col.COUNTS}
+
+
+def proxy_bundle(torch, proxy: str, device):
+    """``proxy``'s bundle at its ``PROXY_RUNS`` configuration, built
+    through the proxy's own ``build`` (as the CLI builds it)."""
+    from dlnetbench_tpu_torch.core.model_card import (
+        arch_name_from_stats_name, load_model_card)
+    from dlnetbench_tpu_torch.core.model_stats import load_model_stats
+    from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
+    from dlnetbench_tpu_torch.proxies import (dp, fsdp, hybrid_2d, hybrid_3d,
+                                              hybrid_3d_moe, ring_attention,
+                                              ulysses)
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
+    model = MOE_MODEL if proxy == "hybrid_3d_moe" else PROXY_MODEL
+    stats = load_model_stats(model)
+    card = load_model_card(arch_name_from_stats_name(model))
+    cfg = (ProxyConfig(size_scale=MOE_SIZE_SCALE, time_scale=MOE_TIME_SCALE)
+           if proxy == "hybrid_3d_moe"
+           else ProxyConfig(size_scale=1.0, time_scale=PROXY_TIME_SCALE))
+    kw = {"dtype": torch.bfloat16}
+    pipe = dict(num_stages=1, num_microbatches=4, **kw)
+    build = {
+        "dp": lambda: dp.build(stats, 8, cfg, make_flat_mesh(device), **kw),
+        "fsdp": lambda: fsdp.build(stats, 8, cfg, device, **kw),
+        "hybrid_2d": lambda: hybrid_2d.build(stats, card, cfg, device,
+                                             **pipe),
+        "hybrid_3d": lambda: hybrid_3d.build(stats, card, cfg, device, tp=1,
+                                             **pipe),
+        "hybrid_3d_moe": lambda: hybrid_3d_moe.build(
+            stats, card, cfg, device, num_expert_shards=1, **pipe),
+        "ring_attention": lambda: ring_attention.build(stats, card, cfg,
+                                                       device, sp=1, **kw),
+        "ulysses": lambda: ulysses.build(stats, card, cfg, device, sp=1,
+                                         **kw),
+    }[proxy]
+    return build()
+
+
+def proxy_phase(torch, card: str) -> dict:
+    """The seven proxies at world 1 through ``cli.main([proxy, ...])``
+    (``PROXY_RUNS``): llama3_8b_16_bfloat16's H100 stats file at full
+    size and --time_scale 0.05 (the MoE proxy: mixtral_8x7b at
+    --size_scale 0.5, --time_scale 0.01), bf16 buffers.  Bars: the
+    record is complete, every timer present and DP's ``sum(
+    bucket_bytes)`` = 2 x model_size; the run's counters equal each
+    program's per-step collectives times the steps it called (full: build
+    + warmup + runs; comm and each variant: build + 1 warm + runs); the
+    median compute_time is within 10 % of (fwd_us + bwd_us) x
+    time_scale; one full step of a bundle built again issues exactly its
+    per-step collectives and returns to Python in under 10 % of its
+    fenced time; energy_source is nvml and the runs' energy over their
+    runtime gives a mean power between the card's idle draw (nvidia-smi,
+    read before the phase; at least 50 W) and its limit.  Printed: each
     run's compute leg against the stats time and against the burn's
-    plan, beside the SM clock and power NVML read after each chain."""
+    plan, beside the SM clock and power NVML read after each chain.
+    Returns each proxy's medians."""
     from dlnetbench_tpu_torch import cli
     from dlnetbench_tpu_torch.core.model_stats import load_model_stats
     from dlnetbench_tpu_torch.parallel import collectives as col
     from dlnetbench_tpu_torch.parallel import multihost
-    from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
-    from dlnetbench_tpu_torch.proxies import dp, fsdp
-    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
-    stats = load_model_stats(PROXY_MODEL)
-    want_compute = (stats.fwd_us + stats.bwd_us) * PROXY_TIME_SCALE
     limit_w = float(card.split(",")[-1].strip().split()[0])
     t_phase = time.perf_counter()
     idle_w = idle_draw_w()
@@ -2120,13 +2203,19 @@ def proxy_phase(torch, card: str) -> None:
     say(f"proxy phase: idle draw {idle_w:.1f} W before it (the power "
         f"bar's floor {min_w:.1f} W)")
     device = multihost.initialize("cuda")
-    for proxy, (extra, per_step) in PROXY_RUNS.items():
+    medians = {}
+    for proxy, (argv, warmup, runs, per_step) in PROXY_RUNS.items():
+        moe = proxy == "hybrid_3d_moe"
+        stats = load_model_stats(MOE_MODEL if moe else PROXY_MODEL)
+        want_compute = (stats.fwd_us + stats.bwd_us) * (
+            MOE_TIME_SCALE if moe else PROXY_TIME_SCALE)
         path = OUT / f"proxy_{proxy}.jsonl"
         path.unlink(missing_ok=True)
         smi_sample(f"proxy {proxy}")
         t0 = time.perf_counter()
         col.reset_counts()
-        rc = cli.main([proxy, *PROXY_FLAGS, *extra, "--out", str(path)])
+        rc = cli.main([*argv, "-w", str(warmup), "-r", str(runs), "--out",
+                       str(path)])
         got = col.counts()
         wall = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -2134,24 +2223,26 @@ def proxy_phase(torch, card: str) -> None:
             fail(f"proxy {proxy}: cli rc {rc}, record {path.is_file()}")
         rec = json.loads(path.read_text().strip().splitlines()[-1])
         g, row = rec["global"], rec["ranks"][0]
-        timers = PROXY_TIMERS + (["allgather_time", "reduce_scatter_time"]
-                                 if proxy == "fsdp" else [])
+        variants = [k for k in per_step if k not in ("full", "comm")]
+        timers = PROXY_TIMERS + [f"{v}_time" for v in variants]
         missing = [t for t in timers
                    if len(row.get(t) or []) != rec["num_runs"]]
-        if rec["num_runs"] != 5 or missing or len(rec["ranks"]) != 1:
+        if rec["num_runs"] != runs or missing or len(rec["ranks"]) != 1:
             fail(f"proxy {proxy}: record incomplete: runs "
                  f"{rec['num_runs']}, missing timers {missing}")
         if proxy == "dp" and sum(g["bucket_bytes"]) != 2 * stats.model_size:
             fail(f"proxy dp: sum(bucket_bytes) {sum(g['bucket_bytes'])} != "
                  f"2 x {stats.model_size}")
-        # full: build + 3 warmup + 5 runs; comm-only and the FSDP
-        # variant holding each kind: build + 1 warm + 5 runs
-        want = {k: v * (9 + 7 + (7 if proxy == "fsdp" else 0))
-                for k, v in per_step.items()}
+        want = proxy_counts({})
+        for prog, counted in per_step.items():
+            calls = 1 + (warmup if prog == "full" else 1) + runs
+            for k, v in counted.items():
+                want[k] += v * calls
         if got != want:
             fail(f"proxy {proxy}: collectives in the cli run {got}, want "
                  f"{want}")
         med = {t: statistics.median(row[t]) for t in timers}
+        medians[proxy] = med
         if abs(med["compute_time"] / want_compute - 1) > PROXY_BURN_TOL:
             fail(f"proxy {proxy}: compute_time median "
                  f"{med['compute_time']:.0f} us vs (fwd + bwd) x "
@@ -2172,7 +2263,8 @@ def proxy_phase(torch, card: str) -> None:
             + f" (us; J; overlap); {watts:.1f} W; compute leg "
             f"{med['compute_time'] / want_compute:.4f} x stats (burn "
             f"{burn['ns_per_iter']:.1f} ns an iteration); collectives "
-            f"{got}")
+            f"{got}; peak memory "
+            f"{max(a.get('peak_memory_bytes', 0) for a in g['aot'].values()) / 1e9:.2f} GB")
         say(f"proxy {proxy}: per run, compute leg x stats "
             f"{[round(c / want_compute, 4) for c in row['compute_time']]}, "
             f"x the burn's plan "
@@ -2183,21 +2275,14 @@ def proxy_phase(torch, card: str) -> None:
             f"{state.get('power_w')} / {state.get('compute_power_w')} W")
         smi_sample(f"after proxy {proxy}")
 
-    # one full step, built again: its collectives and its issue time
-    cfg = ProxyConfig(size_scale=1.0, time_scale=PROXY_TIME_SCALE)
-    for proxy, (extra, per_step) in PROXY_RUNS.items():
-        if proxy == "dp":
-            bundle = dp.build(stats, 8, cfg, make_flat_mesh(device),
-                              dtype=torch.bfloat16)
-        else:
-            bundle = fsdp.build(stats, 8, cfg, device,
-                                dtype=torch.bfloat16)
+        # one full step, built again: its collectives and its issue time
+        bundle = proxy_bundle(torch, proxy, device)
         col.reset_counts()
         bundle.full()
         torch.cuda.synchronize()
-        if col.counts() != per_step:
+        if col.counts() != proxy_counts(per_step["full"]):
             fail(f"proxy {proxy}: one full step issued {col.counts()}, "
-                 f"want {per_step}")
+                 f"want {per_step['full']}")
         shares = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2210,12 +2295,14 @@ def proxy_phase(torch, card: str) -> None:
         if share >= PROXY_ISSUE_MAX:
             fail(f"proxy {proxy}: issuing a step took {share:.3f} of its "
                  f"fenced time (bar {PROXY_ISSUE_MAX})")
-        say(f"proxy {proxy}: one step issues {per_step}; host issue "
-            f"{share:.4f} of the fenced step ({[round(x, 4) for x in shares]})")
+        say(f"proxy {proxy}: one step issues {per_step['full']}; host "
+            f"issue {share:.4f} of the fenced step "
+            f"({[round(x, 4) for x in shares]})")
         del bundle
         torch.cuda.empty_cache()
     multihost.shutdown()
     say(f"proxy phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return medians
 
 
 def card_tests_phase() -> None:

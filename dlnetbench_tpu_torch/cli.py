@@ -3,12 +3,20 @@
     python -m dlnetbench_tpu_torch.cli dp --model MODEL --num_buckets N
     python -m dlnetbench_tpu_torch.cli fsdp --model MODEL --num_units N \
         [--sharding_factor S]
+    python -m dlnetbench_tpu_torch.cli hybrid_2d --model MODEL \
+        --num_stages S --num_microbatches M [--schedule gpipe|1f1b|zb]
+    python -m dlnetbench_tpu_torch.cli hybrid_3d ... --tp T
+    python -m dlnetbench_tpu_torch.cli hybrid_3d_moe ... --num_expert_shards E
+    python -m dlnetbench_tpu_torch.cli ring_attention|ulysses --model MODEL \
+        --sp P [--max_layers L]
     torchrun --nproc_per_node W -m dlnetbench_tpu_torch.cli dp ...
     python -m dlnetbench_tpu_torch.cli serve --arrival PLAN [flags]
     python -m dlnetbench_tpu_torch.cli train [--platform cuda|cpu]
 
-``dp`` and ``fsdp`` are the reference's proxies with the JAX package's
-flags: the schedule of the stats file ``--model``
+``dp``, ``fsdp``, ``hybrid_2d``, ``hybrid_3d`` and ``hybrid_3d_moe`` are
+the reference's proxies and ``ring_attention`` and ``ulysses`` the JAX
+package's sequence-parallel ones, each with the JAX package's flags:
+the schedule of the stats file ``--model``
 (``data/model_stats/<model>.txt``) replayed with real collectives on
 buffers of the model's size (``--size_scale 1``) and a calibrated burn
 for the compute, timed full / compute-only / comm-only.  The world
@@ -121,6 +129,22 @@ def _add_proxy(p: argparse.ArgumentParser) -> None:
                    help="attach a variable to the emitted record")
 
 
+def _add_pipeline(p: argparse.ArgumentParser) -> None:
+    """Flags shared by the three pipeline (hybrid) proxies."""
+    _add_proxy(p)
+    p.add_argument("--num_stages", type=int, required=True)
+    p.add_argument("--num_microbatches", type=int, required=True)
+    p.add_argument("--schedule", choices=["gpipe", "1f1b", "zb"],
+                   default="gpipe",
+                   help="pipeline schedule (gpipe = reference parity; "
+                        "1f1b = interleaved fwd/bwd and zb = ZB-H1 "
+                        "zero-bubble, rebuild extras)")
+
+
+PROXIES = ("dp", "fsdp", "hybrid_2d", "hybrid_3d", "hybrid_3d_moe",
+           "ring_attention", "ulysses")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="dlnetbench_tpu_torch",
@@ -134,6 +158,28 @@ def main(argv=None) -> int:
     p_fsdp.add_argument("--num_units", type=int, required=True)
     p_fsdp.add_argument("--sharding_factor", type=int, default=0,
                         help="0 = whole world (no replicas)")
+    p_2d = sub.add_parser("hybrid_2d", help="DP + GPipe pipeline")
+    _add_pipeline(p_2d)
+    p_2d.add_argument("--dp", type=int, default=0,
+                      help="0 = infer from the world")
+    p_3d = sub.add_parser("hybrid_3d", help="DP + PP + tensor parallel")
+    _add_pipeline(p_3d)
+    p_3d.add_argument("--tp", type=int, required=True)
+    p_3d.add_argument("--dp", type=int, default=0)
+    p_moe = sub.add_parser("hybrid_3d_moe", help="DP + PP + expert parallel")
+    _add_pipeline(p_moe)
+    p_moe.add_argument("--num_expert_shards", type=int, required=True)
+    p_moe.add_argument("--dp", type=int, default=0)
+    for name, text in (("ring_attention",
+                        "ring (context-parallel) attention proxy"),
+                       ("ulysses", "Ulysses sequence-parallel proxy")):
+        p_seq = sub.add_parser(name, help=text)
+        _add_proxy(p_seq)
+        p_seq.add_argument("--sp", type=int, required=True)
+        p_seq.add_argument("--dp", type=int, default=0)
+        p_seq.add_argument("--max_layers", type=int, default=0,
+                           help="cap replayed layers (0 = the model's "
+                                "full depth)")
     _add_serve(sub.add_parser(
         "serve", help="serving tier: paged-KV decode under continuous "
                       "batching + an open-loop arrival plan"))
@@ -153,7 +199,7 @@ def main(argv=None) -> int:
         from dlnetbench_tpu_torch import bench
         return bench.main(["--platform", args.platform]
                           + (["--skip-aux"] if args.skip_aux else []))
-    if args.proxy in ("dp", "fsdp"):
+    if args.proxy in PROXIES:
         return _run_proxy(args, parser)
     return _run_serve(args, parser)
 
@@ -182,6 +228,8 @@ def _run_proxy(args, parser) -> int:
                      "dlnetbench_tpu_torch.cli ... (one card per rank)")
     if args.reps_per_fence < 1:
         parser.error("--reps_per_fence must be >= 1")
+    if getattr(args, "max_layers", 0) < 0:
+        parser.error("--max_layers must be >= 0")
     variables = _tags(args, parser)
     try:
         stats = load_model_stats(args.model, args.stats_dir)
@@ -235,16 +283,40 @@ def _run_proxy(args, parser) -> int:
 
 
 def _build_proxy(args, parser, stats, cfg, device, dtype):
+    from dlnetbench_tpu_torch.core.model_card import (
+        arch_name_from_stats_name, load_model_card)
     try:
         if args.proxy == "dp":
             from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
             from dlnetbench_tpu_torch.proxies import dp
             return dp.build(stats, args.num_buckets, cfg,
                             make_flat_mesh(device), dtype=dtype)
-        from dlnetbench_tpu_torch.proxies import fsdp
-        return fsdp.build(stats, args.num_units, cfg, device,
-                          sharding_factor=args.sharding_factor or None,
-                          dtype=dtype)
+        if args.proxy == "fsdp":
+            from dlnetbench_tpu_torch.proxies import fsdp
+            return fsdp.build(stats, args.num_units, cfg, device,
+                              sharding_factor=args.sharding_factor or None,
+                              dtype=dtype)
+        card = load_model_card(arch_name_from_stats_name(args.model))
+        if args.proxy in ("ring_attention", "ulysses"):
+            from dlnetbench_tpu_torch.proxies import ring_attention, ulysses
+            mod = ring_attention if args.proxy == "ring_attention" \
+                else ulysses
+            return mod.build(stats, card, cfg, device, sp=args.sp,
+                             dp=args.dp, dtype=dtype,
+                             max_layers=args.max_layers or None)
+        from dlnetbench_tpu_torch.proxies import (hybrid_2d, hybrid_3d,
+                                                  hybrid_3d_moe)
+        pipe = dict(num_stages=args.num_stages,
+                    num_microbatches=args.num_microbatches,
+                    schedule=args.schedule, dp=args.dp, dtype=dtype)
+        if args.proxy == "hybrid_2d":
+            return hybrid_2d.build(stats, card, cfg, device, **pipe)
+        if args.proxy == "hybrid_3d":
+            return hybrid_3d.build(stats, card, cfg, device, tp=args.tp,
+                                   **pipe)
+        return hybrid_3d_moe.build(
+            stats, card, cfg, device,
+            num_expert_shards=args.num_expert_shards, **pipe)
     except ValueError as e:
         parser.error(str(e))     # configuration-invariant violations
 

@@ -1,7 +1,8 @@
 """The proxies' device path on a CUDA card: the burn's captured CUDA
-graphs against its eager chain, NCCL's collectives at world 1 for each
-buffer dtype, and the DP and FSDP proxies at world 1 (NCCL) through
-``cli.main`` at a tiny size.
+graphs against its eager chain, NCCL's collectives, all-to-all and hops
+at world 1 for each buffer dtype, and every proxy at world 1 (NCCL)
+through ``cli.main`` at a tiny size: DP, FSDP, the pipeline hybrids
+under each schedule, ring attention and Ulysses.
 
 This file imports neither jax nor the JAX package, so it runs on the
 card machine: ``python -m pytest --noconftest -m cuda
@@ -83,6 +84,47 @@ def test_proxy_world1_on_card(cuda_device, tmp_path, proxy, extra,
         k: v * calls for k, v in per_step.items()}
 
 
+GPT2 = ["--model", "gpt2_l_16_bfloat16"]
+MIXTRAL = ["--model", "mixtral_8x7b_16_bfloat16"]
+PIPE = ["--num_stages", "1", "--num_microbatches", "4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proxy,extra,per_call", [
+    # a step's gradient allreduce in full, comm and dp_comm
+    ("hybrid_2d", [*GPT2, *PIPE], {"allreduce": 3}),
+    ("hybrid_2d", [*GPT2, *PIPE, "--schedule", "1f1b"], {"allreduce": 3}),
+    ("hybrid_2d", [*GPT2, *PIPE, "--schedule", "zb"], {"allreduce": 3}),
+    # + 2 TP allreduces a wave, 2 x 4 waves, in full, comm and tp_comm
+    ("hybrid_3d", [*GPT2, *PIPE, "--tp", "1"], {"allreduce": 3 + 3 * 16}),
+    # 2 x 32 layers all-to-alls a wave in full, comm and ep_comm; the
+    # two-level sync in full, comm and dp_ep_comm
+    ("hybrid_3d_moe", [*MIXTRAL, *PIPE, "--num_expert_shards", "1"],
+     {"alltoall": 3 * 8 * 64, "allreduce": 3 * 2}),
+    # no hop at sp = 1 and no allreduce at dp = 1
+    ("ring_attention", [*GPT2, "--sp", "1"], {}),
+    # 4 all-to-alls a layer, 36 layers, in full, comm and a2a_comm
+    ("ulysses", [*GPT2, "--sp", "1"], {"alltoall": 3 * 144}),
+])
+def test_pipeline_and_sequence_proxies_world1_on_card(cuda_device, tmp_path,
+                                                      proxy, extra,
+                                                      per_call):
+    out = tmp_path / "rec.jsonl"
+    col.reset_counts()
+    assert cli.main([proxy, *extra, *TINY, "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    g, row = rec["global"], rec["ranks"][0]
+    assert g["world_size"] == 1 and rec["mesh"]["platform"] == "gpu"
+    timers = ["runtimes", "compute_time", "barrier_time", "comm_time"] + [
+        t for t in row if t.endswith("_comm_time")]
+    assert len(timers) > 4
+    for t in timers:
+        assert len(row[t]) == 3 and all(v >= 0 for v in row[t]), t
+    # each program: build + 1 warmup + 3 runs
+    assert {k: v for k, v in col.counts().items() if v} == {
+        k: v * 5 for k, v in per_call.items()}
+
+
 @pytest.fixture
 def nccl_world1(cuda_device):
     """A one-rank NCCL group on the card, torn down after the case."""
@@ -115,22 +157,48 @@ def test_nccl_collectives_per_buffer_dtype(nccl_world1, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("proxy,extra", [
-    ("dp", ["--num_buckets", "2"]),
-    ("fsdp", ["--num_units", "2"]),
+@pytest.mark.parametrize("name", list(cli.BUFFER_DTYPES))
+def test_nccl_alltoall_and_hops_per_buffer_dtype(nccl_world1, name):
+    """Every --buffer_dtype (float8 moved as its uint8 view) through
+    alltoall, ring_shift (NCCL's send and receive to the rank itself)
+    and shift_up / shift_down at world 1, on a comm stream, against
+    JAX's all_to_all and ppermute over one device: the input, the input,
+    and zeros (no edge at one stage)."""
+    dtype = getattr(torch, cli.BUFFER_DTYPES[name])
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randint(-16, 17, (4096,), generator=gen).to(dtype)
+    dev = nccl_world1
+    stream = col.CommStream(dev)
+    outs = {}
+    for op in (col.alltoall, col.ring_shift, col.shift_up, col.shift_down):
+        outs[op.__name__] = torch.full((4096,), 3, dtype=dtype, device=dev)
+        stream.issue(op, outs[op.__name__], x.to(dev))
+    stream.wait_all()
+    torch.cuda.synchronize()
+    for key, got in outs.items():
+        want = torch.zeros(4096) if key.startswith("shift") else x.float()
+        assert got.dtype == dtype
+        assert torch.equal(got.cpu().float(), want), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proxy,extra,key", [
+    ("dp", [*GPT2, "--num_buckets", "2"], "bucket_bytes"),
+    ("fsdp", [*GPT2, "--num_units", "2"], "shard_bytes"),
+    ("ulysses", [*GPT2, "--sp", "1", "--max_layers", "2"], "a2a_bytes"),
+    ("hybrid_3d_moe", [*MIXTRAL, *PIPE, "--num_expert_shards", "1"],
+     "a2a_bytes"),
 ])
-def test_float8_buffers_on_card(cuda_device, tmp_path, proxy, extra):
+def test_float8_buffers_on_card(cuda_device, tmp_path, proxy, extra, key):
     """--buffer_dtype float8 runs on NCCL with e4m3 buffers: half the
     bf16 run's bytes, the dtype named in the record."""
     recs = {}
     for name in ("bfloat16", "float8"):
         out = tmp_path / f"{name}.jsonl"
         flags = [a if a != "bfloat16" else name for a in TINY]
-        assert cli.main([proxy, "--model", "gpt2_l_16_bfloat16", *extra,
-                         *flags, "--out", str(out)]) == 0
+        assert cli.main([proxy, *extra, *flags, "--out", str(out)]) == 0
         recs[name] = json.loads(out.read_text())["global"]
     assert recs["float8"]["buffer_dtype"] == "float8"
-    key = "bucket_bytes" if proxy == "dp" else "shard_bytes"
     half = ([b // 2 for b in recs["bfloat16"][key]] if proxy == "dp"
             else recs["bfloat16"][key] // 2)
     assert recs["float8"][key] == half

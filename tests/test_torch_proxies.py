@@ -183,15 +183,25 @@ def test_collectives_equal_jax_on_four_devices(gloo_world, dtype_name,
         assert res["coords"] == (r // 2, r % 2)   # JAX's reshape order
 
 
-def _count_collectives(jaxpr) -> dict:
+def _count_collectives(jaxpr, coords=None) -> dict:
+    """The jaxpr's collectives as ``collectives.counts()`` counts one
+    rank's: its psum / all_gather / reduce_scatter / all_to_all
+    equations, and the sends and receives its ppermute perms give the
+    device at ``coords`` (axis name -> coordinate)."""
     names = {"psum": "allreduce", "all_gather": "allgather",
-             "reduce_scatter": "reduce_scatter"}
-    out = {"allreduce": 0, "allgather": 0, "reduce_scatter": 0}
+             "reduce_scatter": "reduce_scatter", "all_to_all": "alltoall"}
+    out = dict.fromkeys(("allreduce", "allgather", "reduce_scatter",
+                         "alltoall", "send", "recv"), 0)
 
     def walk(j):
         for eqn in j.eqns:
             if eqn.primitive.name in names:
                 out[names[eqn.primitive.name]] += 1
+            if eqn.primitive.name == "ppermute":
+                (axis,) = eqn.params["axis_name"]
+                for src, dst in eqn.params["perm"]:
+                    out["send"] += src == coords[axis]
+                    out["recv"] += dst == coords[axis]
             for p in eqn.params.values():
                 for sub in (p if isinstance(p, (list, tuple)) else [p]):
                     inner = getattr(sub, "jaxpr", sub)
@@ -255,7 +265,8 @@ def test_schedule_meta_and_step_collectives_equal_jax(gloo_world,
             assert res["counts"][f"{key}/{pname}"] == want, pname
     if key == "fsdp2x2":
         assert ranks[0]["counts"]["fsdp2x2/full"] == {
-            "allreduce": 4, "allgather": 7, "reduce_scatter": 4}
+            "allreduce": 4, "allgather": 7, "reduce_scatter": 4,
+            "alltoall": 0, "send": 0, "recv": 0}
 
 
 @pytest.mark.parametrize("key", ["dp", "fsdp2x2"])
