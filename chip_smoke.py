@@ -193,6 +193,21 @@ Phases, in order; any failure exits non-zero:
    step times the steps it ran, the compute leg within 10 % of the
    stats time (at world 1 each burns exactly one step of it), host
    issue and power;
+10c. the observability channels through ``cli.main``: ``dp`` (8
+   buckets, -w 2 -r 3) with ``--profile --trace-out --telemetry`` and
+   ``ulysses`` (--sp 1, full depth) with ``--profile --trace-out``, at
+   the 10a/10b flags.  Bars: the record holds ``profile``; the trace
+   holds ``kernel`` events on the rank's device track and the host
+   phases (build, warmup, timed, fence, profile); every collective kind
+   whose calls launch device work at one rank is in ``profile`` once a
+   call — Ulysses' 128 all-to-alls a step, each a copy or a SendRecv
+   kernel tagged ``alltoall`` (DP's in-place one-rank allreduces launch
+   nothing in NCCL, so the DP run requires no kind); DP's telemetry
+   block holds warmup + runs samples.  Printed: the trace's event count
+   and bytes, the profiled step's wall (its ``profile`` span) beside the
+   untraced median.  Then a two-point in-process ``sweep dp``
+   (``num_buckets=2,4``, one NCCL group for both): two records tagged
+   with the axis, the bottleneck tally ``n/a`` for each;
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -279,9 +294,10 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
 # moved there from the jax-importing test files, 46 added with the split
 # K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
-# and sequence-parallel proxies); all 194 must pass
+# and sequence-parallel proxies, 4 with the observability channels);
+# all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 194
+CARD_TESTS_MIN = 198
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2305,6 +2321,98 @@ def proxy_phase(torch, card: str) -> dict:
     return medians
 
 
+# the observability runs: proxy -> (flags, warmup, runs, the kinds the
+# profile must hold and each one's device events a step).  At one rank
+# NCCL's in-place allreduce launches no device work, so DP's profile
+# holds the burn only; each of Ulysses' 128 all-to-alls is one copy or
+# one SendRecv kernel
+OBS_RUNS = {
+    "dp": (["dp", *PROXY_FLAGS, "--num_buckets", "8", "--telemetry"], 2, 3,
+           {}),
+    "ulysses": (["ulysses", *PROXY_FLAGS, "--sp", "1"], 2, 3,
+                {"alltoall": 128}),
+}
+OBS_HOST_PHASES = {"build", "warmup", "timed", "fence", "profile"}
+
+
+def observability_phase(torch, card: str) -> None:
+    """``cli dp`` and ``cli ulysses`` with ``--profile --trace-out``
+    (``OBS_RUNS``), then a two-point in-process sweep; the bars are in
+    the module docstring (10c)."""
+    from dlnetbench_tpu_torch import cli, sweep
+    from dlnetbench_tpu_torch.parallel import collectives as col
+    t_phase = time.perf_counter()
+    for proxy, (argv, warmup, runs, kinds) in OBS_RUNS.items():
+        path, trace = OUT / f"obs_{proxy}.jsonl", OUT / f"obs_{proxy}.json"
+        path.unlink(missing_ok=True)
+        trace.unlink(missing_ok=True)
+        col.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([*argv, "-w", str(warmup), "-r", str(runs),
+                       "--profile", "--trace-out", str(trace), "--out",
+                       str(path)])
+        wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if rc != 0 or not path.is_file() or not trace.is_file():
+            fail(f"observability {proxy}: cli rc {rc}, record "
+                 f"{path.is_file()}, trace {trace.is_file()}")
+        rec = json.loads(path.read_text().strip().splitlines()[-1])
+        g = rec["global"]
+        profile = g.get("profile")
+        if not profile:
+            fail(f"observability {proxy}: the record lacks profile")
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and e.get("pid") == 1]
+        if not kernels:
+            fail(f"observability {proxy}: the trace has no kernel events "
+                 f"on the rank's device track")
+        host = {e["name"]: e for e in events
+                if e.get("pid") == 0 and e.get("ph") == "X"}
+        missing = OBS_HOST_PHASES - set(host)
+        if missing:
+            fail(f"observability {proxy}: host phases {sorted(missing)} "
+                 f"missing from the trace")
+        for kind, per_step in kinds.items():
+            got = (profile.get(kind) or {}).get("count", 0)
+            if got != per_step:
+                fail(f"observability {proxy}: profile {kind} count {got}, "
+                     f"want {per_step} (the step's calls): {profile}")
+        if "--telemetry" in argv:
+            tele = g.get("telemetry") or {}
+            if tele.get("recorded") != warmup + runs:
+                fail(f"observability {proxy}: telemetry recorded "
+                     f"{tele.get('recorded')}, want {warmup + runs}")
+        median = statistics.median(rec["ranks"][0]["runtimes"])
+        say(f"observability {proxy}: cli run {wall:.1f} s; trace "
+            f"{len(events)} events, {trace.stat().st_size} bytes "
+            f"({len(kernels)} kernel events); profiled step "
+            f"{host['profile']['dur'] / 1e3:.1f} ms beside the untraced "
+            f"median {median / 1e3:.1f} ms; profile "
+            + ", ".join(f"{k} {v['count']} x {v['mean_us']:.1f} us"
+                        for k, v in profile.items())
+            + f"; top {g['device_top_ops'][:2]}")
+    out = OUT / "obs_sweep.jsonl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc = sweep.main(["dp", "--model", PROXY_MODEL, "--out", str(out),
+                     "--axis", "num_buckets=2,4", "--", "--buffer_dtype",
+                     "bfloat16", "--time_scale", str(PROXY_TIME_SCALE),
+                     "-w", "1", "-r", "2", "--no_topology"])
+    recs = [json.loads(line) for line in out.read_text().splitlines()] \
+        if out.is_file() else []
+    tags = [r["global"].get("variables", {}).get("num_buckets")
+            for r in recs]
+    if rc != 0 or tags != ["2", "4"]:
+        fail(f"observability sweep: rc {rc}, tagged records {tags}")
+    say(f"observability sweep: 2 in-process points in "
+        f"{time.perf_counter() - t0:.1f} s, runtime medians "
+        f"{[statistics.median(r['ranks'][0]['runtimes']) / 1e3 for r in recs]}"
+        f" ms")
+    say(f"observability phase: {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+
+
 def card_tests_phase() -> None:
     """The card-only pytest cases (``CARD_TESTS``, files that import no
     jax) in a subprocess, without tests/conftest.py (which imports jax):
@@ -2961,6 +3069,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     smi_sample("proxies")
     proxy_phase(torch, card)
+    torch.cuda.empty_cache()
+    observability_phase(torch, card)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         profile_phase(torch)

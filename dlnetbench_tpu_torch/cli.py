@@ -23,13 +23,25 @@ for the compute, timed full / compute-only / comm-only.  The world
 comes from the launcher (``torchrun``: NCCL on the cards, gloo with
 ``--platform cpu``); started alone, a process is world 1.  Rank 0
 appends one schema-v2 record to ``--out`` (or stdout), each rank's own
-timers in its row.
+timers in its row, and prints the ranks' topology graph to stderr at
+startup (``--no_topology``: not).  The observability channels are the
+JAX package's: ``--profile`` runs one more step under
+``torch.profiler`` on every rank and stamps ``global.profile`` (device
+time per collective kind, over all ranks) and
+``global.device_top_ops``; ``--trace-out PATH`` writes one merged
+Chrome/Perfetto trace (rank 0's host spans, one device track per rank,
+the flight recorder's counter tracks); ``--telemetry`` (or
+``DLNB_TELEMETRY=1``) runs the flight recorder and stamps
+``global.telemetry`` / ``global.anomalies``, its anomaly dumps landing
+in ``--flight-dir``.  The profile and the trace are auxiliary: a
+capture that fails leaves a note on stderr and the record as it was.
 
 ``serve`` is the JAX package's ``cli serve`` (same flag names and
 defaults) for the slice the port covers: the classic greedy engine with
 ``separate`` or ``inline`` prefill over an unquantized, int8 or fp8
-paged KV cache.  ``--platform`` is ``cuda`` unless the caller asks for
-``cpu``; without a card, ``cuda`` is an error.  The record (schema v2)
+paged KV cache, with ``--telemetry`` / ``--flight-dir``.
+``--platform`` is ``cuda`` unless the caller asks for ``cpu``; without
+a card, ``cuda`` is an error.  The record (schema v2)
 is appended to ``--out`` or written to stdout; a one-line summary goes
 to stderr.
 
@@ -43,6 +55,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from dlnetbench_tpu_torch.metrics import spans, telemetry
 from dlnetbench_tpu_torch.ops.common import PLATFORMS
 
 
@@ -88,6 +101,38 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                    metavar="KEY=VALUE")
     p.add_argument("--platform", default="cuda", choices=list(PLATFORMS),
                    help="cuda (default; an error without a card) or cpu")
+    _add_telemetry(p, "per-engine-step flight ring (queue depth, "
+                      "active slots, KV occupancy and fragmentation) + "
+                      "the anomaly engine (SLO breach, step-time "
+                      "change)")
+
+
+def _add_telemetry(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--telemetry", action="store_true",
+                   help=f"continuous telemetry (metrics/telemetry.py): "
+                        f"{what}; the record stamps telemetry + "
+                        f"anomalies blocks and anomaly dumps land in "
+                        f"--flight-dir.  Also enabled by DLNB_TELEMETRY=1")
+    p.add_argument("--flight-dir", "--flight_dir", dest="flight_dir",
+                   default=None, metavar="DIR",
+                   help="where anomaly-triggered flight_<trigger>.json "
+                        "ring dumps land (default: DLNB_FLIGHT_DIR; no "
+                        "dir = anomalies recorded without dumps; a rank "
+                        "of a multi-rank run suffixes _rank<r>)")
+
+
+def _telemetry_enable(args, rank: int | None = None) -> bool:
+    """Install the flight recorder for this run: the ``--telemetry`` /
+    ``--flight-dir`` flags or the ``DLNB_TELEMETRY`` env channel.
+    Returns True when THIS call enabled it (the caller then owns the
+    disable — an already-active recorder, e.g. a test harness's, is
+    never torn down here)."""
+    if telemetry.is_enabled():
+        return False
+    if args.telemetry or args.flight_dir:
+        telemetry.enable(dump_dir=args.flight_dir, rank=rank)
+        return True
+    return telemetry.enable_from_env(rank=rank) is not None
 
 
 # --buffer_dtype -> torch dtype (the JAX package's float8 is e4m3)
@@ -125,8 +170,28 @@ def _add_proxy(p: argparse.ArgumentParser) -> None:
     p.add_argument("--time_scale", type=float, default=1.0)
     p.add_argument("--stats_dir", default=None)
     p.add_argument("--out", default=None, help="append JSON record to file")
+    p.add_argument("--no_topology", action="store_true",
+                   help="skip the startup topology graph of the ranks' "
+                        "cards")
+    p.add_argument("--profile", action="store_true",
+                   help="after the timed runs, trace one more step on "
+                        "every rank with torch.profiler and attach the "
+                        "device time per collective kind, over all "
+                        "ranks, to the record (the cross-check for the "
+                        "decomposition timers)")
+    p.add_argument("--trace-out", "--trace_out", dest="trace_out",
+                   default=None, metavar="PATH",
+                   help="write ONE merged Chrome/Perfetto trace: rank 0's "
+                        "host spans (build/compile/warmup/timed/fence/"
+                        "profile) on top, every rank's device timeline "
+                        "of the profiled step below, collectives colored "
+                        "by kind (metrics/spans.py)")
     p.add_argument("--tag", action="append", default=[], metavar="KEY=VALUE",
-                   help="attach a variable to the emitted record")
+                   help="attach a variable to the emitted record (the "
+                        "sweep driver tags each grid point this way)")
+    _add_telemetry(p, "record a fixed-capacity flight ring of per-step "
+                      "samples and run the anomaly engine (band-aware "
+                      "step-time change)")
 
 
 def _add_pipeline(p: argparse.ArgumentParser) -> None:
@@ -201,7 +266,12 @@ def main(argv=None) -> int:
                           + (["--skip-aux"] if args.skip_aux else []))
     if args.proxy in PROXIES:
         return _run_proxy(args, parser)
-    return _run_serve(args, parser)
+    tele_on = _telemetry_enable(args)
+    try:
+        return _run_serve(args, parser)
+    finally:
+        if tele_on:
+            telemetry.disable()
 
 
 def _tags(args, parser) -> dict:
@@ -219,9 +289,8 @@ def _run_proxy(args, parser) -> int:
     import torch
 
     from dlnetbench_tpu_torch.core.model_stats import load_model_stats
-    from dlnetbench_tpu_torch.metrics.emit import emit_result
     from dlnetbench_tpu_torch.parallel import multihost
-    from dlnetbench_tpu_torch.proxies.base import ProxyConfig, run_proxy
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
     if args.devices is not None:
         parser.error("-d/--devices is not taken: the world comes from the "
                      "launcher — torchrun --nproc_per_node N -m "
@@ -256,30 +325,126 @@ def _run_proxy(args, parser) -> int:
         device = multihost.initialize(args.platform)
     except RuntimeError as e:
         parser.error(str(e))
+    rank = multihost.rank()
     try:
-        bundle = _build_proxy(args, parser, stats, cfg, device, dtype)
-        bundle.global_meta["buffer_dtype"] = dtype_name
-        if variables:
-            bundle.global_meta["variables"] = variables
-        result = run_proxy(args.proxy, bundle, cfg)
-        # every rank's own timers and meta, in rank order, into rank
-        # 0's record
-        per_rank = multihost.all_ranks((result.timers_us,
-                                        bundle.rank_meta))
-        if multihost.rank() == 0:
-            record = emit_result(
-                result, path=args.out,
-                rank_timers_us=[t for t, _ in per_rank],
-                rank_meta=[m for _, m in per_rank])
-            g = record["global"]
-            print(f"{args.proxy}: {g['model']} world {g['world_size']} on "
-                  f"{record['mesh']['device_kind']} — runtime median "
-                  f"{record['ranks'][0]['summary']['runtimes']['value']} "
-                  f"us", file=sys.stderr)
+        if not args.no_topology:
+            # the reference's print_topology_graph at every proxy's
+            # startup (cpp/netcommunicators.hpp:142); stderr keeps
+            # stdout pure JSON
+            from dlnetbench_tpu_torch.utils.topology import (gather_rows,
+                                                             print_topology)
+            rows = gather_rows(device)
+            if rank == 0:
+                print_topology(rows, stream=sys.stderr)
+        # the tracer and the recorder cover the WHOLE configuration —
+        # build, warmup, timed runs, the profiled step
+        tracer = spans.enable() if args.trace_out else None
+        tele_on = _telemetry_enable(
+            args, rank if multihost.world_size() > 1 else None)
+        try:
+            _run_measured(args, parser, stats, cfg, device, dtype,
+                          dtype_name, variables, tracer)
+        finally:
+            # a failure anywhere must not leak this run's tracer or
+            # recorder into later runs in this process (the sweep's
+            # in-process points, test harnesses); a tracer this run did
+            # not enable (a traced sweep's) stays on
+            if tracer is not None and spans.current() is tracer:
+                spans.disable()
+            if tele_on:
+                telemetry.disable()
     finally:
         if owned:
             multihost.shutdown()
     return 0
+
+
+def _run_measured(args, parser, stats, cfg, device, dtype, dtype_name,
+                  variables, tracer) -> None:
+    from dlnetbench_tpu_torch.metrics.emit import emit_result
+    from dlnetbench_tpu_torch.parallel import multihost
+    from dlnetbench_tpu_torch.proxies.base import run_proxy
+    with spans.span("build", proxy=args.proxy, model=args.model):
+        bundle = _build_proxy(args, parser, stats, cfg, device, dtype)
+    bundle.global_meta["buffer_dtype"] = dtype_name
+    if variables:
+        bundle.global_meta["variables"] = variables
+    result = run_proxy(args.proxy, bundle, cfg)
+    events = None
+    if args.profile or args.trace_out:
+        events = _profile_step(args, bundle, device)
+    # every rank's own timers, meta, anomalies and profiled device
+    # events, in rank order, to rank 0
+    rec_now = telemetry.current()
+    per_rank = multihost.all_ranks((
+        result.timers_us, bundle.rank_meta,
+        rec_now.anomalies_block() if rec_now is not None else None,
+        events))
+    if multihost.rank() != 0:
+        return
+    tracks = None
+    if args.profile or args.trace_out:
+        tracks = [(f"rank {r} ({dev})", evs)
+                  for r, (_, _, _, (dev, evs)) in enumerate(per_rank)
+                  if evs is not None]
+        if len(tracks) < len(per_rank):
+            print(f"profile: {len(per_rank) - len(tracks)} rank(s) "
+                  f"captured no trace; profile and trace left out, "
+                  f"record unaffected", file=sys.stderr)
+            tracks = None
+    if args.profile and tracks is not None:
+        from dlnetbench_tpu_torch.metrics import profiling
+        pooled = [e for _, evs in tracks for e in evs]
+        result.global_meta["profile"] = profiling.collective_stats(pooled)
+        result.global_meta["device_top_ops"] = \
+            profiling.top_device_ops(pooled)
+    if tracer is not None:
+        spans.disable()
+        _write_trace(args.trace_out, tracer, tracks)
+    record = emit_result(
+        result, path=args.out,
+        rank_timers_us=[t for t, _, _, _ in per_rank],
+        rank_meta=[m for _, m, _, _ in per_rank],
+        rank_anomalies=([a for _, _, a, _ in per_rank]
+                        if rec_now is not None else None))
+    g = record["global"]
+    print(f"{args.proxy}: {g['model']} world {g['world_size']} on "
+          f"{record['mesh']['device_kind']} — runtime median "
+          f"{record['ranks'][0]['summary']['runtimes']['value']} "
+          f"us", file=sys.stderr)
+
+
+def _profile_step(args, bundle, device) -> tuple:
+    """This rank's device label and the device events of one more
+    ``bundle.full`` step under ``torch.profiler`` (None, with a note on
+    stderr, when the capture fails: the profile is auxiliary)."""
+    from dlnetbench_tpu_torch.metrics import profiling
+    label = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    try:
+        return label, profiling.trace_step(
+            bundle.full, device, span_attrs={"proxy": args.proxy})
+    except Exception as e:
+        print(f"profile/trace capture failed ({type(e).__name__}: {e}); "
+              f"record unaffected", file=sys.stderr)
+        return label, None
+
+
+def _write_trace(path: str, tracer, tracks) -> None:
+    """The merged trace: rank 0's host spans, one device track per
+    rank, the flight recorder's counter tracks (full resident ring +
+    anomaly instants)."""
+    rec_now = telemetry.current()
+    extra = None
+    if rec_now is not None:
+        extra = spans.telemetry_counter_events(
+            rec_now.telemetry_block(last=rec_now.capacity),
+            rec_now.anomalies_block())
+    try:
+        spans.write_chrome_trace(path, tracer, tracks, extra_events=extra)
+        print(f"merged host+device trace -> {path}", file=sys.stderr)
+    except OSError as e:
+        print(f"trace-out write failed ({e}); record unaffected",
+              file=sys.stderr)
 
 
 def _build_proxy(args, parser, stats, cfg, device, dtype):

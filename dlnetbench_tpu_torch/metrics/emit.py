@@ -12,8 +12,17 @@ A proxy record written by rank 0 of a multi-process world carries each
 rank's own timers in its row (``rank_timers_us``), beside the rank's
 dict-valued ``rank_meta`` (its burn plan, the card's state), which the
 parser reads no column from.  The JAX package's
-``metrics/parser.py`` reads these records as it reads its own.  Not
-ported yet: the tuning, telemetry and attribution stamps.
+``metrics/parser.py`` reads these records as it reads its own.
+
+With the flight recorder on (``metrics/telemetry.py``) the record
+stamps ``global.telemetry`` (this process's ring geometry and tail:
+rank 0's on a multi-rank run) and, when anything fired,
+``global.anomalies``: every rank's anomaly blocks pooled (counts by
+trigger, the last 16 events, each tagged with its ``rank``), as the
+JAX package's ``metrics/merge.py`` pools processes.  With it off
+nothing is stamped: the record is byte for byte what a build without
+the recorder writes.  Not ported yet: the tuning and attribution
+stamps.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import json
 import socket
 import sys
 
+from dlnetbench_tpu_torch.metrics import telemetry
 from dlnetbench_tpu_torch.metrics.stats import summarize
 from dlnetbench_tpu_torch.proxies.base import ProxyResult
 
@@ -67,12 +77,34 @@ def transport_label(mesh_info: dict) -> str:
     return platform or "unknown"
 
 
+def pool_anomalies(rank_blocks: list) -> dict | None:
+    """Every rank's ``anomalies_block`` (None where a rank's run was
+    clean), in rank order, as one block: counts summed by trigger, the
+    last 16 events, each tagged with its ``rank``; None when no rank
+    saw an anomaly."""
+    counts: dict[str, int] = {}
+    events: list[dict] = []
+    for r, block in enumerate(rank_blocks):
+        if not block:
+            continue
+        for k, v in (block.get("triggers") or {}).items():
+            counts[k] = counts.get(k, 0) + int(v)
+        events += [{**ev, "rank": r} for ev in block.get("events") or []]
+    if not counts:
+        return None
+    return {"count": sum(counts.values()), "triggers": counts,
+            "events": events[-16:]}
+
+
 def result_to_record(result: ProxyResult,
                      rank_timers_us: list | None = None,
-                     rank_meta: list | None = None) -> dict:
+                     rank_meta: list | None = None,
+                     rank_anomalies: list | None = None) -> dict:
     """The record of ``result``; ``rank_timers_us`` holds every rank's
     own timers in rank order (None: ``result.timers_us`` on every row),
-    ``rank_meta`` every rank's dict-valued meta (None: none)."""
+    ``rank_meta`` every rank's dict-valued meta (None: none),
+    ``rank_anomalies`` every rank's ``anomalies_block`` (None: this
+    process's own, unpooled)."""
     mesh_info = result.global_meta.get("mesh", {})
     devices = mesh_info.get("devices", [{"id": 0, "process": 0}])
     hostname = socket.gethostname()
@@ -98,6 +130,13 @@ def result_to_record(result: ProxyResult,
         ranks.append(row)
     g = {k: v for k, v in result.global_meta.items() if k != "mesh"}
     g.setdefault("transport", transport_label(mesh_info))
+    rec_now = telemetry.current()
+    if rec_now is not None:
+        g.setdefault("telemetry", rec_now.telemetry_block())
+        anom = (rec_now.anomalies_block() if rank_anomalies is None
+                else pool_anomalies(rank_anomalies))
+        if anom is not None:
+            g.setdefault("anomalies", anom)
     if num_procs > 1:
         g.setdefault("num_processes", num_procs)
     return {
@@ -114,10 +153,12 @@ def result_to_record(result: ProxyResult,
 
 def emit_result(result: ProxyResult, stream=None, path: str | None = None,
                 rank_timers_us: list | None = None,
-                rank_meta: list | None = None) -> dict:
+                rank_meta: list | None = None,
+                rank_anomalies: list | None = None) -> dict:
     """Append the record as one JSON line to ``path`` (or write it to
     ``stream``, stdout by default); returns the record."""
-    record = result_to_record(result, rank_timers_us, rank_meta)
+    record = result_to_record(result, rank_timers_us, rank_meta,
+                              rank_anomalies)
     line = json.dumps(record)
     if path:
         with open(path, "a") as f:

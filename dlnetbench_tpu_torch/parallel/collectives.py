@@ -15,6 +15,10 @@ rank in neither the hop's senders nor its receivers issues no call.
 Each counts its calls in ``COUNTS`` (``counts`` / ``reset_counts``) —
 a hop its ``send`` and its ``recv`` apart — which the tests and
 ``chip_smoke.py`` read to see how many collectives a step issued.
+While a profile is active each also opens a ``record_function``
+annotation ``dlnb:<kind>`` (``allreduce``, ``allgather``,
+``reduce_scatter``, ``alltoall``, ``permute`` for a hop), through which
+``metrics/profiling.py`` gives the device work it launched its kind.
 
 The byte-moving ops (``alltoall`` and the hops) move float8 tensors as
 their ``uint8`` view: they move bits, and the view is the same bits in
@@ -35,8 +39,12 @@ shared by them records what each collective was ordered after.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+from dlnetbench_tpu_torch.metrics.profiling import ANNOTATION_PREFIX
 
 COUNTS = {"allreduce": 0, "allgather": 0, "reduce_scatter": 0,
           "alltoall": 0, "send": 0, "recv": 0}
@@ -52,6 +60,17 @@ def reset_counts() -> None:
         COUNTS[k] = 0
 
 
+_UNANNOTATED = contextlib.nullcontext()
+
+
+def _annotate(kind: str):
+    """``record_function("dlnb:<kind>")`` while a profile is active, a
+    shared no-op otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(ANNOTATION_PREFIX + kind)
+    return _UNANNOTATED
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype in _FLOAT8 else t
 
@@ -60,8 +79,9 @@ def allreduce(x: torch.Tensor, group=None, async_op: bool = False):
     """Sum ``x`` over the group's ranks, in place (reference Allreduce,
     MPI_SUM, proxy_classes.hpp:36-37)."""
     COUNTS["allreduce"] += 1
-    return dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
-                           async_op=async_op)
+    with _annotate("allreduce"):
+        return dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
+                               async_op=async_op)
 
 
 def allgather(out: torch.Tensor, x: torch.Tensor, group=None,
@@ -69,8 +89,9 @@ def allgather(out: torch.Tensor, x: torch.Tensor, group=None,
     """``out`` = every rank's ``x`` concatenated in rank order
     (reference Allgather, fsdp.cpp:86-100)."""
     COUNTS["allgather"] += 1
-    return dist.all_gather_into_tensor(out, x, group=group,
-                                       async_op=async_op)
+    with _annotate("allgather"):
+        return dist.all_gather_into_tensor(out, x, group=group,
+                                           async_op=async_op)
 
 
 def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group=None,
@@ -79,8 +100,9 @@ def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group=None,
     (reference Reduce_Scatter_block, fsdp.cpp:123-127); ``x`` divides
     evenly by the group's size."""
     COUNTS["reduce_scatter"] += 1
-    return dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                      group=group, async_op=async_op)
+    with _annotate("reduce_scatter"):
+        return dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                          group=group, async_op=async_op)
 
 
 def alltoall(out: torch.Tensor, x: torch.Tensor, group=None,
@@ -90,8 +112,9 @@ def alltoall(out: torch.Tensor, x: torch.Tensor, group=None,
     combine, hybrid_3d_moe.cpp:161-165).  ``x`` divides evenly by the
     group's size; ``out`` is another buffer of its size."""
     COUNTS["alltoall"] += 1
-    return dist.all_to_all_single(_bits(out), _bits(x), group=group,
-                                  async_op=async_op)
+    with _annotate("alltoall"):
+        return dist.all_to_all_single(_bits(out), _bits(x), group=group,
+                                      async_op=async_op)
 
 
 class _Handles:
@@ -121,17 +144,18 @@ def _hop(out: torch.Tensor, x: torch.Tensor, group, dst, src,
     else:
         out.zero_()
     me = dist.get_rank(group)
-    if dst == me and src == me and dist.get_backend(group) == "gloo":
-        out.copy_(x)             # gloo has no pair to its own rank
-        dst = src = None
-    ops = []
-    if dst is not None:
-        ops.append(dist.P2POp(dist.isend, _bits(x), _global(group, dst),
-                              group))
-    if src is not None:
-        ops.append(dist.P2POp(dist.irecv, _bits(out), _global(group, src),
-                              group))
-    handle = _Handles(dist.batch_isend_irecv(ops) if ops else [])
+    with _annotate("permute"):
+        if dst == me and src == me and dist.get_backend(group) == "gloo":
+            out.copy_(x)         # gloo has no pair to its own rank
+            dst = src = None
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, _bits(x),
+                                  _global(group, dst), group))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, _bits(out),
+                                  _global(group, src), group))
+        handle = _Handles(dist.batch_isend_irecv(ops) if ops else [])
     if async_op:
         return handle
     handle.wait()

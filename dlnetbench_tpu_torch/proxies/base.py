@@ -31,6 +31,16 @@ that drifts from its plan can be told apart from a clock that moved.
 Its values are dicts, from which the JAX package's parser makes no
 column.
 
+On a traced run (``metrics/spans.py``) the phases are spans —
+``warmup``, ``calibrate`` (the energy sampler) and ``timed`` (one per
+variant: ``full+compute``, ``comm``, each named variant) — and with
+the flight recorder on (``metrics/telemetry.py``) every warmup sample
+and every fenced full chain is a ring sample (``phase``,
+``step_wall_us``, ``chain_k``, ``compute_us``, ``energy_j``, and the
+card's ``sm_clock_mhz`` / ``power_w`` where the sampler reads them),
+indexed by harness step (warmup included), and each chain's wall
+feeds the step-time change detector.
+
 Every rank runs this loop on its own device and keeps its own timers
 (the reference's per-rank arrays); the run count is agreed across ranks,
 since every step holds collectives.  Loop mode (reference
@@ -42,7 +52,7 @@ import dataclasses
 import math
 from collections.abc import Callable
 
-from dlnetbench_tpu_torch.metrics import energy
+from dlnetbench_tpu_torch.metrics import energy, spans, telemetry
 from dlnetbench_tpu_torch.metrics.stats import overlap_fraction
 from dlnetbench_tpu_torch.parallel import multihost
 from dlnetbench_tpu_torch.utils import timing
@@ -111,12 +121,40 @@ def _chain_sizes(runs: int, k: int) -> list[int]:
     return sizes
 
 
+def _sample_chain(step: int, k: int, full_s: float, comp_s: list,
+                  energy_j: list, states: list) -> None:
+    """One flight-ring sample for the fenced full chain just timed:
+    its per-iteration wall beside the matched compute leg, the energy
+    and the card's state read after it; then the step-time detector."""
+    fields = {"phase": "timed", "step_wall_us": round(full_s * 1e6, 1),
+              "chain_k": k}
+    if comp_s:
+        fields["compute_us"] = round(comp_s[-1] * 1e6, 1)
+    if energy_j:
+        fields["energy_j"] = round(energy_j[-1], 6)
+    if states:
+        fields["sm_clock_mhz"] = states[-1]["sm_clock_mhz"]
+        fields["power_w"] = states[-1]["power_w"]
+    telemetry.record_step("proxy", step=step, **fields)
+    telemetry.observe_step_wall("proxy", full_s * 1e6, step=step)
+
+
 def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
               energy_sampler=None) -> ProxyResult:
     dev = bundle.device
     multihost.barrier(dev)                        # reference dp.cpp:234
-    warmup_s = timing.time_callable(bundle.full, reps=max(cfg.warmup, 1),
-                                    device=dev)
+    warmup = max(cfg.warmup, 1)
+    with spans.span("warmup", proxy=name, reps=warmup):
+        warmup_s = timing.time_callable(bundle.full, reps=warmup,
+                                        device=dev)
+    if telemetry.is_enabled():
+        # a fresh run over a live recorder re-baselines the step-time
+        # detector (an in-process sweep's next point is not an anomaly
+        # against the previous point's walls)
+        telemetry.current().reset_walls("proxy")
+        for w, t in enumerate(warmup_s):
+            telemetry.record_step("proxy", step=w, phase="warmup",
+                                  step_wall_us=round(t * 1e6, 1))
     runs = cfg.runs
     if cfg.min_exectime_s > 0:
         # every step holds collectives: all ranks run the same count
@@ -128,7 +166,8 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
             bundle.full()
 
     if energy_sampler is None:            # reference PROXY_ENERGY_PROFILING
-        energy_sampler = energy.detect_sampler(dev)
+        with spans.span("calibrate", what="energy_sampler"):
+            energy_sampler = energy.detect_sampler(dev)
     if energy_sampler is not None:
         bundle.global_meta["energy_source"] = getattr(
             energy_sampler, "source", type(energy_sampler).__name__)
@@ -138,7 +177,8 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
     # matched sample and run-to-run drift cannot leak into it.
     measure_compute = bundle.compute is not None
     if measure_compute:
-        timing.time_callable(bundle.compute, reps=1, device=dev)
+        with spans.span("warmup", proxy=name, variant="compute"):
+            timing.time_callable(bundle.compute, reps=1, device=dev)
     k_max = max(cfg.reps_per_fence, 1)
     chains = _chain_sizes(runs, k_max)
     bundle.global_meta["reps_per_fence"] = k_max
@@ -149,20 +189,26 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
     full_s, comp_s, energy_j = [], [], []
     read_state = getattr(energy_sampler, "read_state", None)
     states: dict[str, list] = {"": [], "compute_": []}
-    for k in chains:
-        # energy brackets the fenced full chain only, per iteration
-        if energy_sampler is not None:
-            e0 = energy_sampler.read_joules()
-        full_s.append(timing.time_chain(bundle.full, k=k, device=dev))
-        if energy_sampler is not None:
-            energy_j.append(max(0.0, energy_sampler.read_joules() - e0) / k)
-        if read_state is not None:
-            states[""].append(read_state())
-        if measure_compute:
-            comp_s.append(timing.time_chain(bundle.compute, k=k,
-                                            device=dev))
+    with spans.span("timed", proxy=name, variant="full+compute",
+                    runs=runs, chains=len(chains)):
+        for ci, k in enumerate(chains):
+            # energy brackets the fenced full chain only, per iteration
+            if energy_sampler is not None:
+                e0 = energy_sampler.read_joules()
+            full_s.append(timing.time_chain(bundle.full, k=k, device=dev))
+            if energy_sampler is not None:
+                energy_j.append(
+                    max(0.0, energy_sampler.read_joules() - e0) / k)
             if read_state is not None:
-                states["compute_"].append(read_state())
+                states[""].append(read_state())
+            if measure_compute:
+                comp_s.append(timing.time_chain(bundle.compute, k=k,
+                                                device=dev))
+                if read_state is not None:
+                    states["compute_"].append(read_state())
+            if telemetry.is_enabled():
+                _sample_chain(warmup + sum(chains[:ci]) + k - 1, k,
+                              full_s[-1], comp_s, energy_j, states[""])
     timers["runtimes"] = [t * 1e6 for t in full_s]
     if energy_sampler is not None:
         timers["energy_consumed"] = energy_j
@@ -178,9 +224,10 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
                                   for f, c in zip(full_s, comp_s)]
 
     if bundle.comm is not None:
-        timing.time_callable(bundle.comm, reps=1, device=dev)
-        comm_s = [timing.time_chain(bundle.comm, k=k, device=dev)
-                  for k in chains]
+        with spans.span("timed", proxy=name, variant="comm"):
+            timing.time_callable(bundle.comm, reps=1, device=dev)
+            comm_s = [timing.time_chain(bundle.comm, k=k, device=dev)
+                      for k in chains]
         timers["comm_time"] = [t * 1e6 for t in comm_s]
         if measure_compute:
             timers["overlap_fraction"] = [
@@ -189,8 +236,10 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
 
     if bundle.variants:
         for vname, vfn in bundle.variants.items():
-            timing.time_callable(vfn, reps=1, device=dev)
-            v_s = [timing.time_chain(vfn, k=k, device=dev) for k in chains]
+            with spans.span("timed", proxy=name, variant=vname):
+                timing.time_callable(vfn, reps=1, device=dev)
+                v_s = [timing.time_chain(vfn, k=k, device=dev)
+                       for k in chains]
             timers[f"{vname}_time"] = [t * 1e6 for t in v_s]
 
     return ProxyResult(

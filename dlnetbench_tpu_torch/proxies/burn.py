@@ -33,6 +33,11 @@ CPU the same three ops run eagerly.
 The per-iteration cost is calibrated once per (shape, dtype, device
 name) by differencing two trip counts, so launch overheads cancel, and
 any microsecond budget maps to a trip count (``BurnCalibration``).
+
+On a traced run (``metrics/spans.py``) each graph capture is a
+``compile`` span (``what="cuda_graph"``) and each calibration a
+``calibrate`` span, where the JAX package's executor compiles and its
+burn calibrates.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from pathlib import Path
 
 import torch
 
+from dlnetbench_tpu_torch.metrics import spans
 from dlnetbench_tpu_torch.utils.timing import time_callable
 
 DEFAULT_SHAPE = (256, 256)
@@ -88,21 +94,26 @@ class Burner:
     def _graph(self, iters: int):
         g = self._graphs.get(iters)
         if g is None:
-            # warm the library handles on a side stream, then put the
-            # state back: a replay must continue the chain where it was
-            saved = self.state.clone()
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._iteration()
-                self.state.copy_(saved)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            g = torch.cuda.CUDAGraph()
-            # thread_local: NCCL's watchdog thread may query its events
-            # while this thread captures
-            with torch.cuda.graph(g, capture_error_mode="thread_local"):
-                self.eager(iters)
+            with spans.span("compile", what="cuda_graph", iters=iters):
+                g = self._capture(iters)
             self._graphs[iters] = g
+        return g
+
+    def _capture(self, iters: int):
+        # warm the library handles on a side stream, then put the state
+        # back: a replay must continue the chain where it was
+        saved = self.state.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._iteration()
+            self.state.copy_(saved)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        # thread_local: NCCL's watchdog thread may query its events
+        # while this thread captures
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            self.eager(iters)
         return g
 
     def __call__(self, iters: int) -> None:
@@ -206,6 +217,11 @@ def calibrate(burner: Burner) -> BurnCalibration:
     """ns per iteration of ``burner``'s chain on its device, cached in
     the process per (shape, dtype, device name) and, when
     ``DLNB_COMPILE_CACHE_DIR`` is set, persisted there."""
+    with spans.span("calibrate", what="burn"):
+        return _calibrated(burner)
+
+
+def _calibrated(burner: Burner) -> BurnCalibration:
     kind = device_kind(burner.device)
     key = (tuple(burner.state.shape),
            str(burner.state.dtype).split(".")[-1], kind)

@@ -6,7 +6,9 @@
   with one output token give no sample.
 * **e2e** — ``finish - arrival``.
 * **goodput-at-SLO** — completed requests meeting both SLOs per wall
-  second; ``goodput_timeline`` windows it over finish times.
+  second; ``goodput_timeline`` windows it over finish times, and
+  ``rolling_slo_breach`` applies the windowing live (the engine's
+  flight recorder fires ``slo`` on it).
 
 ``build_result`` shapes a run as a ``ProxyResult`` so the record is the
 JAX package's schema v2: per-request arrays as timers, the aggregate
@@ -102,6 +104,27 @@ def goodput_timeline(completed: list[Completed], slo_ttft_ms: float,
             "goodput_frac": round(ok / len(done), 4) if done else None,
         })
     return out
+
+
+def rolling_slo_breach(recent: list[Completed], *, slo_ttft_ms: float,
+                       slo_tpot_ms: float, now_s: float,
+                       window_s: float = 0.5, min_completed: int = 4,
+                       breach_frac: float = 0.5) -> dict | None:
+    """Live SLO-breach detection: the ``goodput_timeline`` windowing
+    applied to the trailing window at ``now_s``.  Returns the breaching
+    window entry ``{"t_s", "completed", "slo_ok", "goodput_frac"}``
+    when the last ``window_s`` seconds completed at least
+    ``min_completed`` requests and their SLO-ok fraction fell below
+    ``breach_frac``; None otherwise."""
+    tail = [c for c in recent if c.finish_s >= now_s - window_s]
+    if len(tail) < min_completed:
+        return None
+    ok = sum(1 for c in tail if meets_slo(c, slo_ttft_ms, slo_tpot_ms))
+    frac = ok / len(tail)
+    if frac >= breach_frac:
+        return None
+    return {"t_s": round(now_s, 3), "completed": len(tail),
+            "slo_ok": ok, "goodput_frac": round(frac, 4)}
 
 
 def serving_block(completed: list[Completed], plan: ArrivalPlan, *,

@@ -10,6 +10,14 @@ on completion.  The host reads every step's next tokens back — that
 read is the step's fence, as in the JAX engine, and the engine adds no
 other synchronisation.
 
+With the flight recorder on (``metrics/telemetry.py``) every engine
+step is a ring sample (``step_wall_us``, ``queue_depth``,
+``active_slots``, ``kv_occupancy``, ``kv_fragmentation``) that feeds the
+step-time detector and the rolling SLO check (``trigger("slo")``); with
+it off the step reads no clock for it and allocates nothing.  On a
+traced run the engine build, the warmup requests and the measured run
+are the spans ``build``, ``warmup`` and ``serving_run``.
+
 Outside this slice, and refused with a ``ValueError`` naming ROADMAP.md:
 fused multi-step decode, speculative decode, sampling, grammars, MoE
 models, KV sharding, several capacity ranks, disaggregation, prefix
@@ -24,6 +32,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from dlnetbench_tpu_torch.metrics import spans, telemetry
 from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
                                                      init_params)
 from dlnetbench_tpu_torch.ops.common import resolve_device
@@ -150,12 +159,13 @@ class Engine:
             max_seqs=cfg.slots,
             max_pages_per_seq=cfg.max_seq_len // cfg.page_size,
             dtype=model_cfg.dtype, cache_dtype=cfg.cache_dtype)
-        self.params = (params if params is not None
-                       else init_params(model_cfg, seed=0,
-                                        device=self.device))
-        self._decode = D.make_decode_step(model_cfg, self.cache_cfg)
-        self._prefill = D.make_prefill_chunk(model_cfg, self.cache_cfg,
-                                             cfg.prefill_chunk)
+        with spans.span("build", what="serving engine"):
+            self.params = (params if params is not None
+                           else init_params(model_cfg, seed=0,
+                                            device=self.device))
+            self._decode = D.make_decode_step(model_cfg, self.cache_cfg)
+            self._prefill = D.make_prefill_chunk(model_cfg, self.cache_cfg,
+                                                 cfg.prefill_chunk)
         self._reset_state()
 
     def _reset_state(self):
@@ -176,6 +186,11 @@ class Engine:
         self._device_time_s = 0.0    # every program call, prefill too
         self._decode_device_s = 0.0  # decode dispatches only
         self._tokens_emitted = 0
+        # the flight recorder of this run (None, the default, keeps the
+        # step allocation-free); a new run is a new step-time baseline
+        self._tele = telemetry.current()
+        if self._tele is not None:
+            self._tele.reset_walls("serving")
 
     # ---- the loop ----------------------------------------------------
     def run(self, requests: list[Request]
@@ -282,6 +297,40 @@ class Engine:
         return dev_s
 
     def _step(self) -> None:
+        """One engine step (``_step_once``), sampled into the flight
+        ring when telemetry is on."""
+        if self._tele is None:
+            self._step_once()
+            return
+        t0 = time.perf_counter()
+        self._step_once()
+        self._sample_step((time.perf_counter() - t0) * 1e6)
+
+    def _sample_step(self, wall_us: float) -> None:
+        """One flight-ring sample per engine step: queue depth, active
+        slots, KV occupancy and fragmentation beside the step wall; the
+        step-time detector and the rolling SLO-breach check."""
+        tele, now, step = self._tele, self._now(), self.engine_steps
+        cs = self.cache.stats()
+        tele.record("serving", step=step, phase="engine_step",
+                    step_wall_us=round(wall_us, 1),
+                    queue_depth=len(self.pending),
+                    active_slots=sum(1 for s in self.slots
+                                     if s is not None),
+                    kv_occupancy=cs["occupancy"],
+                    kv_fragmentation=cs["fragmentation"])
+        tele.observe_step_wall("serving", wall_us, step=step)
+        # a bounded tail: completions append in finish order, so the
+        # trailing window is a suffix
+        breach = M.rolling_slo_breach(
+            self.completed[-64:], slo_ttft_ms=self.cfg.slo_ttft_ms,
+            slo_tpot_ms=self.cfg.slo_tpot_ms, now_s=now)
+        if breach is not None:
+            tele.trigger("slo", step=step, detail={
+                **breach, "slo": {"ttft_ms": self.cfg.slo_ttft_ms,
+                                  "tpot_ms": self.cfg.slo_tpot_ms}})
+
+    def _step_once(self) -> None:
         """One engine step: inline prefill chunks first (one per
         prefilling slot), then one decode token per active slot.
         ``host_dispatch_us`` records the step wall minus the program
@@ -431,11 +480,14 @@ def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
     requests = plan.sample()
     if cfg.warmup_requests > 0:
         p_len = min(cfg.prefill_chunk + 1, cfg.max_seq_len - 2)
-        engine.run([Request(rid=-1 - i, arrival_s=0.0, prompt_len=p_len,
-                            output_len=2)
-                    for i in range(cfg.warmup_requests)])
+        with spans.span("warmup", what="serving engine",
+                        reps=cfg.warmup_requests):
+            engine.run([Request(rid=-1 - i, arrival_s=0.0,
+                                prompt_len=p_len, output_len=2)
+                        for i in range(cfg.warmup_requests)])
     meta = engine.global_meta(plan)
-    completed, wall = engine.run(requests)
+    with spans.span("serving_run", requests=len(requests)):
+        completed, wall = engine.run(requests)
     meta["serving"] = M.serving_block(
         completed, plan, slo_ttft_ms=cfg.slo_ttft_ms,
         slo_tpot_ms=cfg.slo_tpot_ms, wall_s=wall,

@@ -11,6 +11,11 @@ that applies here: ``synchronize()`` waits for the device, and there is
 no round trip to subtract.  ``fence_rtt_s`` measures what an empty
 fence costs the host, which the proxies' records carry as
 ``host_rtt_us``.
+
+While span tracing is on (``metrics/spans.py``), the fence that closes
+each timed run or chain is a ``fence`` span, so the merged timeline
+shows the host waiting on the device apart from the dispatch burst;
+the check is one global load, so an untraced run pays nothing more.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import time
 
 import torch
 
+from dlnetbench_tpu_torch.metrics import spans
+
 
 def fence(device: torch.device | str | None = None) -> None:
     """Wait for the device's queued work (a no-op on the CPU, where
@@ -26,6 +33,16 @@ def fence(device: torch.device | str | None = None) -> None:
     dev = torch.device(device) if device is not None else None
     if (dev is None or dev.type == "cuda") and torch.cuda.is_available():
         torch.cuda.synchronize(dev)
+
+
+def _closing_fence(device, k: int) -> None:
+    """The fence that ends a timed run (a ``fence`` span when
+    tracing)."""
+    if spans.is_enabled():
+        with spans.span("fence", k=k):
+            fence(device)
+        return
+    fence(device)
 
 
 def time_callable(fn, *args, reps: int = 1, device=None,
@@ -37,7 +54,7 @@ def time_callable(fn, *args, reps: int = 1, device=None,
         fence(device)
         t0 = time.perf_counter()
         fn(*args, **kwargs)
-        fence(device)
+        _closing_fence(device, 1)
         out.append(time.perf_counter() - t0)
     return out
 
@@ -54,7 +71,7 @@ def time_chain(fn, *args, k: int = 1, device=None, **kwargs) -> float:
     t0 = time.perf_counter()
     for _ in range(k):
         fn(*args, **kwargs)
-    fence(device)
+    _closing_fence(device, k)
     return (time.perf_counter() - t0) / k
 
 

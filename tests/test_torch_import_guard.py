@@ -43,7 +43,9 @@ def test_importing_every_submodule_loads_no_jax():
               "core.executor", "parallel.multihost", "parallel.mesh",
               "parallel.collectives", "parallel.buffers", "proxies.base",
               "proxies.burn", "proxies.dp", "proxies.fsdp",
-              "metrics.energy", "utils.net"):
+              "metrics.energy", "utils.net", "metrics.spans",
+              "metrics.profiling", "metrics.telemetry", "utils.topology",
+              "sweep", "trace_summary"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -86,7 +88,7 @@ def test_the_guard_covers_every_card_test_file():
     assert {f"test_torch_card_{m}.py" for m in (
         "flash_attention", "splash_attention", "paged_attention",
         "mlp_backward", "quantized_mlp", "grouped_matmul",
-        "proxies")} <= names
+        "proxies", "observability")} <= names
 
 
 def test_card_tests_collect_without_jax():
