@@ -207,7 +207,27 @@ Phases, in order; any failure exits non-zero:
    and bytes, the profiled step's wall (its ``profile`` span) beside the
    untraced median.  Then a two-point in-process ``sweep dp``
    (``num_buckets=2,4``, one NCCL group for both): two records tagged
-   with the axis, the bottleneck tally ``n/a`` for each;
+   with the axis;
+10d. the record pipeline over the records 7, 10a-10c wrote (the seven
+   proxies, the two observability runs, the sweep's two points and the
+   three served runs; no run of its own): each passes the port's
+   ``validate_record`` and carries ``global.attribution`` whose fractions
+   sum to 1 within 1e-3, whose ``bound`` is in the port's vocabulary and
+   whose ``inputs.compute_basis`` is ``measured``; at world 1 the
+   transport is ``local`` and there is no ``achieved.comm``; DP's
+   verdict is ``sm``; the sweep's ``bound_tally`` counts no ``n/a``; the
+   port's ``merge_records`` gives a world-1 record back with its rows
+   and its verdict.  Then ``bench.main(["--skip-aux", "--check", F])``
+   at the bench shape twice: against 9's headline line, rc 0 with a
+   ``sentinel`` section; against that line with its ``value`` and
+   ``band`` halved, rc 3 with the headline named as regressed.  The
+   headline's block is priced on the card's preset (``inputs.hw``) and
+   its ``achieved.sm.frac`` is ``tflops_achieved`` over the bf16 peak
+   within rounding.  The records make one DataFrame (``records_to_
+   dataframe``: every rank x run a row, ``attr_bound`` on each) and a
+   bandwidth table, printed.  Each record's verdict and fractions are
+   printed, and whether matplotlib can be imported (the plot functions
+   are held on the CPU; the card machine has pandas, not matplotlib);
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -297,7 +317,7 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels);
 # all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 198
+CARD_TESTS_MIN = 200
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2413,6 +2433,149 @@ def observability_phase(torch, card: str) -> None:
         f"{card}")
 
 
+# the records the earlier phases write, read back by records_phase
+RECORD_FILES = [*(f"proxy_{p}.jsonl" for p in PROXY_RUNS),
+                *(f"obs_{p}.jsonl" for p in OBS_RUNS), "obs_sweep.jsonl",
+                *(f"serve_{dt}.jsonl" for dt in ("bf16", "int8", "fp8"))]
+
+
+def records_phase(torch, card: str, headline: dict) -> None:
+    """The record pipeline on the records already under ``OUT`` and the
+    bench's regression sentinel; the bars are in the module docstring
+    (10d).  ``headline`` is the bench headline line of phase 9."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from dlnetbench_tpu_torch import bench, sweep
+    from dlnetbench_tpu_torch.analysis import attribution as A
+    from dlnetbench_tpu_torch.analysis.bandwidth import bus_factor
+    from dlnetbench_tpu_torch.core.hardware import (HARDWARE,
+                                                    hw_key_for_device_name)
+    from dlnetbench_tpu_torch.metrics.merge import merge_records
+    from dlnetbench_tpu_torch.metrics.parser import (load_records,
+                                                     validate_record)
+    import pandas
+
+    from dlnetbench_tpu_torch.analysis.bandwidth import bandwidth_summary
+    from dlnetbench_tpu_torch.metrics.parser import records_to_dataframe
+    t_phase = time.perf_counter()
+    say(f"records: pandas {pandas.__version__}; matplotlib "
+        f"{'importable' if importlib.util.find_spec('matplotlib') else 'absent'}"
+        f" (the plot functions are held on the CPU)")
+    records = {}
+    for name in RECORD_FILES:
+        path = OUT / name
+        if not path.is_file():
+            fail(f"records: {name} missing")
+        recs = load_records(path)
+        if not recs:
+            fail(f"records: {name} holds no record")
+        for i, rec in enumerate(recs):
+            label = f"{name}[{i}]" if len(recs) > 1 else name
+            try:
+                validate_record(rec)
+            except ValueError as e:
+                fail(f"records {label}: {e}")
+            g = rec["global"]
+            attr = g.get("attribution")
+            if not isinstance(attr, dict):
+                fail(f"records {label}: no global.attribution")
+            fr = attr["fractions"]
+            if abs(sum(fr.values()) - 1.0) > 1e-3 \
+                    or set(fr) != set(A.RESOURCES):
+                fail(f"records {label}: fractions {fr} do not sum to 1")
+            if attr["bound"] not in A.BOUNDS:
+                fail(f"records {label}: bound {attr['bound']!r} not in "
+                     f"{A.BOUNDS}")
+            inputs = attr.get("inputs") or {}
+            if inputs.get("compute_basis") != "measured":
+                fail(f"records {label}: compute_basis "
+                     f"{inputs.get('compute_basis')!r} != 'measured'")
+            if len(rec["ranks"]) == 1:
+                if g.get("transport") != "local" \
+                        or inputs.get("transport", "local") != "local":
+                    fail(f"records {label}: world 1 transport "
+                         f"{g.get('transport')!r} / "
+                         f"{inputs.get('transport')!r} != 'local'")
+                if "comm" in (attr.get("achieved") or {}):
+                    fail(f"records {label}: world 1 carries achieved.comm "
+                         f"{attr['achieved']['comm']}")
+            model = g.get("comm_model") or {}
+            bus = {t: [bus_factor(c["kind"], c["group"]) for c in cs]
+                   for t, cs in model.items()}
+            say(f"records {label}: bound {attr['bound']}, fractions {fr}, "
+                f"time {inputs.get('time_us')} us, hw {inputs.get('hw')}, "
+                f"transport {g.get('transport')}; comm_model bus factors "
+                f"{bus}")
+            records[label] = rec
+    dp = records["proxy_dp.jsonl"]
+    if dp["global"]["attribution"]["bound"] != "sm":
+        fail(f"records: DP's verdict "
+             f"{dp['global']['attribution']['bound']!r} != 'sm'")
+    tally = sweep.bound_tally(str(OUT / "obs_sweep.jsonl"), io.StringIO())
+    if not tally or "n/a" in tally:
+        fail(f"records: the sweep's bound tally {tally}")
+    merged = merge_records([dp])
+    if merged["ranks"] != dp["ranks"] \
+            or merged["global"]["attribution"] != dp["global"]["attribution"]:
+        fail("records: merging the world-1 DP record changed its rows or "
+             "its verdict")
+    frame = records_to_dataframe(list(records.values()))
+    if frame["attr_bound"].isna().any() \
+            or len(frame) != sum(len(r["ranks"]) * r["num_runs"]
+                                 for r in records.values()):
+        fail(f"records: the DataFrame's rows or attr_bound "
+             f"{frame['attr_bound'].value_counts(dropna=False).to_dict()}")
+    bw = bandwidth_summary(list(records.values()))
+    for row in bw.itertuples():
+        say(f"records bandwidth {row.section} {row.collective}: "
+            f"{row.msg_bytes:.0f} B in {row.time_us:.1f} us, algbw "
+            f"{row.algbw_GBps:.2f} GB/s ({row.transport}, {row.attr_bound})")
+    say(f"records: {len(records)} records attributed, {len(frame)} "
+        f"DataFrame rows; sweep tally {tally}; the DP record merges to "
+        f"itself (bound {merged['global']['attribution']['bound']})")
+
+    def check(baseline: dict, label: str) -> tuple[int, dict]:
+        path = OUT / f"bench_baseline_{label}.jsonl"
+        path.write_text(json.dumps(baseline) + "\n")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--skip-aux", "--check", str(path)])
+        torch.cuda.synchronize()
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        say(f"records: bench --check {label}: rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s; headline {line['value']} ms "
+            f"(band {line['band']}); sentinel "
+            f"{json.dumps(line.get('sentinel'))}")
+        return rc, line
+
+    rc, line = check(headline, "own")
+    if rc != 0 or not isinstance(line.get("sentinel"), dict) \
+            or line["sentinel"].get("verdict") != "clean":
+        fail(f"records: bench --check against this run's headline: rc "
+             f"{rc}, sentinel {line.get('sentinel')}")
+    halved = {**headline, "value": headline["value"] / 2,
+              "band": [v / 2 for v in headline["band"]]}
+    rc3, line3 = check(halved, "halved")
+    if rc3 != 3 or "headline" not in line3["sentinel"].get("regressions",
+                                                          []):
+        fail(f"records: bench --check against the halved baseline: rc "
+             f"{rc3}, sentinel {line3.get('sentinel')}")
+    attr = line.get("attribution") or {}
+    hw = HARDWARE[hw_key_for_device_name(torch.cuda.get_device_name(0))
+                  or "h100_sxm"]
+    frac = (attr.get("achieved") or {}).get("sm", {}).get("frac")
+    want = line["tflops_achieved"] * 1e12 / hw.peak("bfloat16")
+    if (attr.get("inputs") or {}).get("hw") != hw.name or frac is None \
+            or abs(frac - want) > 1e-4:
+        fail(f"records: the headline's block {attr} (want inputs.hw "
+             f"{hw.name!r} and achieved.sm.frac {want:.4f})")
+    say(f"records: headline attribution {json.dumps(attr)}")
+    say(f"records phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def card_tests_phase() -> None:
     """The card-only pytest cases (``CARD_TESTS``, files that import no
     jax) in a subprocess, without tests/conftest.py (which imports jax):
@@ -3071,6 +3234,8 @@ def main(argv: list[str]) -> int:
     proxy_phase(torch, card)
     torch.cuda.empty_cache()
     observability_phase(torch, card)
+    torch.cuda.empty_cache()
+    records_phase(torch, card, trained["line"])
     torch.cuda.empty_cache()
     if "--profile" in argv:
         profile_phase(torch)

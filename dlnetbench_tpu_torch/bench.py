@@ -38,6 +38,17 @@ each mask's block accounting at K6's own tiles; shapes from
 int8_switchback whose loss is within 2 % of bf16's).  ``--skip-aux``
 prints the headline alone.  An auxiliary line that fails fails the run:
 nothing degrades to a skip marker.
+
+On a card the headline, the fused A/B lines, ``longcontext_ab`` and the
+int8 step lines carry an ``attribution`` block
+(``analysis/attribution.attribute_kernel``: the measured time against
+the line's own credited FLOPs and byte model on the card's preset; on
+the CPU there is no preset and no block).  ``--check BASELINE`` runs the
+regression sentinel (``sentinel.py``) against a baseline bench artifact:
+the verdict rides the headline as ``sentinel``, and the run exits 3 on a
+regression (median worse by more than ``--check-threshold`` percent with
+disjoint bands) and 2 when the baseline has no comparable headline; the
+measurement prints in full either way.
 """
 from __future__ import annotations
 
@@ -66,6 +77,17 @@ def _parse_args(argv):
                    action="store_true",
                    help="measure only the headline train step (aux lines "
                         "print nothing)")
+    p.add_argument("--check", default=None, metavar="BASELINE",
+                   help="regression sentinel: compare this run's headline "
+                        "and aux lines against a baseline bench artifact "
+                        "(a capture with parsed/tail or a bench stdout "
+                        "JSONL), write a 'sentinel' section into the "
+                        "headline, exit 3 on a regression and 2 when the "
+                        "baseline has no comparable headline")
+    p.add_argument("--check-threshold", "--check_threshold",
+                   dest="check_threshold", type=float, default=5.0,
+                   help="percent slowdown that (with disjoint bands) "
+                        "counts as a regression (default 5)")
     return p, p.parse_args(argv)
 
 
@@ -106,6 +128,21 @@ def flag_above_peak(line: dict) -> dict:
     if (line.get("vs_baseline") or 0) > 1.0:
         line["note"] = ("above-peak reading: the time is a lower bound and "
                         "the rate an upper bound")
+    return line
+
+
+def stamp_attr(line: dict, *, time_s: float, flops: float, nbytes: float,
+               hw, dtype_key: str, peak_flops: float | None = None) -> dict:
+    """Stamp the attribution block of a measured line (the JAX
+    ``bench.py``'s ``_stamp_attr``); no block without a preset."""
+    from dlnetbench_tpu_torch.analysis import attribution
+    if hw is None:
+        return line
+    block = attribution.attribute_kernel(
+        time_s, flops, nbytes, hw, dtype_key, peak_flops=peak_flops,
+        source="model")
+    if block is not None:
+        line["attribution"] = block
     return line
 
 
@@ -272,6 +309,9 @@ def bench_quant_fused_ab(card, hw_key, device_name: str, device,
         f"{device_name} ({where})",
         summaries, round_times, flops,
         roofline_s(flops, nbytes, hw, peak_key) if hw else None)
+    # attribution of the fused path (the line's value)
+    line = stamp_attr(line, time_s=summaries["fused"]["value"], flops=flops,
+                      nbytes=nbytes, hw=hw, dtype_key=peak_key)
     print(json.dumps(line), flush=True)
     return line
 
@@ -558,6 +598,17 @@ def bench_longcontext_ab(card, hw_key, device_name: str, device) -> dict:
         mask_info=mask_info)
     line["tflops_dense"] = round(flops / summaries["dense"]["value"] / 1e12,
                                  2)
+    # attribution of the window leg (the line's value): the dense FLOPs
+    # scaled by the tiles the window visits, q, k, v and the output
+    # read or written once
+    from dlnetbench_tpu_torch.core.hardware import HARDWARE
+    win_visited = 1.0 - mask_info["splash_window"]["block_skip_fraction"]
+    line = stamp_attr(
+        line, time_s=summaries["splash_window"]["value"],
+        flops=flops * win_visited / max(
+            1.0 - dense_stats["block_skip_fraction"], 1e-9),
+        nbytes=q.element_size() * s * (2 * hq + 2 * hkv) * dh,
+        hw=HARDWARE.get(hw_key), dtype_key="bfloat16")
     print(json.dumps(line), flush=True)
     return line
 
@@ -593,9 +644,9 @@ def bench_int8_step(card, hw_key, device_name: str, device,
     else:
         bwd_desc = "bwd straight-through bf16"
         delta_desc = "mlp_dtype the only delta"
-    vs = None
-    if hw_key:
-        hw = HARDWARE[hw_key]
+    vs = split_s = None
+    hw = HARDWARE[hw_key] if hw_key else None
+    if hw is not None:
         split_s = (int8_flops / hw.peak("int8")
                    + (total_flops - int8_flops) / hw.peak("bfloat16"))
         vs = round(split_s / step_s, 4)
@@ -612,6 +663,13 @@ def bench_int8_step(card, hw_key, device_name: str, device,
         "tflops_achieved": round(total_flops / step_s / 1e12, 2),
         "loss": round(loss, 4),
     })
+    # attribution against the split-peak roofline vs_baseline prices: the
+    # effective peak is total_flops / split_s
+    if hw is not None:
+        line = stamp_attr(
+            line, time_s=step_s, flops=total_flops,
+            nbytes=roofline.train_step_bytes(card, bs.BATCH, "bfloat16"),
+            hw=hw, dtype_key="bfloat16", peak_flops=total_flops / split_s)
     print(json.dumps(line), flush=True)
     return line
 
@@ -622,7 +680,9 @@ def headline(step_summary: dict, loss: float, card, cfg,
     package's keys and formulas (3x the forward for fwd + bwd, the LM
     head credited, the causal half of the score products elided in
     ``vs_baseline_causal``, the step's pass-by-pass traffic in
-    ``vs_baseline_bwd_aware``)."""
+    ``vs_baseline_bwd_aware``), with the attribution block of the step
+    against those credited FLOPs and that traffic on the card's preset
+    (none on the CPU)."""
     from dlnetbench_tpu_torch.core import roofline
     from dlnetbench_tpu_torch.core.hardware import HARDWARE
     from dlnetbench_tpu_torch.metrics import stats
@@ -656,7 +716,7 @@ def headline(step_summary: dict, loss: float, card, cfg,
             "vs_baseline_bwd_aware": round(roofline_bwd_s / step_s, 4),
             "vs_baseline_decoder_only": round(roofline_dec_s / step_s, 4),
         }
-    return stats.flag_low_mode({
+    line = stats.flag_low_mode({
         "metric": (f"llama3_8b-shaped {bs.LAYERS}L train step, "
                    f"B={bs.BATCH} S={bs.SEQ}, {device_name} ({hw_key})"),
         "value": round(step_s * 1e3, 3),
@@ -668,6 +728,40 @@ def headline(step_summary: dict, loss: float, card, cfg,
         "loss": round(loss, 4),
         "logits_dtype": "float32" if cfg.logits_f32 else "bfloat16",
     })
+    return stamp_attr(
+        line, time_s=step_s, flops=total_flops,
+        nbytes=roofline.train_step_bytes(card, bs.BATCH, "bfloat16"),
+        hw=HARDWARE.get(hw_key), dtype_key="bfloat16")
+
+
+def sentinel_check(line: dict, baseline: str,
+                   threshold_pct: float) -> int:
+    """Judge ``line`` (the headline, its aux lines inside it) against the
+    baseline artifact at ``baseline``: the verdict rides ``line`` as
+    ``sentinel``; returns the exit code — 3 on a regression, 2 when the
+    baseline has no comparable headline (a tripwire that silently
+    disarms is worse than none), else 0."""
+    from dlnetbench_tpu_torch import sentinel
+    try:
+        base_lines = sentinel.bench_lines(baseline)
+    except (OSError, ValueError) as e:
+        print(f"--check: cannot read baseline ({e})", file=sys.stderr)
+        base_lines = {}
+    rc = 0
+    if not base_lines.get("headline"):
+        print(f"--check: baseline {baseline} has no comparable headline — "
+              f"sentinel cannot arm", file=sys.stderr)
+        rc = 2
+    cur_lines = {"headline": line,
+                 **{k: v for k, v in line.items() if sentinel.is_ms_line(v)}}
+    line["sentinel"] = sentinel.check(base_lines, cur_lines, threshold_pct,
+                                      baseline_label=str(baseline))
+    if line["sentinel"].get("verdict") == "regression":
+        print(f"sentinel: REGRESSION vs {baseline}: "
+              f"{', '.join(line['sentinel']['regressions'])}",
+              file=sys.stderr)
+        rc = sentinel.RC_REGRESSION
+    return rc
 
 
 def main(argv=None) -> int:
@@ -716,11 +810,14 @@ def main(argv=None) -> int:
     line = headline(summary, loss, card, cfg, device_name, hw_key)
     line.update(aux)
     line["recommended_step"] = recommended
+    rc = 0
+    if args.check:
+        rc = sentinel_check(line, args.check, args.check_threshold)
     print(f"bench: {line['value']} ms/step (band {line['band']}), loss "
           f"{line['loss']}, vs_baseline {line['vs_baseline']} on "
           f"{device_name}", file=sys.stderr)
     print(json.dumps(line), flush=True)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

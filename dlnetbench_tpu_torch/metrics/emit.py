@@ -11,8 +11,11 @@ One run becomes one self-describing JSON object:
 A proxy record written by rank 0 of a multi-process world carries each
 rank's own timers in its row (``rank_timers_us``), beside the rank's
 dict-valued ``rank_meta`` (its burn plan, the card's state), which the
-parser reads no column from.  The JAX package's
-``metrics/parser.py`` reads these records as it reads its own.
+parser reads no column from.  Such a record holds every rank's own
+clocks, and its mesh header says so (``"gathered": true``, a key
+neither package's parser makes a column of): ``metrics/merge.py`` takes
+it as complete.  The JAX package's ``metrics/parser.py`` reads these
+records as it reads its own.
 
 With the flight recorder on (``metrics/telemetry.py``) the record
 stamps ``global.telemetry`` (this process's ring geometry and tail:
@@ -21,8 +24,16 @@ rank 0's on a multi-rank run) and, when anything fired,
 trigger, the last 16 events, each tagged with its ``rank``), as the
 JAX package's ``metrics/merge.py`` pools processes.  With it off
 nothing is stamped: the record is byte for byte what a build without
-the recorder writes.  Not ported yet: the tuning and attribution
-stamps.
+the recorder writes.
+
+Every record is stamped last with ``global.attribution``
+(``analysis/attribution.attribute_record``; a serving record's from its
+dispatch decomposition): the fractions of the wall-clock spent in
+compute, HBM, exposed communication and the host, and the verdict word
+of the hardware that ran it (``sm``, ``nvlink``, ``network``,
+``host``).  It is derived data: a failure to stamp it is printed and
+never costs the measurement.  The tuning stamp waits for the port's
+``tuning/``.
 """
 from __future__ import annotations
 
@@ -66,15 +77,32 @@ def _process_identity() -> tuple[int, int]:
 def transport_label(mesh_info: dict) -> str:
     """What timed bytes moved over: nothing but the device itself for a
     one-device run, loopback between CPU processes (gloo), NCCL between
-    cards."""
+    the cards of one host, NCCL with a network leg across hosts."""
     if mesh_info.get("num_devices", 1) <= 1:
         return "local"
     platform = mesh_info.get("platform")
     if platform == "cpu":
         return "virtual-host"
     if platform == "gpu":
-        return "nccl"
+        return ("nccl+network" if mesh_info.get("num_hosts", 1) > 1
+                else "nccl")
     return platform or "unknown"
+
+
+def stamp_attribution(record: dict) -> dict:
+    """Stamp ``global.attribution`` on ``record`` (in place; returned)
+    when its samples can be attributed.  Derived data: a failure is
+    printed and leaves the record as it was."""
+    try:
+        from dlnetbench_tpu_torch.analysis.attribution import \
+            attribute_record
+        block = attribute_record(record)
+        if block is not None:
+            record["global"]["attribution"] = block
+    except Exception as e:
+        print(f"attribution stamping failed ({type(e).__name__}: {e}); "
+              f"record unaffected", file=sys.stderr)
+    return record
 
 
 def pool_anomalies(rank_blocks: list) -> dict | None:
@@ -139,16 +167,19 @@ def result_to_record(result: ProxyResult,
             g.setdefault("anomalies", anom)
     if num_procs > 1:
         g.setdefault("num_processes", num_procs)
-    return {
+    mesh = {k: v for k, v in mesh_info.items() if k != "devices"}
+    if rank_timers_us is not None:
+        mesh["gathered"] = True
+    return stamp_attribution({
         "section": result.name,
         "version": SCHEMA_VERSION,
         "process": proc,
         "global": g,
-        "mesh": {k: v for k, v in mesh_info.items() if k != "devices"},
+        "mesh": mesh,
         "num_runs": result.num_runs,
         "warmup_times": result.warmup_times_us,
         "ranks": ranks,
-    }
+    })
 
 
 def emit_result(result: ProxyResult, stream=None, path: str | None = None,

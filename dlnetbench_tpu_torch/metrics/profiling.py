@@ -328,6 +328,13 @@ def device_events(events: list[dict], platform: str) -> list[dict]:
     return out
 
 
+# idle host time at each end of the recorded profiler step: the
+# profiler keeps a device record only when its converted timestamp lies
+# inside the step, and on the card that conversion was seen shifted by
+# milliseconds, dropping the step's first copy and kernels
+WINDOW_PAD_S = 0.02
+
+
 def trace_step(fn, device, *, trace_dir: str | Path | None = None,
                span_attrs: dict | None = None) -> list[dict]:
     """Run the zero-argument step ``fn`` twice under ``torch.profiler``
@@ -335,9 +342,12 @@ def trace_step(fn, device, *, trace_dir: str | Path | None = None,
     fenced on ``device`` before each profiler step closes; returns the
     recorded step's ``device_events``.  The recorded step runs inside
     the host span ``profile`` (``span_attrs`` its attributes), which
-    the merged trace aligns the device timeline to.  The exported
-    trace is written under ``trace_dir`` (kept) or a temporary
-    directory (removed)."""
+    the merged trace aligns the device timeline to, with
+    ``WINDOW_PAD_S`` of idle time before and after it inside the
+    profiler's step.  The exported trace is written under
+    ``trace_dir`` (kept) or a temporary directory (removed)."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -361,9 +371,11 @@ def trace_step(fn, device, *, trace_dir: str | Path | None = None,
             fn()
             fence(device)
             prof.step()
+            time.sleep(WINDOW_PAD_S)
             with spans.span("profile", **(span_attrs or {})):
                 fn()
                 fence(device)
+            time.sleep(WINDOW_PAD_S)
             prof.step()
         return device_events(load_trace_events(path), device.type)
 

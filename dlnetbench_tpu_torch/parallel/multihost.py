@@ -21,6 +21,9 @@ from dlnetbench_tpu_torch.ops.common import resolve_device
 from dlnetbench_tpu_torch.utils.net import free_port
 
 
+PORT_ATTEMPTS = 5
+
+
 def initialize(platform: str = "cuda") -> torch.device:
     """Join (or, at world 1, create) the default process group; returns
     this rank's device.  Raises when ``cuda`` is asked for without a
@@ -47,14 +50,24 @@ def initialize(platform: str = "cuda") -> torch.device:
         return device
     if env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
         init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
-    elif world == 1:
-        init = f"tcp://localhost:{free_port()}"
-    else:
+        dist.init_process_group(backend, init_method=init,
+                                world_size=world, rank=rank)
+        return device
+    if world != 1:
         raise RuntimeError(
             f"WORLD_SIZE={world} without MASTER_ADDR/MASTER_PORT: start "
             f"the ranks with torchrun --nproc_per_node {world}")
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
-    return device
+    # a one-rank group's store on a free port: another process can take
+    # the port before the store binds it, so that failure tries a new one
+    for attempt in range(1, PORT_ATTEMPTS + 1):
+        try:
+            dist.init_process_group(
+                backend, init_method=f"tcp://localhost:{free_port()}",
+                world_size=1, rank=0)
+            return device
+        except RuntimeError as e:
+            if "EADDRINUSE" not in str(e) or attempt == PORT_ATTEMPTS:
+                raise
 
 
 def shutdown() -> None:

@@ -10,7 +10,7 @@ region its ``comm_model`` names (``pp_comm_time``, ``ep_comm_time``,
 ...), the slowest rank's median in ms; each region's bytes over that
 time as algorithm bandwidth and as bus bandwidth (NCCL's factors:
 allreduce 2(n-1)/n, all-to-all, allgather and reduce-scatter (n-1)/n,
-a hop 1) — for the pipeline's hops also ``hop_GBps``, one message's
+a hop 1: ``analysis/bandwidth.bus_factor``) — for the pipeline's hops also ``hop_GBps``, one message's
 bytes times the hop ticks over the time, the rate of one edge were the
 ticks one after another (above one edge's rate where the two
 directions overlap); and ``runtime / compute`` beside the schedule's
@@ -24,11 +24,7 @@ import json
 import statistics
 import sys
 
-BUS_FACTOR = {"allreduce": lambda n: 2 * (n - 1) / n,
-              "alltoall": lambda n: (n - 1) / n,
-              "allgather": lambda n: (n - 1) / n,
-              "reduce_scatter": lambda n: (n - 1) / n,
-              "p2p": lambda n: 1.0}
+from dlnetbench_tpu_torch.analysis.bandwidth import bus_factor
 
 
 def _ms(rec: dict, timer: str) -> float:
@@ -46,7 +42,7 @@ def summarize(rec: dict) -> dict:
     for region, parts in g["comm_model"].items():
         ms = _ms(rec, region)
         nbytes = sum(p["bytes"] for p in parts)
-        bus = sum(p["bytes"] * BUS_FACTOR[p["kind"]](max(p["group"], 1))
+        bus = sum(p["bytes"] * bus_factor(p["kind"], p["group"])
                   for p in parts)
         out[region] = {"ms": ms, "bytes": nbytes,
                        "algbw_GBps": nbytes / ms / 1e6 if ms else None,

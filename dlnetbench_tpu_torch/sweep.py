@@ -192,12 +192,13 @@ def bound_tally(out_path: str, stream=None, *,
     sweep appended to ``out_path`` and say so on ``stream``.
     ``start_offset`` is the file's byte size before the sweep ran:
     emit_result appends, so records from earlier sweeps sharing the
-    same --out must not pollute this grid's tally.  Records without an
-    attribution block tally under ``n/a`` — every record the port
-    writes today, whose emitter has no attribution stamp yet (ROADMAP
-    queue 1 item 2); the function needs no change when it does.
-    Returns the tally ({} when the file is unreadable — a dry run, or
-    every point failed before emitting)."""
+    same --out must not pollute this grid's tally.  Every record the
+    port writes carries the block (``metrics/emit.py`` stamps it): its
+    verdict is ``sm``, ``nvlink``, ``network``, ``host`` or ``faulted``;
+    a record without one (its samples could not be attributed, or the
+    stamp failed) tallies under ``n/a``.  Returns the tally ({} when the
+    file is unreadable — a dry run, or every point failed before
+    emitting)."""
     import json
     stream = stream or sys.stderr
     tally: dict[str, int] = {}

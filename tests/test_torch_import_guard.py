@@ -45,7 +45,10 @@ def test_importing_every_submodule_loads_no_jax():
               "proxies.burn", "proxies.dp", "proxies.fsdp",
               "metrics.energy", "utils.net", "metrics.spans",
               "metrics.profiling", "metrics.telemetry", "utils.topology",
-              "sweep", "trace_summary"):
+              "sweep", "trace_summary", "metrics.parser", "metrics.merge",
+              "analysis", "analysis.attribution", "analysis.bandwidth",
+              "analysis.critical_path", "analysis.goodput", "analysis.plots",
+              "analysis.py_utils", "faults.plan", "sentinel"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -11,7 +11,8 @@ the proxy commands' observability flags end to end:
   ``dlnb:<kind>`` annotation;
 * a real profiled step at world 1 on gloo;
 * with no observability flag, a ``cli dp`` record on scripted clocks is
-  byte for byte the parent tree's (``PARENT_RECORD``);
+  byte for byte the parent tree's (``PARENT_RECORD``) but for the record
+  pipeline's gathered mark and attribution stamp (``RECORD_ADDITIONS``);
 * four spawned gloo ranks run ``cli dp --num_buckets 2 --profile
   --trace-out --telemetry --platform cpu``: the profile's counts equal
   the collective counters over the profiled step summed over ranks, the
@@ -243,6 +244,34 @@ def test_profiled_step_on_gloo_world1_links_every_kind():
             if s["name"] == "profile"] == [("profile", {"proxy": "t"})]
 
 
+def test_recorded_step_is_padded_inside_the_profiler_step(monkeypatch):
+    """The recorded step has ``WINDOW_PAD_S`` of idle host time on each
+    side inside the profiler's active step (a device record whose
+    converted timestamp falls outside that step is dropped)."""
+    import time
+
+    from dlnetbench_tpu_torch.metrics import spans
+    order = []
+    real_sleep = time.sleep
+
+    def sleep(s):
+        order.append(("sleep", s))
+        real_sleep(0)
+    monkeypatch.setattr(time, "sleep", sleep)
+    x = torch.arange(8, dtype=torch.float32)
+    tracer = spans.enable()
+    try:
+        events = T_prof.trace_step(lambda: order.append("step") or
+                                   torch.tanh(x), torch.device("cpu"))
+    finally:
+        spans.disable()
+    pad = ("sleep", T_prof.WINDOW_PAD_S)
+    assert order == ["step", pad, "step", pad]
+    assert T_prof.WINDOW_PAD_S >= 0.01
+    assert events
+    assert [s["name"] for s in tracer.spans] == ["profile"]
+
+
 # ------------------------------------------- the record, byte for byte
 # cli dp at world 1 on the CPU, written by the parent tree (commit
 # 2a52e65) with the clocks of utils/timing.py and core/executor.py
@@ -305,12 +334,40 @@ def _scripted_dp(monkeypatch, tmp_path, *extra) -> str:
     return out.read_text()
 
 
+# what the record pipeline adds to the parent tree's record: the mesh
+# header's gathered mark and the attribution stamp, the last keys of
+# their blocks (scripted clocks: compute is the whole runtime on a CPU)
+RECORD_ADDITIONS = {
+    "gathered": True,
+    "attribution": {
+        "fractions": {"compute": 1.0, "hbm": 0.0, "comm_exposed": 0.0,
+                      "host": 0.0},
+        "bound": "host",
+        "inputs": {"source": "timers", "hw": None, "host_rtt_us": 1250.0,
+                   "time_us": 1250.0, "compute_basis": "measured",
+                   "transport": "local"}},
+}
+
+
+def _without_additions(text: str) -> str:
+    """The record's line with ``RECORD_ADDITIONS`` checked and taken
+    out, every other byte as written."""
+    rec = json.loads(text)
+    assert list(rec["mesh"])[-1] == "gathered"
+    assert list(rec["global"])[-1] == "attribution"
+    assert rec["mesh"].pop("gathered") == RECORD_ADDITIONS["gathered"]
+    assert rec["global"].pop("attribution") == \
+        RECORD_ADDITIONS["attribution"]
+    return json.dumps(rec) + "\n"
+
+
 def test_record_without_flags_is_the_parent_trees(monkeypatch, tmp_path):
-    assert _scripted_dp(monkeypatch, tmp_path) == PARENT_RECORD
+    assert _without_additions(_scripted_dp(monkeypatch, tmp_path)) == \
+        PARENT_RECORD
     # the topology graph prints to stderr and changes no byte
     (tmp_path / "b").mkdir()
-    assert _scripted_dp(monkeypatch, tmp_path / "b",
-                        "--no_topology") == PARENT_RECORD
+    assert _without_additions(_scripted_dp(monkeypatch, tmp_path / "b",
+                                           "--no_topology")) == PARENT_RECORD
 
 
 # ----------------------------------------------- four gloo ranks, e2e

@@ -66,7 +66,7 @@ BUNDLES = {
     "ring_sp2_dp2": ("ring_attention", dict(sp=2, dp=2, max_layers=2)),
     "ulysses_sp2_dp2": ("ulysses", dict(sp=2, dp=2, max_layers=2)),
 }
-RECORDED = ("2d_s2_dp2_gpipe", "ring_sp4")
+RECORDED = ("2d_s2_dp2_gpipe", "ring_sp4", "ulysses_sp2_dp2")
 
 
 def _coll_inputs(dtype_name: str) -> np.ndarray:
@@ -490,10 +490,9 @@ def test_records_load_through_the_jax_parser_as_jax_records(
     tdf = get_metrics_dataframe(out / f"{key}.jsonl", proxy)
     assert len(tdf) == WORLD * 2 and sorted(tdf["rank"].unique()) == [
         0, 1, 2, 3]
-    # every column of JAX's record but its attribution stamp, and the
-    # count of processes
-    assert set(tdf.columns) == (set(jdf.columns) - {"attr_bound"}) | {
-        "num_processes"}
+    # every column of JAX's record, its attribution verdict included, and
+    # the count of processes
+    assert set(tdf.columns) == set(jdf.columns) | {"num_processes"}
     for col in ("runtime", "compute_time", "barrier_time", "comm_time"):
         assert tdf[col].notna().all(), col
     rec = json.loads((out / f"{key}.jsonl").read_text())
@@ -527,11 +526,61 @@ def test_proxy_summary_reads_the_records(gloo_world, key):
         assert pp["hop_GBps"] == pytest.approx(
             g["pipe_msg_bytes"] * g["pp_permute_ticks"] / pp["ms"] / 1e6)
         assert got["bubble_model"] == pytest.approx(5 / 4)
-    else:
+    elif key.startswith("ring"):
         ring = got["ring_comm_time"]
         assert ring["busbw_GBps"] == ring["algbw_GBps"]
         assert got["bubble_model"] == 1.0
+    else:
+        # the all-to-alls over sp = 2: bus = (n-1)/n = half the algorithm
+        a2a = got["a2a_comm_time"]
+        assert a2a["busbw_GBps"] == pytest.approx(a2a["algbw_GBps"] / 2)
+        assert got["bubble_model"] == 1.0
     assert got["bubble"] == got["runtimes_ms"] / got["compute_time_ms"]
+
+
+# proxy_summary's bus factors before it took analysis.bandwidth's
+PARENT_BUS_FACTOR = {"allreduce": lambda n: 2 * (n - 1) / n,
+                     "alltoall": lambda n: (n - 1) / n,
+                     "allgather": lambda n: (n - 1) / n,
+                     "reduce_scatter": lambda n: (n - 1) / n,
+                     "p2p": lambda n: 1.0}
+
+
+@pytest.mark.parametrize("key", RECORDED)
+def test_proxy_summary_bus_factors_unchanged(gloo_world, key, monkeypatch):
+    """proxy_summary's output is byte for byte what its private factors
+    gave, now through analysis.bandwidth.bus_factor."""
+    from dlnetbench_tpu_torch import proxy_summary
+    _, out = gloo_world
+    rec = json.loads((out / f"{key}.jsonl").read_text())
+    got = json.dumps(proxy_summary.summarize(rec))
+    monkeypatch.setattr(proxy_summary, "bus_factor", lambda kind, n:
+                        PARENT_BUS_FACTOR[kind](max(n, 1)))
+    assert got == json.dumps(proxy_summary.summarize(rec))
+
+
+@pytest.mark.parametrize("key", RECORDED)
+def test_gloo_records_through_the_record_pipeline(gloo_world, key):
+    """The hybrid_2d, ring and Ulysses records: equal bandwidth frames
+    and blame reports through both packages, the port's verdict words,
+    and the gathered record merging to itself in the port."""
+    import pandas as pd
+
+    from dlnetbench_tpu.analysis import bandwidth as J_bw
+    from dlnetbench_tpu.analysis import critical_path as J_cp
+    from dlnetbench_tpu_torch.analysis import bandwidth as T_bw
+    from dlnetbench_tpu_torch.analysis import critical_path as T_cp
+    from dlnetbench_tpu_torch.metrics.merge import merge_records
+    _, out = gloo_world
+    rec = json.loads((out / f"{key}.jsonl").read_text())
+    for fn in ("effective_bandwidth", "bandwidth_summary"):
+        want = getattr(J_bw, fn)([rec])
+        assert len(want)
+        pd.testing.assert_frame_equal(getattr(T_bw, fn)([rec]), want)
+    assert T_cp.blame_report(rec) == J_cp.blame_report(rec)
+    attr = rec["global"]["attribution"]
+    assert attr["bound"] == "host" and rec["mesh"]["gathered"] is True
+    assert merge_records([rec]) == rec
 
 
 def test_world1_hops_and_alltoall_on_gloo():

@@ -283,11 +283,10 @@ def test_records_load_through_the_jax_parser_as_jax_records(
     tdf = get_metrics_dataframe(out / f"{key}.jsonl", proxy)
     assert len(tdf) == WORLD * 2 and sorted(tdf["rank"].unique()) == [
         0, 1, 2, 3]
-    # every column of JAX's record, and one more: the port's ranks are
-    # processes, and the record says how many.  JAX's attribution stamp
-    # (attr_bound) is not ported yet.
-    assert set(tdf.columns) == (set(jdf.columns) - {"attr_bound"}) | {
-        "num_processes"}
+    # every column of JAX's record, its attribution verdict (attr_bound)
+    # included, and one more: the port's ranks are processes, and the
+    # record says how many
+    assert set(tdf.columns) == set(jdf.columns) | {"num_processes"}
     for col in ("runtime", "compute_time", "barrier_time", "comm_time",
                 "overlap_fraction"):
         assert tdf[col].notna().all(), col
@@ -298,6 +297,121 @@ def test_records_load_through_the_jax_parser_as_jax_records(
     assert all(set(r["burn"]) == {"ns_per_iter", "iters", "planned_us"}
                for r in rec["ranks"])
     assert rec["global"]["transport"] == "virtual-host"
+
+
+# ------------------------------------------------- the record pipeline
+# proxy_summary's bus factors before it took analysis.bandwidth's
+PARENT_BUS_FACTOR = {"allreduce": lambda n: 2 * (n - 1) / n,
+                     "alltoall": lambda n: (n - 1) / n,
+                     "allgather": lambda n: (n - 1) / n,
+                     "reduce_scatter": lambda n: (n - 1) / n,
+                     "p2p": lambda n: 1.0}
+
+
+@pytest.mark.parametrize("key", ["dp", "fsdp2x2"])
+def test_four_rank_record_merges_to_itself_and_jax_refuses_it(gloo_world,
+                                                              key):
+    """rank 0 gathered every rank's own clock: the mesh header marks the
+    record, the port's merge gives it back with its attribution stamped
+    again over every row, and JAX's merge (one record per process)
+    refuses it as four processes' output with three missing."""
+    import copy
+
+    from dlnetbench_tpu.metrics.merge import merge_records as J_merge
+    from dlnetbench_tpu_torch.analysis.attribution import attribute_record
+    from dlnetbench_tpu_torch.metrics.merge import merge_records as T_merge
+    _, out = gloo_world
+    rec = json.loads((out / f"{key}.jsonl").read_text())
+    assert rec["mesh"]["gathered"] is True
+    assert rec["global"]["num_processes"] == WORLD
+    attr = rec["global"]["attribution"]
+    assert attr == attribute_record(rec)
+    # the port's words: gloo moves loopback bytes, a CPU computes on host
+    # cores — every verdict is host; the rate rides without a peak
+    assert attr["bound"] == "host"
+    assert attr["inputs"]["transport"] == "virtual-host"
+    assert attr["inputs"]["compute_basis"] == "measured"
+    comm = (attr.get("achieved") or {}).get("comm")
+    if "comm_time" in rec["global"]["comm_model"]:
+        assert comm["rate_GBps"] > 0 and "peak_GBps" not in comm
+    else:
+        assert comm is None             # only comm_time's bytes are priced
+    assert abs(sum(attr["fractions"].values()) - 1.0) <= 2e-4
+    assert T_merge([copy.deepcopy(rec)]) == rec
+    with pytest.raises(ValueError, match=r"expected range\(4\)"):
+        J_merge([copy.deepcopy(rec)])
+
+
+@pytest.mark.parametrize("key", ["dp", "fsdp2x2"])
+def test_gloo_records_give_equal_analysis_frames(gloo_world, key):
+    import pandas as pd
+
+    from dlnetbench_tpu.analysis import bandwidth as J_bw
+    from dlnetbench_tpu.analysis import critical_path as J_cp
+    from dlnetbench_tpu_torch.analysis import bandwidth as T_bw
+    from dlnetbench_tpu_torch.analysis import critical_path as T_cp
+    _, out = gloo_world
+    rec = json.loads((out / f"{key}.jsonl").read_text())
+    for fn in ("effective_bandwidth", "bandwidth_summary"):
+        want = getattr(J_bw, fn)([rec])
+        assert len(want) and "host" in set(want["attr_bound"])
+        pd.testing.assert_frame_equal(getattr(T_bw, fn)([rec]), want)
+    assert T_bw.serving_summary([rec]).empty
+    assert T_cp.blame_report(rec) == J_cp.blame_report(rec)
+    assert repr(T_cp.blame_columns(rec)) == repr(J_cp.blame_columns(rec))
+
+
+def test_proxy_summary_bus_factors_unchanged(gloo_world, monkeypatch):
+    """proxy_summary's output is byte for byte what its private factors
+    gave, now through analysis.bandwidth.bus_factor."""
+    from dlnetbench_tpu_torch import proxy_summary
+    _, out = gloo_world
+    rec = json.loads((out / "dp.jsonl").read_text())
+    got = json.dumps(proxy_summary.summarize(rec))
+    monkeypatch.setattr(proxy_summary, "bus_factor", lambda kind, n:
+                        PARENT_BUS_FACTOR[kind](max(n, 1)))
+    assert got == json.dumps(proxy_summary.summarize(rec))
+
+
+def test_world1_group_retries_a_taken_port(monkeypatch):
+    """A one-rank group's store port can be taken between free_port()
+    and the bind: that failure retries on a new port, any other raises."""
+    import torch.distributed as dist
+
+    from dlnetbench_tpu_torch.parallel import multihost
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    calls = []
+
+    def taken(n):
+        def init(backend, init_method, world_size, rank):
+            calls.append((backend, init_method, world_size, rank))
+            if len(calls) <= n:
+                raise RuntimeError("The server socket has failed to listen "
+                                   "on any local network address. code: "
+                                   "-98, name: EADDRINUSE")
+        return init
+    monkeypatch.setattr(dist, "init_process_group", taken(2))
+    assert multihost.initialize("cpu") == torch.device("cpu")
+    assert len(calls) == 3 and all(c[0] == "gloo" and c[2:] == (1, 0)
+                                   and c[1].startswith("tcp://localhost:")
+                                   for c in calls)
+    calls.clear()
+    monkeypatch.setattr(dist, "init_process_group",
+                        taken(multihost.PORT_ATTEMPTS))
+    with pytest.raises(RuntimeError, match="EADDRINUSE"):
+        multihost.initialize("cpu")
+    assert len(calls) == multihost.PORT_ATTEMPTS
+
+    def refused(*a, **kw):
+        calls.append(a)
+        raise RuntimeError("connection refused")
+    calls.clear()
+    monkeypatch.setattr(dist, "init_process_group", refused)
+    with pytest.raises(RuntimeError, match="refused"):
+        multihost.initialize("cpu")
+    assert len(calls) == 1
 
 
 # ------------------------------------------------------------ the burn
