@@ -112,6 +112,40 @@ Phases, in order; any failure exits non-zero:
    32768, bf16) with 16 seeded poisson requests, once per cache dtype:
    every request completes with every token in the vocab, and the
    kernel's launch counter rose by layers x decode steps in that run;
+7a. the decode-loop phase, the same served model and plan through
+   ``cli serve``, the launch and step counters set to 0 before each run
+   and read after it: ``--multi_step_n 16`` on bf16 (K1), int8 and fp8
+   (K2), whose streams must equal 7's exactly, K1/K2 launched layers x
+   device steps; ``--attn_impl gather`` at N=1 (no kernel launch);
+   ``--multi_step_n 16 --speculative --spec_k 4`` with the ngram and the
+   truncated (``--drafter_layers 1``) drafter, under ``gather`` and
+   under ``auto``, every stream complete; K1 a round: drafter_layers x
+   spec_k for the truncated drafter and none in the verify pass (one
+   gather-math pass over slots x (spec_k + 1) rows, as in the JAX
+   package); their agreement with the N=1 streams (under ``gather`` the
+   gather N=1 run, under ``auto`` 7's) printed, not asserted: the verify
+   pass rounds at slots x (spec_k + 1) rows where the 1-step engine
+   rounds at slots, and a near-tie argmax can flip (7b holds the pass
+   itself); sampled (``--temperature 0.8 --top_p 0.95 --sample_seed
+   7``) at N=1 and N=16, equal exactly, K1 layers x device steps, then
+   with speculation (truncated drafter), whose first draws must all
+   equal N=1's (the rest agree in distribution, not token by token: the
+   count is printed); ``--grammar json`` at N=16, every stream passing
+   ``validate_stream``.  Every fused run's record has steps_per_dispatch
+   and tokens_per_sync above 1.  Printed for each run: TTFT and TPOT
+   p50 and tokens/s beside its N=1 reference, and ``decode_loop``, and
+   for each speculative run its rounds issued and the idle ones; and
+   after 10d, one N=16 bf16 run (warm engine) under ``torch.profiler``:
+   the device's idle share and its top kernels;
+7b. the speculative verify pass at the served model's width (random
+   bf16 pools, 8 slots at cache lengths 17 to 490, spec_k + 1 = 5 fed
+   tokens each): one pass of ``speculative._verify_tokens`` against 5
+   iterated 1-step ``_step_tokens`` calls on the same pools, under
+   ``gather`` and under ``auto`` (K1): no K1 launch in the pass, its f32
+   logits within VERIFY_TOL of the steps' max-abs logit, and its greedy
+   tokens equal the steps' wherever their top-2 margin exceeds twice
+   that bar; the pass's time beside one step's and the 5 steps' is
+   printed;
 8. a tiny f32 model (TF32 off) takes 2 SGD steps on the card (K3/K4/K5,
    f32 kernels) and on the CPU (plain versions) from the same weights
    and tokens: losses within 1e-5 relative and every parameter within
@@ -145,7 +179,10 @@ Phases, in order; any failure exits non-zero:
    stats; K12 launched 3 x layers x steps in the grouped run only;
 9. train through ``dlnetbench_tpu_torch.bench.main([])`` at the bench
    shape (llama3_8b width, 4 layers, vocab 32768, B=2, S=6144, bf16):
-   the MLP aux lines come first, under the headline's keys, with the A/B
+   the aux lines come first, under the headline's keys — the serving
+   lines among them with ``serving_decode``'s token_parity and
+   ``sampling_ab``'s token_identity true and ``kv_density_ab``'s int8
+   and fp8 parity bars held — with the A/B
    bands and int8_step's loss within 2 % of the headline's; the headline
    line has a finite loss within 1.5 of ln(32768) and vs_baseline in
    (0, 1.05]; the ``moe_ab`` line carries the three variants' bands, the
@@ -317,7 +354,7 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels);
 # all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 200
+CARD_TESTS_MIN = 215
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -599,7 +636,13 @@ def reference_phase(torch) -> None:
             f"on the card and on the CPU")
 
 
-def serve_phase(torch, cache_dtype: str) -> dict:
+def serve_run(torch, label: str, flags: list[str]) -> dict:
+    """One ``cli serve`` run at the served model's width (MODEL_FLAGS,
+    ENGINE_FLAGS, SERVE_PLAN) plus ``flags``, its record written to
+    ``OUT/serve_<label>.jsonl``: every request completes with every
+    token in the vocab.  The launch and step counters are set to 0 just
+    before the run (its warm-up requests included) and read just
+    after."""
     from dlnetbench_tpu_torch import cli
     from dlnetbench_tpu_torch.ops import paged_attention as PA
     from dlnetbench_tpu_torch.ops import paged_attention_quant as PAQ
@@ -612,40 +655,51 @@ def serve_phase(torch, cache_dtype: str) -> dict:
             super().__init__(*a, **kw)
             engines.append(self)
 
-    out = OUT / f"serve_{cache_dtype}.jsonl"
+    out = OUT / f"serve_{label}.jsonl"
     out.unlink(missing_ok=True)
     S.Engine = RecordedEngine
     try:
-        PA.launches = PAQ.launches = S.decode_dispatches = 0
+        PA.launches = PAQ.launches = 0
+        S.decode_dispatches = S.decode_device_steps = 0
         t0 = time.perf_counter()
         rc = cli.main(["serve", "--arrival", json.dumps(SERVE_PLAN),
-                       *MODEL_FLAGS, *ENGINE_FLAGS, "--cache_dtype",
-                       cache_dtype, "--out", str(out)])
+                       *MODEL_FLAGS, *ENGINE_FLAGS, *flags, "--out",
+                       str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"k1": PA.launches, "k2": PAQ.launches,
-                  "steps": S.decode_dispatches}
+                  "dispatches": S.decode_dispatches,
+                  "steps": S.decode_device_steps}
     finally:
         S.Engine = engine_cls
     if rc != 0:
-        fail(f"serve {cache_dtype}: cli rc {rc}")
+        fail(f"serve {label}: cli rc {rc}")
     rec = json.loads(out.read_text().splitlines()[-1])
     srv = rec["global"]["serving"]
     if srv["completed"] != SERVE_PLAN["num_requests"]:
-        fail(f"serve {cache_dtype}: {srv['completed']} of "
+        fail(f"serve {label}: {srv['completed']} of "
              f"{SERVE_PLAN['num_requests']} requests completed")
     eng = engines[-1]
     for c in eng.completed:
         toks = eng.token_streams[c.rid]
         if len(toks) != c.output_len or not all(0 <= t < 32768
                                                 for t in toks):
-            fail(f"serve {cache_dtype}: request {c.rid} tokens {toks[:8]}"
-                 f"... (len {len(toks)}, want {c.output_len} in vocab)")
+            fail(f"serve {label}: request {c.rid} tokens {toks[:8]}... "
+                 f"(len {len(toks)}, want {c.output_len} in vocab)")
+    return {"serving": srv, "streams": dict(eng.token_streams),
+            "counts": counts, "wall": wall, "record": rec}
+
+
+def serve_phase(torch, cache_dtype: str) -> dict:
+    """The classic engine through ``cli serve``: the kernel's launch
+    counter rose by layers x decode steps."""
+    res = serve_run(torch, cache_dtype, ["--cache_dtype", cache_dtype])
+    srv, counts = res["serving"], res["counts"]
     layers = int(MODEL_FLAGS[MODEL_FLAGS.index("--layers") + 1])
     mine, other = (("k1", "k2") if cache_dtype == "bf16"
                    else ("k2", "k1"))
     if counts[mine] != layers * counts["steps"] or counts[mine] == 0 \
-            or counts[other] != 0:
+            or counts[other] != 0 or counts["steps"] != counts["dispatches"]:
         fail(f"serve {cache_dtype}: launches {counts} != {layers} layers "
              f"x {counts['steps']} decode steps on {mine}")
     say(f"serve {cache_dtype}: {srv['completed']} requests, "
@@ -653,9 +707,288 @@ def serve_phase(torch, cache_dtype: str) -> dict:
         f"decode steps (warm-up run included); ttft p50 "
         f"{srv['ttft_ms']['p50']} p99 {srv['ttft_ms']['p99']} ms, tpot "
         f"p50 {srv['tpot_ms']['p50']} ms, {srv['tokens_per_s']} tokens/s, "
-        f"wall {srv['wall_s']} s (cli {wall:.1f} s); decode_loop "
+        f"wall {srv['wall_s']} s (cli {res['wall']:.1f} s); decode_loop "
         f"{json.dumps(srv['decode_loop'])}")
-    return {"launches": counts[mine], "serving": srv}
+    return {"launches": counts[mine], **res}
+
+
+# the decode-loop phase's paths (served model, SERVE_PLAN): fused N,
+# speculative, sampled
+LOOP_N = ["--multi_step_n", "16"]
+SPEC = [*LOOP_N, "--speculative", "--spec_k", "4"]
+TRUNCATED = ["--drafter", "truncated", "--drafter_layers", "1"]
+SAMPLED = ["--temperature", "0.8", "--top_p", "0.95", "--sample_seed", "7"]
+
+
+def agreement(streams: dict, ref: dict) -> tuple[int, int]:
+    """(tokens equal position by position, tokens) over the requests."""
+    same = sum(a == b for rid in ref
+               for a, b in zip(streams[rid], ref[rid]))
+    return same, sum(len(t) for t in ref.values())
+
+
+def decode_loop_phase(torch, served: dict) -> dict:
+    """The fused decode loop, speculative decode and seeded sampling
+    through ``cli serve`` at the served model's width (the bars are in
+    the module docstring, 7a).  Returns the K1 and K2 launches of its
+    runs, per cache dtype."""
+    from dlnetbench_tpu_torch.serving import sampling as SMP
+    t_phase = time.perf_counter()
+    layers = int(MODEL_FLAGS[MODEL_FLAGS.index("--layers") + 1])
+    k = int(SPEC[SPEC.index("--spec_k") + 1])
+    launches = {"bf16": 0, "int8": 0, "fp8": 0}
+    rows = []
+
+    def run(label, flags, *, k1_per_step=0, k2_per_step=0, fused=True,
+            dtype="bf16", ref=None):
+        res = serve_run(torch, label, flags)
+        c, dl = res["counts"], res["serving"]["decode_loop"]
+        want = (k1_per_step * c["steps"], k2_per_step * c["steps"])
+        if (c["k1"], c["k2"]) != want or c["steps"] == 0:
+            fail(f"decode loop {label}: launches K1 {c['k1']} / K2 "
+                 f"{c['k2']} != {want[0]} / {want[1]} over "
+                 f"{c['steps']} device steps")
+        if fused and not (dl["steps_per_dispatch"] > 1
+                          and dl["tokens_per_sync"] > 1):
+            fail(f"decode loop {label}: decode_loop {dl} does not fuse")
+        launches[dtype] += c["k1"] + c["k2"]
+        rows.append((label, res, ref or served[dtype]))
+        return res
+
+    for dt in ("bf16", "int8", "fp8"):
+        per_step = (layers, 0) if dt == "bf16" else (0, layers)
+        res = run(f"loop16_{dt}", ["--cache_dtype", dt, *LOOP_N],
+                  k1_per_step=per_step[0], k2_per_step=per_step[1],
+                  dtype=dt)
+        if res["streams"] != served[dt]["streams"]:
+            same, n = agreement(res["streams"], served[dt]["streams"])
+            fail(f"decode loop {dt}: N=16 streams != N=1 streams ({same} "
+                 f"of {n} tokens agree)")
+    say("decode loop: N=16 streams equal N=1 exactly on bf16 (K1), int8 "
+        "and fp8 (K2)")
+    gather_one = run("gather_n1", ["--attn_impl", "gather"], fused=False)
+
+    def rounds(res) -> str:
+        dl = res["serving"]["decode_loop"]
+        idle = dl["spec"]["rounds_idle"]
+        issued = dl["device_steps"] + idle
+        return (f"{issued} rounds issued, {idle} idle "
+                f"({idle / issued:.4f})")
+
+    # K1 a round: the truncated drafter's 1 layer x k drafts; the verify
+    # pass is gather math
+    for drafter, extra, per_round in (("ngram", [], 0),
+                                      ("truncated", TRUNCATED, k)):
+        flags = [*SPEC, "--drafter", drafter, *extra]
+        gres = run(f"spec_{drafter}_gather", [*flags, "--attn_impl",
+                                              "gather"], ref=gather_one)
+        g_same, g_n = agreement(gres["streams"], gather_one["streams"])
+        res = run(f"spec_{drafter}", flags, k1_per_step=per_round)
+        same, n = agreement(res["streams"], served["bf16"]["streams"])
+        spec = res["serving"]["decode_loop"]["spec"]
+        say(f"decode loop spec {drafter}: every stream complete; tokens "
+            f"agreeing with N=1 position by position: under gather "
+            f"{g_same} of {g_n}, under auto {same} of {n}; acceptance "
+            f"{spec['acceptance_rate']} ({spec['accepted']} of "
+            f"{spec['drafted']}); {rounds(res)} (gather: "
+            f"{rounds(gres)})")
+    one = run("sampled_n1", SAMPLED, k1_per_step=layers, fused=False)
+    res = run("sampled_n16", [*SAMPLED, *LOOP_N], k1_per_step=layers,
+              ref=one)
+    if res["streams"] != one["streams"]:
+        same, n = agreement(res["streams"], one["streams"])
+        fail(f"decode loop sampled: N=16 != N=1 ({same} of {n} agree)")
+    res = run("sampled_spec", [*SAMPLED, *SPEC, *TRUNCATED],
+              k1_per_step=k, ref=one)
+    firsts = sum(res["streams"][r][0] == one["streams"][r][0]
+                 for r in one["streams"])
+    if firsts != len(one["streams"]):
+        fail(f"decode loop sampled spec: first draws agree for {firsts} "
+             f"of {len(one['streams'])} requests")
+    same, n = agreement(res["streams"], one["streams"])
+    say(f"decode loop sampled: N=16 equals N=1 exactly; speculative "
+        f"sampling's first draws all equal N=1's, {same} of {n} tokens "
+        f"agree position by position (rejection sampling draws other "
+        f"lanes: equal in distribution, not token by token); "
+        f"{rounds(res)}")
+    res = run("grammar", ["--temperature", "0.8", "--sample_seed", "7",
+                          "--grammar", "json", *LOOP_N],
+              k1_per_step=layers, ref=one)
+    grammar = SMP.compile_grammar("json", 32768)
+    bad = [r for r, t in res["streams"].items()
+           if not SMP.validate_stream(grammar, t)]
+    if bad:
+        fail(f"decode loop grammar: streams of {bad} fail validate_stream")
+    say(f"decode loop grammar: {len(res['streams'])} streams validate")
+    for label, res, ref in rows:
+        srv, ref = res["serving"], ref["serving"]
+        say(f"decode loop {label}: ttft p50 {srv['ttft_ms']['p50']} ms "
+            f"(N=1 {ref['ttft_ms']['p50']}), tpot p50 "
+            f"{srv['tpot_ms']['p50']} ms (N=1 {ref['tpot_ms']['p50']}), "
+            f"{srv['tokens_per_s']} tokens/s (N=1 {ref['tokens_per_s']}), "
+            f"wall {srv['wall_s']} s; decode_loop "
+            f"{json.dumps(srv['decode_loop'])}")
+    say(f"decode loop: {len(rows)} served runs in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def served_model():
+    """The served model (MODEL_FLAGS) as a TransformerConfig."""
+    from dlnetbench_tpu_torch.models.transformer import TransformerConfig
+
+    def flag(name):
+        return MODEL_FLAGS[MODEL_FLAGS.index(name) + 1]
+    return TransformerConfig(
+        vocab_size=int(flag("--vocab")), embed_dim=int(flag("--embed")),
+        num_heads=int(flag("--heads")), num_kv_heads=int(flag("--kv_heads")),
+        ff_dim=int(flag("--ff")), num_layers=int(flag("--layers")),
+        seq_len=512, dtype=flag("--dtype"))
+
+
+# the verify pass against iterated 1-step calls: its f32 logits within
+# VERIFY_TOL of the steps' max-abs logit (bf16 activations rounded at
+# slots x (spec_k + 1) rows against slots rows; 7.6e-3 read on an H100)
+VERIFY_TOL = 0.02
+
+
+def verify_pass_phase(torch) -> dict:
+    """The speculative verify pass at the served width (module
+    docstring, 7b).  Returns the pass's and the steps' times in ms."""
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.ops import paged_attention as PA
+    from dlnetbench_tpu_torch.serving import decode as D
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    from dlnetbench_tpu_torch.serving import speculative as SP
+    mc = served_model()
+    slots, k1, page, pages = 8, int(SPEC[SPEC.index("--spec_k") + 1]) + 1, \
+        16, 512
+    pmax = 512 // page
+    cc = KV.CacheConfig(num_layers=mc.num_layers,
+                        num_kv_heads=mc.num_kv_heads,
+                        head_dim=mc.head_dim, num_pages=pages,
+                        page_size=page, max_seqs=slots,
+                        max_pages_per_seq=pmax, dtype=mc.dtype)
+    params = init_params(mc, seed=11, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    k_pages, v_pages = KV.device_buffers(cc, "cuda")
+    k_pages.normal_(generator=gen)
+    v_pages.normal_(generator=gen)
+    bt = torch.randperm(pages, generator=gen, device="cuda")[
+        :slots * pmax].reshape(slots, pmax).to(torch.int32)
+    pos = torch.tensor([17, 63, 100, 200, 255, 300, 400, 490],
+                       dtype=torch.int32, device="cuda")
+    tokens = torch.randint(0, mc.vocab_size, (slots, k1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ok = torch.ones((slots, k1), dtype=torch.bool, device="cuda")
+
+    def one_pass():
+        kp, vp = k_pages.clone(), v_pages.clone()
+        return SP._verify_tokens(mc, cc, params, kp, vp, tokens, pos, ok,
+                                 bt, return_logits=True)
+
+    def steps(impl, n=k1):
+        pools, logits = (k_pages.clone(), v_pages.clone()), []
+        for j in range(n):
+            pools, _, lg = D._step_tokens(mc, cc, params, pools,
+                                          tokens[:, j], pos + j, ok[:, j],
+                                          bt, attn_impl=impl,
+                                          return_logits=True)
+            logits.append(lg)
+        return (*pools, torch.stack(logits, dim=1))
+
+    before = PA.launches
+    kp, vp, out, logits = one_pass()
+    torch.cuda.synchronize()
+    if PA.launches != before:
+        fail(f"verify pass: {PA.launches - before} K1 launches, want 0")
+    for impl in ("gather", "auto"):
+        ks, vs, ref = steps(impl)
+        err = float((logits - ref).abs().max())
+        scale = float(ref.abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        clear = margin > 2 * VERIFY_TOL * scale
+        flips = out != ref.argmax(dim=-1)
+        kv_err = max(float((a.float() - b.float()).abs().max())
+                     for a, b in ((kp, ks), (vp, vs)))
+        if err > VERIFY_TOL * scale or bool((flips & clear).any()):
+            fail(f"verify pass vs {k1} steps ({impl}): logits max err "
+                 f"{err:.4g} against max-abs {scale:.4g} (bar "
+                 f"{VERIFY_TOL}), {int((flips & clear).sum())} token "
+                 f"flips past the margin")
+        say(f"verify pass vs {k1} 1-step calls ({impl}): logits max err "
+            f"{err:.4g} of max-abs {scale:.4g} ({err / scale:.3e}, bar "
+            f"{VERIFY_TOL}); {int(flips.sum())} of {flips.numel()} greedy "
+            f"tokens differ, none where the top-2 margin exceeds "
+            f"{2 * VERIFY_TOL * scale:.4g} (smallest margin "
+            f"{float(margin.min()):.4g}); written k/v max err {kv_err:.4g}")
+    times = {"verify_pass": timed_ms(torch, one_pass, reps=10),
+             "step": timed_ms(torch, lambda: steps("auto", 1), reps=10),
+             "steps": timed_ms(torch, lambda: steps("auto"), reps=10)}
+    say(f"verify pass at {slots} x {k1} rows: {times['verify_pass']:.3f} ms "
+        f"against one 1-step call {times['step']:.3f} ms and {k1} of them "
+        f"{times['steps']:.3f} ms (K1; CUDA events around each eager call, "
+        f"its pool copies included)")
+    return times
+
+
+def profile_loop(torch) -> None:
+    """The device's idle share over one N=16 bf16 served run (warm
+    engine, torch.profiler's kernel time over the run's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving import scheduler as S
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    mc = served_model()
+    cfg = S.ServingConfig(slots=8, page_size=16, num_pages=512,
+                          max_seq_len=512, prefill_chunk=64,
+                          multi_step_n=16, warmup_requests=8)
+    eng = S.Engine(mc, cfg, params=init_params(mc, device="cuda"))
+    plan = ArrivalPlan.from_dict(SERVE_PLAN)
+    S.run_serving(mc, cfg, plan, engine=eng)         # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(plan.sample())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say(f"decode loop profiled N=16 bf16 run: decode_loop "
+        f"{json.dumps(eng.decode_loop_block())}")
+    profile_rows(prof, wall, "loop16_bf16")
+
+
+def serving_lines_check(line: dict) -> None:
+    """The bench's serving lines, ridden inside the headline: the
+    serving_decode line's token parity, the sampling_ab line's token
+    identity, the kv_density_ab line's parity bars."""
+    sd, sa, kd = (line["serving_decode"], line["sampling_ab"],
+                  line["kv_density_ab"])
+    if sd.get("token_parity") is not True:
+        fail(f"bench serving_decode: token_parity {sd.get('token_parity')}")
+    if sa.get("token_identity") is not True:
+        fail(f"bench sampling_ab: token_identity "
+             f"{sa.get('token_identity')}")
+    bars = {dt: kd["variants"][dt].get("parity_ok")
+            for dt in ("int8", "fp8")}
+    if bars != {"int8": True, "fp8": True}:
+        fail(f"bench kv_density_ab: parity bars {bars}")
+    for key in ("multi_step", "speculative"):
+        if not sd[key]["steps_per_dispatch"]["value"] > 1:
+            fail(f"bench serving_decode {key}: {sd[key]}")
+    say(f"bench serving lines: serving_decode e2e p99 {sd['value']} ms, "
+        f"token_parity true, N=16 speedup "
+        f"{sd['multi_step']['speedup_tokens_per_s']['value']}x tokens/s "
+        f"(spec {sd['speculative']['speedup_tokens_per_s']['value']}x); "
+        f"sampling_ab e2e p99 {sa['value']} ms, token_identity true, "
+        f"acceptance {sa['spec_sampled']['acceptance_rate']['value']}; "
+        f"kv_density_ab capacity int8 "
+        f"{kd['variants']['int8']['capacity_x']['value']}x, fp8 "
+        f"{kd['variants']['fp8']['capacity_x']['value']}x, parity max err "
+        f"{kd['variants']['int8']['parity_max_err']['value']} / "
+        f"{kd['variants']['fp8']['parity_max_err']['value']}")
 
 
 def flash_operands(torch, b, s, hq, hkv, dh, seed=0):
@@ -2016,7 +2349,8 @@ def train_phase(torch) -> dict:
     for ln in lines[:-1]:
         say(f"train aux line: {json.dumps(ln)}")
     say(f"train headline: {json.dumps({k: v for k, v in line.items() if not isinstance(v, dict)})}")
-    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "longcontext_ab", "moe_ab",
+    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "serving_decode",
+                "kv_density_ab", "sampling_ab", "longcontext_ab", "moe_ab",
                 "int8_step", "int8_switchback_step", "recommended_step")
     if [ln["metric"] for ln in lines[:-1]] != [line[k]["metric"]
                                               for k in aux_keys] \
@@ -3208,6 +3542,11 @@ def main(argv: list[str]) -> int:
     reference_phase(torch)
     served = {dt: serve_phase(torch, dt) for dt in ("bf16", "int8", "fp8")}
     torch.cuda.empty_cache()
+    smi_sample("decode loop")
+    loop_launches = decode_loop_phase(torch, served)
+    torch.cuda.empty_cache()
+    verify_pass_phase(torch)
+    torch.cuda.empty_cache()
     train_reference_phase(torch)
     smi_sample("quant train")
     quant_launches = quant_train_phase(torch)
@@ -3218,6 +3557,7 @@ def main(argv: list[str]) -> int:
     mixtral_phase(torch)
     smi_sample("bench (headline and aux lines)")
     trained = train_phase(torch)
+    serving_lines_check(trained["line"])
     smi_sample("after bench")
     torch.cuda.empty_cache()
     longcontext_phase(torch, trained["line"]["longcontext_ab"])
@@ -3236,6 +3576,12 @@ def main(argv: list[str]) -> int:
     observability_phase(torch, card)
     torch.cuda.empty_cache()
     records_phase(torch, card, trained["line"])
+    torch.cuda.empty_cache()
+    # the decode loop's profiled run, after the proxies as every
+    # torch.profiler session of this script: after one, the burn's
+    # short calibration graphs run slower than its long replays and a
+    # proxy's compute leg undershoots its plan by ~12 % (ROADMAP.md)
+    profile_loop(torch)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         profile_phase(torch)
@@ -3258,7 +3604,8 @@ def main(argv: list[str]) -> int:
              "dlnetbench_tpu/ops/paged_attention_quant.py:48")):
         kernels.append({"name": label, "route": "cuda", "source": SRC,
                         "replaces": replaces,
-                        "launches": served[dt]["launches"],
+                        "launches": (served[dt]["launches"]
+                                     + loop_launches[dt]),
                         **results[dt]})
     for kind, label in (
             ("fwd", f"K3 flash_attention forward ({FLASH_DESIGN})"),

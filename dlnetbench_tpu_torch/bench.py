@@ -27,6 +27,17 @@ with batched library products, and the same MoE through the grouped
 kernel K12 — with the layer-0 router stats as record globals; shapes
 from ``DLNB_BENCH_MOE_{EXPERTS,TOPK,FF,LAYERS,SEQ,K}``, default 8
 experts, top-2, f_e = ff / 2, 2 layers, S = min(S, 2048), K = 4),
+the serving tier's lines ``serving_decode`` (the classic 1-step
+engine, the fused N=16 loop and N=16 with ngram speculation replaying
+one seeded saturating plan in paired rounds: e2e p99, TTFT, TPOT and
+tokens/s bands, the dispatch decomposition, the host-fraction drop and
+``token_parity``), ``kv_density_ab`` (dense, int8 and fp8 paged KV at
+equal pool bytes: admitted concurrency, tokens/s and the decode-parity
+bars) and ``sampling_ab`` (seeded sampling at T=0.8, fused N=16 against
+N=16 speculative sampling, and ``token_identity`` of the 1-step and
+fused sampled streams) — tiny engines with the JAX lines' model, plan
+and engine configurations, the decode attention pinned to the gather
+math as the JAX lines pin it;
 ``longcontext_ab`` (printed before ``moe_ab``, as the JAX bench does:
 paired rounds of K=4 chained attention forwards at B=1, S=64k, Hq=8,
 Hkv=2, Dh=128 — the causal flash kernel K3 against the splash kernel K6
@@ -449,6 +460,482 @@ def bench_moe_ab(card, hw_key, device_name: str, device) -> dict:
     return line
 
 
+# -- the serving tier's aux lines ------------------------------------
+
+def serving_model():
+    """The serving lines' model (the JAX bench's: embed 64, 4/2 heads,
+    ff 128, 2 layers, vocab 256, f32)."""
+    from dlnetbench_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(vocab_size=256, embed_dim=64, num_heads=4,
+                             num_kv_heads=2, ff_dim=128, num_layers=2,
+                             seq_len=64, dtype="float32")
+
+
+def serving_rounds_block(eng, completed, plan, wall: float, base,
+                         admitted: bool = False) -> dict:
+    """One round's ``serving`` block, as the JAX bench assembles it."""
+    from dlnetbench_tpu_torch.serving import metrics as smetrics
+    return smetrics.serving_block(
+        completed, plan, slo_ttft_ms=base.slo_ttft_ms,
+        slo_tpot_ms=base.slo_tpot_ms, wall_s=wall,
+        engine_steps=eng.engine_steps, cache_stats=eng.cache.stats(),
+        queue_depth_max=eng.queue_depth_max,
+        batch_occupancy_mean=eng.batch_occupancy_mean(),
+        decode_loop=eng.decode_loop_block(),
+        **({"admitted_peak": eng.concurrent_peak} if admitted else {}))
+
+
+def serving_variant_block(base_rounds: list[dict],
+                          rounds: list[dict]) -> dict:
+    """Per-variant A/B sub-object of the serving_decode line (the JAX
+    ``_serving_variant_block``): serving figures with bands, the
+    dispatch decomposition and the paired per-round speedup over the
+    1-step baseline."""
+    from dlnetbench_tpu_torch.metrics import stats
+    dl = [r.get("decode_loop") or {} for r in rounds]
+    block = {
+        "tokens_per_s": stats.summarize(
+            [r["tokens_per_s"] for r in rounds], ndigits=2),
+        "tpot_p50_ms": stats.summarize(
+            [r["tpot_ms"]["p50"] for r in rounds], ndigits=3),
+        "e2e_p99_ms": stats.summarize(
+            [r["e2e_ms"]["p99"] for r in rounds], ndigits=3),
+        "speedup_tokens_per_s": stats.summarize(
+            [r["tokens_per_s"] / b["tokens_per_s"]
+             for b, r in zip(base_rounds, rounds)
+             if b["tokens_per_s"] > 0], ndigits=3),
+        "steps_per_dispatch": stats.summarize(
+            [d.get("steps_per_dispatch", 0.0) for d in dl], ndigits=3),
+        "tokens_per_sync": stats.summarize(
+            [d.get("tokens_per_sync", 0.0) for d in dl], ndigits=3),
+        "multi_step_n": (dl[0] or {}).get("multi_step_n"),
+    }
+    spec = (dl[0] or {}).get("spec")
+    if isinstance(spec, dict):
+        block["spec"] = {
+            "k": spec.get("k"), "drafter": spec.get("drafter"),
+            "acceptance_rate": stats.summarize(
+                [(d.get("spec") or {}).get("acceptance_rate", 0.0)
+                 for d in dl], ndigits=4),
+        }
+    return block
+
+
+def serving_host_frac_ab(base_rounds: list[dict],
+                         multi_rounds: list[dict],
+                         spec_rounds: list[dict] | None) -> dict | None:
+    """The host-fraction A/B of the serving_decode line (the JAX
+    ``_serving_host_frac_ab``): per-round host fractions with the
+    per-dispatch floor solved from the paired 1-step and N-step rounds
+    (``analysis.attribution.dispatch_decomposition``) folded in, banded
+    per variant, and whether the 1-step -> N-step drop is band-disjoint."""
+    from dlnetbench_tpu_torch.analysis import attribution as A
+    from dlnetbench_tpu_torch.metrics import stats
+    floors: list[float] = []
+    fracs: dict[str, list[float]] = {}
+    variants = {"one_step": base_rounds, "multi_step": multi_rounds}
+    if spec_rounds:
+        variants["speculative"] = spec_rounds
+    for i, (b, m) in enumerate(zip(base_rounds, multi_rounds)):
+        dec = A.dispatch_decomposition(b.get("decode_loop") or {},
+                                       m.get("decode_loop") or {})
+        if dec is None:
+            return None
+        floors.append(dec["dispatch_us"])
+        for name, rnds in variants.items():
+            r = rnds[i]
+            host = A.serving_host_us(r.get("decode_loop") or {},
+                                     dec["dispatch_us"])
+            fracs.setdefault(name, []).append(
+                host / (r["wall_s"] * 1e6))
+    one = stats.summarize(fracs["one_step"], ndigits=4)
+    multi = stats.summarize(fracs["multi_step"], ndigits=4)
+    disjoint = (stats.bands_overlap(one["band"], multi["band"])
+                is False and multi["value"] < one["value"])
+    out = {
+        "dispatch_us": stats.summarize(floors, ndigits=1),
+        "one_step_host_frac": one,
+        "multi_step_host_frac": multi,
+        "band_disjoint_drop": disjoint,
+        "verdict": ("host fraction dropped, bands disjoint — the "
+                    "fused loop amortizes the measured per-dispatch "
+                    "floor" if disjoint else
+                    "host-fraction bands overlap — no flip at this "
+                    "scale/noise"),
+    }
+    if spec_rounds:
+        out["speculative_host_frac"] = stats.summarize(
+            fracs["speculative"], ndigits=4)
+    return out
+
+
+def serving_decode_line(rounds: list[dict], suffix: str = "", *,
+                        multi_rounds: list[dict] | None = None,
+                        spec_rounds: list[dict] | None = None,
+                        token_parity: bool | None = None) -> dict:
+    """The serving_decode aux line from per-round ``serving`` blocks (the
+    JAX ``_serving_decode_line``): ``value`` is the 1-step engine's
+    round-median e2e p99 in ms, TTFT/TPOT/p99 each with their band; with
+    ``multi_rounds``/``spec_rounds`` the paired A/B, the host-fraction
+    drop and the token-parity lock."""
+    from dlnetbench_tpu_torch.metrics import stats
+    p99 = [r["e2e_ms"]["p99"] for r in rounds]
+    summary = stats.summarize(p99, ndigits=3)
+    line = {
+        "metric": f"serving_decode: paged-KV continuous-batching "
+                  f"decode, e2e p99 under a seeded open-loop poisson "
+                  f"plan (serving/){suffix}",
+        "value": summary["value"],
+        "unit": "ms",
+        "best": summary["best"],
+        "band": summary["band"],
+        "n": summary["n"],
+        "ttft_p50_ms": stats.summarize(
+            [r["ttft_ms"]["p50"] for r in rounds], ndigits=3),
+        "tpot_p50_ms": stats.summarize(
+            [r["tpot_ms"]["p50"] for r in rounds], ndigits=3),
+        "p99_ms": summary,
+        "tokens_per_s": stats.summarize(
+            [r["tokens_per_s"] for r in rounds], ndigits=2),
+        "goodput_frac": stats.summarize(
+            [r["goodput_frac"] for r in rounds], ndigits=4),
+        "requests": rounds[0]["completed"],
+        "offered_rps": rounds[0]["offered_rps"],
+    }
+    if multi_rounds:
+        line["multi_step"] = serving_variant_block(rounds, multi_rounds)
+        if spec_rounds:
+            line["speculative"] = serving_variant_block(rounds,
+                                                        spec_rounds)
+        flip = serving_host_frac_ab(rounds, multi_rounds, spec_rounds)
+        if flip is not None:
+            line["attribution_flip"] = flip
+        if token_parity is not None:
+            line["token_parity"] = bool(token_parity)
+    return stats.flag_low_mode(line)
+
+
+def bench_serving_decode(device_name: str, device) -> dict:
+    """The serving A/B line (the JAX ``_bench_serving_decode``): the
+    classic 1-step engine, the fused N=16 loop and the fused loop with
+    ngram speculation over the same weights replay one seeded
+    saturating plan, interleaved per round after a discarded warm round.
+    ``attn_impl`` is pinned to the gather math on every device, as in
+    the JAX line (whose verify pass is gather math)."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.scheduler import (Engine,
+                                                        ServingConfig)
+    mc = serving_model()
+    base = ServingConfig(slots=4, page_size=8, num_pages=48,
+                         max_seq_len=40, slo_ttft_ms=250.0,
+                         slo_tpot_ms=100.0, attn_impl="gather")
+    n_fused = 16
+    variants = {
+        "one_step": base,
+        "multi_step": dataclasses.replace(base, multi_step_n=n_fused),
+        "speculative": dataclasses.replace(
+            base, multi_step_n=n_fused, speculative=True, spec_k=4,
+            drafter="ngram"),
+    }
+    plan = ArrivalPlan(kind="poisson", rate_rps=5000.0,
+                       num_requests=8, seed=0, prompt_len=[8, 16],
+                       output_len=[16, 24])
+    params = init_params(mc, seed=0, device=device)
+    requests = plan.sample()
+    engines = {name: Engine(mc, cfg, params=params, device=device)
+               for name, cfg in variants.items()}
+    streams: dict[str, dict] = {}
+    for eng in engines.values():
+        eng.run(requests)   # warm round, discarded
+    rounds: dict[str, list] = {name: [] for name in engines}
+    for _ in range(ROUNDS):
+        for name, eng in engines.items():
+            completed, wall = eng.run(requests)
+            streams[name] = dict(eng.token_streams)
+            rounds[name].append(serving_rounds_block(
+                eng, completed, plan, wall, base))
+    parity = all(streams[name] == streams["one_step"]
+                 for name in engines)
+    line = serving_decode_line(
+        rounds["one_step"],
+        suffix=f", {len(requests)} req slots={base.slots} "
+               f"page={base.page_size} vs fused N={n_fused} vs "
+               f"N={n_fused}+spec, {device_name}",
+        multi_rounds=rounds["multi_step"],
+        spec_rounds=rounds["speculative"], token_parity=parity)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def sampling_ab_line(sampled_rounds: list[dict], spec_rounds: list[dict],
+                     suffix: str = "", *,
+                     token_identity: bool | None = None) -> dict:
+    """The sampling_ab aux line (the JAX ``_sampling_ab_line``): seeded
+    sampling at T=0.8, the fused N-step engine against the same engine
+    with speculative sampling (truncated drafter); ``value`` is the
+    speculative arm's round-median e2e p99 in ms, both arms with bands,
+    the speculative arm's acceptance band, whether its tokens/s band
+    lies above the other's, and ``token_identity``: the classic 1-step
+    sampled streams equal the fused N-step ones."""
+    from dlnetbench_tpu_torch.metrics import stats
+
+    def _bands(rounds: list[dict]) -> dict:
+        return {
+            "e2e_p99_ms": stats.summarize(
+                [r["e2e_ms"]["p99"] for r in rounds], ndigits=3),
+            "tpot_p50_ms": stats.summarize(
+                [r["tpot_ms"]["p50"] for r in rounds], ndigits=3),
+            "tokens_per_s": stats.summarize(
+                [r["tokens_per_s"] for r in rounds], ndigits=2),
+        }
+    sampled, spec = _bands(sampled_rounds), _bands(spec_rounds)
+    spec["acceptance_rate"] = stats.summarize(
+        [((r.get("decode_loop") or {}).get("spec") or {})
+         .get("acceptance_rate", 0.0) for r in spec_rounds],
+        ndigits=4)
+    tps_s, tps_p = sampled["tokens_per_s"], spec["tokens_per_s"]
+    disjoint = (stats.bands_overlap(tps_s["band"], tps_p["band"])
+                is False and tps_p["value"] > tps_s["value"])
+    p99 = spec["e2e_p99_ms"]
+    line = {
+        "metric": f"sampling_ab: seeded sampling T=0.8 — fused decode "
+                  f"vs lossless speculative sampling (rejection "
+                  f"verify, truncated drafter), same seeded plan "
+                  f"(serving/sampling){suffix}",
+        "value": p99["value"],
+        "unit": "ms",
+        "best": p99["best"],
+        "band": p99["band"],
+        "n": p99["n"],
+        "sampled": sampled,
+        "spec_sampled": spec,
+        "tokens_per_s_band_disjoint_gain": disjoint,
+        "verdict": ("speculative sampling pushed sampled tokens/s "
+                    "above the non-spec arm, bands disjoint — the "
+                    "rejection verify kept the speedup sampling used "
+                    "to forfeit" if disjoint else
+                    "tokens/s bands overlap — no speculation gain "
+                    "under sampling at this scale/noise"),
+    }
+    if token_identity is not None:
+        line["token_identity"] = bool(token_identity)
+    return stats.flag_low_mode(line)
+
+
+def bench_sampling_ab(device_name: str, device) -> dict:
+    """The sampling A/B (the JAX ``_bench_sampling_ab``): fused N=16
+    seeded sampling against fused N=16 speculative sampling on the same
+    weights, plan and draw keys, interleaved per round; a classic 1-step
+    sampled engine runs alongside as the witness of the token identity.
+    Gather attention on every device, as in the JAX line."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.scheduler import (Engine,
+                                                        ServingConfig)
+    mc = serving_model()
+    base = ServingConfig(slots=4, page_size=8, num_pages=48,
+                         max_seq_len=40, slo_ttft_ms=250.0,
+                         slo_tpot_ms=100.0, attn_impl="gather",
+                         temperature=0.8, top_p=0.95, sample_seed=7)
+    n_fused = 16
+    variants = {
+        "sampled": dataclasses.replace(base, multi_step_n=n_fused),
+        "spec_sampled": dataclasses.replace(
+            base, multi_step_n=n_fused, speculative=True, spec_k=4,
+            drafter="truncated", drafter_layers=1),
+    }
+    plan = ArrivalPlan(kind="poisson", rate_rps=5000.0,
+                       num_requests=8, seed=0, prompt_len=[8, 16],
+                       output_len=[16, 24])
+    params = init_params(mc, seed=0, device=device)
+    requests = plan.sample()
+    engines = {name: Engine(mc, cfg, params=params, device=device)
+               for name, cfg in variants.items()}
+    one_step = Engine(mc, base, params=params, device=device)
+    one_step.run(requests)          # the witness: one replay suffices
+    one_step.run(requests)
+    witness = dict(one_step.token_streams)
+    for eng in engines.values():
+        eng.run(requests)   # warm round, discarded
+    rounds: dict[str, list] = {name: [] for name in engines}
+    identity = True
+    for _ in range(ROUNDS):
+        for name, eng in engines.items():
+            completed, wall = eng.run(requests)
+            if name == "sampled":
+                identity = identity and (dict(eng.token_streams)
+                                         == witness)
+            rounds[name].append(serving_rounds_block(
+                eng, completed, plan, wall, base))
+    line = sampling_ab_line(
+        rounds["sampled"], rounds["spec_sampled"],
+        suffix=f", {len(requests)} req slots={base.slots} "
+               f"N={n_fused} spec_k=4 T={base.temperature} "
+               f"top_p={base.top_p}, {device_name}",
+        token_identity=identity)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def kv_parity_err(cache_dtype: str, seed: int, device) -> float:
+    """One seeded decode-parity probe (the JAX ``_kv_parity_err``): the
+    same token stream written into a dense and a quantized page pool
+    (the engine's own write path) and the max absolute error of the
+    decode attention (the gather math) against the dense cache."""
+    import numpy as np
+
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    base = dict(num_layers=1, num_kv_heads=2, head_dim=16, num_pages=8,
+                page_size=4, max_seqs=2, max_pages_per_seq=4)
+    cc_q = KV.CacheConfig(**base, cache_dtype=cache_dtype)
+    kd, vd = KV.device_buffers(KV.CacheConfig(**base), device)
+    kq, vq, ks, vs = KV.device_buffers(cc_q, device)
+    bt = torch.arange(8, dtype=torch.int32, device=device).reshape(2, 4)
+    rng = np.random.RandomState(seed)
+    fmt = cc_q.quant_fmt
+    ok = torch.ones((2, 1), dtype=torch.bool, device=device)
+    for t in range(10):
+        knew = torch.from_numpy(rng.randn(2, 1, 2, 16).astype(
+            np.float32)).to(device)
+        vnew = torch.from_numpy(rng.randn(2, 1, 2, 16).astype(
+            np.float32)).to(device)
+        pos = torch.full((2,), t, dtype=torch.int32, device=device)
+        pid = bt.long()[:, t // 4]
+        kd[0][:, pid, t % 4, :] = knew[:, 0].transpose(0, 1)
+        vd[0][:, pid, t % 4, :] = vnew[:, 0].transpose(0, 1)
+        KV.quant_write_span(kq, ks, 0, knew, pos, ok, bt, fmt=fmt,
+                            page_size=4, num_pages=8)
+        KV.quant_write_span(vq, vs, 0, vnew, pos, ok, bt, fmt=fmt,
+                            page_size=4, num_pages=8)
+    q = torch.from_numpy(rng.randn(2, 4, 16).astype(np.float32)).to(
+        device) * 16 ** -0.5
+    lengths = torch.tensor([10, 9], dtype=torch.int32, device=device)
+    ref = KV.paged_attention_decode(q, kd[0], vd[0], lengths, bt,
+                                    impl="gather")
+    got = KV.paged_attention_decode(q, kq[0], vq[0], lengths, bt,
+                                    k_scale=ks[0], v_scale=vs[0],
+                                    fmt=fmt, impl="gather")
+    return float((got - ref).abs().max())
+
+
+def kv_density_line(rounds: dict, parity: dict, pool_bytes: int,
+                    suffix: str = "") -> dict:
+    """The kv_density_ab aux line (the JAX ``_kv_density_line``):
+    ``rounds`` maps cache dtype -> per-round ``serving`` blocks of
+    engines sized to the same pool bytes, ``parity`` quant dtype ->
+    per-round decode-parity max errors.  ``value`` is the dense
+    engine's round-median e2e p99 ms; each variant carries admitted
+    slots, tokens/s, e2e p99 and goodput bands, the quantized ones
+    their capacity ratio to dense and their parity bar."""
+    from dlnetbench_tpu_torch.metrics import stats
+    from dlnetbench_tpu_torch.serving.kv_cache import QUANT_DECODE_TOL
+    base = rounds["bf16"]
+    summary = stats.summarize([r["e2e_ms"]["p99"] for r in base],
+                              ndigits=3)
+    base_adm = [r["admitted_concurrency_peak"] for r in base]
+    variants = {}
+    for name, rnds in rounds.items():
+        v = {
+            "num_pages": rnds[0]["kv_cache"]["num_pages"],
+            "pool_bytes": rnds[0]["kv_cache"]["pool_bytes"],
+            "admitted_slots": stats.summarize(
+                [r["admitted_concurrency_peak"] for r in rnds],
+                ndigits=2),
+            "tokens_per_s": stats.summarize(
+                [r["tokens_per_s"] for r in rnds], ndigits=2),
+            "e2e_p99_ms": stats.summarize(
+                [r["e2e_ms"]["p99"] for r in rnds], ndigits=3),
+            "goodput_frac": stats.summarize(
+                [r["goodput_frac"] for r in rnds], ndigits=4),
+            "goodput_rps": stats.summarize(
+                [r["goodput_rps"] for r in rnds], ndigits=3),
+        }
+        if name != "bf16":
+            v["capacity_x"] = stats.summarize(
+                [r["admitted_concurrency_peak"] / b
+                 for r, b in zip(rnds, base_adm) if b > 0], ndigits=3)
+            errs = parity[name]
+            tol = QUANT_DECODE_TOL[name]
+            v["parity_max_err"] = stats.summarize(errs, ndigits=6)
+            v["parity_tol"] = tol
+            v["parity_ok"] = bool(max(errs) <= tol)
+        variants[name] = v
+    return stats.flag_low_mode({
+        "metric": f"kv_density_ab: dense vs int8 vs fp8 paged-KV "
+                  f"decode at equal pool bytes, admitted concurrency "
+                  f"+ parity bars (serving/){suffix}",
+        "value": summary["value"],
+        "unit": "ms",
+        "best": summary["best"],
+        "band": summary["band"],
+        "n": summary["n"],
+        "pool_bytes_budget": pool_bytes,
+        "variants": variants,
+    })
+
+
+def bench_kv_density(device_name: str, device) -> dict:
+    """The density A/B (the JAX ``_bench_kv_density``): dense, int8 and
+    fp8 paged-KV engines sized to the same pool bytes replay one seeded
+    saturating plan, interleaved per round; slots exceed what any pool
+    holds, so the pool caps admitted concurrency.  Gather attention, as
+    in the JAX line."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.scheduler import (Engine,
+                                                        ServingConfig)
+    mc = serving_model()
+    dense = ServingConfig(slots=24, page_size=8, num_pages=25,
+                          max_seq_len=40, slo_ttft_ms=400.0,
+                          slo_tpot_ms=150.0, attn_impl="gather")
+    cc_args = dict(num_layers=mc.num_layers,
+                   num_kv_heads=mc.num_kv_heads, head_dim=mc.head_dim,
+                   page_size=dense.page_size, max_seqs=dense.slots,
+                   max_pages_per_seq=dense.max_seq_len
+                   // dense.page_size, dtype=mc.dtype)
+    budget = KV.CacheConfig(**cc_args, num_pages=dense.num_pages,
+                            cache_dtype="bf16").pool_bytes
+    variants = {"bf16": dense}
+    for cd in ("int8", "fp8"):
+        pages = KV.pages_for_pool_bytes(
+            budget, KV.CacheConfig(**cc_args, num_pages=1,
+                                   cache_dtype=cd))
+        variants[cd] = dataclasses.replace(dense, cache_dtype=cd,
+                                           num_pages=pages)
+    plan = ArrivalPlan(kind="poisson", rate_rps=5000.0,
+                       num_requests=20, seed=0, prompt_len=[8, 16],
+                       output_len=[12, 20])
+    params = init_params(mc, seed=0, device=device)
+    requests = plan.sample()
+    engines = {name: Engine(mc, cfg, params=params, device=device)
+               for name, cfg in variants.items()}
+    for eng in engines.values():
+        eng.run(requests)   # warm round, discarded
+    rounds: dict[str, list] = {name: [] for name in engines}
+    parity: dict[str, list] = {"int8": [], "fp8": []}
+    for rnd in range(ROUNDS):
+        for name, eng in engines.items():
+            completed, wall = eng.run(requests)
+            rounds[name].append(serving_rounds_block(
+                eng, completed, plan, wall, dense, admitted=True))
+        for cd in parity:
+            parity[cd].append(kv_parity_err(cd, rnd, device))
+    line = kv_density_line(
+        rounds, parity, budget,
+        suffix=f", {len(requests)} req slots={dense.slots} "
+               f"page={dense.page_size}, {device_name}")
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def longcontext_ab_line(summaries_s: dict, round_times_s: dict, *,
                         metric: str, mask_info: dict) -> dict:
     """The dense-vs-splash long-context A/B line (the JAX ``bench.py``'s
@@ -791,6 +1278,10 @@ def main(argv=None) -> int:
                          ("fp8_fused_ab", "float8")):
             aux[key] = bench_quant_fused_ab(card, hw_key, device_name,
                                             device, fmt)
+        # the serving tier's lines (tiny engines; the JAX bench's order)
+        aux["serving_decode"] = bench_serving_decode(device_name, device)
+        aux["kv_density_ab"] = bench_kv_density(device_name, device)
+        aux["sampling_ab"] = bench_sampling_ab(device_name, device)
         aux["longcontext_ab"] = bench_longcontext_ab(card, hw_key,
                                                      device_name, device)
         if device.type == "cuda":

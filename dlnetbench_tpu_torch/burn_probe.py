@@ -2,7 +2,7 @@
 card's state: what moves the compute leg away from its calibration.
 
     python -m dlnetbench_tpu_torch.burn_probe [--chains 16] [--proxies 8]
-        [--out burn_probe.jsonl]
+        [--after-profiler] [--out burn_probe.jsonl]
 
 For each form of the chain (``cuda_cores``: the proxies' burn, the
 state copied to f32 and an f32 product; ``tensor``: a bf16 product with
@@ -28,6 +28,12 @@ With ``--proxies`` it then builds the DP (8 buckets) and FSDP (8 units)
 proxies at world 1, bf16 buffers at full size, once on each form, and
 times their full and compute-only steps in turns (``proxy`` lines, the
 same fields), beside the proxy's own calibration.
+
+With ``--after-profiler`` it then runs one ``torch.profiler`` session
+(CPU and CUDA activities) over a burn and measures the proxies' form
+again: its ``calibration`` and ``graph`` lines, and with ``--proxies``
+its DP and FSDP steps, each tagged ``"after_profiler": true`` (a
+session earlier in the process slows the calibration's short graphs).
 
 It needs a card (NVML through ``libnvidia-ml.so.1``) and imports
 nothing of JAX.
@@ -126,10 +132,9 @@ def _timed(fn, state: _CardState, half_s: float) -> tuple:
     return host, state.s.read_joules() - e0, mid
 
 
-def probe(form: str, make, device, state: _CardState, stats, chains: int,
-          emit) -> None:
-    leg_us = (stats.fwd_us + stats.bwd_us) * TIME_SCALE
-    burner = make(device)
+def probe_calibration(form: str, burner, emit) -> list[float]:
+    """The ``calibration`` and ``graph`` lines of ``burner``; returns the
+    calibrations."""
     kind = burnlib.device_kind(burner.device)
     cals = [burnlib._measure(burner, kind).ns_per_iter
             for _ in range(CAL_REPS)]
@@ -137,7 +142,25 @@ def probe(form: str, make, device, state: _CardState, stats, chains: int,
     emit({"form": form, "what": "graph", "ns_per_iter": {
         n: round(_graph_ns(burner, n), 1)
         for n in (64, 256, burnlib.CHUNK)}})
-    ns = statistics.median(cals)
+    return cals
+
+
+def profiler_session(device) -> None:
+    """One torch.profiler session (CPU and CUDA) over a 4096-iteration
+    burn on a burner of its own."""
+    from torch.profiler import ProfilerActivity, profile
+    burner = burnlib.Burner(device)
+    burner(4096)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        burner(4096)
+        torch.cuda.synchronize()
+
+
+def probe(form: str, make, device, state: _CardState, stats, chains: int,
+          emit) -> None:
+    leg_us = (stats.fwd_us + stats.bwd_us) * TIME_SCALE
+    burner = make(device)
+    ns = statistics.median(probe_calibration(form, burner, emit))
     # the leg whole, or in DP's pieces: the forward and 8 buckets
     fwd = max(1, round(stats.fwd_us * TIME_SCALE * 1e3 / ns))
     bwd = max(1, round(stats.bwd_us * TIME_SCALE * 1e3 / (8 * ns)))
@@ -233,6 +256,9 @@ def main(argv=None) -> int:
     p.add_argument("--chains", type=int, default=16)
     p.add_argument("--proxies", type=int, default=0, metavar="REPS",
                    help="also time DP and FSDP steps, REPS turns each")
+    p.add_argument("--after-profiler", action="store_true",
+                   help="then measure the proxies' form again after one "
+                        "torch.profiler session")
     p.add_argument("--out", default=None, help="also append the lines here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -262,10 +288,20 @@ def main(argv=None) -> int:
                        ("tensor", _TensorCoreBurner)):
         probe(form, make, device, state, stats, args.chains, emit)
     if args.proxies:
-        from dlnetbench_tpu_torch.parallel import multihost
         for form, make in (("cuda_cores", burnlib.Burner),
                            ("tensor", _TensorCoreBurner)):
             probe_proxies(form, make, state, stats, args.proxies, emit)
+    if args.after_profiler:
+        profiler_session(device)
+
+        def emit_after(line):
+            emit({**line, "after_profiler": True})
+        probe_calibration("cuda_cores", burnlib.Burner(device), emit_after)
+        if args.proxies:
+            probe_proxies("cuda_cores", burnlib.Burner, state, stats,
+                          args.proxies, emit_after)
+    if args.proxies:
+        from dlnetbench_tpu_torch.parallel import multihost
         multihost.shutdown()
     return 0
 

@@ -36,10 +36,15 @@ the flight recorder's counter tracks); ``--telemetry`` (or
 in ``--flight-dir``.  The profile and the trace are auxiliary: a
 capture that fails leaves a note on stderr and the record as it was.
 
-``serve`` is the JAX package's ``cli serve`` (same flag names and
-defaults) for the slice the port covers: the classic greedy engine with
-``separate`` or ``inline`` prefill over an unquantized, int8 or fp8
-paged KV cache, with ``--telemetry`` / ``--flight-dir``.
+``serve`` is the JAX package's ``cli serve`` (same flag names, defaults
+and parse-time checks) for the slice the port covers: ``separate`` or
+``inline`` prefill over an unquantized, int8 or fp8 paged KV cache; the
+classic engine or the fused decode loop (``--multi_step_n``,
+``--no_adaptive_n``), speculative decode (``--speculative --spec_k
+--drafter --drafter_layers``), seeded sampling (``--temperature
+--sample_top_k --top_p --sample_seed``) and the JSON grammar
+(``--grammar``); ``--attn_impl`` picks the decode attention (``auto``:
+kernels K1/K2 on the card); with ``--telemetry`` / ``--flight-dir``.
 ``--platform`` is ``cuda`` unless the caller asks for ``cpu``; without
 a card, ``cuda`` is an error.  The record (schema v2)
 is appended to ``--out`` or written to stdout; a one-line summary goes
@@ -85,6 +90,52 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                         "(pools in the model dtype, kernel K1); "
                         "int8/fp8 = quantized pages with per-page, "
                         "per-head f32 scales (kernel K2)")
+    p.add_argument("--attn_impl", default="auto",
+                   choices=["auto", "gather"],
+                   help="decode attention: auto = the hand kernel "
+                        "K1/K2 on a card and its plain version on the "
+                        "CPU; gather = the plain version on either")
+    p.add_argument("--multi_step_n", type=int, default=1,
+                   help="decode steps fused per host dispatch: >1 runs "
+                        "the device-resident loop (slot state on the "
+                        "device, host sync at admission boundaries "
+                        "only); 1 = the classic per-token engine")
+    p.add_argument("--no_adaptive_n", action="store_true",
+                   help="disable the adaptive trip-count cap "
+                        "(shortest remaining output + queue pressure); "
+                        "the fused loop then always runs the full N")
+    p.add_argument("--speculative", action="store_true",
+                   help="self-drafting speculative decode inside the "
+                        "fused loop: draft k, verify the k+1 fed "
+                        "positions in one target pass, accept on the "
+                        "device")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="draft tokens per verify round")
+    p.add_argument("--drafter", default="ngram",
+                   choices=["ngram", "truncated"],
+                   help="ngram: per-slot bigram table on the device; "
+                        "truncated: first --drafter_layers layers of "
+                        "the target + shared head")
+    p.add_argument("--drafter_layers", type=int, default=1,
+                   help="truncated drafter depth (< --layers)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature: 0 = greedy; >0 samples "
+                        "every generated token on the device, keyed by "
+                        "(sample_seed, request id, position)")
+    p.add_argument("--sample_top_k", type=int, default=0,
+                   help="keep only the k highest-probability tokens "
+                        "before drawing (0 = off; needs --temperature "
+                        "> 0)")
+    p.add_argument("--top_p", type=float, default=1.0,
+                   help="nucleus sampling mass in (0, 1] (1.0 = off; "
+                        "needs --temperature > 0)")
+    p.add_argument("--sample_seed", type=int, default=0,
+                   help="the draw-key seed (records under different "
+                        "seeds refuse to merge)")
+    p.add_argument("--grammar", default="", choices=["", "json"],
+                   help="constrained decode: mask generated tokens to "
+                        "the JSON-mode automaton (token class = token "
+                        "%% 4); composes with --speculative")
     p.add_argument("--embed", type=int, default=64)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--kv_heads", type=int, default=2)
@@ -492,7 +543,8 @@ def _run_serve(args, parser) -> int:
                                                          init_params)
     from dlnetbench_tpu_torch.ops.common import resolve_device
     from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
-    from dlnetbench_tpu_torch.serving.scheduler import (ServingConfig,
+    from dlnetbench_tpu_torch.serving.scheduler import (Engine,
+                                                        ServingConfig,
                                                         run_serving)
     variables = _tags(args, parser)
     try:
@@ -510,6 +562,13 @@ def _run_serve(args, parser) -> int:
             num_pages=args.num_pages, max_seq_len=args.max_seq_len,
             prefill=args.prefill, prefill_chunk=args.prefill_chunk,
             slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+            attn_impl=args.attn_impl, multi_step_n=args.multi_step_n,
+            adaptive_n=not args.no_adaptive_n,
+            speculative=args.speculative, spec_k=args.spec_k,
+            drafter=args.drafter, drafter_layers=args.drafter_layers,
+            temperature=args.temperature, top_k=args.sample_top_k,
+            top_p=args.top_p, sample_seed=args.sample_seed,
+            grammar=args.grammar,
             cache_dtype=args.cache_dtype).validate()
     except ValueError as e:
         parser.error(str(e))
@@ -518,8 +577,13 @@ def _run_serve(args, parser) -> int:
     except RuntimeError as e:
         parser.error(str(e))
     params = init_params(model_cfg, seed=args.seed, device=device)
-    result = run_serving(model_cfg, srv_cfg, plan, params=params,
-                         device=device)
+    try:
+        # the engine build checks the knobs against the model's shape
+        # (the speculative drafter's depth); a refusal is a usage error
+        engine = Engine(model_cfg, srv_cfg, params=params, device=device)
+    except ValueError as e:
+        parser.error(str(e))
+    result = run_serving(model_cfg, srv_cfg, plan, engine=engine)
     if variables:
         result.global_meta["variables"] = variables
     record = emit_result(result, path=args.out)

@@ -1,20 +1,28 @@
 """The decode-path transformer: prefill/decode over the paged KV cache
-(the JAX package's ``serving/decode.py``, dense greedy path).
+(the JAX package's ``serving/decode.py``, dense path).
 
-Two programs cover serving, with the JAX package's signatures:
+Three programs cover serving, with the JAX package's signatures:
 
 * ``make_decode_step`` — ONE token per decode slot, full batch (shape
   ``[slots]``; inactive slots write nothing): project q/k/v for the fed
   token, write k/v into the slot's current page, attend over everything
   cached through kernel K1 or K2 (``kv_cache.paged_attention_decode``),
-  MLP, greedy-pick the next token from f32 logits.
+  MLP, and pick the next token from f32 logits — the argmax, or with a
+  ``sampling.DeviceSampler`` the seeded draw keyed by (seed, uid, fed
+  position).
+* ``make_multi_step_decode`` — up to N such steps per call over a
+  device-resident slot state (the packed ``[6, slots]`` int32 carry,
+  rows ``STATE_*``).  The loop is a host ``for`` loop over the same
+  ``_step_tokens`` body: between trips the host reads nothing and
+  uploads nothing, a slot whose budget runs out stops itself on the
+  device, and a trip with no active slot changes nothing.
 * ``make_prefill_chunk`` — one sequence, one chunk of its prompt: write
   the chunk's K/V into the slot's pages and attend causally over cache
   + chunk.  This attention is plain PyTorch (a gather of the slot's
   pages and a masked softmax), as it is plain XLA in the JAX package.
 
 The programs run eagerly and update the pools in place; each returns
-the pools it was given followed by the next token(s).
+the pools it was given followed by its outputs.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from dlnetbench_tpu_torch.models import layers as L
 from dlnetbench_tpu_torch.models.transformer import TransformerConfig
 from dlnetbench_tpu_torch.ops.paged_attention import take_pages
 from dlnetbench_tpu_torch.serving.arrivals import _Rng
-from dlnetbench_tpu_torch.serving.kv_cache import (MASK_VALUE, CacheConfig,
+from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, MASK_VALUE,
+                                                   CacheConfig,
                                                    dequant_gathered,
                                                    paged_attention_decode,
                                                    span_plan, write_gate,
@@ -84,11 +93,19 @@ def _split_pools(cache_cfg: CacheConfig, pools: tuple) -> tuple:
 
 
 def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
-                 pools, tokens, positions, write_ok, block_tables):
+                 pools, tokens, positions, write_ok, block_tables, *,
+                 layers: int | None = None, attn_impl: str = "auto",
+                 sampler=None, uids=None, gstate=None,
+                 return_logits: bool = False):
     """One batched single-token step over the paged cache.  ``write_ok``
     [B] gates the k/v write (an inactive slot's next token is garbage
     the caller ignores).  Attention covers ``positions + 1`` tokens: the
-    fed token's k/v land first."""
+    fed token's k/v land first.  ``layers`` truncates the stack (the
+    speculative truncated drafter: the first ``layers`` layers plus the
+    shared final norm and head).  With a ``sampler`` the next token is
+    the seeded draw keyed by ``(uids[b], positions[b])`` under the
+    grammar states ``gstate``; ``return_logits`` appends the f32 logits
+    to the return."""
     b = tokens.shape[0]
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -108,7 +125,8 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
                          page_size=s, num_pages=cache_cfg.num_pages)
     else:
         gate = write_gate((page_id, rows), write_ok)
-    for li in range(cfg.num_layers):
+    depth = cfg.num_layers if layers is None else layers
+    for li in range(depth):
         lp = _layer(params, li)
         y = L.rmsnorm(x, lp["norm1"])
         q = (y @ lp["wq"]).reshape(b, cfg.num_heads, cfg.head_dim)
@@ -129,16 +147,28 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
             att_lengths, block_tables,
             k_scale=k_scale[li] if quant else None,
             v_scale=v_scale[li] if quant else None,
-            fmt=cache_cfg.quant_fmt)
+            fmt=cache_cfg.quant_fmt, impl=attn_impl)
         x = x + att.reshape(b, cfg.embed_dim) @ lp["wo"]
         y = L.rmsnorm(x, lp["norm2"])
         x = x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
     logits = _logits(cfg, params, x)
-    next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    if sampler is None:
+        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        next_tokens = sampler.draw_tokens(logits, uids, positions, gstate)
+    if return_logits:
+        return pools, next_tokens, logits
     return pools, next_tokens
 
 
-def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig):
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"serving decode: unknown attn_impl "
+                         f"{attn_impl!r} (one of {ATTN_IMPLS})")
+
+
+def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
+                     attn_impl: str = "auto", sampler=None):
     """``decode_step(params, k_pages, v_pages, tokens, positions,
     block_tables, active) -> (k_pages, v_pages, next_tokens)``; on a
     quantized cache the scales follow the pools: ``decode_step(params,
@@ -147,22 +177,115 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig):
 
     tokens/positions/active ``[slots]`` (int32/int32/bool) and
     block_tables ``[slots, pmax]`` int32, all on the pools' device; a
-    slot's ``position`` is the cache index its token is written at."""
+    slot's ``position`` is the cache index its token is written at.
+    With a ``sampler`` the signature grows two trailing operands,
+    ``uids`` and ``gstate`` ``[slots]`` int32 (the draw keys' request
+    ids and the grammar states; grammar transitions stay with the
+    caller, which reads every token back anyway)."""
     check_config(cfg)
+    _check_impl(attn_impl)
     n_pools = 4 if cache_cfg.quantized else 2
+    n_ops = 6 if sampler is not None else 4
 
     def decode_step(params, *args):
-        pools, (tokens, positions, block_tables, active) = (
-            args[:n_pools], args[n_pools:])
+        if len(args) != n_pools + n_ops:
+            raise TypeError(f"decode_step: {n_pools} pools and {n_ops} "
+                            f"operands, got {len(args)} arguments")
+        pools, ops = args[:n_pools], args[n_pools:]
+        tokens, positions, block_tables, active = ops[:4]
+        uids, gstate = ops[4:] if sampler is not None else (None, None)
         pools, nxt = _step_tokens(cfg, cache_cfg, params, pools, tokens,
-                                  positions, active, block_tables)
+                                  positions, active, block_tables,
+                                  attn_impl=attn_impl, sampler=sampler,
+                                  uids=uids, gstate=gstate)
         return (*pools, nxt)
 
     return decode_step
 
 
+# rows of the packed device slot-state carry ([6, slots] int32, one
+# tensor per host<->device crossing): the token each slot feeds next,
+# its cache write index (= tokens cached), the output tokens still owed
+# (``remaining > 0`` is the active bit), the prompt+output reservation
+# cap, the request id sampled draws key by, the grammar state.  The last
+# two ride as zeros in greedy engines.
+(STATE_LAST, STATE_POS, STATE_REM, STATE_LIMIT, STATE_UID,
+ STATE_GRAMMAR) = 0, 1, 2, 3, 4, 5
+STATE_ROWS = 6
+
+
+def make_multi_step_decode(cfg: TransformerConfig,
+                           cache_cfg: CacheConfig, n_max: int, *,
+                           attn_impl: str = "auto", sampler=None):
+    """The device-resident fused decode loop.
+
+    ``multi_step(params, k_pages, v_pages, state, block_tables, n_steps)
+    -> (k_pages, v_pages, state, tokens_out, counts, steps_run)``; on a
+    quantized cache the scales follow the pools, in and out.
+
+    ``state`` is the packed ``[6, slots]`` int32 carry (``STATE_*``
+    rows), left untouched: the call returns an updated copy.
+    ``n_steps`` is a host int; the call runs ``min(n_steps, n_max)``
+    trips of ``_step_tokens`` (the same body as ``make_decode_step``,
+    sampler included), issued back to back with no host read or upload
+    between them.  A slot whose budget reaches 0 stops feeding and
+    writing on the device; a trip with no active slot changes nothing.
+    ``tokens_out[b, j]`` ``[slots, n_max]`` is slot ``b``'s j-th token
+    of this call, ``counts[b]`` how many are valid, and ``steps_run``
+    (0-d int32) the trips that had an active slot — the JAX loop's trip
+    count, which exits as soon as every slot is done.  A caller that
+    knows every slot's remaining budget (greedy decode has no early
+    stop) passes ``n_steps`` at most their largest and wastes no trip.
+    With a ``sampler`` each trip draws by (uid row, fed position) and
+    advances the grammar row after each accepted token."""
+    check_config(cfg)
+    _check_impl(attn_impl)
+    if n_max < 1:
+        raise ValueError(f"multi_step_decode: n_max must be >= 1, "
+                         f"got {n_max}")
+    n_pools = 4 if cache_cfg.quantized else 2
+    advance = sampler is not None and sampler.trans_dev is not None
+
+    def multi_step(params, *args):
+        if len(args) != n_pools + 3:
+            raise TypeError(f"multi_step: {n_pools} pools, state, "
+                            f"block_tables and n_steps, got {len(args)} "
+                            f"arguments")
+        pools = args[:n_pools]
+        state, block_tables, n_steps = args[n_pools:]
+        st = state.clone()
+        b = st.shape[1]
+        dev = st.device
+        rows = torch.arange(b, device=dev)
+        # one column past the end takes the tokens of inactive slots
+        out = torch.zeros((b, n_max + 1), dtype=torch.int32, device=dev)
+        cnt = torch.zeros((b,), dtype=torch.int32, device=dev)
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(min(int(n_steps), n_max)):
+            last, pos = st[STATE_LAST], st[STATE_POS]
+            act = st[STATE_REM] > 0
+            pools, nxt = _step_tokens(
+                cfg, cache_cfg, params, pools, last, pos, act,
+                block_tables, attn_impl=attn_impl, sampler=sampler,
+                uids=st[STATE_UID], gstate=st[STATE_GRAMMAR])
+            out[rows, torch.where(act, cnt, n_max).long()] = nxt
+            step = act.to(torch.int32)
+            steps += act.any().to(torch.int32)
+            if advance:
+                g = st[STATE_GRAMMAR]
+                st[STATE_GRAMMAR] = torch.where(
+                    act, sampler.advance(g, nxt), g)
+            st[STATE_LAST] = torch.where(act, nxt, last)
+            st[STATE_POS] += step
+            st[STATE_REM] -= step
+            cnt += step
+        return (*pools, st, out[:, :n_max], cnt, steps)
+
+    return multi_step
+
+
 def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
-                       chunk: int):
+                       chunk: int, *, sampler=None):
     """``prefill_chunk(params, k_pages, v_pages, tokens, start, n_valid,
     block_row) -> (k_pages, v_pages, next_token)`` (scales after the
     pools on a quantized cache, as in ``make_decode_step``).
@@ -173,7 +296,13 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
     K/V land in the slot's pages, attention is causal over cache +
     chunk, and ``next_token`` (a 0-d int32 tensor) is the greedy
     continuation of the last valid token — meaningful on the chunk that
-    completes the prompt (the request's first generated token)."""
+    completes the prompt (the request's first generated token).
+
+    With a ``sampler`` the signature grows one trailing host int, the
+    request id ``uid``, and the first token is the seeded draw keyed by
+    ``(uid, start + last valid index)`` — the fed position of the last
+    prompt token, the decode programs' counter convention — under the
+    grammar's start state."""
     check_config(cfg)
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -181,10 +310,14 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
     quant = cache_cfg.quantized
     n_pools = 4 if quant else 2
     g = cfg.num_heads // cfg.num_kv_heads
+    n_ops = 5 if sampler is not None else 4
 
     def prefill_chunk(params, *args):
-        pools, (tokens, start, n_valid, block_row) = (args[:n_pools],
-                                                      args[n_pools:])
+        if len(args) != n_pools + n_ops:
+            raise TypeError(f"prefill_chunk: {n_pools} pools and {n_ops} "
+                            f"operands, got {len(args)} arguments")
+        pools, ops = args[:n_pools], args[n_pools:]
+        tokens, start, n_valid, block_row = ops[:4]
         k_pages, v_pages, k_scale, v_scale = _split_pools(cache_cfg, pools)
         dev = tokens.device
         positions = start + torch.arange(chunk, device=dev)
@@ -239,8 +372,15 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
             x = x + att @ lp["wo"]
             y = L.rmsnorm(x, lp["norm2"])
             x = x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
-        logits = _logits(cfg, params, x[last:last + 1])[0]
-        next_token = torch.argmax(logits).to(torch.int32)
+        logits = _logits(cfg, params, x[last:last + 1])
+        if sampler is None:
+            next_token = torch.argmax(logits[0]).to(torch.int32)
+        else:
+            def one(v):
+                return torch.full((1,), v, dtype=torch.int32, device=dev)
+            next_token = sampler.draw_tokens(
+                logits, one(ops[4]), one(start + last),
+                one(sampler.start_state))[0]
         return (*pools, next_token)
 
     return prefill_chunk

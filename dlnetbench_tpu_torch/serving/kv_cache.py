@@ -25,9 +25,13 @@ package's ``serving/kv_cache.py``).
   duplicate index writes the same bytes and no host sync is needed.
 * ``paged_attention_decode`` — one decode step's attention: kernel K1
   (``ops/paged_attention``) for unquantized pools, K2
-  (``ops/paged_attention_quant``) for quantized ones.  On a CUDA tensor
-  each launches its Hopper kernel; on a CPU tensor each runs its plain
-  version (the JAX package's gather fallback math).
+  (``ops/paged_attention_quant``) for quantized ones.  ``impl`` keeps
+  two of the JAX package's names: ``auto`` launches the Hopper kernel
+  on a CUDA tensor and runs its plain version (the JAX package's gather
+  math) on a CPU tensor; ``gather`` is the plain version, run only when
+  a caller names it.
+* ``pages_for_pool_bytes`` — the pages a byte budget buys under a cache
+  geometry and dtype (the equal-pool-bytes axis of the density A/B).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from dlnetbench_tpu_torch.ops.paged_attention import (  # noqa: F401
-    MASK_VALUE, paged_attention)
+    MASK_VALUE, gather_attention, paged_attention)
 from dlnetbench_tpu_torch.ops.paged_attention_quant import \
     quant_paged_attention
 from dlnetbench_tpu_torch.ops.quantized_matmul import cast_q, scale_from_amax
@@ -50,6 +54,9 @@ CACHE_DTYPES = ("bf16", "int8", "fp8")
 _QUANT_FMT = {"int8": "int8", "fp8": "float8"}
 _QUANT_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 _MODEL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# paged_attention_decode's paths (the JAX package's names)
+ATTN_IMPLS = ("auto", "gather")
 
 # the JAX package's stated decode-parity bars: max absolute error of the
 # paged-attention output against the unquantized cache on unit-scale
@@ -123,6 +130,16 @@ class CacheConfig:
                 f"one max-seq request ({self.max_pages_per_seq} pages) — "
                 f"the admission gate would starve the queue head forever")
         return self
+
+
+def pages_for_pool_bytes(budget_bytes: int, cfg: CacheConfig) -> int:
+    """How many physical pages a byte budget buys under ``cfg``'s
+    geometry and cache dtype (scale arrays priced in through
+    ``page_bytes``).  The count still has to pass ``validate``'s
+    one-request guard, which fails loudly for a budget too small."""
+    if budget_bytes < 1:
+        raise ValueError(f"pages_for_pool_bytes: budget {budget_bytes}")
+    return max(1, budget_bytes // cfg.page_bytes)
 
 
 class PagedKVCache:
@@ -373,15 +390,23 @@ def dequant_gathered(pages_g, scales_g):
 
 def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
                            k_scale=None, v_scale=None,
-                           fmt: str | None = None):
+                           fmt: str | None = None, impl: str = "auto"):
     """One decode step's attention for a batch of slots over ONE layer's
     pools (``[Hkv, P, S, Dh]``).  ``q`` must be pre-scaled by
     ``head_dim**-0.5``.  With ``k_scale``/``v_scale`` (+ ``fmt``) the
-    pools are quantized and K2 runs; otherwise K1."""
+    pools are quantized and K2 runs; otherwise K1.  ``impl``: ``auto``
+    (the kernel on a CUDA tensor, its plain version on a CPU tensor) or
+    ``gather`` (the plain version on either device)."""
+    if k_scale is not None and fmt is None:
+        raise ValueError("paged_attention_decode: scale arrays need "
+                         "fmt ('int8'|'float8')")
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"paged_attention_decode: unknown impl "
+                         f"{impl!r} (auto|gather)")
+    if impl == "gather":
+        return gather_attention(q, k_pages, v_pages, lengths,
+                                page_indices, k_scale, v_scale)
     if k_scale is not None:
-        if fmt is None:
-            raise ValueError("paged_attention_decode: scale arrays need "
-                             "fmt ('int8'|'float8')")
         return quant_paged_attention(q, k_pages, v_pages, k_scale,
                                      v_scale, lengths, page_indices,
                                      fmt=fmt)

@@ -173,6 +173,18 @@ def serving_block(completed: list[Completed], plan: ArrivalPlan, *,
     return block
 
 
+def acceptance_by_temp(points: list[tuple[float, float]]) -> list[dict]:
+    """Measured (temperature, acceptance_rate) pairs as the
+    ``spec_acceptance_by_temp`` record global: sorted by temperature,
+    rates clamped to [0, 1] and rounded."""
+    out = []
+    for temp, rate in sorted(points, key=lambda p: float(p[0])):
+        out.append({"temperature": round(float(temp), 4),
+                    "acceptance_rate": round(
+                        min(1.0, max(0.0, float(rate))), 4)})
+    return out
+
+
 def build_result(completed: list[Completed], plan: ArrivalPlan,
                  global_meta: dict, *, section: str = "serving"
                  ) -> ProxyResult:

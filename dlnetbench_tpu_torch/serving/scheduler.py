@@ -1,26 +1,43 @@
-"""Continuous-batching engine (the JAX package's ``serving/scheduler.py``,
-classic one-token-per-step greedy engine).
+"""Continuous-batching engine (the JAX package's ``serving/scheduler.py``).
 
 Requests arrive on an OPEN-LOOP schedule (``serving/arrivals.py``), are
 admitted from the queue into free decode slots whenever pages for their
 worst case (prompt + output) can be reserved, prefill either at admit
 time (``separate``) or one chunk per engine step (``inline``), decode
-one token per active slot per step over the paged KV cache, and leave
-on completion.  The host reads every step's next tokens back — that
-read is the step's fence, as in the JAX engine, and the engine adds no
-other synchronisation.
+over the paged KV cache, and leave on completion.
+
+Two decode paths, as in the JAX engine:
+
+* ``multi_step_n == 1`` without speculation — the classic engine: one
+  dispatch per token, the step's tokens read back at its end (the
+  step's fence).  The loop program is not even built.
+* otherwise — the fused path: slot state lives on the device between
+  syncs (``serving/device_state.py``), and one dispatch issues up to N
+  decode steps (``decode.make_multi_step_decode``) or N draft/verify
+  rounds (``speculative.make_spec_decode_loop``) with no host read or
+  upload between them.  The host syncs at admission boundaries and
+  reads each dispatch's token block once, every crossing a recorded
+  timer.  ``adaptive_n`` caps N so the loop never starves a waiting
+  request (``_pick_n_steps``), and the host, which knows each slot's
+  remaining budget, never issues a trip past the longest of them.
+
+``temperature > 0`` or a ``grammar`` builds a ``sampling.DeviceSampler``
+shared by every program: draws are keyed by (sample_seed, request id,
+stream position), so the 1-step and N-step engines emit the same
+sampled tokens position by position, and the speculative engine (its
+rejection sampling draws on other lanes) the same distribution.
 
 With the flight recorder on (``metrics/telemetry.py``) every engine
 step is a ring sample (``step_wall_us``, ``queue_depth``,
-``active_slots``, ``kv_occupancy``, ``kv_fragmentation``) that feeds the
+``active_slots``, ``kv_occupancy``, ``kv_fragmentation``, and on the
+fused path ``sync_us`` and the speculative acceptance) that feeds the
 step-time detector and the rolling SLO check (``trigger("slo")``); with
 it off the step reads no clock for it and allocates nothing.  On a
 traced run the engine build, the warmup requests and the measured run
 are the spans ``build``, ``warmup`` and ``serving_run``.
 
 Outside this slice, and refused with a ``ValueError`` naming ROADMAP.md:
-fused multi-step decode, speculative decode, sampling, grammars, MoE
-models, KV sharding, several capacity ranks, disaggregation, prefix
+MoE models, KV sharding, several capacity ranks, disaggregation, prefix
 sharing and fault plans.
 """
 from __future__ import annotations
@@ -38,18 +55,25 @@ from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
 from dlnetbench_tpu_torch.ops.common import resolve_device
 from dlnetbench_tpu_torch.serving import decode as D
 from dlnetbench_tpu_torch.serving import metrics as M
+from dlnetbench_tpu_torch.serving import sampling as SMP
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan, Request
-from dlnetbench_tpu_torch.serving.kv_cache import (CACHE_DTYPES,
+from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, CACHE_DTYPES,
                                                    CacheConfig,
                                                    PagedKVCache,
                                                    device_buffers)
 
 PREFILL_MODES = ("separate", "inline")
 
-# decode-step dispatches made by every Engine in this process (reset by
-# the caller; each dispatch launches the decode attention kernel once
-# per layer)
+# decode dispatches made by every Engine in this process, and the device
+# steps (fused trips, draft/verify rounds) they issued; reset by the
+# caller.  A classic dispatch is one step and launches the decode
+# attention kernel once per layer; a fused dispatch of n trips launches
+# it n x layers times; a speculative round launches it spec_k x
+# drafter_layers times for the truncated drafter and never in the
+# verify pass (gather math over every fed position); nothing launches
+# it under attn_impl="gather"
 decode_dispatches = 0
+decode_device_steps = 0
 
 
 def _not_ported(what: str) -> ValueError:
@@ -59,9 +83,10 @@ def _not_ported(what: str) -> ValueError:
 
 @dataclasses.dataclass
 class ServingConfig:
-    """Engine knobs.  The first block is the slice; the rest are the JAX
-    package's knobs outside it, kept so that a config asking for one
-    fails loudly instead of being ignored."""
+    """Engine knobs, with the JAX package's names, defaults and checks.
+    The last block is the JAX package's knobs outside the port, kept so
+    that a config asking for one fails loudly instead of being
+    ignored."""
     slots: int = 4              # decode slots = max continuous batch
     page_size: int = 8          # tokens per KV page
     num_pages: int = 64         # physical pages shared by all slots
@@ -70,16 +95,30 @@ class ServingConfig:
     prefill_chunk: int = 16     # prompt tokens per prefill call
     slo_ttft_ms: float = 500.0
     slo_tpot_ms: float = 200.0
+    attn_impl: str = "auto"     # kv_cache.paged_attention_decode impl:
+    #                             "auto" (K1/K2 on a card, the plain
+    #                             gather on the CPU) | "gather"
+    multi_step_n: int = 1       # decode steps fused per dispatch; 1 =
+    #                             the classic engine (no loop built)
+    adaptive_n: bool = True     # cap N by the shortest remaining output
+    #                             while work waits, and by the measured
+    #                             steps until the next arrival
+    speculative: bool = False   # self-drafting speculative decode in
+    #                             the fused loop
+    spec_k: int = 4             # draft tokens per verify round
+    drafter: str = "ngram"      # "ngram" | "truncated"
+    drafter_layers: int = 1     # truncated drafter depth (< num_layers)
+    temperature: float = 0.0    # 0 = greedy (no sampler built)
+    top_k: int = 0              # keep the k highest logits (0 = off)
+    top_p: float = 1.0          # nucleus cutoff in (0, 1]; 1.0 = off
+    sample_seed: int = 0        # the draw-key seed (run identity)
+    grammar: str = ""           # "" | "json" (masked decode)
     cache_dtype: str = "bf16"   # "bf16" (pools in the model dtype) |
     #                             "int8" | "fp8" (quantized pages)
     warmup_requests: int = 8    # synthetic requests run (and discarded)
     #                             before the measured run
     world: int = 1
     kv_shard: int = 1
-    multi_step_n: int = 1
-    speculative: bool = False
-    temperature: float = 0.0
-    grammar: str = ""
     prefix_sharing: bool = False
     disaggregate: bool = False
 
@@ -101,19 +140,36 @@ class ServingConfig:
                 f"one max_seq_len request "
                 f"({self.max_seq_len // self.page_size} pages) — the "
                 f"admission gate would starve the queue head forever")
+        if self.multi_step_n < 1:
+            raise ValueError(f"serving: multi_step_n must be >= 1, "
+                             f"got {self.multi_step_n}")
         if self.cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"serving: unknown cache_dtype "
                              f"{self.cache_dtype!r} (one of "
                              f"{CACHE_DTYPES})")
-        if self.multi_step_n < 1:
-            raise ValueError(f"serving: multi_step_n must be >= 1, got "
-                             f"{self.multi_step_n}")
-        if self.multi_step_n > 1:
-            raise _not_ported("multi_step_n > 1 (the fused decode loop)")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"serving: unknown attn_impl "
+                             f"{self.attn_impl!r} (one of {ATTN_IMPLS})")
+        if self.speculative and self.cache_dtype != "bf16":
+            raise ValueError(
+                f"serving: speculative decode supports the bf16 cache "
+                f"only — cache_dtype={self.cache_dtype!r} re-quantizes "
+                f"pages on every draft/verify overwrite and has no "
+                f"stated parity bar (docs/SERVING.md 'Cache density')")
+        SMP.check_sampling_config(
+            temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, sample_seed=self.sample_seed,
+            grammar=self.grammar, speculative=self.speculative,
+            drafter=self.drafter)
         if self.speculative:
-            raise _not_ported("speculative decode")
-        if self.temperature > 0 or self.grammar:
-            raise _not_ported("sampling (temperature > 0) and grammars")
+            from dlnetbench_tpu_torch.serving.speculative import DRAFTERS
+            if self.spec_k < 1:
+                raise ValueError(f"serving: spec_k must be >= 1, got "
+                                 f"{self.spec_k}")
+            if self.drafter not in DRAFTERS:
+                raise ValueError(
+                    f"serving: unknown drafter {self.drafter!r} "
+                    f"(one of {DRAFTERS})")
         if self.world != 1:
             raise _not_ported("world > 1 (capacity ranks)")
         if self.kv_shard != 1:
@@ -136,6 +192,7 @@ class _SlotState:
         self.generated = 0
         self.last_token = 0
         self.first_token_s: float | None = None
+        self.gstate = 0             # grammar state after the last token
 
 
 class Engine:
@@ -143,7 +200,8 @@ class Engine:
 
     ``device`` is ``"cuda"`` (the default; raises without a card) or
     ``"cpu"``; on the card the decode attention runs the Hopper kernels
-    K1/K2, on the CPU their plain versions."""
+    K1/K2 (unless ``attn_impl="gather"``), on the CPU their plain
+    versions."""
 
     def __init__(self, model_cfg: TransformerConfig, cfg: ServingConfig,
                  *, params=None, device="cuda"):
@@ -159,13 +217,42 @@ class Engine:
             max_seqs=cfg.slots,
             max_pages_per_seq=cfg.max_seq_len // cfg.page_size,
             dtype=model_cfg.dtype, cache_dtype=cfg.cache_dtype)
+        # the fused path: N steps (or rounds) per dispatch over slot
+        # state on the device; the classic path builds no loop
+        self._loop_mode = cfg.multi_step_n > 1 or cfg.speculative
+        # validate() ran the sampling checks
+        scfg = SMP.SamplingConfig(
+            temperature=cfg.temperature, top_k=cfg.top_k,
+            top_p=cfg.top_p, sample_seed=cfg.sample_seed,
+            grammar=cfg.grammar)
+        self._sampler = (SMP.DeviceSampler(scfg, model_cfg.vocab_size,
+                                           self.device)
+                         if scfg.enabled else None)
+        self._decode = self._loop = None
         with spans.span("build", what="serving engine"):
             self.params = (params if params is not None
                            else init_params(model_cfg, seed=0,
                                             device=self.device))
-            self._decode = D.make_decode_step(model_cfg, self.cache_cfg)
-            self._prefill = D.make_prefill_chunk(model_cfg, self.cache_cfg,
-                                                 cfg.prefill_chunk)
+            if cfg.speculative:
+                # make_spec_decode_loop checks the knobs against the
+                # model's shape
+                from dlnetbench_tpu_torch.serving import speculative as SP
+                self._loop = SP.make_spec_decode_loop(
+                    model_cfg, self.cache_cfg, cfg.multi_step_n,
+                    spec_k=cfg.spec_k, drafter=cfg.drafter,
+                    drafter_layers=cfg.drafter_layers,
+                    attn_impl=cfg.attn_impl, sampler=self._sampler)
+            elif self._loop_mode:
+                self._loop = D.make_multi_step_decode(
+                    model_cfg, self.cache_cfg, cfg.multi_step_n,
+                    attn_impl=cfg.attn_impl, sampler=self._sampler)
+            else:
+                self._decode = D.make_decode_step(
+                    model_cfg, self.cache_cfg, attn_impl=cfg.attn_impl,
+                    sampler=self._sampler)
+            self._prefill = D.make_prefill_chunk(
+                model_cfg, self.cache_cfg, cfg.prefill_chunk,
+                sampler=self._sampler)
         self._reset_state()
 
     def _reset_state(self):
@@ -180,12 +267,27 @@ class Engine:
         self.concurrent_peak = 0
         self._occupancy_samples: list[int] = []
         self._prompt_memo: dict[int, np.ndarray] = {}
+        self.dstate = None
+        if self._loop_mode:
+            from dlnetbench_tpu_torch.serving.device_state import \
+                DeviceDecodeState
+            self.dstate = DeviceDecodeState(
+                self.cfg.slots, self.cache_cfg.max_pages_per_seq,
+                vocab=(self.model_cfg.vocab_size if self.cfg.speculative
+                       else None), device=self.device)
         self.token_streams: dict[int, list[int]] = {}
         self._host_dispatch_us: list[float] = []
         self._dispatches = 0
+        self._device_steps = 0       # steps (rounds) that had an active
+        #                              slot: the JAX loop's trip counts
+        self._idle_rounds = 0        # speculative rounds issued after
+        #                              every slot was done
         self._device_time_s = 0.0    # every program call, prefill too
         self._decode_device_s = 0.0  # decode dispatches only
         self._tokens_emitted = 0
+        self._drafted = 0
+        self._accepted = 0
+        self._step_ewma_s = 0.0      # measured seconds per device step
         # the flight recorder of this run (None, the default, keeps the
         # step allocation-free); a new run is a new step-time baseline
         self._tele = telemetry.current()
@@ -278,23 +380,52 @@ class Engine:
         chunk_np[:n] = st.prompt[start:start + n]
         chunk = self._to_device(chunk_np)
         row = self._to_device(self.cache.block_tables[slot].copy())
+        extra = () if self._sampler is None else (st.req.rid,)
         t0 = time.perf_counter()
         *self.pools, nxt = self._prefill(self.params, *self.pools, chunk,
-                                         start, n, row)
+                                         start, n, row, *extra)
         st.prefill_done += n
         self.cache.append(slot, n)
         if st.prefill_done >= st.req.prompt_len:
             st.last_token = int(nxt)        # the fence
             dev_s = time.perf_counter() - t0
             st.generated = 1
+            if self._sampler is not None:
+                # the grammar state after the first token (the device
+                # loop or the host picks up from here)
+                st.gstate = self._sampler.host_advance(
+                    self._sampler.start_state, st.last_token)
             st.first_token_s = self._now()
             self.token_streams.setdefault(st.req.rid, []).append(
                 st.last_token)
             self._maybe_finish(slot, st)
+            if self.slots[slot] is st:
+                self._activate_decode_slot(slot, st)
         else:
             dev_s = time.perf_counter() - t0
         self._device_time_s += dev_s
         return dev_s
+
+    def _activate_decode_slot(self, slot: int, st: _SlotState) -> None:
+        """Fused path: a slot finished prefill — seed its device-resident
+        state (flushed, priced, at the next dispatch)."""
+        if not self._loop_mode:
+            return
+        ds = self.dstate
+        ds.pull()  # sync boundary: refresh before mutating (priced)
+        ngram_row = None
+        if ds.ngram_table is not None:
+            from dlnetbench_tpu_torch.serving.speculative import \
+                seed_ngram_row
+            ngram_row = seed_ngram_row(st.prompt, st.last_token,
+                                       self.model_cfg.vocab_size)
+        ds.admit(slot, last_token=st.last_token,
+                 position=int(self.cache.lengths[slot]),
+                 remaining=st.req.output_len - st.generated,
+                 seq_limit=st.req.prompt_len + st.req.output_len,
+                 block_row=self.cache.block_tables[slot],
+                 ngram_row=ngram_row, uid=st.req.rid,
+                 grammar_state=st.gstate)
 
     def _step(self) -> None:
         """One engine step (``_step_once``), sampled into the flight
@@ -303,22 +434,32 @@ class Engine:
             self._step_once()
             return
         t0 = time.perf_counter()
+        sync0 = (self.dstate.sync_total_us() if self.dstate is not None
+                 else 0.0)
         self._step_once()
-        self._sample_step((time.perf_counter() - t0) * 1e6)
+        self._sample_step((time.perf_counter() - t0) * 1e6, sync0)
 
-    def _sample_step(self, wall_us: float) -> None:
+    def _sample_step(self, wall_us: float, sync0: float) -> None:
         """One flight-ring sample per engine step: queue depth, active
-        slots, KV occupancy and fragmentation beside the step wall; the
-        step-time detector and the rolling SLO-breach check."""
+        slots, KV occupancy and fragmentation beside the step wall (and
+        on the fused path the step's sync time and the speculative
+        acceptance); the step-time detector and the rolling SLO-breach
+        check."""
         tele, now, step = self._tele, self._now(), self.engine_steps
         cs = self.cache.stats()
-        tele.record("serving", step=step, phase="engine_step",
-                    step_wall_us=round(wall_us, 1),
-                    queue_depth=len(self.pending),
-                    active_slots=sum(1 for s in self.slots
-                                     if s is not None),
-                    kv_occupancy=cs["occupancy"],
-                    kv_fragmentation=cs["fragmentation"])
+        fields = {"step_wall_us": round(wall_us, 1),
+                  "queue_depth": len(self.pending),
+                  "active_slots": sum(1 for s in self.slots
+                                      if s is not None),
+                  "kv_occupancy": cs["occupancy"],
+                  "kv_fragmentation": cs["fragmentation"]}
+        if self.cfg.speculative and self._drafted:
+            fields["spec_acceptance"] = round(
+                self._accepted / self._drafted, 4)
+        if self.dstate is not None:
+            fields["sync_us"] = round(
+                self.dstate.sync_total_us() - sync0, 1)
+        tele.record("serving", step=step, phase="engine_step", **fields)
         tele.observe_step_wall("serving", wall_us, step=step)
         # a bounded tail: completions append in finish order, so the
         # trailing window is a suffix
@@ -332,11 +473,13 @@ class Engine:
 
     def _step_once(self) -> None:
         """One engine step: inline prefill chunks first (one per
-        prefilling slot), then one decode token per active slot.
-        ``host_dispatch_us`` records the step wall minus the program
-        calls' wall."""
-        global decode_dispatches
+        prefilling slot), then decode — one token per active slot
+        (classic) or one fused dispatch.  ``host_dispatch_us`` records
+        the step wall minus the program calls' wall (and, fused, minus
+        the priced syncs)."""
         t_step = time.perf_counter()
+        sync0 = (self.dstate.sync_total_us() if self.dstate is not None
+                 else 0.0)
         dev_s = 0.0
         for i, st in enumerate(self.slots):
             if st is not None and st.prefill_done < st.req.prompt_len:
@@ -348,6 +491,15 @@ class Engine:
         self.engine_steps += 1
         if not decode_ix:
             return
+        if self._loop_mode:
+            self._complete_fused(self._dispatch_fused(decode_ix), t_step,
+                                 dev_s, sync0)
+        else:
+            self._step_single(decode_ix, t_step, dev_s)
+
+    def _step_single(self, decode_ix: list[int], t_step: float,
+                     dev_s: float) -> None:
+        global decode_dispatches, decode_device_steps
         b = self.cfg.slots
         tokens = np.zeros((b,), np.int32)
         positions = np.zeros((b,), np.int32)
@@ -356,23 +508,37 @@ class Engine:
             tokens[i] = self.slots[i].last_token
             positions[i] = int(self.cache.lengths[i])
             active[i] = True
+        extra = ()
+        if self._sampler is not None:
+            uids = np.zeros((b,), np.int32)
+            gst = np.zeros((b,), np.int32)
+            for i in decode_ix:
+                uids[i] = self.slots[i].req.rid
+                gst[i] = self.slots[i].gstate
+            extra = (self._to_device(uids), self._to_device(gst))
         t0 = time.perf_counter()
         *self.pools, nxt = self._decode(
             self.params, *self.pools, self._to_device(tokens),
             self._to_device(positions),
             self._to_device(self.cache.block_tables.copy()),
-            self._to_device(active))
+            self._to_device(active), *extra)
         decode_dispatches += 1
+        decode_device_steps += 1
         nxt = nxt.cpu().numpy()             # the fence
         leg = time.perf_counter() - t0
         dev_s += leg
         self._device_time_s += leg
         self._decode_device_s += leg
         self._dispatches += 1
+        self._device_steps += 1
         for i in decode_ix:
             st = self.slots[i]
             self.cache.append(i)            # the fed token is now cached
             st.last_token = int(nxt[i])
+            if self._sampler is not None:
+                # the per-token fence is the grammar transition point
+                st.gstate = self._sampler.host_advance(st.gstate,
+                                                       st.last_token)
             st.generated += 1
             self._tokens_emitted += 1
             self.token_streams.setdefault(st.req.rid, []).append(
@@ -380,6 +546,102 @@ class Engine:
             self._maybe_finish(i, st)
         self._host_dispatch_us.append(
             max(0.0, time.perf_counter() - t_step - dev_s) * 1e6)
+
+    def _dispatch_fused(self, decode_ix: list[int]) -> dict:
+        """Launch one fused dispatch; no fence.  The host knows every
+        slot's remaining budget and each trip (round) emits at least one
+        token per active slot, so no trip past the largest budget is
+        issued: the plain loop then runs exactly the JAX loop's trips,
+        and a speculative dispatch's idle rounds are counted."""
+        global decode_dispatches, decode_device_steps
+        ds = self.dstate
+        n = self._pick_n_steps(decode_ix)
+        rem_max = max(self.slots[i].req.output_len
+                      - self.slots[i].generated for i in decode_ix)
+        n = max(1, min(n, rem_max, self.cfg.multi_step_n))
+        carries = ds.carries()            # flushes if dirty (priced)
+        bt = ds.block_tables_device()
+        t0 = time.perf_counter()
+        outs = self._loop(self.params, *self.pools, *carries, bt, n)
+        n_pools = len(self.pools)
+        self.pools = tuple(outs[:n_pools])
+        ds.rebind(tuple(outs[n_pools:n_pools + len(carries)]))
+        decode_dispatches += 1
+        decode_device_steps += n
+        return {"t0": t0, "n": n, "decode_ix": decode_ix,
+                "extras": outs[n_pools + len(carries):]}
+
+    def _complete_fused(self, ctx: dict, t_step: float, dev_s: float,
+                        sync0: float) -> None:
+        """Fence a fused dispatch (one read of its token block and
+        counters) and run the host bookkeeping."""
+        toks, cnts, *stats = ctx["extras"]
+        b, width = toks.shape
+        # one device -> host read is the fence: [t0, t2) is the device
+        # leg, priced into device_us only (sync_d2h_us prices pulls)
+        flat = torch.cat([toks.reshape(-1), cnts,
+                          torch.stack(stats).to(torch.int32)]).cpu()
+        flat = flat.numpy()
+        toks = flat[:b * width].reshape(b, width)
+        cnts = flat[b * width:b * width + b]
+        steps = int(flat[b * width + b])
+        if self.cfg.speculative:
+            self._drafted += int(flat[-2])
+            self._accepted += int(flat[-1])
+            self._idle_rounds += ctx["n"] - steps
+        t2 = time.perf_counter()
+        leg = t2 - ctx["t0"]
+        dev_s += leg
+        self._device_time_s += leg
+        self._decode_device_s += leg
+        self._dispatches += 1
+        self._device_steps += steps
+        if steps > 0:
+            per_step = leg / steps
+            self._step_ewma_s = (per_step if not self._step_ewma_s else
+                                 0.5 * self._step_ewma_s + 0.5 * per_step)
+        for i in ctx["decode_ix"]:
+            st = self.slots[i]
+            m = int(cnts[i])
+            if m == 0:
+                continue
+            self.cache.append(i, m)   # all fed tokens, one batched call
+            stream = toks[i, :m].tolist()
+            st.generated += m
+            st.last_token = stream[-1]
+            self._tokens_emitted += m
+            self.token_streams.setdefault(st.req.rid, []).extend(stream)
+            self._maybe_finish(i, st)
+        # each crossing counts against the wall once: the priced syncs
+        # are left out of host_dispatch_us
+        sync_s = (self.dstate.sync_total_us() - sync0) * 1e-6
+        self._host_dispatch_us.append(
+            max(0.0, time.perf_counter() - t_step - dev_s - sync_s) * 1e6)
+
+    def _pick_n_steps(self, decode_ix: list[int]) -> int:
+        """Adaptive N: the fused loop must never starve an admissible
+        request.  Work waiting caps N at the shortest remaining output
+        among the active slots; an arrival due mid-loop caps it at the
+        measured steps until then; a slot mid-prefill (inline) pins 1."""
+        n = self.cfg.multi_step_n
+        if not self.cfg.adaptive_n:
+            return max(1, n)
+        if any(st is not None and st.prefill_done < st.req.prompt_len
+               for st in self.slots):
+            return 1
+        if n <= 1:
+            return max(1, n)
+        rem_min = min(self.slots[i].req.output_len
+                      - self.slots[i].generated for i in decode_ix)
+        if self.pending:
+            return max(1, min(n, rem_min))
+        if self.queue:
+            dt = self.queue[0].arrival_s - self._now()
+            est = self._step_ewma_s
+            if est > 0 and dt < n * est:
+                steps_until = max(1, int(dt / est) + 1)
+                return max(1, min(n, rem_min, steps_until))
+        return n
 
     def _maybe_finish(self, slot: int, st: _SlotState) -> None:
         if st.generated < st.req.output_len:
@@ -399,17 +661,20 @@ class Engine:
         return sum(self._occupancy_samples) / len(self._occupancy_samples)
 
     def decode_loop_block(self) -> dict:
-        """The dispatch decomposition (one device step per dispatch in
-        this engine)."""
+        """The dispatch decomposition: device steps per dispatch, what
+        each host crossing cost, and the speculative acceptance stats
+        (with the port's ``rounds_idle``: rounds issued after every slot
+        was done)."""
         d = self._dispatches
         hd = self._host_dispatch_us
-        return {
-            "multi_step_n": 1,
-            "adaptive_n": True,
-            "speculative": False,
+        block = {
+            "multi_step_n": self.cfg.multi_step_n,
+            "adaptive_n": self.cfg.adaptive_n,
+            "speculative": self.cfg.speculative,
             "dispatches": d,
-            "device_steps": d,
-            "steps_per_dispatch": 1.0 if d else 0.0,
+            "device_steps": self._device_steps,
+            "steps_per_dispatch": (round(self._device_steps / d, 3)
+                                   if d else 0.0),
             "tokens_per_sync": (round(self._tokens_emitted / d, 3)
                                 if d else 0.0),
             "device_us": {"total": round(self._device_time_s * 1e6, 1)},
@@ -421,6 +686,22 @@ class Engine:
                 "mean": round(sum(hd) / len(hd), 1) if hd else 0.0,
                 "n": len(hd)},
         }
+        if self.dstate is not None:
+            block.update(self.dstate.sync_stats())
+        if self.cfg.speculative:
+            block["spec"] = {
+                "k": self.cfg.spec_k,
+                "drafter": self.cfg.drafter,
+                **({"drafter_layers": self.cfg.drafter_layers}
+                   if self.cfg.drafter == "truncated" else {}),
+                "drafted": self._drafted,
+                "accepted": self._accepted,
+                "acceptance_rate": (round(self._accepted
+                                          / self._drafted, 4)
+                                    if self._drafted else 0.0),
+                "rounds_idle": self._idle_rounds,
+            }
+        return block
 
     def mesh_info(self) -> dict:
         """The record's one-device mesh header."""
@@ -447,6 +728,14 @@ class Engine:
             "world_size": 1,
             "arrival_plan": plan.to_dict(),
             "kv_cache_dtype": cfg.cache_dtype,
+            # a sampled run's draw identity: records with another
+            # temperature, filter, seed or grammar never merge
+            **({"sampling": {"temperature": cfg.temperature,
+                             "top_k": cfg.top_k,
+                             "top_p": cfg.top_p,
+                             "sample_seed": cfg.sample_seed,
+                             "grammar": cfg.grammar}}
+               if self._sampler is not None else {}),
             "serving_config": {
                 "slots": cfg.slots, "page_size": cfg.page_size,
                 "num_pages": cfg.num_pages,
@@ -457,9 +746,12 @@ class Engine:
                 "prefill": cfg.prefill,
                 "prefill_chunk": cfg.prefill_chunk,
                 "kv_shard": 1,
-                "multi_step_n": 1,
-                "adaptive_n": True,
-                "speculative": False,
+                "multi_step_n": cfg.multi_step_n,
+                "adaptive_n": cfg.adaptive_n,
+                "speculative": cfg.speculative,
+                **({"spec_k": cfg.spec_k, "drafter": cfg.drafter}
+                   if cfg.speculative else {}),
+                "attn_impl": cfg.attn_impl,
             },
             "mesh": self.mesh_info(),
         }
@@ -497,4 +789,11 @@ def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
         batch_occupancy_mean=engine.batch_occupancy_mean(),
         decode_loop=engine.decode_loop_block(),
         admitted_peak=engine.concurrent_peak)
+    if cfg.speculative and engine._sampler is not None:
+        # the measured acceptance at this run's temperature (volatile
+        # at merge, unlike the sampling identity block)
+        meta["spec_acceptance_by_temp"] = M.acceptance_by_temp([
+            (cfg.temperature,
+             (engine._accepted / engine._drafted
+              if engine._drafted else 0.0))])
     return M.build_result(completed, plan, meta)

@@ -48,7 +48,10 @@ def test_importing_every_submodule_loads_no_jax():
               "sweep", "trace_summary", "metrics.parser", "metrics.merge",
               "analysis", "analysis.attribution", "analysis.bandwidth",
               "analysis.critical_path", "analysis.goodput", "analysis.plots",
-              "analysis.py_utils", "faults.plan", "sentinel"):
+              "analysis.py_utils", "faults.plan", "sentinel",
+              "serving.sampling", "serving.device_state",
+              "serving.speculative", "serving.decode",
+              "serving.kv_cache", "serving.metrics", "cli"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

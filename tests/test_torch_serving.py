@@ -409,12 +409,15 @@ def test_serving_block_and_result_match_jax():
 
 
 def test_serving_config_refuses_knobs_outside_the_slice():
-    for over in ({"multi_step_n": 4}, {"speculative": True},
-                 {"temperature": 0.7}, {"grammar": "json"},
-                 {"world": 2}, {"kv_shard": 2}, {"disaggregate": True},
+    for over in ({"world": 2}, {"kv_shard": 2}, {"disaggregate": True},
                  {"prefix_sharing": True}):
         with pytest.raises(ValueError, match="ROADMAP"):
             TS.ServingConfig(**_serving_kw(**over)).validate()
+    # the fused loop, speculation, sampling and grammars are the port's
+    # since the decode-loop slice (tests/test_torch_decode_loop.py)
+    for over in ({"multi_step_n": 4}, {"speculative": True},
+                 {"temperature": 0.7}, {"grammar": "json"}):
+        TS.ServingConfig(**_serving_kw(**over)).validate()
     with pytest.raises(ValueError, match="prefill"):
         TS.ServingConfig(**_serving_kw(prefill="lazy")).validate()
     with pytest.raises(ValueError, match="multiple"):

@@ -495,7 +495,8 @@ HEADLINE_KEYS = {"metric", "value", "best", "band", "n", "vs_baseline",
                  "tflops_executed", "loss", "logits_dtype"}
 
 
-AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "longcontext_ab", "moe_ab",
+AUX_KEYS = ("int8_fused_ab", "fp8_fused_ab", "serving_decode",
+            "kv_density_ab", "sampling_ab", "longcontext_ab", "moe_ab",
             "int8_step", "int8_switchback_step", "recommended_step")
 
 
@@ -533,6 +534,11 @@ def test_bench_entry_prints_the_headline_line_on_cpu(argv):
                 "tflops_dense"} <= set(line["longcontext_ab"])
         assert abs(line["int8_step"]["loss"] - line["loss"]) \
             <= 0.02 * line["loss"]
+        # the serving lines (the JAX bench's tiny engines)
+        assert line["serving_decode"]["token_parity"] is True
+        assert line["sampling_ab"]["token_identity"] is True
+        assert all(line["kv_density_ab"]["variants"][dt]["parity_ok"]
+                   for dt in ("int8", "fp8"))
     assert line["n"] == 3 and line["value"] > 0
     assert line["vs_baseline"] is None       # no preset prices the CPU
     assert "B=2 S=128" in line["metric"] and "cpu" in line["metric"]
