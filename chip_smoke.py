@@ -146,6 +146,30 @@ Phases, in order; any failure exits non-zero:
    tokens equal the steps' wherever their top-2 margin exceeds twice
    that bar; the pass's time beside one step's and the 5 steps' is
    printed;
+7c. the serving-breadth phase through ``cli serve``, the counters set to
+   0 before each run and read after it, K1 (bf16) or K2 (int8) launched
+   layers x device steps on every run.  Prefix sharing: the served model
+   on 7's plan with ``shared_prefix_len`` 120 and ``prefix_pool`` 2 (7
+   shared pages of 16 and a copy-on-write page of 8 rows), unshared and
+   with ``--prefix_sharing`` at N=1 (with ``--live_metrics``) and N=16
+   on bf16, and at N=1 on int8: every sharing run's record has a hit
+   rate above 0 and copy-on-write copies; its streams' agreement with
+   the unshared run's is printed, and on bf16 each parted stream's first
+   flip with its top-2 margin (int8 copies rows that are quantized
+   again with the sharer's own, so it has no equality bar); TTFT p50 /
+   p99 against the unshared run and ``prefix_bytes_saved`` printed; every
+   live-metrics line has the JAX package's locked keys.  MoE decode: a
+   tiny f32 MoE decode step (4 experts, top-2, skewed, one slot masked)
+   on the card against the CPU, load and rounds equal, the written pools
+   within MOE_STEP_TOL of their max-abs, the tokens equal; then a model
+   of mixtral_8x7b's width (the served model with 8 experts, top-2,
+   capacity factor 1.0: C = 2 at 8 slots) on 7's plan, bf16 and int8 at
+   N=1 and N=16 and bf16 at ``--moe_skew`` MOE_SKEW: N=16 streams equal
+   N=1, every decode dispatch's load sums to top_k x layers x the tokens
+   it fed, the MoE host reads equal layers x (device steps + prefill
+   chunks) — exactly layers a fused trip — and the skewed run's
+   ``rounds_mean`` exceeds the balanced run's; TPOT p50, ``rounds_mean``
+   and the per-expert load printed for each run;
 8. a tiny f32 model (TF32 off) takes 2 SGD steps on the card (K3/K4/K5,
    f32 kernels) and on the CPU (plain versions) from the same weights
    and tokens: losses within 1e-5 relative and every parameter within
@@ -265,7 +289,8 @@ Phases, in order; any failure exits non-zero:
    bandwidth table, printed.  Each record's verdict and fractions are
    printed, and whether matplotlib can be imported (the plot functions
    are held on the CPU; the card machine has pandas, not matplotlib);
-11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a and
+   7c), then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
 the timed phases (lines starting ``smi``).
@@ -354,7 +379,7 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels);
 # all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 215
+CARD_TESTS_MIN = 236
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -636,24 +661,42 @@ def reference_phase(torch) -> None:
             f"on the card and on the CPU")
 
 
-def serve_run(torch, label: str, flags: list[str]) -> dict:
+def serve_run(torch, label: str, flags: list[str],
+              plan: dict = SERVE_PLAN) -> dict:
     """One ``cli serve`` run at the served model's width (MODEL_FLAGS,
-    ENGINE_FLAGS, SERVE_PLAN) plus ``flags``, its record written to
+    ENGINE_FLAGS, ``plan``) plus ``flags``, its record written to
     ``OUT/serve_<label>.jsonl``: every request completes with every
-    token in the vocab.  The launch and step counters are set to 0 just
-    before the run (its warm-up requests included) and read just
-    after."""
+    token in the vocab.  The launch, step, prefill-chunk and MoE
+    host-read counters are set to 0 just before the run (its warm-up
+    requests included) and read just after; a MoE engine also keeps,
+    per decode dispatch, its load's sum and the tokens emitted before
+    it (``moe_dispatches``)."""
     from dlnetbench_tpu_torch import cli
     from dlnetbench_tpu_torch.ops import paged_attention as PA
     from dlnetbench_tpu_torch.ops import paged_attention_quant as PAQ
+    from dlnetbench_tpu_torch.serving import moe_decode as MD
     from dlnetbench_tpu_torch.serving import scheduler as S
     engines = []
     engine_cls = S.Engine
+    chunks = [0]
 
     class RecordedEngine(engine_cls):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             engines.append(self)
+
+        def _reset_state(self):
+            super()._reset_state()
+            self.moe_dispatches = []
+
+        def _prefill_one(self, slot, st):
+            chunks[0] += 1
+            return super()._prefill_one(slot, st)
+
+        def _record_moe(self, load, rounds):
+            self.moe_dispatches.append((int(load.sum()),
+                                        self._tokens_emitted))
+            super()._record_moe(load, rounds)
 
     out = OUT / f"serve_{label}.jsonl"
     out.unlink(missing_ok=True)
@@ -661,24 +704,27 @@ def serve_run(torch, label: str, flags: list[str]) -> dict:
     try:
         PA.launches = PAQ.launches = 0
         S.decode_dispatches = S.decode_device_steps = 0
+        MD.host_reads = 0
         t0 = time.perf_counter()
-        rc = cli.main(["serve", "--arrival", json.dumps(SERVE_PLAN),
+        rc = cli.main(["serve", "--arrival", json.dumps(plan),
                        *MODEL_FLAGS, *ENGINE_FLAGS, *flags, "--out",
                        str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"k1": PA.launches, "k2": PAQ.launches,
                   "dispatches": S.decode_dispatches,
-                  "steps": S.decode_device_steps}
+                  "steps": S.decode_device_steps,
+                  "prefill_chunks": chunks[0],
+                  "moe_host_reads": MD.host_reads}
     finally:
         S.Engine = engine_cls
     if rc != 0:
         fail(f"serve {label}: cli rc {rc}")
     rec = json.loads(out.read_text().splitlines()[-1])
     srv = rec["global"]["serving"]
-    if srv["completed"] != SERVE_PLAN["num_requests"]:
+    if srv["completed"] != plan["num_requests"]:
         fail(f"serve {label}: {srv['completed']} of "
-             f"{SERVE_PLAN['num_requests']} requests completed")
+             f"{plan['num_requests']} requests completed")
     eng = engines[-1]
     for c in eng.completed:
         toks = eng.token_streams[c.rid]
@@ -686,8 +732,14 @@ def serve_run(torch, label: str, flags: list[str]) -> dict:
                                                 for t in toks):
             fail(f"serve {label}: request {c.rid} tokens {toks[:8]}... "
                  f"(len {len(toks)}, want {c.output_len} in vocab)")
-    return {"serving": srv, "streams": dict(eng.token_streams),
-            "counts": counts, "wall": wall, "record": rec}
+    out = {"serving": srv, "streams": dict(eng.token_streams),
+           "counts": counts, "wall": wall, "record": rec,
+           "moe_dispatches": eng.moe_dispatches,
+           "tokens_emitted": eng._tokens_emitted}
+    # the engine, its class and ``engines`` form a cycle: break it, or
+    # its weights (11 GB for the MoE runs) stay on the card until a GC
+    engines.clear()
+    return out
 
 
 def serve_phase(torch, cache_dtype: str) -> dict:
@@ -932,6 +984,229 @@ def verify_pass_phase(torch) -> dict:
         f"{times['steps']:.3f} ms (K1; CUDA events around each eager call, "
         f"its pool copies included)")
     return times
+
+
+# the serving-breadth phase (module docstring, 7c): prefix-heavy traffic
+# over the served model (7 shared full pages of 16 and a copy-on-write
+# page of 8 rows), and a MoE model at mixtral_8x7b's width (the served
+# model's attention and FF width, 8 experts, top-2, capacity factor 1.0:
+# C = 2 expert slots a round at 8 slots)
+PREFIX_SERVE_PLAN = {**SERVE_PLAN, "shared_prefix_len": 120,
+                     "prefix_pool": 2}
+SHARING = ["--prefix_sharing"]
+MOE_FLAGS = ["--num_experts", "8", "--top_k", "2",
+             "--moe_capacity_factor", "1.0"]
+MOE_SKEW = 8.0
+# the JAX package's locked live-metrics line (tests/test_bench_aux.py)
+LIVE_KEYS = {"run", "t_s", "window_s", "completed", "ttft_ms", "tpot_ms",
+             "queue_depth", "active_slots", "kv_occupancy", "engine_steps"}
+# the tiny f32 MoE decode step, card against CPU: written pools within
+# this share of their max-abs (TF32 off; summation order)
+MOE_STEP_TOL = 1e-5
+
+
+def flip_margins(torch, plan: dict, ref: dict, got: dict) -> list[str]:
+    """For each request whose stream parts from ``ref``: the first
+    differing position, both tokens, and the top-2 margin of the served
+    model's logits there (a full causal forward over prompt + the
+    reference's tokens so far, padded to 128 positions; the served
+    weights are ``init_params(seed=0)``, as ``cli serve`` makes them)."""
+    from dlnetbench_tpu_torch.models.transformer import (forward,
+                                                         init_params)
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.decode import prompt_tokens_for
+    mc = served_model()
+    params = init_params(mc, seed=0, device="cuda")
+    reqs = {r.rid: r for r in ArrivalPlan.from_dict(plan).sample()}
+    out = []
+    for rid, toks in sorted(ref.items()):
+        j = next((i for i, (a, b) in enumerate(zip(toks, got[rid]))
+                  if a != b), None)
+        if j is None:
+            continue
+        seq = [*prompt_tokens_for(reqs[rid], mc.vocab_size), *toks[:j]]
+        pad = -len(seq) % 128
+        x = torch.tensor([seq + [0] * pad], device="cuda")
+        with torch.no_grad():
+            logits = forward(params, x, mc)[0, len(seq) - 1].float()
+        top2 = logits.topk(2).values
+        out.append(f"request {rid} token {j}: {toks[j]} -> {got[rid][j]}, "
+                   f"top-2 margin {float(top2[0] - top2[1]):.4g}")
+    del params
+    return out
+
+
+def moe_reference_step(torch, device="cuda") -> None:
+    """A tiny f32 MoE decode step (4 experts, top-2, skewed, one slot
+    masked) on the card and on the CPU from the same weights and pools:
+    load and rounds equal, the written pools within MOE_STEP_TOL of
+    their max-abs, the greedy tokens equal."""
+    from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from dlnetbench_tpu_torch.serving import decode as D
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    from dlnetbench_tpu_torch.serving.moe_decode import skew_bias
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = TransformerConfig(vocab_size=256, embed_dim=256, num_heads=4,
+                           num_kv_heads=2, ff_dim=512, num_layers=2,
+                           seq_len=64, dtype="float32", num_experts=4,
+                           top_k=2, moe_capacity_factor=1.0)
+    cc = KV.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=64,
+                        num_pages=32, page_size=16, max_seqs=4,
+                        max_pages_per_seq=4)
+    gen = torch.Generator().manual_seed(9)
+    k, v = (torch.randn((2, 2, 32, 16, 64), generator=gen)
+            for _ in range(2))
+    tokens = torch.randint(0, 256, (4,), generator=gen, dtype=torch.int32)
+    pos = torch.tensor([3, 17, 40, 63], dtype=torch.int32)
+    bt = torch.randperm(32, generator=gen)[:16].reshape(4, 4).to(
+        torch.int32)
+    active = torch.tensor([True, True, False, True])
+    cpu_params = init_params(mc, seed=4, device="cpu")
+    res = []
+    for dev in ("cpu", device):
+        params = {n: ({m: w.to(dev) for m, w in t.items()}
+                      if isinstance(t, dict) else t.to(dev))
+                  for n, t in cpu_params.items()}
+        step = D.make_decode_step(mc, cc, moe_bias=skew_bias(4, 2.0, 3,
+                                                              dev))
+        kp, vp, nxt, load, rounds = step(
+            params, k.clone().to(dev), v.clone().to(dev), tokens.to(dev),
+            pos.to(dev), bt.to(dev), active.to(dev))
+        res.append((kp.cpu(), vp.cpu(), nxt.cpu(), load.cpu(), rounds))
+    (kc, vc, tc, lc, rc), (kg, vg, tg, lg, rg) = res
+    err = max(float((a - b).abs().max()) / float(a.abs().max())
+              for a, b in ((kc, kg), (vc, vg)))
+    if not torch.equal(lc, lg) or rc != rg or err > MOE_STEP_TOL \
+            or not torch.equal(tc[active], tg[active]):
+        fail(f"MoE reference step: load {lg.tolist()} / {lc.tolist()}, "
+             f"rounds {rg} / {rc}, pools err {err:.3g} (bar "
+             f"{MOE_STEP_TOL}), tokens {tg.tolist()} / {tc.tolist()}")
+    say(f"MoE reference step (f32, 4 experts top-2, skewed): card load "
+        f"{lg.tolist()} and {rg} rounds equal the CPU's; written pools "
+        f"within {err:.3g} of max-abs (bar {MOE_STEP_TOL}); tokens equal")
+
+
+def serving_breadth_phase(torch) -> dict:
+    """Prefix sharing, MoE decode and the live metrics stream through
+    ``cli serve`` (module docstring, 7c).  Returns the K1 and K2
+    launches of its runs, per cache dtype."""
+    t_phase = time.perf_counter()
+    layers = int(MODEL_FLAGS[MODEL_FLAGS.index("--layers") + 1])
+    launches = {"bf16": 0, "int8": 0, "fp8": 0}
+
+    def run(label, flags, plan, dtype="bf16"):
+        res = serve_run(torch, label, ["--cache_dtype", dtype, *flags],
+                        plan)
+        c = res["counts"]
+        mine, other = (("k1", "k2") if dtype == "bf16" else ("k2", "k1"))
+        if c[mine] != layers * c["steps"] or c["steps"] == 0 or c[other]:
+            fail(f"serving breadth {label}: launches K1 {c['k1']} / K2 "
+                 f"{c['k2']} against {layers} x {c['steps']} device steps "
+                 f"on {mine}")
+        launches[dtype] += c[mine]
+        srv = res["serving"]
+        say(f"serving breadth {label}: {mine} {c[mine]} = {layers} x "
+            f"{c['steps']} device steps; ttft p50 {srv['ttft_ms']['p50']} "
+            f"p99 {srv['ttft_ms']['p99']} ms, tpot p50 "
+            f"{srv['tpot_ms']['p50']} ms, {srv['tokens_per_s']} tokens/s, "
+            f"wall {srv['wall_s']} s (cli {res['wall']:.1f} s)")
+        return res
+
+    # ---- prefix sharing
+    live = OUT / "live_metrics.jsonl"
+    off = run("prefix_off_n1", [], PREFIX_SERVE_PLAN)
+    shared = {
+        "n1": run("prefix_on_n1", [*SHARING, "--live_metrics", str(live)],
+                  PREFIX_SERVE_PLAN),
+        "n16": run("prefix_on_n16", [*SHARING, *LOOP_N],
+                   PREFIX_SERVE_PLAN)}
+    q_off = run("prefix_off_int8", [], PREFIX_SERVE_PLAN, "int8")
+    shared["int8"] = run("prefix_on_int8", SHARING, PREFIX_SERVE_PLAN,
+                         "int8")
+    for key, res in shared.items():
+        g = res["record"]["global"]
+        pst = res["serving"]["kv_cache"]["prefix"]
+        if not (g["prefix_hit_rate"] > 0 and pst["cow_copies"] > 0
+                and g["serving_config"]["prefix_sharing"] is True):
+            fail(f"serving breadth prefix {key}: hit rate "
+                 f"{g['prefix_hit_rate']}, prefix block {pst}")
+        ref = q_off if key == "int8" else off
+        same, n = agreement(res["streams"], ref["streams"])
+        flips = ([] if key == "int8" or res["streams"] == ref["streams"]
+                 else flip_margins(torch, PREFIX_SERVE_PLAN,
+                                   ref["streams"], res["streams"]))
+        say(f"serving breadth prefix {key}: {same} of {n} tokens equal "
+            f"the unshared run's ({'equal streams' if same == n else 'parted'}"
+            f"{'; int8: copied rows quantized again, no equality bar' if key == 'int8' else ''}); "
+            f"hit rate {g['prefix_hit_rate']}, prefix_bytes_saved "
+            f"{g['prefix_bytes_saved']}, {pst['cow_copies']} copy-on-write "
+            f"copies, {pst['pages_shared']} pages shared; ttft p50 "
+            f"{res['serving']['ttft_ms']['p50']} / p99 "
+            f"{res['serving']['ttft_ms']['p99']} ms against unshared "
+            f"{ref['serving']['ttft_ms']['p50']} / "
+            f"{ref['serving']['ttft_ms']['p99']}")
+        for line in flips:
+            say(f"serving breadth prefix {key} flip: {line}")
+    lines = [json.loads(ln) for ln in live.read_text().splitlines()]
+    if not lines or any(set(ln) != LIVE_KEYS for ln in lines):
+        fail(f"serving breadth live metrics: {len(lines)} lines, keys "
+             f"{[sorted(ln) for ln in lines[:2]]}")
+    say(f"serving breadth live metrics: {len(lines)} lines of the locked "
+        f"schema over runs {sorted({ln['run'] for ln in lines})}")
+
+    # ---- MoE decode
+    moe_reference_step(torch)
+    moe = {}
+    for dt in ("bf16", "int8"):
+        for n, flags in (("n1", []), ("n16", LOOP_N)):
+            moe[f"{dt}_{n}"] = run(f"moe_{dt}_{n}", [*MOE_FLAGS, *flags],
+                                   SERVE_PLAN, dt)
+        if moe[f"{dt}_n16"]["streams"] != moe[f"{dt}_n1"]["streams"]:
+            same, n = agreement(moe[f"{dt}_n16"]["streams"],
+                                moe[f"{dt}_n1"]["streams"])
+            fail(f"serving breadth MoE {dt}: N=16 streams != N=1 ({same} "
+                 f"of {n} tokens agree)")
+    moe["skew"] = run("moe_bf16_n1_skew",
+                      [*MOE_FLAGS, "--moe_skew", str(MOE_SKEW)], SERVE_PLAN)
+    top_k = int(MOE_FLAGS[MOE_FLAGS.index("--top_k") + 1])
+    for key, res in moe.items():
+        c, blk = res["counts"], res["record"]["global"]["moe"]
+        # every decode dispatch routed top_k pairs a layer for each token
+        # it fed: its load's sum against the tokens emitted after it
+        marks = [e for _, e in res["moe_dispatches"]]
+        marks.append(res["tokens_emitted"])
+        bad = [(s, b - a) for (s, a), b in zip(res["moe_dispatches"],
+                                               marks[1:])
+               if s != top_k * layers * (b - a)]
+        want_reads = layers * (c["steps"] + c["prefill_chunks"])
+        if bad or c["moe_host_reads"] != want_reads:
+            fail(f"serving breadth MoE {key}: dispatch loads against "
+                 f"top_k x layers x tokens {bad[:4]}; host reads "
+                 f"{c['moe_host_reads']} != {layers} x ({c['steps']} "
+                 f"device steps + {c['prefill_chunks']} prefill chunks)")
+        say(f"serving breadth MoE {key}: tpot p50 "
+            f"{res['serving']['tpot_ms']['p50']} ms, rounds_mean "
+            f"{blk['rounds_mean']} (p99 {blk['rounds_p99']}, prefill "
+            f"{blk['prefill_rounds_mean']}), load_imbalance "
+            f"{blk['load_imbalance']}, expert_load {blk['expert_load']}; "
+            f"{len(res['moe_dispatches'])} dispatches each loading "
+            f"{top_k} x {layers} x its tokens; host reads "
+            f"{c['moe_host_reads']} = {layers} x ({c['steps']} device "
+            f"steps + {c['prefill_chunks']} prefill chunks)")
+    b_rounds = moe["bf16_n1"]["record"]["global"]["moe"]["rounds_mean"]
+    s_rounds = moe["skew"]["record"]["global"]["moe"]["rounds_mean"]
+    if not s_rounds > b_rounds:
+        fail(f"serving breadth MoE: skew {MOE_SKEW} rounds_mean {s_rounds} "
+             f"not above the balanced run's {b_rounds}")
+    say(f"serving breadth MoE: N=16 streams equal N=1 on bf16 (K1) and "
+        f"int8 (K2); skew {MOE_SKEW} raises rounds_mean {b_rounds} -> "
+        f"{s_rounds}, tpot p50 {moe['bf16_n1']['serving']['tpot_ms']['p50']}"
+        f" -> {moe['skew']['serving']['tpot_ms']['p50']} ms")
+    say(f"serving breadth: 10 served runs in "
+        f"{time.perf_counter() - t_phase:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
+    return launches
 
 
 def profile_loop(torch) -> None:
@@ -3547,6 +3822,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     verify_pass_phase(torch)
     torch.cuda.empty_cache()
+    smi_sample("serving breadth")
+    breadth_launches = serving_breadth_phase(torch)
+    torch.cuda.empty_cache()
     train_reference_phase(torch)
     smi_sample("quant train")
     quant_launches = quant_train_phase(torch)
@@ -3578,9 +3856,10 @@ def main(argv: list[str]) -> int:
     records_phase(torch, card, trained["line"])
     torch.cuda.empty_cache()
     # the decode loop's profiled run, after the proxies as every
-    # torch.profiler session of this script: after one, the burn's
-    # short calibration graphs run slower than its long replays and a
-    # proxy's compute leg undershoots its plan by ~12 % (ROADMAP.md)
+    # torch.profiler session of this script: a session leaves host-side
+    # instrumentation behind that slows graph launches (the burn's
+    # calibration, timed over back-to-back replays, no longer sees it:
+    # ROADMAP.md queue 1 item 1)
     profile_loop(torch)
     torch.cuda.empty_cache()
     if "--profile" in argv:
@@ -3605,7 +3884,8 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda", "source": SRC,
                         "replaces": replaces,
                         "launches": (served[dt]["launches"]
-                                     + loop_launches[dt]),
+                                     + loop_launches[dt]
+                                     + breadth_launches[dt]),
                         **results[dt]})
     for kind, label in (
             ("fwd", f"K3 flash_attention forward ({FLASH_DESIGN})"),

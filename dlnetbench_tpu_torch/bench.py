@@ -37,7 +37,8 @@ bars) and ``sampling_ab`` (seeded sampling at T=0.8, fused N=16 against
 N=16 speculative sampling, and ``token_identity`` of the 1-step and
 fused sampled streams) — tiny engines with the JAX lines' model, plan
 and engine configurations, the decode attention pinned to the gather
-math as the JAX lines pin it;
+math as the JAX lines pin it (``--live-metrics PATH`` streams the
+1-step engine's windowed snapshots to PATH, as the JAX bench does);
 ``longcontext_ab`` (printed before ``moe_ab``, as the JAX bench does:
 paired rounds of K=4 chained attention forwards at B=1, S=64k, Hq=8,
 Hkv=2, Dh=128 — the causal flash kernel K3 against the splash kernel K6
@@ -99,6 +100,13 @@ def _parse_args(argv):
                    dest="check_threshold", type=float, default=5.0,
                    help="percent slowdown that (with disjoint bands) "
                         "counts as a regression (default 5)")
+    p.add_argument("--live-metrics", "--live_metrics",
+                   dest="live_metrics", default=None, metavar="PATH",
+                   help="the serving_decode line's 1-step engine streams "
+                        "one windowed snapshot JSONL line per 0.5 s of "
+                        "engine time to PATH (rolling TTFT/TPOT "
+                        "percentiles, queue depth, KV occupancy — "
+                        "serving/metrics.LiveMetricsWriter)")
     return p, p.parse_args(argv)
 
 
@@ -615,13 +623,16 @@ def serving_decode_line(rounds: list[dict], suffix: str = "", *,
     return stats.flag_low_mode(line)
 
 
-def bench_serving_decode(device_name: str, device) -> dict:
+def bench_serving_decode(device_name: str, device,
+                         live_path: str | None = None) -> dict:
     """The serving A/B line (the JAX ``_bench_serving_decode``): the
     classic 1-step engine, the fused N=16 loop and the fused loop with
     ngram speculation over the same weights replay one seeded
     saturating plan, interleaved per round after a discarded warm round.
     ``attn_impl`` is pinned to the gather math on every device, as in
-    the JAX line (whose verify pass is gather math)."""
+    the JAX line (whose verify pass is gather math).  ``live_path``
+    attaches the live metrics stream to the 1-step engine only (three
+    engines in one stream would interleave incomparable snapshots)."""
     import dataclasses
 
     from dlnetbench_tpu_torch.models.transformer import init_params
@@ -647,6 +658,9 @@ def bench_serving_decode(device_name: str, device) -> dict:
     requests = plan.sample()
     engines = {name: Engine(mc, cfg, params=params, device=device)
                for name, cfg in variants.items()}
+    if live_path:
+        from dlnetbench_tpu_torch.serving.metrics import LiveMetricsWriter
+        engines["one_step"].live = LiveMetricsWriter(live_path)
     streams: dict[str, dict] = {}
     for eng in engines.values():
         eng.run(requests)   # warm round, discarded
@@ -1279,7 +1293,8 @@ def main(argv=None) -> int:
             aux[key] = bench_quant_fused_ab(card, hw_key, device_name,
                                             device, fmt)
         # the serving tier's lines (tiny engines; the JAX bench's order)
-        aux["serving_decode"] = bench_serving_decode(device_name, device)
+        aux["serving_decode"] = bench_serving_decode(
+            device_name, device, args.live_metrics)
         aux["kv_density_ab"] = bench_kv_density(device_name, device)
         aux["sampling_ab"] = bench_sampling_ab(device_name, device)
         aux["longcontext_ab"] = bench_longcontext_ab(card, hw_key,

@@ -33,7 +33,9 @@ With ``--after-profiler`` it then runs one ``torch.profiler`` session
 (CPU and CUDA activities) over a burn and measures the proxies' form
 again: its ``calibration`` and ``graph`` lines, and with ``--proxies``
 its DP and FSDP steps, each tagged ``"after_profiler": true`` (a
-session earlier in the process slows the calibration's short graphs).
+session earlier in the process slows each graph launch on the host; the
+calibration times back-to-back replays, which hide that cost, and the
+compute legs show whether it still follows the chain).
 
 It needs a card (NVML through ``libnvidia-ml.so.1``) and imports
 nothing of JAX.

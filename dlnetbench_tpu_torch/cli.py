@@ -42,9 +42,16 @@ and parse-time checks) for the slice the port covers: ``separate`` or
 classic engine or the fused decode loop (``--multi_step_n``,
 ``--no_adaptive_n``), speculative decode (``--speculative --spec_k
 --drafter --drafter_layers``), seeded sampling (``--temperature
---sample_top_k --top_p --sample_seed``) and the JSON grammar
-(``--grammar``); ``--attn_impl`` picks the decode attention (``auto``:
-kernels K1/K2 on the card); with ``--telemetry`` / ``--flight-dir``.
+--sample_top_k --top_p --sample_seed``), the JSON grammar
+(``--grammar``), cross-request prefix sharing (``--prefix_sharing``),
+MoE models (``--num_experts --top_k --moe_capacity_factor`` with the
+seeded skew ``--moe_skew --moe_skew_seed``) and the windowed live
+metrics stream (``--live_metrics PATH``); ``--attn_impl`` picks the
+decode attention (``auto``: kernels K1/K2 on the card); with
+``--telemetry`` / ``--flight-dir``.  The JAX package's ``--world``,
+``--kv_shard``, ``--disaggregate`` and ``--fault`` are not ported
+(argparse refuses them by name), and a MoE model with
+``--speculative`` is refused with the JAX package's message.
 ``--platform`` is ``cuda`` unless the caller asks for ``cpu``; without
 a card, ``cuda`` is an error.  The record (schema v2)
 is appended to ``--out`` or written to stdout; a one-line summary goes
@@ -135,7 +142,34 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
     p.add_argument("--grammar", default="", choices=["", "json"],
                    help="constrained decode: mask generated tokens to "
                         "the JSON-mode automaton (token class = token "
-                        "%% 4); composes with --speculative")
+                        "%% 4); composes with --speculative and "
+                        "--prefix_sharing")
+    p.add_argument("--prefix_sharing", action="store_true",
+                   help="cross-request prefix sharing: requests whose "
+                        "prompts share a prefix with a resident "
+                        "sequence map their block tables onto the "
+                        "same physical pages (refcounts + copy-on-"
+                        "write; admission charges only unshared "
+                        "pages, the shared prefix skips prefill); "
+                        "lossless — record stamps prefix_hit_rate/"
+                        "prefix_bytes_saved")
+    p.add_argument("--num_experts", type=int, default=1,
+                   help=">1 turns every layer's MLP into a MoE: "
+                        "decode batches tokens per expert into capacity "
+                        "buffers and pays overflow ROUNDS when routing "
+                        "skews — imbalance becomes a measurable p99 "
+                        "story (serving/moe_decode.py)")
+    p.add_argument("--top_k", type=int, default=1,
+                   help="experts per token (MoE models)")
+    p.add_argument("--moe_capacity_factor", type=float, default=1.0,
+                   help="per-round expert capacity factor of the "
+                        "serving MoE MLP")
+    p.add_argument("--moe_skew", type=float, default=0.0,
+                   help="seeded expert-skew injection: bias added to "
+                        "the router logits (serving/moe_decode."
+                        "skew_bias) — the imbalance-shaped sibling of "
+                        "a fault plan's seeded delays; 0 = off")
+    p.add_argument("--moe_skew_seed", type=int, default=0)
     p.add_argument("--embed", type=int, default=64)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--kv_heads", type=int, default=2)
@@ -156,6 +190,13 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                       "active slots, KV occupancy and fragmentation) + "
                       "the anomaly engine (SLO breach, step-time "
                       "change)")
+    p.add_argument("--live-metrics", "--live_metrics",
+                   dest="live_metrics", default=None, metavar="PATH",
+                   help="stream one windowed snapshot JSONL line per "
+                        "0.5 s of engine time (rolling TTFT/TPOT "
+                        "percentiles, queue depth, occupancy) — the "
+                        "live dashboard channel "
+                        "(serving/metrics.LiveMetricsWriter)")
 
 
 def _add_telemetry(p: argparse.ArgumentParser, what: str) -> None:
@@ -556,7 +597,9 @@ def _run_serve(args, parser) -> int:
             vocab_size=args.vocab, embed_dim=args.embed,
             num_heads=args.heads, num_kv_heads=args.kv_heads,
             ff_dim=args.ff, num_layers=args.layers,
-            seq_len=args.max_seq_len, dtype=args.dtype)
+            seq_len=args.max_seq_len, dtype=args.dtype,
+            num_experts=args.num_experts, top_k=args.top_k,
+            moe_capacity_factor=args.moe_capacity_factor)
         srv_cfg = ServingConfig(
             slots=args.slots, page_size=args.page_size,
             num_pages=args.num_pages, max_seq_len=args.max_seq_len,
@@ -569,7 +612,10 @@ def _run_serve(args, parser) -> int:
             temperature=args.temperature, top_k=args.sample_top_k,
             top_p=args.top_p, sample_seed=args.sample_seed,
             grammar=args.grammar,
-            cache_dtype=args.cache_dtype).validate()
+            cache_dtype=args.cache_dtype,
+            prefix_sharing=args.prefix_sharing,
+            moe_skew=args.moe_skew,
+            moe_skew_seed=args.moe_skew_seed).validate()
     except ValueError as e:
         parser.error(str(e))
     try:
@@ -579,11 +625,13 @@ def _run_serve(args, parser) -> int:
     params = init_params(model_cfg, seed=args.seed, device=device)
     try:
         # the engine build checks the knobs against the model's shape
-        # (the speculative drafter's depth); a refusal is a usage error
+        # (the speculative drafter's depth, speculation on a MoE model);
+        # a refusal is a usage error
         engine = Engine(model_cfg, srv_cfg, params=params, device=device)
     except ValueError as e:
         parser.error(str(e))
-    result = run_serving(model_cfg, srv_cfg, plan, engine=engine)
+    result = run_serving(model_cfg, srv_cfg, plan, engine=engine,
+                         live_metrics=args.live_metrics)
     if variables:
         result.global_meta["variables"] = variables
     record = emit_result(result, path=args.out)

@@ -32,7 +32,12 @@ CPU the same three ops run eagerly.
 
 The per-iteration cost is calibrated once per (shape, dtype, device
 name) by differencing two trip counts, so launch overheads cancel, and
-any microsecond budget maps to a trip count (``BurnCalibration``).
+any microsecond budget maps to a trip count (``BurnCalibration``).  On
+the card each trip count is timed as ``CAL_REPLAYS`` back-to-back calls
+between two CUDA events, queued behind a short device sleep, so the
+host's launch cost of a graph (which grows with its nodes, and more so
+after a ``torch.profiler`` session) hides behind the replays instead of
+entering the calibration; on the CPU each call is timed fenced.
 
 On a traced run (``metrics/spans.py``) each graph capture is a
 ``compile`` span (``what="cuda_graph"``) and each calibration a
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from pathlib import Path
 
@@ -55,6 +61,11 @@ DEFAULT_SHAPE = (256, 256)
 DEFAULT_DTYPE = torch.bfloat16
 CHUNK = 512          # iterations in the replayed graph
 CAL_ITERS = (64, 256)
+CAL_REPLAYS = 16     # back-to-back calls a card timing averages
+# the persisted key of a card's calibration names its method: a value
+# timed by fenced single launches (before the replay timing) is never
+# reused
+CARD_METHOD = "replays"
 ENV_CACHE_DIR = "DLNB_COMPILE_CACHE_DIR"
 
 
@@ -162,16 +173,43 @@ def device_kind(device) -> str:
             else "cpu")
 
 
+def _replayed_s(burner: Burner, iters: int, reps: int) -> float:
+    """Seconds of one ``burner(iters)`` on the card: the least, over
+    ``reps`` timings, of ``CAL_REPLAYS`` back-to-back calls between two
+    CUDA events, over ``CAL_REPLAYS``.  A device sleep queued first
+    lets the host enqueue the calls before the start event runs."""
+    dev = burner.device
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(CAL_REPLAYS):
+            burner(iters)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) * 1e-3 / CAL_REPLAYS)
+    return best
+
+
+def _timed_s(burner: Burner, iters: int, reps: int) -> float:
+    if burner.device.type == "cuda":
+        return _replayed_s(burner, iters, reps)
+    return min(time_callable(burner, iters, reps=reps,
+                             device=burner.device))
+
+
 def _measure(burner: Burner, kind: str) -> BurnCalibration:
     n_lo, n_hi = CAL_ITERS
-    dev = burner.device
     burner(n_lo)                      # capture both graphs, warm
     burner(n_hi)
-    t_lo = min(time_callable(burner, n_lo, reps=5, device=dev))
-    t_hi = min(time_callable(burner, n_hi, reps=5, device=dev))
+    t_lo = _timed_s(burner, n_lo, 5)
+    t_hi = _timed_s(burner, n_hi, 5)
     ns = (t_hi - t_lo) * 1e9 / (n_hi - n_lo)
     if ns <= 0:                       # timer noise: widen the gap
-        t_hi = min(time_callable(burner, n_hi * 8, reps=3, device=dev))
+        t_hi = _timed_s(burner, n_hi * 8, 3)
         ns = max((t_hi - t_lo) * 1e9 / (n_hi * 8 - n_lo), 1.0)
     return BurnCalibration(ns_per_iter=ns,
                            shape=tuple(burner.state.shape),
@@ -187,9 +225,18 @@ def _persist_path() -> Path | None:
     return Path(d) / "burn_calibration.json" if d else None
 
 
+def _persist_key(key) -> str:
+    """The calibration's key in the persisted file: (shape, dtype,
+    device name), and on a card the timing method."""
+    parts = list(map(str, key))
+    if key[2] != "cpu":
+        parts.append(CARD_METHOD)
+    return ":".join(parts)
+
+
 def _load_persisted(path: Path, key) -> BurnCalibration | None:
     try:
-        entry = json.loads(path.read_text())[":".join(map(str, key))]
+        entry = json.loads(path.read_text())[_persist_key(key)]
         return BurnCalibration(ns_per_iter=float(entry), shape=key[0],
                                dtype=key[1], device_kind=key[2])
     except (OSError, KeyError, TypeError, ValueError):
@@ -205,7 +252,7 @@ def _store_persisted(path: Path, key, cal: BurnCalibration) -> None:
             data = {}
         if not isinstance(data, dict):
             data = {}
-        data[":".join(map(str, key))] = cal.ns_per_iter
+        data[_persist_key(key)] = cal.ns_per_iter
         tmp = path.with_suffix(f".{os.getpid()}-{os.urandom(4).hex()}.tmp")
         tmp.write_text(json.dumps(data))
         tmp.replace(path)             # readers never see a torn file

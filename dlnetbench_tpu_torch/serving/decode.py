@@ -1,5 +1,5 @@
 """The decode-path transformer: prefill/decode over the paged KV cache
-(the JAX package's ``serving/decode.py``, dense path).
+(the JAX package's ``serving/decode.py``).
 
 Three programs cover serving, with the JAX package's signatures:
 
@@ -23,6 +23,14 @@ Three programs cover serving, with the JAX package's signatures:
 
 The programs run eagerly and update the pools in place; each returns
 the pools it was given followed by its outputs.
+
+A MoE model (``num_experts > 1``) runs every layer's MLP as per-expert
+token batches with overflow rounds (``serving/moe_decode.py``; its
+``moe_bias`` operand is the seeded skew), and every program appends the
+step's ``(expert_load [E], rounds)``, summed over the layers (and over
+the trips of a fused call), to its outputs.  Each MoE layer reads its
+round count back to the host once, so a fused MoE trip makes exactly
+``num_layers`` host reads where a dense one makes none.
 """
 from __future__ import annotations
 
@@ -44,16 +52,12 @@ _F32 = torch.float32
 
 
 def check_config(cfg: TransformerConfig) -> TransformerConfig:
-    """The serving path covers the dense gated family without attention
-    masks (``TransformerConfig`` already refuses everything else).  The
-    JAX package refuses a segment mask in serving and a window in decode
-    (its windowed prefill runs no Pallas kernel and is not ported yet),
-    with these messages; the port's engine always decodes, so it refuses
-    both."""
-    if cfg.num_experts > 1:
-        raise ValueError("serving decode: MoE decode (the JAX package's "
-                         "serving/moe_decode.py) is not ported yet "
-                         "(ROADMAP.md queue 1)")
+    """The serving path covers the gated family, dense or MoE, without
+    attention masks (``TransformerConfig`` already refuses everything
+    else).  The JAX package refuses a segment mask in serving and a
+    window in decode (its windowed prefill runs no Pallas kernel and is
+    not ported yet), with these messages; the port's engine always
+    decodes, so it refuses both."""
     if not cfg.gated or cfg.max_positions:
         raise ValueError("serving decode covers the dense gated "
                          "(SwiGLU+RMSNorm+RoPE) family only")
@@ -92,10 +96,23 @@ def _split_pools(cache_cfg: CacheConfig, pools: tuple) -> tuple:
     return k_pages, v_pages, None, None
 
 
+def _moe_mlp(cfg: TransformerConfig, lp: dict, y, rows: int, active,
+             moe_bias):
+    """One layer's serving MoE MLP over ``rows`` tokens (the decode batch
+    or a prefill chunk): ``(y2, load [E], rounds)``."""
+    from dlnetbench_tpu_torch.serving.moe_decode import (decode_capacity,
+                                                         moe_mlp_rounds)
+    cap = decode_capacity(rows, cfg.top_k, cfg.num_experts,
+                          cfg.moe_capacity_factor)
+    return moe_mlp_rounds(y, lp["w_router"], lp["w_gate"], lp["w_up"],
+                          lp["w_down"], top_k=cfg.top_k, capacity=cap,
+                          bias=moe_bias, active=active)
+
+
 def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
                  pools, tokens, positions, write_ok, block_tables, *,
                  layers: int | None = None, attn_impl: str = "auto",
-                 sampler=None, uids=None, gstate=None,
+                 moe_bias=None, sampler=None, uids=None, gstate=None,
                  return_logits: bool = False):
     """One batched single-token step over the paged cache.  ``write_ok``
     [B] gates the k/v write (an inactive slot's next token is garbage
@@ -105,7 +122,10 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
     shared final norm and head).  With a ``sampler`` the next token is
     the seeded draw keyed by ``(uids[b], positions[b])`` under the
     grammar states ``gstate``; ``return_logits`` appends the f32 logits
-    to the return."""
+    to the return.  A MoE model returns ``(pools, next_tokens,
+    (expert_load, rounds))`` instead, summed over the layers
+    (``moe_bias``: the seeded skew; ``write_ok`` masks inactive slots out
+    of routing)."""
     b = tokens.shape[0]
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -126,6 +146,8 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
     else:
         gate = write_gate((page_id, rows), write_ok)
     depth = cfg.num_layers if layers is None else layers
+    moe = cfg.num_experts > 1
+    moe_load, moe_rounds = 0, 0
     for li in range(depth):
         lp = _layer(params, li)
         y = L.rmsnorm(x, lp["norm1"])
@@ -150,12 +172,21 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
             fmt=cache_cfg.quant_fmt, impl=attn_impl)
         x = x + att.reshape(b, cfg.embed_dim) @ lp["wo"]
         y = L.rmsnorm(x, lp["norm2"])
-        x = x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if moe:
+            y2, load_l, rounds_l = _moe_mlp(cfg, lp, y, b, write_ok,
+                                            moe_bias)
+            moe_load = moe_load + load_l
+            moe_rounds += rounds_l
+            x = x + y2
+        else:
+            x = x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
     logits = _logits(cfg, params, x)
     if sampler is None:
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
         next_tokens = sampler.draw_tokens(logits, uids, positions, gstate)
+    if moe:
+        return pools, next_tokens, (moe_load, moe_rounds)
     if return_logits:
         return pools, next_tokens, logits
     return pools, next_tokens
@@ -168,7 +199,7 @@ def _check_impl(attn_impl: str) -> None:
 
 
 def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
-                     attn_impl: str = "auto", sampler=None):
+                     attn_impl: str = "auto", moe_bias=None, sampler=None):
     """``decode_step(params, k_pages, v_pages, tokens, positions,
     block_tables, active) -> (k_pages, v_pages, next_tokens)``; on a
     quantized cache the scales follow the pools: ``decode_step(params,
@@ -181,11 +212,14 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
     With a ``sampler`` the signature grows two trailing operands,
     ``uids`` and ``gstate`` ``[slots]`` int32 (the draw keys' request
     ids and the grammar states; grammar transitions stay with the
-    caller, which reads every token back anyway)."""
+    caller, which reads every token back anyway).  A MoE model appends
+    ``expert_load`` ``[E]`` int32 and ``rounds`` (a host int) to the
+    outputs."""
     check_config(cfg)
     _check_impl(attn_impl)
     n_pools = 4 if cache_cfg.quantized else 2
     n_ops = 6 if sampler is not None else 4
+    moe = cfg.num_experts > 1
 
     def decode_step(params, *args):
         if len(args) != n_pools + n_ops:
@@ -194,10 +228,14 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
         pools, ops = args[:n_pools], args[n_pools:]
         tokens, positions, block_tables, active = ops[:4]
         uids, gstate = ops[4:] if sampler is not None else (None, None)
-        pools, nxt = _step_tokens(cfg, cache_cfg, params, pools, tokens,
-                                  positions, active, block_tables,
-                                  attn_impl=attn_impl, sampler=sampler,
-                                  uids=uids, gstate=gstate)
+        out = _step_tokens(cfg, cache_cfg, params, pools, tokens,
+                           positions, active, block_tables,
+                           attn_impl=attn_impl, moe_bias=moe_bias,
+                           sampler=sampler, uids=uids, gstate=gstate)
+        if moe:
+            pools, nxt, (load, rounds) = out
+            return (*pools, nxt, load, rounds)
+        pools, nxt = out
         return (*pools, nxt)
 
     return decode_step
@@ -216,7 +254,8 @@ STATE_ROWS = 6
 
 def make_multi_step_decode(cfg: TransformerConfig,
                            cache_cfg: CacheConfig, n_max: int, *,
-                           attn_impl: str = "auto", sampler=None):
+                           attn_impl: str = "auto", moe_bias=None,
+                           sampler=None):
     """The device-resident fused decode loop.
 
     ``multi_step(params, k_pages, v_pages, state, block_tables, n_steps)
@@ -237,7 +276,11 @@ def make_multi_step_decode(cfg: TransformerConfig,
     knows every slot's remaining budget (greedy decode has no early
     stop) passes ``n_steps`` at most their largest and wastes no trip.
     With a ``sampler`` each trip draws by (uid row, fed position) and
-    advances the grammar row after each accepted token."""
+    advances the grammar row after each accepted token.  A MoE model
+    appends ``expert_load`` ``[E]`` int32 and ``rounds`` (a host int),
+    summed over the trips; each of its trips reads ``num_layers`` round
+    counts back to the host (``serving/moe_decode.host_reads``), a dense
+    trip none."""
     check_config(cfg)
     _check_impl(attn_impl)
     if n_max < 1:
@@ -245,6 +288,7 @@ def make_multi_step_decode(cfg: TransformerConfig,
                          f"got {n_max}")
     n_pools = 4 if cache_cfg.quantized else 2
     advance = sampler is not None and sampler.trans_dev is not None
+    moe = cfg.num_experts > 1
 
     def multi_step(params, *args):
         if len(args) != n_pools + 3:
@@ -261,13 +305,23 @@ def make_multi_step_decode(cfg: TransformerConfig,
         out = torch.zeros((b, n_max + 1), dtype=torch.int32, device=dev)
         cnt = torch.zeros((b,), dtype=torch.int32, device=dev)
         steps = torch.zeros((), dtype=torch.int32, device=dev)
+        load = torch.zeros((cfg.num_experts,), dtype=torch.int32,
+                           device=dev)
+        rounds = 0
         for _ in range(min(int(n_steps), n_max)):
             last, pos = st[STATE_LAST], st[STATE_POS]
             act = st[STATE_REM] > 0
-            pools, nxt = _step_tokens(
+            step_out = _step_tokens(
                 cfg, cache_cfg, params, pools, last, pos, act,
-                block_tables, attn_impl=attn_impl, sampler=sampler,
-                uids=st[STATE_UID], gstate=st[STATE_GRAMMAR])
+                block_tables, attn_impl=attn_impl, moe_bias=moe_bias,
+                sampler=sampler, uids=st[STATE_UID],
+                gstate=st[STATE_GRAMMAR])
+            if moe:
+                pools, nxt, (load_s, rounds_s) = step_out
+                load += load_s
+                rounds += rounds_s
+            else:
+                pools, nxt = step_out
             out[rows, torch.where(act, cnt, n_max).long()] = nxt
             step = act.to(torch.int32)
             steps += act.any().to(torch.int32)
@@ -279,13 +333,15 @@ def make_multi_step_decode(cfg: TransformerConfig,
             st[STATE_POS] += step
             st[STATE_REM] -= step
             cnt += step
+        if moe:
+            return (*pools, st, out[:, :n_max], cnt, steps, load, rounds)
         return (*pools, st, out[:, :n_max], cnt, steps)
 
     return multi_step
 
 
 def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
-                       chunk: int, *, sampler=None):
+                       chunk: int, *, moe_bias=None, sampler=None):
     """``prefill_chunk(params, k_pages, v_pages, tokens, start, n_valid,
     block_row) -> (k_pages, v_pages, next_token)`` (scales after the
     pools on a quantized cache, as in ``make_decode_step``).
@@ -302,7 +358,9 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
     request id ``uid``, and the first token is the seeded draw keyed by
     ``(uid, start + last valid index)`` — the fed position of the last
     prompt token, the decode programs' counter convention — under the
-    grammar's start state."""
+    grammar's start state.  A MoE model appends ``expert_load`` and
+    ``rounds`` over the chunk's valid rows (capacity sized over the
+    chunk)."""
     check_config(cfg)
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -311,6 +369,7 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
     n_pools = 4 if quant else 2
     g = cfg.num_heads // cfg.num_kv_heads
     n_ops = 5 if sampler is not None else 4
+    moe = cfg.num_experts > 1
 
     def prefill_chunk(params, *args):
         if len(args) != n_pools + n_ops:
@@ -336,6 +395,7 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
                              page_size=s, num_pages=cache_cfg.num_pages)
         else:
             gate = write_gate((page_id, rows), valid)
+        moe_load, moe_rounds = 0, 0
         for li in range(cfg.num_layers):
             lp = _layer(params, li)
             y = L.rmsnorm(x, lp["norm1"])
@@ -371,7 +431,15 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
             att = att.reshape(chunk, cfg.embed_dim).to(x.dtype)
             x = x + att @ lp["wo"]
             y = L.rmsnorm(x, lp["norm2"])
-            x = x + L.swiglu(y, lp["w_gate"], lp["w_up"], lp["w_down"])
+            if moe:
+                y2, load_l, rounds_l = _moe_mlp(cfg, lp, y, chunk, valid,
+                                                moe_bias)
+                moe_load = moe_load + load_l
+                moe_rounds += rounds_l
+                x = x + y2
+            else:
+                x = x + L.swiglu(y, lp["w_gate"], lp["w_up"],
+                                 lp["w_down"])
         logits = _logits(cfg, params, x[last:last + 1])
         if sampler is None:
             next_token = torch.argmax(logits[0]).to(torch.int32)
@@ -381,6 +449,8 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
             next_token = sampler.draw_tokens(
                 logits, one(ops[4]), one(start + last),
                 one(sampler.start_state))[0]
+        if moe:
+            return (*pools, next_token, moe_load, moe_rounds)
         return (*pools, next_token)
 
     return prefill_chunk

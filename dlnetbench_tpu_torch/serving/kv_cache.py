@@ -5,8 +5,16 @@ package's ``serving/kv_cache.py``).
   ``num_pages`` physical pages, one block-table row per decode slot,
   allocate/append/free and occupancy/fragmentation stats.  Pure numpy,
   and the same allocation order as the JAX package, so the same
-  admit/append/free sequence gives the same block tables.  (The prefix
-  trie and copy-on-write sharing are not ported yet.)
+  admit/append/free sequence gives the same block tables.  Every page
+  carries a refcount, and a trie over published prompt pages
+  (``_PrefixTrie``) lets a request whose prompt shares a prefix with a
+  resident, fully prefilled sequence map its block-table entries onto
+  the same physical pages: fully covered pages by reference (admission
+  charges only the unshared pages), a partly covered boundary page
+  copy-on-write (a private page is charged and the engine copies the
+  prefix rows into it at admission).  ``append`` refuses to grow into
+  a page with refcount > 1, and a page returns to the free list when
+  its last reader frees it.
 * device pools — ``k``/``v`` of shape ``[L, Hkv, num_pages, page_size,
   Dh]`` (``device_buffers``); quantized caches (``cache_dtype`` int8 or
   fp8) add f32 scales ``[L, Hkv, num_pages]``, one per page and head.
@@ -142,75 +150,297 @@ def pages_for_pool_bytes(budget_bytes: int, cfg: CacheConfig) -> int:
     return max(1, budget_bytes // cfg.page_bytes)
 
 
+# ---------------------------------------------------------------------
+# prefix trie (host): prompt token ids -> resident physical pages
+
+
+class _TrieNode:
+    """One cached page's worth of prompt tokens.  ``key`` is the token
+    tuple the page holds (``page_size`` long for interior nodes; a
+    shorter tuple is a partial boundary page, shareable copy-on-write up
+    to its length).  Children may overlap in prefix: a lookup scans a
+    node's few children for the best match."""
+
+    __slots__ = ("key", "page", "parent", "children")
+
+    def __init__(self, key: tuple, page: int, parent):
+        self.key = key
+        self.page = page
+        self.parent = parent
+        self.children: dict[tuple, _TrieNode] = {}
+
+
+class _PrefixTrie:
+    """Trie over PUBLISHED prompt pages.  Non-owning: a node exists
+    exactly while its physical page has readers (the allocator drops it
+    when the refcount reaches 0), so a lookup never hands out a freed
+    page."""
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self.root = _TrieNode((), -1, None)
+        self._node_of_page: dict[int, _TrieNode] = {}
+
+    def match(self, tokens) -> tuple[int, list[int], int | None]:
+        """Longest shared prefix of ``tokens`` against the published
+        pages: ``(shared_tokens, full_page_ids, partial_page_id)``, the
+        fully covered pages in column order and the boundary page whose
+        first ``shared_tokens % page_size`` rows match (None when the
+        match ends on a page boundary)."""
+        toks = tuple(int(t) for t in tokens)
+        node, pos, full = self.root, 0, []
+        s = self.page_size
+        while len(toks) - pos >= s:
+            child = node.children.get(toks[pos:pos + s])
+            if child is None:
+                break
+            full.append(child.page)
+            node = child
+            pos += s
+        # the boundary: the child sharing the longest token prefix with
+        # the rest (at least one token to be worth a copy-on-write)
+        rest = toks[pos:]
+        best_len, best_page = 0, None
+        for key, child in node.children.items():
+            n = 0
+            for a, b in zip(key, rest):
+                if a != b:
+                    break
+                n += 1
+            if n > best_len:
+                best_len, best_page = n, child.page
+        if best_len > 0:
+            return pos + best_len, full, best_page
+        return pos, full, None
+
+    def publish(self, tokens, pages: list[int]) -> None:
+        """Register a fully prefilled prompt's pages.  Idempotent: a path
+        already present (the publisher shared it) is left alone; the
+        first publisher wins, the content being the same."""
+        toks = tuple(int(t) for t in tokens)
+        s = self.page_size
+        node, pos, col = self.root, 0, 0
+        while pos < len(toks):
+            key = toks[pos:pos + s]
+            child = node.children.get(key)
+            if child is None:
+                page = pages[col]
+                if page in self._node_of_page:
+                    # the page already backs another node (a shared page
+                    # republished under a longer prompt): never twice
+                    child = self._node_of_page[page]
+                    if child.key != key:
+                        break
+                else:
+                    child = _TrieNode(key, page, node)
+                    node.children[key] = child
+                    self._node_of_page[page] = child
+            node = child
+            pos += len(key)
+            col += 1
+            if len(key) < s:      # a partial tail ends the path
+                break
+
+    def drop_page(self, page: int) -> None:
+        """The page's refcount reached 0: unlink its node.  A holder of a
+        child page holds its parent too (it matched the whole path), so
+        a dying node has no live children."""
+        node = self._node_of_page.pop(page, None)
+        if node is not None and node.parent is not None:
+            node.parent.children.pop(node.key, None)
+
+
+@dataclasses.dataclass
+class AdmissionPlan:
+    """What admitting one request costs and shares (``plan_admission``
+    -> ``admit``): the UNSHARED page charge, the matched prefix, and the
+    copy-on-write source of a partly shared boundary page (the engine
+    copies it on the device)."""
+    n_tokens: int
+    need_pages: int
+    shared_tokens: int = 0
+    shared_pages: list = dataclasses.field(default_factory=list)
+    cow_src: int | None = None       # physical page to copy from
+    cow_rows: int = 0                # valid prefix rows in cow_src
+
+
 class PagedKVCache:
     """Host-side page allocator + block tables.  Page 0 is a real,
     allocatable page; block-table padding also points at 0, which every
-    consumer masks by length."""
+    consumer masks by length.  Every page carries a refcount (see the
+    module docstring)."""
 
     def __init__(self, cfg: CacheConfig):
         self.cfg = cfg.validate()
         self._free: list[int] = list(range(cfg.num_pages - 1, -1, -1))
+        self._ref = np.zeros((cfg.num_pages,), np.int32)
         self.block_tables = np.zeros(
             (cfg.max_seqs, cfg.max_pages_per_seq), np.int32)
         self.lengths = np.zeros((cfg.max_seqs,), np.int32)
         self._pages_of: list[list[int]] = [[] for _ in range(cfg.max_seqs)]
         self.peak_pages_in_use = 0
+        self.trie = _PrefixTrie(cfg.page_size)
         self.admissions = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_shared_tokens = 0
+        self.prefix_pages_shared = 0
+        self.prefix_bytes_saved = 0
+        self.cow_copies = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
 
     @property
     def pages_in_use(self) -> int:
         return self.cfg.num_pages - len(self._free)
 
-    def pages_for(self, n_tokens: int) -> int:
-        return -(-n_tokens // self.cfg.page_size)
-
     def can_fit(self, n_tokens: int) -> bool:
-        return self.pages_for(n_tokens) <= len(self._free)
+        return -(-n_tokens // self.cfg.page_size) <= len(self._free)
+
+    def prefix_match_len(self, prompt_tokens) -> int:
+        """Read-only probe: how many of the prompt's leading tokens are
+        already resident in published pages, capped at ``prompt_len -
+        1`` as ``plan_admission`` caps it.  Not counted in the lookup or
+        hit stats: a probe is not an admission."""
+        if prompt_tokens is None or len(prompt_tokens) < 2:
+            return 0
+        matched, _full, _partial = self.trie.match(
+            np.asarray(prompt_tokens)[: len(prompt_tokens) - 1])
+        return int(matched)
+
+    def plan_admission(self, n_tokens: int,
+                       prompt_tokens=None) -> AdmissionPlan:
+        """Price one admission.  With ``prompt_tokens`` (prefix sharing
+        on) the trie is consulted: matched full pages are shared by
+        reference and charged nothing; a partly matched boundary page is
+        charged (its private copy) but its prefix rows skip prefill.
+        The match is capped at ``prompt_len - 1``: the last prompt token
+        always prefills, its forward pass giving the first generated
+        token."""
+        s = self.cfg.page_size
+        total = -(-n_tokens // s)
+        if total > self.cfg.max_pages_per_seq:
+            raise ValueError(
+                f"kv cache: {n_tokens} tokens need {total} pages > "
+                f"max_pages_per_seq {self.cfg.max_pages_per_seq}")
+        if prompt_tokens is None or len(prompt_tokens) < 2:
+            return AdmissionPlan(n_tokens=n_tokens, need_pages=total)
+        self.prefix_lookups += 1
+        matched, full_pages, partial_page = self.trie.match(
+            np.asarray(prompt_tokens)[: len(prompt_tokens) - 1])
+        full = len(full_pages)
+        partial = matched - full * s
+        if partial <= 0:
+            partial_page = None
+            matched = full * s
+        return AdmissionPlan(
+            n_tokens=n_tokens, need_pages=total - full,
+            shared_tokens=matched, shared_pages=list(full_pages),
+            cow_src=partial_page, cow_rows=partial)
+
+    def admit(self, slot: int, plan: AdmissionPlan) -> int | None:
+        """Carry out a plan on an empty slot: shared pages by reference
+        (refcount + 1), the rest freshly allocated, the boundary page's
+        private copy included.  Returns the copy-on-write DESTINATION
+        page when the plan has one (the engine copies ``plan.cow_src``
+        into it on the device), else None.  ``lengths[slot]`` starts at
+        ``shared_tokens``: that content is already cached."""
+        if self._pages_of[slot]:
+            raise ValueError(f"kv cache: slot {slot} already allocated")
+        if plan.need_pages > len(self._free):
+            raise CacheOOM(
+                f"kv cache: need {plan.need_pages} pages, "
+                f"{len(self._free)} free — admission control must gate "
+                f"on the plan (can_fit() for the no-sharing path)")
+        total = -(-plan.n_tokens // self.cfg.page_size)
+        self.admissions += 1
+        cow_dst = None
+        for i in range(total):
+            if i < len(plan.shared_pages):
+                page = plan.shared_pages[i]
+                self._ref[page] += 1
+            else:
+                page = self._free.pop()
+                self._ref[page] = 1
+                if i == len(plan.shared_pages) and plan.cow_src is not None:
+                    cow_dst = page
+            self._pages_of[slot].append(page)
+            self.block_tables[slot, i] = page
+        self.lengths[slot] = plan.shared_tokens
+        if plan.shared_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_shared_tokens += plan.shared_tokens
+            self.prefix_pages_shared += len(plan.shared_pages)
+            self.prefix_bytes_saved += (len(plan.shared_pages)
+                                        * self.cfg.page_bytes)
+        if cow_dst is not None:
+            self.cow_copies += 1
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages_in_use)
+        return cow_dst
 
     def allocate(self, slot: int, n_tokens: int) -> None:
         """Reserve pages for ``n_tokens`` on an empty slot (the scheduler
-        reserves prompt + output up front)."""
-        need = self.pages_for(n_tokens)
-        if need > self.cfg.max_pages_per_seq:
-            raise ValueError(
-                f"kv cache: {n_tokens} tokens need {need} pages > "
-                f"max_pages_per_seq {self.cfg.max_pages_per_seq}")
-        if self._pages_of[slot]:
-            raise ValueError(f"kv cache: slot {slot} already allocated")
-        if need > len(self._free):
-            raise CacheOOM(f"kv cache: need {need} pages, "
-                           f"{len(self._free)} free")
-        self.admissions += 1
-        for i in range(need):
-            page = self._free.pop()
-            self._pages_of[slot].append(page)
-            self.block_tables[slot, i] = page
-        self.lengths[slot] = 0
-        self.peak_pages_in_use = max(self.peak_pages_in_use,
-                                     self.pages_in_use)
+        reserves prompt + output up front): the no-sharing admission."""
+        self.admit(slot, self.plan_admission(n_tokens))
 
     def append(self, slot: int, n: int = 1) -> None:
         """Advance the slot's length by ``n`` tokens (the device write
-        already happened); growing past the reservation is a bug."""
-        new_len = int(self.lengths[slot]) + n
-        if new_len > len(self._pages_of[slot]) * self.cfg.page_size:
+        already happened).  Growing past the reservation is a scheduler
+        bug, and so is writing into a page another sequence still reads
+        (copy-on-write must have replaced it at admission)."""
+        s = self.cfg.page_size
+        old_len = int(self.lengths[slot])
+        new_len = old_len + n
+        if new_len > len(self._pages_of[slot]) * s:
             raise CacheOOM(
                 f"kv cache: slot {slot} grew to {new_len} tokens past "
                 f"its {len(self._pages_of[slot])}-page reservation")
+        for col in range(old_len // s, (new_len - 1) // s + 1):
+            page = self._pages_of[slot][col]
+            if self._ref[page] > 1:
+                raise RuntimeError(
+                    f"kv cache: slot {slot} wrote into shared page "
+                    f"{page} (refcount {int(self._ref[page])}) — a "
+                    f"shared page is read-only; copy-on-write must "
+                    f"have replaced it at admission")
         self.lengths[slot] = new_len
 
     def free(self, slot: int) -> None:
-        self._free.extend(self._pages_of[slot])
+        """Release the slot's pages: a page returns to the free list and
+        leaves the trie when its last reader frees it."""
+        for page in self._pages_of[slot]:
+            self._ref[page] -= 1
+            if self._ref[page] == 0:
+                self._free.append(page)
+                self.trie.drop_page(page)
+            elif self._ref[page] < 0:
+                raise RuntimeError(
+                    f"kv cache: page {page} refcount went negative")
         self._pages_of[slot] = []
         self.block_tables[slot, :] = 0
         self.lengths[slot] = 0
 
+    def publish(self, slot: int, prompt_tokens) -> None:
+        """Register the slot's fully prefilled PROMPT pages in the trie
+        (generated tokens are the request's own and never published)."""
+        toks = np.asarray(prompt_tokens)
+        n = -(-len(toks) // self.cfg.page_size)
+        self.trie.publish(toks, self._pages_of[slot][:n])
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
     def stats(self) -> dict:
         """Occupancy = fraction of pages in use; fragmentation =
-        fraction of allocated token capacity holding no token."""
+        fraction of allocated token capacity holding no token (shared
+        pages count once).  The prefix-sharing counters ride along once
+        a lookup happened."""
         cap = self.pages_in_use * self.cfg.page_size
         toks = int(self.lengths.sum())
-        return {
+        out = {
             "num_pages": self.cfg.num_pages,
             "page_size": self.cfg.page_size,
             "cache_dtype": self.cfg.cache_dtype,
@@ -224,6 +454,20 @@ class PagedKVCache:
             "fragmentation": (round(max(cap - toks, 0) / cap, 4)
                               if cap else 0.0),
         }
+        if self.prefix_lookups:
+            out["prefix"] = {
+                "lookups": self.prefix_lookups,
+                "hits": self.prefix_hits,
+                # per admission, not per lookup: a blocked queue head is
+                # planned again every engine step
+                "hit_rate": round(self.prefix_hits
+                                  / max(self.admissions, 1), 4),
+                "shared_tokens": self.prefix_shared_tokens,
+                "pages_shared": self.prefix_pages_shared,
+                "bytes_saved": self.prefix_bytes_saved,
+                "cow_copies": self.cow_copies,
+            }
+        return out
 
 
 def device_buffers(cfg: CacheConfig, device="cuda") -> tuple:
@@ -376,6 +620,16 @@ def quant_write_span(pages, scales, li: int, new, positions, write_ok,
                       span_plan(positions, write_ok, block_tables,
                                 page_size=page_size, num_pages=num_pages),
                       fmt=fmt)
+
+
+def copy_page(pools, src: int, dst: int) -> None:
+    """Copy physical page ``src`` into ``dst`` along the page axis of
+    every pool (axis 2 of ``[L, Hkv, P, S, Dh]``) and, on a quantized
+    cache, of both scale arrays (axis 2 of ``[L, Hkv, P]``): the
+    admission-time copy-on-write of a shared boundary page.  In place."""
+    for t in pools:
+        b = _bits(t)
+        b[:, :, dst] = b[:, :, src]
 
 
 def dequant_gathered(pages_g, scales_g):

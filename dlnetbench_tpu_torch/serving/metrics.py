@@ -12,11 +12,14 @@
 
 ``build_result`` shapes a run as a ``ProxyResult`` so the record is the
 JAX package's schema v2: per-request arrays as timers, the aggregate
-``serving`` block and the arrival plan as globals.
+``serving`` block and the arrival plan as globals.  ``LiveMetricsWriter``
+is the live channel (``cli serve --live_metrics``): one JSONL snapshot
+line per window of engine time.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 from dlnetbench_tpu_torch.proxies.base import ProxyResult
@@ -125,6 +128,83 @@ def rolling_slo_breach(recent: list[Completed], *, slo_ttft_ms: float,
         return None
     return {"t_s": round(now_s, 3), "completed": len(tail),
             "slo_ok": ok, "goodput_frac": round(frac, 4)}
+
+
+class LiveMetricsWriter:
+    """Windowed live-metrics JSONL stream: one snapshot line per
+    ``window_s`` of engine time — TTFT/TPOT percentiles over the
+    window's completions, queue depth, admitted concurrency, KV
+    occupancy.  The JAX package's schema, line for line; pure except
+    for the appends to ``path``."""
+
+    def __init__(self, path, *, window_s: float = 0.5):
+        self.path = path
+        self.window_s = float(window_s)
+        self._last_emit_s: float | None = None
+        self._run = 0
+        self.lines_written = 0
+        # one invocation, one stream: lines of an earlier run would
+        # interleave stale snapshots into the feed
+        open(self.path, "w").close()
+
+    def reset_run(self) -> None:
+        """A new engine run: the engine clock restarts at 0, so the
+        window stamp does too, and the ``run`` stamp counts up so that
+        (run, t_s) orders the feed.  Called by the engine's
+        ``_reset_state``."""
+        self._last_emit_s = None
+        self._run += 1
+
+    @staticmethod
+    def snapshot_line(*, t_s: float, window_s: float,
+                      window_completed: list[Completed],
+                      queue_depth: int, active_slots: int,
+                      kv_occupancy: float,
+                      engine_steps: int, run: int = 0,
+                      replica_id: int | None = None) -> dict:
+        """One snapshot (pure).  The latency percentiles cover the
+        window's completions only; ``replica_id`` attributes the line in
+        an interleaved multi-replica stream and is absent otherwise."""
+        ttft = [c.ttft_ms for c in window_completed]
+        tpot = [c.tpot_ms for c in window_completed]
+        line = {
+            "run": int(run),
+            "t_s": round(t_s, 3),
+            "window_s": window_s,
+            "completed": len(window_completed),
+            "ttft_ms": latency_summary(ttft),
+            "tpot_ms": latency_summary(tpot),
+            "queue_depth": int(queue_depth),
+            "active_slots": int(active_slots),
+            "kv_occupancy": round(float(kv_occupancy), 4),
+            "engine_steps": int(engine_steps),
+        }
+        if replica_id is not None:
+            line["replica_id"] = int(replica_id)
+        return line
+
+    def maybe_emit(self, engine, now_s: float) -> dict | None:
+        """Called by the engine once a step: writes (and returns) a
+        snapshot when a full window has passed since the last one."""
+        if self._last_emit_s is not None \
+                and now_s - self._last_emit_s < self.window_s:
+            return None
+        t0 = (self._last_emit_s if self._last_emit_s is not None
+              else max(0.0, now_s - self.window_s))
+        self._last_emit_s = now_s
+        line = self.snapshot_line(
+            t_s=now_s, window_s=self.window_s,
+            window_completed=[c for c in engine.completed
+                              if c.finish_s >= t0],
+            queue_depth=len(engine.pending),
+            active_slots=sum(1 for s in engine.slots if s is not None),
+            kv_occupancy=engine.cache.stats()["occupancy"],
+            engine_steps=engine.engine_steps, run=self._run,
+            replica_id=getattr(engine, "replica_id", None))
+        with open(self.path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+        self.lines_written += 1
+        return line
 
 
 def serving_block(completed: list[Completed], plan: ArrivalPlan, *,

@@ -27,18 +27,31 @@ stream position), so the 1-step and N-step engines emit the same
 sampled tokens position by position, and the speculative engine (its
 rejection sampling draws on other lanes) the same distribution.
 
+With ``prefix_sharing`` a request whose prompt shares a prefix with a
+resident, fully prefilled sequence is admitted onto the same physical
+pages (``kv_cache.PagedKVCache.plan_admission`` / ``admit``): only its
+unshared pages are charged, a partly shared boundary page is copied
+into a private page at admission (``_cow_copy``, never inside a decode
+dispatch), its prefill resumes at the shared length, and its prompt
+pages are published once its prompt is cached.  A MoE model decodes
+through ``serving/moe_decode.py`` (its seeded skew bias built once with
+the engine); its per-expert load and overflow rounds ride the record's
+``moe`` block and the flight ring.
+
 With the flight recorder on (``metrics/telemetry.py``) every engine
 step is a ring sample (``step_wall_us``, ``queue_depth``,
-``active_slots``, ``kv_occupancy``, ``kv_fragmentation``, and on the
-fused path ``sync_us`` and the speculative acceptance) that feeds the
-step-time detector and the rolling SLO check (``trigger("slo")``); with
-it off the step reads no clock for it and allocates nothing.  On a
-traced run the engine build, the warmup requests and the measured run
-are the spans ``build``, ``warmup`` and ``serving_run``.
+``active_slots``, ``kv_occupancy``, ``kv_fragmentation``, and where
+they apply ``prefix_hit_rate``, ``moe_rounds`` / ``moe_imbalance``, and
+on the fused path ``sync_us`` and the speculative acceptance) that
+feeds the step-time detector and the rolling SLO check
+(``trigger("slo")``); with it off, and no live-metrics stream attached
+(``Engine.live``, a ``metrics.LiveMetricsWriter``), the step reads no
+clock for it and allocates nothing.  On a traced run the engine build,
+the warmup requests and the measured run are the spans ``build``,
+``warmup`` and ``serving_run``.
 
 Outside this slice, and refused with a ``ValueError`` naming ROADMAP.md:
-MoE models, KV sharding, several capacity ranks, disaggregation, prefix
-sharing and fault plans.
+KV sharding, several capacity ranks, disaggregation and fault plans.
 """
 from __future__ import annotations
 
@@ -59,7 +72,7 @@ from dlnetbench_tpu_torch.serving import sampling as SMP
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan, Request
 from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, CACHE_DTYPES,
                                                    CacheConfig,
-                                                   PagedKVCache,
+                                                   PagedKVCache, copy_page,
                                                    device_buffers)
 
 PREFILL_MODES = ("separate", "inline")
@@ -115,11 +128,16 @@ class ServingConfig:
     grammar: str = ""           # "" | "json" (masked decode)
     cache_dtype: str = "bf16"   # "bf16" (pools in the model dtype) |
     #                             "int8" | "fp8" (quantized pages)
+    prefix_sharing: bool = False  # map a shared prompt prefix onto a
+    #                             resident sequence's pages (refcounts,
+    #                             copy-on-write at the divergence page)
+    moe_skew: float = 0.0       # seeded router-logit skew of a MoE
+    #                             model's serving MLP (0 = no bias)
+    moe_skew_seed: int = 0      # which experts the skew favors
     warmup_requests: int = 8    # synthetic requests run (and discarded)
     #                             before the measured run
     world: int = 1
     kv_shard: int = 1
-    prefix_sharing: bool = False
     disaggregate: bool = False
 
     def validate(self) -> "ServingConfig":
@@ -161,6 +179,9 @@ class ServingConfig:
             top_p=self.top_p, sample_seed=self.sample_seed,
             grammar=self.grammar, speculative=self.speculative,
             drafter=self.drafter)
+        if self.moe_skew < 0:
+            raise ValueError(f"serving: moe_skew must be >= 0, got "
+                             f"{self.moe_skew}")
         if self.speculative:
             from dlnetbench_tpu_torch.serving.speculative import DRAFTERS
             if self.spec_k < 1:
@@ -176,8 +197,6 @@ class ServingConfig:
             raise _not_ported("kv_shard > 1")
         if self.disaggregate:
             raise _not_ported("disaggregated prefill/decode")
-        if self.prefix_sharing:
-            raise _not_ported("prefix sharing")
         return self
 
 
@@ -220,6 +239,17 @@ class Engine:
         # the fused path: N steps (or rounds) per dispatch over slot
         # state on the device; the classic path builds no loop
         self._loop_mode = cfg.multi_step_n > 1 or cfg.speculative
+        self._moe = model_cfg.num_experts > 1
+        if self._moe and cfg.speculative:
+            raise ValueError(
+                "serving: speculative decode covers dense models only "
+                "— the draft/verify overwrite cycle has no stated "
+                "parity story through the MoE overflow rounds")
+        self._moe_bias = None
+        if self._moe:
+            from dlnetbench_tpu_torch.serving.moe_decode import skew_bias
+            self._moe_bias = skew_bias(model_cfg.num_experts, cfg.moe_skew,
+                                       cfg.moe_skew_seed, self.device)
         # validate() ran the sampling checks
         scfg = SMP.SamplingConfig(
             temperature=cfg.temperature, top_k=cfg.top_k,
@@ -245,14 +275,19 @@ class Engine:
             elif self._loop_mode:
                 self._loop = D.make_multi_step_decode(
                     model_cfg, self.cache_cfg, cfg.multi_step_n,
-                    attn_impl=cfg.attn_impl, sampler=self._sampler)
+                    attn_impl=cfg.attn_impl, moe_bias=self._moe_bias,
+                    sampler=self._sampler)
             else:
                 self._decode = D.make_decode_step(
                     model_cfg, self.cache_cfg, attn_impl=cfg.attn_impl,
-                    sampler=self._sampler)
+                    moe_bias=self._moe_bias, sampler=self._sampler)
             self._prefill = D.make_prefill_chunk(
                 model_cfg, self.cache_cfg, cfg.prefill_chunk,
-                sampler=self._sampler)
+                moe_bias=self._moe_bias, sampler=self._sampler)
+        # the live windowed metrics stream (a metrics.LiveMetricsWriter
+        # or None): it survives _reset_state, so a warm-up round and the
+        # measured run share one stream
+        self.live = None
         self._reset_state()
 
     def _reset_state(self):
@@ -288,11 +323,24 @@ class Engine:
         self._drafted = 0
         self._accepted = 0
         self._step_ewma_s = 0.0      # measured seconds per device step
+        # MoE imbalance telemetry: per-expert routed-token totals, the
+        # decode dispatches' round counts and the prefill chunks' apart
+        # (their capacities differ), the last dispatch's snapshot for
+        # the flight ring, and the prefill chunks' loads not yet read
+        # (folded at the prompt-completing chunk's fence)
+        self._moe_load = (np.zeros(self.model_cfg.num_experts, np.int64)
+                          if self._moe else None)
+        self._moe_rounds: list[int] = []
+        self._moe_prefill_rounds: list[int] = []
+        self._moe_pending: list[tuple] = []
+        self._moe_last: dict = {}
         # the flight recorder of this run (None, the default, keeps the
         # step allocation-free); a new run is a new step-time baseline
         self._tele = telemetry.current()
         if self._tele is not None:
             self._tele.reset_walls("serving")
+        if self.live is not None:
+            self.live.reset_run()    # the engine clock restarts at 0
 
     # ---- the loop ----------------------------------------------------
     def run(self, requests: list[Request]
@@ -345,14 +393,27 @@ class Engine:
             if self.slots[i] is not None:
                 continue
             req = self.pending[0]
+            prompt = self._prompt_of(req)
             # reserve the WORST CASE (prompt + output) so a running
-            # sequence never runs out of pages mid-decode
-            if not self.cache.can_fit(req.prompt_len + req.output_len):
+            # sequence never runs out of pages mid-decode; with prefix
+            # sharing the plan charges only the unshared pages (the
+            # divergence page's private copy included)
+            plan = self.cache.plan_admission(
+                req.prompt_len + req.output_len,
+                prompt if self.cfg.prefix_sharing else None)
+            if plan.need_pages > self.cache.free_pages:
                 break  # FIFO: never starve the head
             self.pending.pop(0)
-            self.cache.allocate(i, req.prompt_len + req.output_len)
+            cow_dst = self.cache.admit(i, plan)
+            if cow_dst is not None:
+                # copy-on-write at the admission boundary: the shared
+                # boundary page's rows land in the private page before
+                # any prefill or decode write
+                self._cow_copy(plan.cow_src, cow_dst)
             st = _SlotState(req, admitted_s=self._now())
-            st.prompt = self._prompt_of(req)
+            st.prompt = prompt
+            # the shared prefix is cached: prefill resumes after it
+            st.prefill_done = plan.shared_tokens
             self.slots[i] = st
             self.concurrent_peak = max(
                 self.concurrent_peak,
@@ -363,11 +424,19 @@ class Engine:
                     self._prefill_one(i, st)
 
     def _prompt_of(self, req: Request) -> np.ndarray:
+        """Request -> prompt tokens, memoized: a blocked queue head is
+        planned again every engine step."""
         toks = self._prompt_memo.get(req.rid)
         if toks is None:
             toks = D.prompt_tokens_for(req, self.model_cfg.vocab_size)
             self._prompt_memo[req.rid] = toks
         return toks
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """The admission-time copy-on-write: page ``src``'s rows (and on
+        a quantized cache its scales) copied into page ``dst`` of every
+        pool, in place, on the pools' stream."""
+        copy_page(self.pools, src, dst)
 
     def _prefill_one(self, slot: int, st: _SlotState) -> float:
         """One prefill chunk; returns its program-call wall seconds.
@@ -382,12 +451,21 @@ class Engine:
         row = self._to_device(self.cache.block_tables[slot].copy())
         extra = () if self._sampler is None else (st.req.rid,)
         t0 = time.perf_counter()
-        *self.pools, nxt = self._prefill(self.params, *self.pools, chunk,
-                                         start, n, row, *extra)
+        outs = self._prefill(self.params, *self.pools, chunk, start, n,
+                             row, *extra)
+        n_pools = len(self.pools)
+        self.pools = list(outs[:n_pools])
+        if self._moe:
+            # the chunk's load stays on the device until the fence below
+            nxt, load, rounds = outs[n_pools:]
+            self._moe_pending.append((load, rounds))
+        else:
+            (nxt,) = outs[n_pools:]
         st.prefill_done += n
         self.cache.append(slot, n)
         if st.prefill_done >= st.req.prompt_len:
             st.last_token = int(nxt)        # the fence
+            self._fold_moe_pending()
             dev_s = time.perf_counter() - t0
             st.generated = 1
             if self._sampler is not None:
@@ -398,6 +476,9 @@ class Engine:
             st.first_token_s = self._now()
             self.token_streams.setdefault(st.req.rid, []).append(
                 st.last_token)
+            if self.cfg.prefix_sharing:
+                # the prompt is cached: later arrivals may share it
+                self.cache.publish(slot, st.prompt)
             self._maybe_finish(slot, st)
             if self.slots[slot] is st:
                 self._activate_decode_slot(slot, st)
@@ -429,8 +510,9 @@ class Engine:
 
     def _step(self) -> None:
         """One engine step (``_step_once``), sampled into the flight
-        ring when telemetry is on."""
-        if self._tele is None:
+        ring when telemetry is on and into the live stream when one is
+        attached."""
+        if self._tele is None and self.live is None:
             self._step_once()
             return
         t0 = time.perf_counter()
@@ -442,34 +524,44 @@ class Engine:
     def _sample_step(self, wall_us: float, sync0: float) -> None:
         """One flight-ring sample per engine step: queue depth, active
         slots, KV occupancy and fragmentation beside the step wall (and
-        on the fused path the step's sync time and the speculative
-        acceptance); the step-time detector and the rolling SLO-breach
-        check."""
+        the prefix hit rate, the last dispatch's MoE rounds and
+        imbalance, on the fused path the step's sync time and the
+        speculative acceptance); the step-time detector and the rolling
+        SLO-breach check.  Then the live stream's window check."""
         tele, now, step = self._tele, self._now(), self.engine_steps
-        cs = self.cache.stats()
-        fields = {"step_wall_us": round(wall_us, 1),
-                  "queue_depth": len(self.pending),
-                  "active_slots": sum(1 for s in self.slots
-                                      if s is not None),
-                  "kv_occupancy": cs["occupancy"],
-                  "kv_fragmentation": cs["fragmentation"]}
-        if self.cfg.speculative and self._drafted:
-            fields["spec_acceptance"] = round(
-                self._accepted / self._drafted, 4)
-        if self.dstate is not None:
-            fields["sync_us"] = round(
-                self.dstate.sync_total_us() - sync0, 1)
-        tele.record("serving", step=step, phase="engine_step", **fields)
-        tele.observe_step_wall("serving", wall_us, step=step)
-        # a bounded tail: completions append in finish order, so the
-        # trailing window is a suffix
-        breach = M.rolling_slo_breach(
-            self.completed[-64:], slo_ttft_ms=self.cfg.slo_ttft_ms,
-            slo_tpot_ms=self.cfg.slo_tpot_ms, now_s=now)
-        if breach is not None:
-            tele.trigger("slo", step=step, detail={
-                **breach, "slo": {"ttft_ms": self.cfg.slo_ttft_ms,
-                                  "tpot_ms": self.cfg.slo_tpot_ms}})
+        if tele is not None:
+            cs = self.cache.stats()
+            fields = {"step_wall_us": round(wall_us, 1),
+                      "queue_depth": len(self.pending),
+                      "active_slots": sum(1 for s in self.slots
+                                          if s is not None),
+                      "kv_occupancy": cs["occupancy"],
+                      "kv_fragmentation": cs["fragmentation"]}
+            prefix = cs.get("prefix")
+            if prefix:
+                fields["prefix_hit_rate"] = prefix["hit_rate"]
+            if self.cfg.speculative and self._drafted:
+                fields["spec_acceptance"] = round(
+                    self._accepted / self._drafted, 4)
+            if self._moe and self._moe_last:
+                fields.update(self._moe_last)
+            if self.dstate is not None:
+                fields["sync_us"] = round(
+                    self.dstate.sync_total_us() - sync0, 1)
+            tele.record("serving", step=step, phase="engine_step",
+                        **fields)
+            tele.observe_step_wall("serving", wall_us, step=step)
+            # a bounded tail: completions append in finish order, so the
+            # trailing window is a suffix
+            breach = M.rolling_slo_breach(
+                self.completed[-64:], slo_ttft_ms=self.cfg.slo_ttft_ms,
+                slo_tpot_ms=self.cfg.slo_tpot_ms, now_s=now)
+            if breach is not None:
+                tele.trigger("slo", step=step, detail={
+                    **breach, "slo": {"ttft_ms": self.cfg.slo_ttft_ms,
+                                      "tpot_ms": self.cfg.slo_tpot_ms}})
+        if self.live is not None:
+            self.live.maybe_emit(self, now)
 
     def _step_once(self) -> None:
         """One engine step: inline prefill chunks first (one per
@@ -517,14 +609,24 @@ class Engine:
                 gst[i] = self.slots[i].gstate
             extra = (self._to_device(uids), self._to_device(gst))
         t0 = time.perf_counter()
-        *self.pools, nxt = self._decode(
+        outs = self._decode(
             self.params, *self.pools, self._to_device(tokens),
             self._to_device(positions),
             self._to_device(self.cache.block_tables.copy()),
             self._to_device(active), *extra)
+        n_pools = len(self.pools)
+        self.pools = list(outs[:n_pools])
         decode_dispatches += 1
         decode_device_steps += 1
-        nxt = nxt.cpu().numpy()             # the fence
+        if self._moe:
+            nxt, load, rounds = outs[n_pools:]
+            # one read is the fence: the tokens and the step's load
+            flat = torch.cat([nxt, load]).cpu().numpy()
+            nxt = flat[:b]
+            self._record_moe(flat[b:], rounds)
+        else:
+            (nxt,) = outs[n_pools:]
+            nxt = nxt.cpu().numpy()         # the fence
         leg = time.perf_counter() - t0
         dev_s += leg
         self._device_time_s += leg
@@ -577,14 +679,20 @@ class Engine:
         counters) and run the host bookkeeping."""
         toks, cnts, *stats = ctx["extras"]
         b, width = toks.shape
+        moe_load = moe_rounds = None
+        if self._moe:
+            *stats, moe_load, moe_rounds = stats
         # one device -> host read is the fence: [t0, t2) is the device
         # leg, priced into device_us only (sync_d2h_us prices pulls)
         flat = torch.cat([toks.reshape(-1), cnts,
-                          torch.stack(stats).to(torch.int32)]).cpu()
+                          torch.stack(stats).to(torch.int32),
+                          *([] if moe_load is None else [moe_load])]).cpu()
         flat = flat.numpy()
         toks = flat[:b * width].reshape(b, width)
         cnts = flat[b * width:b * width + b]
         steps = int(flat[b * width + b])
+        if moe_load is not None:
+            self._record_moe(flat[b * width + b + 1:], moe_rounds)
         if self.cfg.speculative:
             self._drafted += int(flat[-2])
             self._accepted += int(flat[-1])
@@ -617,6 +725,64 @@ class Engine:
         sync_s = (self.dstate.sync_total_us() - sync0) * 1e-6
         self._host_dispatch_us.append(
             max(0.0, time.perf_counter() - t_step - dev_s - sync_s) * 1e6)
+
+    def _record_moe(self, load, rounds: int) -> None:
+        """Fold one DECODE dispatch's MoE stats (read with its tokens)
+        into the run's totals and the flight ring's snapshot."""
+        load = np.asarray(load, np.int64)
+        rounds = int(rounds)
+        self._moe_load += load
+        self._moe_rounds.append(rounds)
+        total = float(load.sum())
+        if total > 0:
+            frac = load / total
+            imb = float(frac.max()) / max(float(frac.mean()), 1e-12)
+        else:
+            imb = 1.0
+        self._moe_last = {"moe_rounds": rounds,
+                          "moe_imbalance": round(imb, 4)}
+
+    def _fold_moe_pending(self) -> None:
+        """Fold the prefill chunks' MoE stats, under a fence that already
+        covers them (the prompt-completing chunk's token, or the
+        record's assembly).  Prefill rounds are kept apart from decode
+        rounds: their capacity is sized over the chunk."""
+        for load, rounds in self._moe_pending:
+            self._moe_load += load.cpu().numpy().astype(np.int64)
+            self._moe_prefill_rounds.append(int(rounds))
+        self._moe_pending.clear()
+
+    def moe_block(self) -> dict | None:
+        """The record's MoE block: the per-expert load distribution
+        (prefill and decode routing), its imbalance (max / mean), and the
+        decode dispatches' overflow rounds (prefill's apart).  None on a
+        dense engine."""
+        if not self._moe:
+            return None
+        self._fold_moe_pending()
+        total = float(self._moe_load.sum())
+        load = (self._moe_load / total if total > 0
+                else np.zeros_like(self._moe_load, float))
+        rounds = self._moe_rounds
+        pf = self._moe_prefill_rounds
+        mean = max(float(load.mean()), 1e-12)
+        return {
+            "num_experts": int(self.model_cfg.num_experts),
+            "top_k": int(self.model_cfg.top_k),
+            "capacity_factor": float(self.model_cfg.moe_capacity_factor),
+            "skew": self.cfg.moe_skew,
+            "skew_seed": self.cfg.moe_skew_seed,
+            "expert_load": [round(float(v), 6) for v in load],
+            "load_imbalance": round(float(load.max()) / mean, 4),
+            "rounds_mean": (round(sum(rounds) / len(rounds), 3)
+                            if rounds else 0.0),
+            "rounds_p99": (round(M.percentile(rounds, 99), 3)
+                           if rounds else 0.0),
+            "dispatches": len(rounds),
+            "prefill_rounds_mean": (round(sum(pf) / len(pf), 3)
+                                    if pf else 0.0),
+            "prefill_dispatches": len(pf),
+        }
 
     def _pick_n_steps(self, decode_ix: list[int]) -> int:
         """Adaptive N: the fused loop must never starve an admissible
@@ -742,7 +908,7 @@ class Engine:
                 "max_seq_len": cfg.max_seq_len,
                 "pool_bytes": self.cache_cfg.pool_bytes,
                 "cache_dtype": cfg.cache_dtype,
-                "prefix_sharing": False,
+                "prefix_sharing": cfg.prefix_sharing,
                 "prefill": cfg.prefill,
                 "prefill_chunk": cfg.prefill_chunk,
                 "kv_shard": 1,
@@ -751,6 +917,14 @@ class Engine:
                 "speculative": cfg.speculative,
                 **({"spec_k": cfg.spec_k, "drafter": cfg.drafter}
                    if cfg.speculative else {}),
+                # the skew knobs are run identity: a skewed run never
+                # merges with a balanced one
+                **({"moe_experts": mc.num_experts,
+                    "moe_top_k": mc.top_k,
+                    "moe_capacity_factor": mc.moe_capacity_factor,
+                    "moe_skew": cfg.moe_skew,
+                    "moe_skew_seed": cfg.moe_skew_seed}
+                   if self._moe else {}),
                 "attn_impl": cfg.attn_impl,
             },
             "mesh": self.mesh_info(),
@@ -759,16 +933,22 @@ class Engine:
 
 def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
                 plan: ArrivalPlan, *, params=None, device="cuda",
-                engine: Engine | None = None, fault_plan=None):
+                engine: Engine | None = None, fault_plan=None,
+                live_metrics=None):
     """One measured serving run -> ``ProxyResult`` (-> ``metrics.emit``).
 
     ``cfg.warmup_requests`` synthetic requests run first and are
     discarded.  Pass ``engine`` to keep a handle on the engine (its
-    ``token_streams`` after the run are the measured run's)."""
+    ``token_streams`` after the run are the measured run's).
+    ``live_metrics`` (a path or a ``metrics.LiveMetricsWriter``)
+    attaches the windowed live stream to the engine."""
     if fault_plan is not None:
         raise _not_ported("fault composition (fault plans)")
     if engine is None:
         engine = Engine(model_cfg, cfg, params=params, device=device)
+    if live_metrics is not None:
+        engine.live = (live_metrics if hasattr(live_metrics, "maybe_emit")
+                       else M.LiveMetricsWriter(live_metrics))
     requests = plan.sample()
     if cfg.warmup_requests > 0:
         p_len = min(cfg.prefill_chunk + 1, cfg.max_seq_len - 2)
@@ -780,6 +960,9 @@ def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
     meta = engine.global_meta(plan)
     with spans.span("serving_run", requests=len(requests)):
         completed, wall = engine.run(requests)
+    moe_blk = engine.moe_block()
+    if moe_blk is not None:
+        meta["moe"] = moe_blk
     meta["serving"] = M.serving_block(
         completed, plan, slo_ttft_ms=cfg.slo_ttft_ms,
         slo_tpot_ms=cfg.slo_tpot_ms, wall_s=wall,
@@ -789,6 +972,12 @@ def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
         batch_occupancy_mean=engine.batch_occupancy_mean(),
         decode_loop=engine.decode_loop_block(),
         admitted_peak=engine.concurrent_peak)
+    if cfg.prefix_sharing:
+        # volatile at merge: residency at admission depends on arrival
+        # times against the engine's speed
+        pstats = engine.cache.stats().get("prefix", {})
+        meta["prefix_hit_rate"] = pstats.get("hit_rate", 0.0)
+        meta["prefix_bytes_saved"] = pstats.get("bytes_saved", 0)
     if cfg.speculative and engine._sampler is not None:
         # the measured acceptance at this run's temperature (volatile
         # at merge, unlike the sampling identity block)

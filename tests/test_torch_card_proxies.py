@@ -53,6 +53,20 @@ def test_graph_burn_is_bitwise_the_eager_burn(cuda_device, iters):
 
 
 @pytest.mark.cuda
+def test_replayed_calibration_follows_a_long_chain(cuda_device):
+    """The calibration (back-to-back replays of the 64- and 256-iteration
+    graphs between CUDA events) against the ns an iteration of a long
+    chain timed the same way: within 5 %, the burn's planning bar
+    (chip_smoke.py's 10 % compute-leg bar, halved)."""
+    burner = burnlib.Burner(cuda_device)
+    cal = burnlib._measure(burner, burnlib.device_kind(cuda_device))
+    n = 4 * burnlib.CHUNK
+    burner(n)
+    chain_ns = burnlib._replayed_s(burner, n, 3) * 1e9 / n
+    assert abs(cal.ns_per_iter / chain_ns - 1.0) < 0.05, (cal, chain_ns)
+
+
+@pytest.mark.cuda
 def test_calibration_maps_time_to_iterations_on_card(cuda_device):
     cal = burnlib.calibrate(burnlib.Burner(cuda_device))
     assert cal.device_kind == torch.cuda.get_device_name(cuda_device)

@@ -51,7 +51,8 @@ def test_importing_every_submodule_loads_no_jax():
               "analysis.py_utils", "faults.plan", "sentinel",
               "serving.sampling", "serving.device_state",
               "serving.speculative", "serving.decode",
-              "serving.kv_cache", "serving.metrics", "cli"):
+              "serving.kv_cache", "serving.metrics",
+              "serving.moe_decode", "cli"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -94,7 +95,8 @@ def test_the_guard_covers_every_card_test_file():
     assert {f"test_torch_card_{m}.py" for m in (
         "flash_attention", "splash_attention", "paged_attention",
         "mlp_backward", "quantized_mlp", "grouped_matmul",
-        "proxies", "observability")} <= names
+        "proxies", "observability", "decode_loop",
+        "serving_breadth")} <= names
 
 
 def test_card_tests_collect_without_jax():

@@ -231,13 +231,12 @@ def test_config_refuses_knobs_outside_the_slice():
                                            num_layers=4, vocab_size=32768)
     assert (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.ff_dim,
             cfg.head_dim) == (4096, 32, 8, 14336, 128)
-    # MoE models train in the port (slice 4); serving them does not yet
+    # MoE models train in the port (slice 4) and serve since the
+    # serving-breadth slice (tests/test_torch_moe_serving.py)
     moe = ttfm.TransformerConfig.from_card(load_model_card("mixtral_8x7b"))
-    with pytest.raises(ValueError, match="MoE"):
-        D.check_config(moe)
-    with pytest.raises(ValueError, match="MoE"):
-        D.check_config(ttfm.TransformerConfig(**{**MODEL,
-                                                 "num_experts": 4}))
+    assert D.check_config(moe) is moe
+    small = ttfm.TransformerConfig(**{**MODEL, "num_experts": 4})
+    assert D.check_config(small) is small
 
 
 def test_check_config_refuses_masks_with_the_jax_messages():
@@ -409,15 +408,33 @@ def test_serving_block_and_result_match_jax():
 
 
 def test_serving_config_refuses_knobs_outside_the_slice():
-    for over in ({"world": 2}, {"kv_shard": 2}, {"disaggregate": True},
-                 {"prefix_sharing": True}):
+    for over in ({"world": 2}, {"kv_shard": 2}, {"disaggregate": True}):
         with pytest.raises(ValueError, match="ROADMAP"):
             TS.ServingConfig(**_serving_kw(**over)).validate()
     # the fused loop, speculation, sampling and grammars are the port's
-    # since the decode-loop slice (tests/test_torch_decode_loop.py)
+    # since the decode-loop slice (tests/test_torch_decode_loop.py),
+    # prefix sharing and the MoE skew since the serving-breadth slice
+    # (tests/test_torch_prefix_sharing.py, test_torch_moe_serving.py)
     for over in ({"multi_step_n": 4}, {"speculative": True},
-                 {"temperature": 0.7}, {"grammar": "json"}):
+                 {"temperature": 0.7}, {"grammar": "json"},
+                 {"prefix_sharing": True}, {"moe_skew": 2.0}):
         TS.ServingConfig(**_serving_kw(**over)).validate()
+    # a MoE model with speculation: refused at the engine build, with
+    # the JAX package's message
+    from dlnetbench_tpu.serving.scheduler import Engine as JEngine
+    from dlnetbench_tpu.serving.scheduler import ServingConfig as JServing
+    moe = dict(MODEL, num_experts=4, top_k=2)
+    with pytest.raises(ValueError) as te:
+        TS.Engine(ttfm.TransformerConfig(**moe, dtype="float32"),
+                  TS.ServingConfig(**_serving_kw(speculative=True,
+                                                 multi_step_n=2)),
+                  device="cpu")
+    with pytest.raises(ValueError) as je:
+        JEngine(jtfm.TransformerConfig(**moe, gated=True, max_positions=0,
+                                       dtype="float32"),
+                JServing(**_serving_kw(speculative=True, multi_step_n=2)))
+    assert str(te.value) == str(je.value)
+    assert "speculative decode covers dense models only" in str(te.value)
     with pytest.raises(ValueError, match="prefill"):
         TS.ServingConfig(**_serving_kw(prefill="lazy")).validate()
     with pytest.raises(ValueError, match="multiple"):
