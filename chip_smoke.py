@@ -203,15 +203,19 @@ Phases, in order; any failure exits non-zero:
    stats; K12 launched 3 x layers x steps in the grouped run only;
 9. train through ``dlnetbench_tpu_torch.bench.main([])`` at the bench
    shape (llama3_8b width, 4 layers, vocab 32768, B=2, S=6144, bf16):
-   the aux lines come first, under the headline's keys — the serving
-   lines among them with ``serving_decode``'s token_parity and
+   the aux lines come first, under the headline's keys, the one-rank
+   ``straggler A/B`` as its skip note — the 8-bit
+   lines (``fp8_mlp``, ``fp8_swiglu``, ``int8_matmul``: the composed
+   recipes' library products, never K11) each with a share of the 8-bit
+   peak in (0, 1.0], ``checkpoint_ab`` (dcp, 12 measured saves), the
+   serving lines among them with ``serving_decode``'s token_parity and
    ``sampling_ab``'s token_identity true and ``kv_density_ab``'s int8
    and fp8 parity bars held — with the A/B
    bands and int8_step's loss within 2 % of the headline's; the headline
    line has a finite loss within 1.5 of ln(32768) and vs_baseline in
    (0, 1.05]; the ``moe_ab`` line carries the three variants' bands, the
    ratio bands and the routing globals; each of K3/K4/K5 launched layers
-   x steps times (warm calls included, the moe_ab chains too), K11 as
+   x steps times (warm calls included, the moe_ab chains too); K11 as
    often as the A/B chains launch it and K12 3 x 2 layers x the grouped
    chain's steps; the ``longcontext_ab`` line (before ``moe_ab``) with
    K3 launched K x (1 + rounds) more for its dense leg and K6 3 x as
@@ -289,6 +293,28 @@ Phases, in order; any failure exits non-zero:
    bandwidth table, printed.  Each record's verdict and fractions are
    printed, and whether matplotlib can be imported (the plot functions
    are held on the CPU; the card machine has pandas, not matplotlib);
+10e. the resilience layer at world 1 (no Hopper kernel on this path),
+   ``cli dp`` at llama3_8b's stats, bf16, 8 buckets, --size_scale 0.01
+   (a 160.7 MB state), --time_scale 0.005, -w 1 -r 6: (a) a 20 ms delay
+   plan from the fourth timed run on: the ``fault_delay_us`` timer
+   [0, 0, 0, 20000, 20000, 20000] and the runtime median inflated by
+   the delay within 10 %; (b) a crash at step 5 under ``retry``: six
+   runs, ``fault_retries`` 1; (c) the crash under ``fail_fast`` in a
+   subprocess: a non-zero exit with ``RankFailure``; (d) under
+   ``retry`` with ``--checkpoint_dir``, npz and dcp each in stall and
+   async: 3 saves (after steps 1, 3 and 7) on disk and in the record;
+   then a snapshot of a DP bundle's state on the card, restored after
+   two steps and an update of every leaf in place, equal to the state
+   at the saved step bit for bit (each backend and mode); (e) a
+   ``StepWatchdog`` of 0.2 s around a ~1 s device spin
+   (``torch.cuda._sleep``, then a synchronize) fires once and the
+   flight recorder writes ``flight_stall.json``;
+10f. ``bench.main(["--skip-aux", "--trace-out", F])``: each of K3/K4/K5
+   launched layers x (K x (1 + rounds) + 2K) times (the profiled call
+   runs twice, to warm the profiler and recorded), the merged trace
+   holding the host spans build, timed and profile and K3/K4/K5 device
+   events of the recorded call — after the proxy phases, since a
+   profiler session slows the host's later launches;
 11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a and
    7c), then the ``ok`` JSON line last.
 
@@ -379,7 +405,7 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels);
 # all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 236
+CARD_TESTS_MIN = 245
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2596,6 +2622,26 @@ def quant_train_phase(torch) -> dict:
     return launches
 
 
+TRAIN_AUX_KEYS = ("fp8_mlp", "fp8_swiglu", "int8_matmul", "int8_fused_ab",
+                  "fp8_fused_ab", "checkpoint_ab", "serving_decode",
+                  "kv_density_ab", "sampling_ab", "longcontext_ab",
+                  "moe_ab", "int8_step", "int8_switchback_step",
+                  "recommended_step")
+
+
+def trace_events(path: Path) -> dict:
+    """A merged Chrome trace's host span names, device events and
+    size."""
+    from dlnetbench_tpu_torch.metrics import spans
+    raw = path.read_text()
+    evs = json.loads(raw)["traceEvents"]
+    return {"host": {e["name"] for e in evs if e.get("ph") == "X"
+                     and e.get("pid") == spans.HOST_PID},
+            "device": [e for e in evs if e.get("ph") == "X"
+                       and e.get("pid") != spans.HOST_PID],
+            "bytes": len(raw)}
+
+
 def train_phase(torch) -> dict:
     """The headline train step through ``bench.main([])``."""
     import contextlib
@@ -2624,14 +2670,24 @@ def train_phase(torch) -> dict:
     for ln in lines[:-1]:
         say(f"train aux line: {json.dumps(ln)}")
     say(f"train headline: {json.dumps({k: v for k, v in line.items() if not isinstance(v, dict)})}")
-    aux_keys = ("int8_fused_ab", "fp8_fused_ab", "serving_decode",
-                "kv_density_ab", "sampling_ab", "longcontext_ab", "moe_ab",
-                "int8_step", "int8_switchback_step", "recommended_step")
-    if [ln["metric"] for ln in lines[:-1]] != [line[k]["metric"]
-                                              for k in aux_keys] \
-            or line["recommended_step"]["metric"] != "recommended_step":
+    measured = [ln for ln in lines[:-1] if "skipped" not in ln]
+    skipped = [ln["metric"] for ln in lines[:-1] if "skipped" in ln]
+    if [ln["metric"] for ln in measured] != [line[k]["metric"]
+                                             for k in TRAIN_AUX_KEYS] \
+            or line["recommended_step"]["metric"] != "recommended_step" \
+            or skipped != ["straggler A/B"]:
         fail(f"train: aux lines {[ln.get('metric') for ln in lines]} do "
-             f"not match the headline's keys {aux_keys}")
+             f"not match the headline's keys {TRAIN_AUX_KEYS} with the "
+             f"one-rank straggler A/B skipped")
+    for key in ("fp8_mlp", "fp8_swiglu", "int8_matmul"):
+        vs = line[key]["vs_baseline"]
+        if vs is None or not 0 < vs <= 1.0:
+            fail(f"train: {key} share of the 8-bit peak {vs} not in "
+                 f"(0, 1.0]")
+    ck = line["checkpoint_ab"]
+    if ck["backend"] != "dcp" or ck["save_ms"]["n"] != 12 \
+            or not ck["stall_ms"]["value"] > 0:
+        fail(f"train: checkpoint_ab {ck}")
     for key in ("int8_fused_ab", "fp8_fused_ab"):
         ab = line[key]
         for var in ("composed", "fused", "fused_delayed"):
@@ -2685,6 +2741,18 @@ def train_phase(torch) -> dict:
              f"{steps} steps + 3 moe_ab chains x {sh['layers']} layers x "
              f"{moe_steps} steps = {want} each, and K3 {lc_calls} more "
              f"for the longcontext dense leg")
+    say("train 8-bit lines (composed recipes' library products, never "
+        "K11): " + "; ".join(
+            f"{key} {line[key]['value']} ms, "
+            f"{line[key].get('tflops_achieved', line[key].get('tops_achieved'))}"
+            f" T/s, {line[key]['vs_baseline']} of the 8-bit peak"
+            for key in ("fp8_mlp", "fp8_swiglu", "int8_matmul"))
+        + f"; checkpoint_ab {ck['value']} of the save cost off the timed "
+        f"path (stall {ck['stall_ms']['value']} ms, async "
+        f"{ck['async_ms']['value']} ms, baseline "
+        f"{ck['baseline_ms']['value']} ms a step, save "
+        f"{ck['save_ms']['value']} ms, {ck['state_bytes']} bytes, "
+        f"{ck['backend']})")
     say(f"train: {line['value']} ms/step, vs_baseline {vs}, loss {loss}; "
         f"int8_step {line['int8_step']['value']} ms (loss "
         f"{line['int8_step']['loss']}), int8_switchback_step "
@@ -3183,6 +3251,229 @@ def records_phase(torch, card: str, headline: dict) -> None:
              f"{hw.name!r} and achieved.sm.frac {want:.4f})")
     say(f"records: headline attribution {json.dumps(attr)}")
     say(f"records phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# the resilience phase: cli dp at world 1, cut to a small state (no kernel
+# on this path: the burn and NCCL's one-rank allreduce)
+FAULT_FLAGS = ["dp", "--model", PROXY_MODEL, "--buffer_dtype", "bfloat16",
+               "--num_buckets", "8", "--size_scale", "0.01",
+               "--time_scale", "0.005", "--no_topology", "-w", "1", "-r", "6"]
+FAULT_DELAY_US = 20000.0
+FAULT_DELAY_TOL = 0.10     # the runtime's inflation against the delay
+CRASH = {"kind": "crash", "ranks": [0], "iteration": 5}
+# steps 0-4, the crash at 5, then after the retry 6 (warmup), 7 and 8:
+# every 2 steps a save after steps 1, 3 and 7
+CKPT_SAVED = [1, 3, 7]
+WATCHDOG_DEADLINE_S = 0.2
+SPIN_CYCLES = 2_000_000_000     # ~1 s of device time at 1.98 GHz
+
+
+def fault_run(name: str, extra: list) -> dict:
+    """One ``cli dp`` run of the faults phase; its record."""
+    from dlnetbench_tpu_torch import cli
+    path = OUT / f"fault_{name}.jsonl"
+    path.unlink(missing_ok=True)
+    rc = cli.main([*FAULT_FLAGS, *extra, "--out", str(path)])
+    if rc != 0 or not path.is_file():
+        fail(f"faults {name}: cli rc {rc}, record {path.is_file()}")
+    return json.loads(path.read_text().strip().splitlines()[-1])
+
+
+def restore_check(torch) -> None:
+    """A snapshot of a DP bundle's state on the card, taken after a step
+    and restored after two more steps and an update of every leaf in
+    place (the proxy's burn state settles at a fixed point, and its
+    allreduced zero buckets stay zero): equal to the state at the saved
+    step bit for bit, for npz and dcp, stall and async."""
+    import shutil
+
+    from dlnetbench_tpu_torch.core.model_stats import load_model_stats
+    from dlnetbench_tpu_torch.parallel import multihost
+    from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
+    from dlnetbench_tpu_torch.proxies import dp
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
+    from dlnetbench_tpu_torch.utils.checkpoint import (SnapshotCheckpointer,
+                                                       flatten)
+    device = multihost.initialize("cuda")
+    bundle = dp.build(load_model_stats(PROXY_MODEL), 8,
+                      ProxyConfig(size_scale=0.01, time_scale=0.005),
+                      make_flat_mesh(device), dtype=torch.bfloat16)
+
+    def bits(t):
+        return t.view(torch.int16) if t.element_size() == 2 else t
+
+    for backend in ("npz", "dcp"):
+        for mode in ("stall", "async"):
+            d = OUT / f"fault_restore_{backend}_{mode}"
+            shutil.rmtree(d, ignore_errors=True)
+            sc = SnapshotCheckpointer(d, bundle.state, every=1, mode=mode,
+                                      backend=backend)
+            bundle.full()
+            sc.on_step(0)
+            saved = [t.clone() for t in flatten(bundle.state)]
+            bundle.full()
+            bundle.full()
+            for t in flatten(bundle.state):
+                t.add_(1)
+            torch.cuda.synchronize()
+            if any(torch.equal(bits(a), bits(b))
+                   for a, b in zip(flatten(bundle.state), saved)):
+                fail(f"faults restore: a leaf did not move after the save "
+                     f"({backend}, {mode})")
+            sc.wait()
+            restored, step = sc.restore(bundle.state)
+            same = [torch.equal(bits(a), bits(b))
+                    for a, b in zip(flatten(restored), saved)]
+            if step != 0 or not all(same):
+                fail(f"faults restore ({backend}, {mode}): step {step}, "
+                     f"leaves equal {same}")
+            say(f"faults restore ({backend}, {mode}): {len(saved)} leaves, "
+                f"{sc.state_bytes} bytes, bitwise the state at the saved "
+                f"step; save {sc.checkpoint_ms[0]:.1f} ms, in the step "
+                f"{sc.stall_ms[0]:.1f} ms")
+    del bundle
+    multihost.shutdown()
+
+
+def faults_phase(torch, card: str) -> None:
+    """The resilience layer at world 1 on the card, through ``cli.main``
+    (``FAULT_FLAGS``) and the checkpoint and watchdog APIs; the bars are
+    in the module docstring (10e)."""
+    import shutil
+
+    from dlnetbench_tpu_torch.metrics import telemetry
+    from dlnetbench_tpu_torch.utils.watchdog import StepWatchdog
+    t_phase = time.perf_counter()
+    # (a) a delay from the fourth timed run on: inside the timed window
+    plan = {"events": [{"kind": "delay", "ranks": [0], "iteration": 4,
+                        "magnitude_us": FAULT_DELAY_US}]}
+    rec = fault_run("delay", ["--fault", json.dumps(plan)])
+    row = rec["ranks"][0]
+    rt = row["runtimes"]
+    inflation = statistics.median(rt[3:]) - statistics.median(rt[:3])
+    if row.get("fault_delay_us") != [0.0] * 3 + [FAULT_DELAY_US] * 3 \
+            or abs(inflation / FAULT_DELAY_US - 1) > FAULT_DELAY_TOL:
+        fail(f"faults delay: fault_delay_us {row.get('fault_delay_us')}, "
+             f"runtimes {rt}: inflation {inflation:.0f} us against "
+             f"{FAULT_DELAY_US:.0f} (bar {FAULT_DELAY_TOL:.0%})")
+    say(f"faults delay: runtime median {statistics.median(rt[:3]):.0f} -> "
+        f"{statistics.median(rt[3:]):.0f} us, inflation "
+        f"{inflation / FAULT_DELAY_US:.4f} x the {FAULT_DELAY_US:.0f} us "
+        f"delay; compute leg {statistics.median(row['compute_time']):.0f}"
+        f" us")
+    # (b) a crash under retry finishes every run
+    rec = fault_run("retry", ["--fault", json.dumps(
+        {"policy": "retry", "events": [CRASH]})])
+    g = rec["global"]
+    if g.get("fault_retries") != 1 or rec["num_runs"] != 6 \
+            or len(rec["ranks"][0]["runtimes"]) != 6:
+        fail(f"faults retry: fault_retries {g.get('fault_retries')}, runs "
+             f"{rec['num_runs']}")
+    say(f"faults retry: 6 runs, fault_retries 1, detection "
+        f"{g['detection_ms']} ms, recovery {g['recovery_ms']} ms")
+    # (c) a crash under fail_fast ends the process with RankFailure
+    proc = subprocess.run(
+        [sys.executable, "-m", "dlnetbench_tpu_torch.cli", *FAULT_FLAGS,
+         "--fault", json.dumps({"events": [CRASH]})], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0 or "RankFailure" not in proc.stderr:
+        fail(f"faults fail_fast: rc {proc.returncode}, stderr tail "
+             f"{proc.stderr[-800:]}")
+    say(f"faults fail_fast: rc {proc.returncode}, "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+    # (d) checkpoints under retry: npz and dcp, stall and async
+    for backend in ("npz", "dcp"):
+        for mode in ("stall", "async"):
+            d = OUT / f"fault_ck_{backend}_{mode}"
+            shutil.rmtree(d, ignore_errors=True)
+            rec = fault_run(f"ckpt_{backend}_{mode}", [
+                "--fault", json.dumps({"policy": "retry",
+                                       "events": [CRASH]}),
+                "--checkpoint_dir", str(d), "--checkpoint_every", "2",
+                "--checkpoint_mode", mode, "--checkpoint_backend", backend])
+            g = rec["global"]
+            want = [f"{s}.npz" if backend == "npz" else str(s)
+                    for s in CKPT_SAVED]
+            names = sorted(p.name for p in d.iterdir())
+            if g.get("checkpoint_saves") != len(CKPT_SAVED) \
+                    or g.get("checkpoint_backend") != backend \
+                    or names != sorted(want):
+                fail(f"faults checkpoint ({backend}, {mode}): saves "
+                     f"{g.get('checkpoint_saves')}, on disk {names}")
+            say(f"faults checkpoint ({backend}, {mode}): saves after steps "
+                f"{CKPT_SAVED}, {g['checkpoint_state_bytes']} bytes, save "
+                f"median {g['checkpoint_ms']} ms, in the step "
+                f"{g['checkpoint_stall_ms']} ms; runtime median "
+                f"{statistics.median(rec['ranks'][0]['runtimes']):.0f} us")
+    restore_check(torch)
+    # (e) the watchdog fires while the host waits on a device spin
+    flight = OUT / "fault_flight"
+    shutil.rmtree(flight, ignore_errors=True)
+    telemetry.enable(capacity=16, dump_dir=flight)
+    try:
+        telemetry.record_step("proxy", step=0, step_wall_us=0.0)
+        wd = StepWatchdog(WATCHDOG_DEADLINE_S, name="device_spin")
+        t0 = time.perf_counter()
+        with wd:
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        spin = time.perf_counter() - t0
+    finally:
+        telemetry.disable()
+    if wd.stalls != 1 or not (flight / "flight_stall.json").is_file() \
+            or spin <= WATCHDOG_DEADLINE_S:
+        fail(f"faults watchdog: {wd.stalls} stalls over a {spin:.2f} s "
+             f"device spin (deadline {WATCHDOG_DEADLINE_S} s), dump "
+             f"{(flight / 'flight_stall.json').is_file()}")
+    say(f"faults watchdog: fired once during a {spin:.2f} s device spin "
+        f"(deadline {WATCHDOG_DEADLINE_S} s), flight_stall.json written")
+    say(f"faults phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def trace_phase(torch) -> dict:
+    """``bench.main(["--skip-aux", "--trace-out", F])`` (10f): rc 0;
+    K3/K4/K5 each launched layers x (K x (1 + rounds) + 2K) times (the
+    profiled call runs twice: once to warm the profiler, once
+    recorded); the merged trace holds the host spans build, timed and
+    profile and K3/K4/K5 device events of the recorded call.  After the
+    proxy phases: a profiler session slows the host's later launches."""
+    import contextlib
+    import io
+
+    from dlnetbench_tpu_torch import bench
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    path = OUT / "bench_trace.json"
+    path.unlink(missing_ok=True)
+    reset_flash_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--skip-aux", "--trace-out", str(path)])
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    k = BS.env_int("DLNB_BENCH_K", 10)
+    want = BS.LAYERS * (k * (1 + bench.ROUNDS) + 2 * k)
+    if rc != 0 or not path.is_file() \
+            or counts != {"fwd": want, "dq": want, "dkv": want}:
+        fail(f"trace: bench rc {rc}, trace {path.is_file()}, flash "
+             f"launches {counts} (want {want} each)")
+    trace = trace_events(path)
+    in_trace = {kind: sum(1 for e in trace["device"]
+                          if f"{kind}_bf16" in str(e.get("name", "")))
+                for kind in ("fwd", "dq", "dkv")}
+    if not all(in_trace.values()) or not {"build", "timed", "profile"} \
+            <= trace["host"]:
+        fail(f"trace: --trace-out trace holds K3/K4/K5 device events "
+             f"{in_trace} (want each > 0) and host spans "
+             f"{sorted(trace['host'])}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    say(f"trace: bench --skip-aux --trace-out {line['value']} ms/step, "
+        f"{trace['bytes']} bytes, {len(trace['device'])} device events in "
+        f"the profiled headline call, K3/K4/K5 {in_trace} (the call's "
+        f"{BS.LAYERS} layers x {k} steps = {BS.LAYERS * k} each), host "
+        f"spans {sorted(trace['host'])}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def card_tests_phase() -> None:
@@ -3855,6 +4146,11 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     records_phase(torch, card, trained["line"])
     torch.cuda.empty_cache()
+    smi_sample("faults")
+    faults_phase(torch, card)
+    torch.cuda.empty_cache()
+    traced = trace_phase(torch)
+    torch.cuda.empty_cache()
     # the decode loop's profiled run, after the proxies as every
     # torch.profiler session of this script: a session leaves host-side
     # instrumentation behind that slows graph launches (the burn's
@@ -3894,7 +4190,7 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda",
                         "source": FLASH_SRC,
                         "replaces": FLASH_REPLACES[kind],
-                        "launches": trained["counts"][kind],
+                        "launches": trained["counts"][kind] + traced[kind],
                         **flash[kind]})
     row = splash[SPLASH_SPECS[0][0]]
     for kind, label in (

@@ -2,6 +2,7 @@
 path of the JAX package's root ``bench.py``):
 
     python -m dlnetbench_tpu_torch.bench [--platform cuda|cpu] [--skip-aux]
+        [--trace-out PATH] [--fault PLAN] [--check BASELINE]
 
 Builds the bench step (``models/bench_step.py``: llama3_8b width, 4
 layers, vocab 32768, B=2, S=6144, bf16, SGD), runs one warm call, then
@@ -16,11 +17,25 @@ tests at tiny ``DLNB_BENCH_*`` shapes) there is no preset and every
 ``vs_*`` key is null.  ``cuda`` (the default) without a card is an
 error.
 
-Before the headline it prints the JAX ``bench.py``'s auxiliary lines of
-the MLP recipes, which also ride inside the headline under the same
-keys: ``int8_fused_ab`` and ``fp8_fused_ab`` (paired interleaved rounds
+Before the headline it prints the JAX ``bench.py``'s auxiliary lines,
+which also ride inside the headline under the same keys, in its order:
+the 8-bit lines ``fp8_mlp`` (one square ``(T, D) @ (D, D)`` e4m3
+product a step, K=10), ``fp8_swiglu`` (the ``swiglu_fp8`` path stage
+by stage: 2 x the gate/up stage + the down stage, each K=8) and
+``int8_matmul`` (``(T, D) @ (D, D)`` int8 -> int32, ``>> 8`` between
+steps, K=40) — in JAX XLA dots, so here the composed recipes' library
+products (``torch._scaled_mm`` with unit scales and the JAX epilogue,
+``torch._int_mm``), never K11 — each priced against the card's own
+8-bit peak; the MLP recipes' ``int8_fused_ab`` and ``fp8_fused_ab``
+(paired interleaved rounds
 of composed / fused / fused_delayed up-projection chains at the bench
-shape, K=8: the fused variants run kernel K11), ``moe_ab`` (paired
+shape, K=8: the fused variants run kernel K11); the fault lines
+``straggler_ab`` (the tiny DP step clean and with a delay on rank 1,
+interleaved: it needs a world of >= 2 ranks, so a bench process alone
+prints the JAX bench's skip note) and ``checkpoint_ab`` (the tiny DP
+step with a per-step snapshot save in stall and async mode against
+none, the ``auto`` backend, interleaved: the fraction of the save cost
+async moves off the timed path); ``moe_ab`` (paired
 rounds of three 2-layer train-step chains at matched active FFN
 parameters — a dense FFN of ff = top_k * f_e, the capacity-dispatch MoE
 with batched library products, and the same MoE through the grouped
@@ -49,7 +64,21 @@ each mask's block accounting at K6's own tiles; shapes from
 ``recommended_step`` (the fastest of bf16, int8_master and
 int8_switchback whose loss is within 2 % of bf16's).  ``--skip-aux``
 prints the headline alone.  An auxiliary line that fails fails the run:
-nothing degrades to a skip marker.
+nothing degrades to a skip marker (``straggler_ab``'s note says the line
+cannot run on one rank, and a preset without an 8-bit peak skips that
+line, as the JAX bench does).
+
+``--fault PLAN`` injects the plan's delay and jitter events at the
+headline's step boundaries inside its timed window (the warm call stays
+clean); the headline stamps ``fault_plan`` and its verdict is
+``faulted``; a plan with other kinds is refused (exit 2) with the JAX
+bench's message.  ``--trace-out PATH`` writes the merged Chrome trace of
+the run: the host spans (build, timed, profile, one ``aux`` span a
+line), the device timeline of one more headline call under
+``torch.profiler`` (K3-K5 among its kernels on a card), the headline's
+attribution and, with ``DLNB_TELEMETRY=1``, the flight ring as counter
+tracks; a failed capture leaves a note on stderr and the headline as
+it was.
 
 On a card the headline, the fused A/B lines, ``longcontext_ab`` and the
 int8 step lines carry an ``attribution`` block
@@ -65,6 +94,7 @@ measurement prints in full either way.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -107,6 +137,20 @@ def _parse_args(argv):
                         "engine time to PATH (rolling TTFT/TPOT "
                         "percentiles, queue depth, KV occupancy — "
                         "serving/metrics.LiveMetricsWriter)")
+    p.add_argument("--trace-out", "--trace_out", dest="trace_out",
+                   default=None, metavar="PATH",
+                   help="write a merged host+device Chrome/Perfetto trace "
+                        "of this bench run: the host spans (build, timed, "
+                        "profile, one per aux line), the device timeline "
+                        "of one profiled headline call and, with "
+                        "DLNB_TELEMETRY=1, the flight ring as counter "
+                        "tracks")
+    p.add_argument("--fault", default=None, metavar="PLAN",
+                   help="JSON fault plan (faults/plan.py schema) whose "
+                        "delay/jitter events are injected at the "
+                        "headline's step boundaries INSIDE the timed "
+                        "window; the headline stamps the plan and its "
+                        "attribution verdict becomes 'faulted'")
     return p, p.parse_args(argv)
 
 
@@ -117,10 +161,13 @@ def band_ms(summary_s: dict) -> dict:
             "n": summary_s["n"]}
 
 
-def time_steps(train_k, carry, tokens, k: int, device):
+def time_steps(train_k, carry, tokens, k: int, device, injector=None):
     """``(summary_s, loss)`` of a ``make_train_k`` chain: one warm call,
     then ``ROUNDS`` timed calls of k chained steps; the summary is in
-    seconds a step, the loss the last step's of the last call."""
+    seconds a step, the loss the last step's of the last call.  An
+    ``injector`` (``faults/inject.py``) applies k steps' faults before
+    each timed call, inside its timed window; the warm call stays
+    clean."""
     from dlnetbench_tpu_torch.metrics import stats
     from dlnetbench_tpu_torch.utils.timing import fence, time_callable
     last = {}
@@ -128,9 +175,14 @@ def time_steps(train_k, carry, tokens, k: int, device):
     def step():
         last["losses"] = train_k(carry, tokens)[1]
 
+    def timed_step():
+        injector.before_chain(k)
+        step()
+
     step()                                  # warm call
     fence(device)
-    samples = time_callable(step, reps=ROUNDS, device=device)
+    samples = time_callable(step if injector is None else timed_step,
+                            reps=ROUNDS, device=device)
     return (stats.summarize([t / k for t in samples]),
             float(last["losses"][-1]))
 
@@ -151,7 +203,8 @@ def flag_above_peak(line: dict) -> dict:
 
 
 def stamp_attr(line: dict, *, time_s: float, flops: float, nbytes: float,
-               hw, dtype_key: str, peak_flops: float | None = None) -> dict:
+               hw, dtype_key: str, peak_flops: float | None = None,
+               faulted: bool = False) -> dict:
     """Stamp the attribution block of a measured line (the JAX
     ``bench.py``'s ``_stamp_attr``); no block without a preset."""
     from dlnetbench_tpu_torch.analysis import attribution
@@ -159,7 +212,7 @@ def stamp_attr(line: dict, *, time_s: float, flops: float, nbytes: float,
         return line
     block = attribution.attribute_kernel(
         time_s, flops, nbytes, hw, dtype_key, peak_flops=peak_flops,
-        source="model")
+        faulted=faulted, source="model")
     if block is not None:
         line["attribution"] = block
     return line
@@ -1175,15 +1228,397 @@ def bench_int8_step(card, hw_key, device_name: str, device,
     return line
 
 
+def skipped(metric: str, why: str) -> None:
+    """A skip marker line (the JAX bench's ``_skipped``): the line
+    cannot run here, and says why."""
+    print(json.dumps({"metric": metric, "skipped": why}), flush=True)
+
+
+def combine_linear(terms: list[tuple[float, dict]]) -> dict:
+    """Summary of a weighted sum of independently measured stages:
+    medians, bests and bounds add linearly; n is the weakest stage's."""
+    return {
+        "value": sum(w * s["value"] for w, s in terms),
+        "best": sum(w * s["best"] for w, s in terms),
+        "band": [sum(w * s["band"][0] for w, s in terms),
+                 sum(w * s["band"][1] for w, s in terms)],
+        "n": min(s["n"] for _, s in terms),
+    }
+
+
+def chain_summary(chain, k: int, device) -> dict:
+    """One warm call of a k-deep chain, then ``ROUNDS`` timed calls;
+    the summary in seconds an iteration (the JAX bench's
+    ``_measure_chain``)."""
+    from dlnetbench_tpu_torch.metrics import stats
+    from dlnetbench_tpu_torch.utils.timing import fence, time_callable
+    chain()
+    fence(device)
+    return stats.summarize([t / k for t in time_callable(
+        chain, reps=ROUNDS, device=device)])
+
+
+FP8_MLP_K = 10       # chained products of the 8-bit lines (the JAX bench's)
+FP8_SWIGLU_K = 8
+INT8_MATMUL_K = 40
+
+
+def eight_bit_line(metric: str, summary_s: dict, *, ops: int, nbytes: int,
+                   hw, peak_key: str, rate_key: str) -> dict:
+    """An 8-bit chain's line from its seconds-an-iteration summary: the
+    JAX bench's keys, ``vs_baseline`` the roofline time at the card's
+    own ``peak_key`` rate over the measured one (null without a
+    preset), the above-peak and low-mode flags, the attribution
+    block."""
+    from dlnetbench_tpu_torch.metrics import stats
+    t_s = summary_s["value"]
+    line = {
+        "metric": metric,
+        "value": round(t_s * 1e3, 3),
+        "unit": "ms",
+        **band_ms(summary_s),
+        "vs_baseline": (None if hw is None else round(
+            roofline_s(ops, nbytes, hw, peak_key) / t_s, 4)),
+        rate_key: round(ops / t_s / 1e12, 2),
+    }
+    line = stats.flag_low_mode(flag_above_peak(line))
+    return stamp_attr(line, time_s=t_s, flops=ops, nbytes=nbytes, hw=hw,
+                      dtype_key=peak_key)
+
+
+def _eight_bit_hw(hw_key, peak_key: str, label: str):
+    """``(hw, where)`` of an 8-bit line: the preset and the metric's
+    note of its peak; ``(None, None)`` after a skip marker when the
+    preset has no such peak."""
+    from dlnetbench_tpu_torch.core.hardware import HARDWARE
+    if hw_key is None:
+        return None, "no preset"
+    hw = HARDWARE[hw_key]
+    try:
+        peak = hw.peak(peak_key)
+    except ValueError:
+        skipped(f"{label} ({hw_key})", f"{hw_key} has no {peak_key} peak")
+        return None, None
+    unit = "TOP/s" if peak_key == "int8" else "TF/s"
+    short = "fp8" if peak_key == "float8" else peak_key
+    return hw, f"{hw_key}, {short} peak {peak / 1e12:.0f} {unit}"
+
+
+def _e4m3_chain_dot(w: torch.Tensor):
+    """The composed e4m3 product against ``w``, its quantization hoisted
+    out of the chain as XLA hoists it (``ops/fp8.quantized_weight_dot``:
+    ``torch._scaled_mm`` on the card, unit scales, f32 out, then the JAX
+    epilogue)."""
+    from dlnetbench_tpu_torch.ops import fp8 as qf8
+    from dlnetbench_tpu_torch.ops import quantized_matmul as qmm
+    wq, sw = qmm.quantize_tensor(w, "float8")
+    wq = qmm.k_major(wq).t()        # column-major: no copy per call
+    return lambda xc: qf8.quantized_weight_dot(xc, wq, sw)
+
+
+def _seeded(shape, seed: int, device, scale: float = 1.0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return (torch.randn(*shape, generator=gen, device=device)
+            * scale).to(torch.bfloat16)
+
+
+def bench_fp8_mlp(card, hw_key, device_name: str, device) -> dict | None:
+    """The e4m3 MLP-projection product against the card's own fp8 peak:
+    one square ``(T, D) @ (D, D)`` product a step, ``FP8_MLP_K`` deep
+    (the JAX bench's chain shape), through the composed recipe's library
+    product — never K11."""
+    from dlnetbench_tpu_torch.core.hardware import BYTES_PER_ELEMENT
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    hw, where = _eight_bit_hw(hw_key, "float8", "fp8 mlp matmul")
+    if where is None:
+        return None
+    tokens, d = bs.BATCH * bs.SEQ, card.embed_dim
+    x = _seeded((tokens, d), 2, device)
+    dot = _e4m3_chain_dot(_seeded((d, d), 3, device, 0.02))
+
+    def chain():
+        xc = x
+        for _ in range(FP8_MLP_K):
+            xc = dot(xc)
+        return xc
+
+    summary = chain_summary(chain, FP8_MLP_K, device)
+    ops = 2 * tokens * d * d
+    # e4m3 operand reads + the bf16 output write
+    nbytes = int(BYTES_PER_ELEMENT["float8"] * (tokens * d + d * d)
+                 + BYTES_PER_ELEMENT["bfloat16"] * tokens * d)
+    line = eight_bit_line(
+        f"fp8(e4m3) mlp-projection matmul, {tokens} tok D={d}, "
+        f"{device_name} ({where})", summary, ops=ops, nbytes=nbytes,
+        hw=hw, peak_key="float8", rate_key="tflops_achieved")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def bench_fp8_swiglu(card, hw_key, device_name: str,
+                     device) -> dict | None:
+    """The ``swiglu_fp8`` path stage by stage, as the JAX bench measures
+    it: the gate/up ``(T, D) @ (D, F)`` stage and the down ``(T, F) @
+    (F, D)`` stage each a chained program ``FP8_SWIGLU_K`` deep, the
+    chain's time 2 x up + 1 x down (the silu*u between them is not
+    billed)."""
+    from dlnetbench_tpu_torch.core.hardware import BYTES_PER_ELEMENT
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    hw, where = _eight_bit_hw(hw_key, "float8", "fp8 swiglu chain")
+    if where is None:
+        return None
+    tokens, d, f = bs.BATCH * bs.SEQ, card.embed_dim, card.ff_dim
+    x = _seeded((tokens, d), 5, device)
+    up = _e4m3_chain_dot(_seeded((d, f), 6, device, 0.02))
+    down = _e4m3_chain_dot(_seeded((f, d), 7, device, 0.02))
+    h = _seeded((tokens, f), 8, device)
+
+    def up_chain():
+        xc = x
+        for _ in range(FP8_SWIGLU_K):
+            # a slice fed back: each product depends on the last
+            xc = (xc + up(xc)[:, :d] * 1e-6).to(xc.dtype)
+        return xc
+
+    def down_chain():
+        for _ in range(FP8_SWIGLU_K):
+            # the whole (T, D) result feeds the carry
+            h[:, :d] += down(h) * 1e-6
+        return h
+
+    summary = combine_linear(
+        [(2, chain_summary(up_chain, FP8_SWIGLU_K, device)),
+         (1, chain_summary(down_chain, FP8_SWIGLU_K, device))])
+    ops = 6 * tokens * d * f  # three T*D*F products
+    nbytes = int(BYTES_PER_ELEMENT["float8"]
+                 * (2 * tokens * d + 2 * d * f + 2 * tokens * f + f * d)
+                 + BYTES_PER_ELEMENT["bfloat16"] * (2 * tokens * f
+                                                    + tokens * d))
+    line = eight_bit_line(
+        f"fp8(e4m3) swiglu chain (gate+up+down as separate chained "
+        f"stages, as the JAX bench measures them), {tokens} tok D={d} "
+        f"F={f}, {device_name} ({where})", summary, ops=ops,
+        nbytes=nbytes, hw=hw, peak_key="float8",
+        rate_key="tflops_achieved")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def bench_int8_matmul(card, hw_key, device_name: str,
+                      device) -> dict | None:
+    """The int8 product against the card's own int8 peak: a square
+    ``(T, D) @ (D, D)`` int8 x int8 -> int32 product a step, rescaled to
+    int8 (``>> 8``) between steps, ``INT8_MATMUL_K`` deep — the JAX
+    bench's chain through ``torch._int_mm`` (``ops/int8.int32_product``)."""
+    from dlnetbench_tpu_torch.core.hardware import BYTES_PER_ELEMENT
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    from dlnetbench_tpu_torch.ops import int8
+    hw, where = _eight_bit_hw(hw_key, "int8", "int8 matmul")
+    if where is None:
+        return None
+    tokens, d = bs.BATCH * bs.SEQ, card.embed_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    x = torch.randint(-127, 128, (tokens, d), generator=gen, device=device,
+                      dtype=torch.int8)
+    gen.manual_seed(10)
+    w = torch.randint(-127, 128, (d, d), generator=gen, device=device,
+                      dtype=torch.int8)
+    w = w.t().contiguous().t()      # column-major: no copy per call
+
+    def chain():
+        xc = x
+        for _ in range(INT8_MATMUL_K):
+            xc = (int8.int32_product(xc, w) >> 8).to(torch.int8)
+        return xc
+
+    summary = chain_summary(chain, INT8_MATMUL_K, device)
+    ops = 2 * tokens * d * d
+    nbytes = int(BYTES_PER_ELEMENT["int8"] * (2 * tokens * d + d * d))
+    line = eight_bit_line(
+        f"int8 matmul, {tokens} tok D={d}, {device_name} ({where})",
+        summary, ops=ops, nbytes=nbytes, hw=hw, peak_key="int8",
+        rate_key="tops_achieved")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+@contextlib.contextmanager
+def proxy_world(platform: str):
+    """This process's process group for a proxy line (a one-rank group
+    on a free port when none is up, torn down after); yields its
+    device."""
+    import torch.distributed as dist
+
+    from dlnetbench_tpu_torch.parallel import multihost
+    owned = not dist.is_initialized()
+    device = multihost.initialize(platform)
+    try:
+        yield device
+    finally:
+        if owned:
+            multihost.shutdown()
+
+
+def _tiny_dp(device):
+    """The JAX bench's tiny dp proxy for its fault lines."""
+    from dlnetbench_tpu_torch.core.model_stats import load_model_stats
+    from dlnetbench_tpu_torch.parallel.mesh import make_flat_mesh
+    from dlnetbench_tpu_torch.proxies import dp
+    from dlnetbench_tpu_torch.proxies.base import ProxyConfig
+    cfg = ProxyConfig(size_scale=1e-3, time_scale=1e-3)
+    return dp.build(load_model_stats("gpt2_l_16_bfloat16"), 2, cfg,
+                    make_flat_mesh(device), dtype=torch.float32)
+
+
+def bench_straggler_ab(platform: str) -> dict | None:
+    """Paired faulted-vs-clean straggler A/B: the tiny dp step timed
+    clean and with a scripted per-step delay on rank 1 injected inside
+    the timed window, interleaved per round; ``value`` is the measured
+    amplification (inflation / injected delay).  It needs a world of
+    >= 2 ranks — one rank has no collective to gate — so a bench
+    process alone prints the JAX bench's skip note; the four-card
+    counterpart is ``torchrun --nproc_per_node 4 -m
+    dlnetbench_tpu_torch.cli dp --fault '<delay on rank 1>'``."""
+    from dlnetbench_tpu_torch.analysis.attribution import straggler_block
+    from dlnetbench_tpu_torch.faults.inject import FaultInjector
+    from dlnetbench_tpu_torch.faults.plan import FaultEvent, FaultPlan
+    from dlnetbench_tpu_torch.metrics import stats
+    from dlnetbench_tpu_torch.parallel import multihost
+    from dlnetbench_tpu_torch.utils import timing
+
+    with proxy_world(platform) as device:
+        n = multihost.world_size()
+        if n < 2:
+            skipped("straggler A/B",
+                    f"needs >= 2 devices, have {n} — no collective for a "
+                    f"straggler to gate")
+            return None
+        bundle = _tiny_dp(device)
+        k, rounds = 4, 3
+        # a delay ~3x a clean step, floored at 2 ms
+        warm_s = timing.time_chain(bundle.full, k=k, device=device)
+        delay_us = max(3 * warm_s * 1e6, 2000.0)
+        plan = FaultPlan(events=[FaultEvent(
+            kind="delay", ranks=[1], magnitude_us=delay_us)]).validate()
+        injector = FaultInjector(plan, world=n, rank=multihost.rank())
+
+        def faulted_step():
+            injector.before_step()
+            return bundle.full()
+
+        clean_s, faulted_s = [], []
+        for _ in range(rounds):  # interleaved: adjacent in time per round
+            clean_s.append(timing.time_chain(bundle.full, k=k,
+                                             device=device))
+            faulted_s.append(timing.time_chain(faulted_step, k=k,
+                                               device=device))
+    clean = stats.summarize(clean_s)
+    faulted = stats.summarize(faulted_s)
+    amp = (faulted["value"] - clean["value"]) / (delay_us / 1e6)
+    line = {
+        "metric": "straggler A/B (dp step, faulted vs clean)",
+        "value": round(amp, 3),
+        "unit": "x (step inflation / injected delay)",
+        "injected_ms": round(delay_us / 1e3, 3),
+        "clean_ms": {"value": round(clean["value"] * 1e3, 3),
+                     **band_ms(clean)},
+        "faulted_ms": {"value": round(faulted["value"] * 1e3, 3),
+                       **band_ms(faulted)},
+        "n": rounds,
+        "world": n,
+    }
+    attr = straggler_block(clean["value"] * 1e3, faulted["value"] * 1e3,
+                           delay_us / 1e3)
+    if attr is not None:
+        line["attribution"] = attr
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def bench_checkpoint_ab(platform: str) -> dict:
+    """Paired stall-vs-async checkpoint A/B: the tiny dp step with a
+    per-step snapshot save (``utils/checkpoint.SnapshotCheckpointer``,
+    the ``auto`` backend: dcp) in both modes, against the save-free
+    step, interleaved per round.  ``stall`` puts the whole durable write
+    on the timed path; ``async`` keeps only the device-to-host snapshot
+    there and drains the writer thread between chains.  ``value`` is the
+    fraction of the measured save cost the async mode moved off the
+    timed path, beside the three step bands and the per-save cost."""
+    import itertools
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from dlnetbench_tpu_torch.metrics import stats
+    from dlnetbench_tpu_torch.utils import timing
+    from dlnetbench_tpu_torch.utils.checkpoint import SnapshotCheckpointer
+
+    k, rounds = 4, 3
+    root = tempfile.mkdtemp(prefix="dlnb_ckpt_ab_")
+    try:
+        with proxy_world(platform) as device:
+            bundle = _tiny_dp(device)
+            ckpts = {mode: SnapshotCheckpointer(
+                Path(root) / mode, bundle.state, every=1, mode=mode, keep=2)
+                for mode in ("stall", "async")}
+            counters = {mode: itertools.count() for mode in ckpts}
+
+            def step_with(mode):
+                bundle.full()
+                ckpts[mode].on_step(next(counters[mode]))
+
+            base_s, stall_s, async_s = [], [], []
+            for _ in range(rounds):  # interleaved: adjacent per round
+                base_s.append(timing.time_chain(bundle.full, k=k,
+                                                device=device))
+                stall_s.append(timing.time_chain(
+                    lambda: step_with("stall"), k=k, device=device))
+                async_s.append(timing.time_chain(
+                    lambda: step_with("async"), k=k, device=device))
+                ckpts["async"].wait()  # drain the writer off the window
+        base = stats.summarize(base_s)
+        stall = stats.summarize(stall_s)
+        asyn = stats.summarize(async_s)
+        save_cost = stall["value"] - base["value"]
+        hidden = ((stall["value"] - asyn["value"]) / save_cost
+                  if save_cost > 0 else 0.0)
+        line = {
+            "metric": "checkpoint A/B (dp step, stall vs async save)",
+            "value": round(hidden, 3),
+            "unit": "fraction of save cost off the critical path "
+                    "(async vs stall)",
+            "baseline_ms": {"value": round(base["value"] * 1e3, 3),
+                            **band_ms(base)},
+            "stall_ms": {"value": round(stall["value"] * 1e3, 3),
+                         **band_ms(stall)},
+            "async_ms": {"value": round(asyn["value"] * 1e3, 3),
+                         **band_ms(asyn)},
+            # the measured durable-save cost (stall mode: the whole write)
+            "save_ms": stats.summarize(ckpts["stall"].checkpoint_ms,
+                                       ndigits=3),
+            "state_bytes": ckpts["stall"].state_bytes,
+            "backend": ckpts["stall"].backend,
+            "n": rounds,
+        }
+        print(json.dumps(line), flush=True)
+        return line
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def headline(step_summary: dict, loss: float, card, cfg,
-             device_name: str, hw_key: str | None) -> dict:
+             device_name: str, hw_key: str | None,
+             fault_plan=None) -> dict:
     """The headline line from a seconds-per-step summary: the JAX
     package's keys and formulas (3x the forward for fwd + bwd, the LM
     head credited, the causal half of the score products elided in
     ``vs_baseline_causal``, the step's pass-by-pass traffic in
     ``vs_baseline_bwd_aware``), with the attribution block of the step
     against those credited FLOPs and that traffic on the card's preset
-    (none on the CPU)."""
+    (none on the CPU).  A ``fault_plan`` rides the line and makes the
+    verdict ``faulted``."""
     from dlnetbench_tpu_torch.core import roofline
     from dlnetbench_tpu_torch.core.hardware import HARDWARE
     from dlnetbench_tpu_torch.metrics import stats
@@ -1228,11 +1663,13 @@ def headline(step_summary: dict, loss: float, card, cfg,
         "tflops_executed": round(achieved * executed_ratio / 1e12, 2),
         "loss": round(loss, 4),
         "logits_dtype": "float32" if cfg.logits_f32 else "bfloat16",
+        **({"fault_plan": fault_plan.to_dict()} if fault_plan else {}),
     })
     return stamp_attr(
         line, time_s=step_s, flops=total_flops,
         nbytes=roofline.train_step_bytes(card, bs.BATCH, "bfloat16"),
-        hw=HARDWARE.get(hw_key), dtype_key="bfloat16")
+        hw=HARDWARE.get(hw_key), dtype_key="bfloat16",
+        faulted=fault_plan is not None)
 
 
 def sentinel_check(line: dict, baseline: str,
@@ -1265,11 +1702,85 @@ def sentinel_check(line: dict, baseline: str,
     return rc
 
 
+FAULT_KINDS = ("delay", "jitter")   # what the bench's --fault honors
+
+
 def main(argv=None) -> int:
+    from dlnetbench_tpu_torch.metrics import spans, telemetry
+    parser, args = _parse_args(argv)
+    fault_plan = None
+    if args.fault:
+        # parsed and checked before any build: the bench is one process
+        # with no degradation policy, so only slowdowns make sense here
+        from dlnetbench_tpu_torch.faults.plan import FaultPlan
+        try:
+            fault_plan = FaultPlan.loads(args.fault).validate()
+        except (ValueError, OSError, KeyError) as e:
+            parser.error(f"--fault: {e}")
+        bad = sorted({e.kind for e in fault_plan.events
+                      if e.kind not in FAULT_KINDS})
+        if bad:
+            print(f"--fault: bench.py only honors delay/jitter events "
+                  f"(got {', '.join(bad)}) — crash/drop/partition need "
+                  f"a multi-rank harness with a degradation policy "
+                  f"(cli.py --fault)", file=sys.stderr)
+            return 2
+    tracer = spans.enable() if args.trace_out else None
+    tele_on = (not telemetry.is_enabled()
+               and telemetry.enable_from_env() is not None)
+    try:
+        return _run_bench(args, parser, tracer, fault_plan)
+    finally:
+        # never leak this run's tracer or recorder into later calls
+        if tracer is not None and spans.current() is tracer:
+            spans.disable()
+        if tele_on:
+            telemetry.disable()
+
+
+def trace_headline(train_k, params, tokens, device) -> list | None:
+    """The device events of one more headline call under
+    ``torch.profiler`` (``metrics/profiling.trace_step``); None, with a
+    note on stderr, when the capture fails — the trace is auxiliary."""
+    from dlnetbench_tpu_torch.metrics import profiling
+    try:
+        return profiling.trace_step(
+            lambda: train_k(params, tokens), device,
+            span_attrs={"what": "headline iteration"})
+    except Exception as e:
+        print(f"trace-out device profile failed ({type(e).__name__}: "
+              f"{e}); headline unaffected", file=sys.stderr)
+        return None
+
+
+def write_trace(path: str, tracer, device_label: str, events,
+                line: dict, step_s: float) -> None:
+    """The merged trace: the host spans, the profiled call's device
+    track, the headline's attribution and the flight ring as counter
+    tracks."""
+    from dlnetbench_tpu_torch.metrics import spans, telemetry
+    extra = spans.attribution_counter_events(line.get("attribution") or {},
+                                             dur_us=step_s * 1e6)
+    rec_now = telemetry.current()
+    if rec_now is not None:
+        extra = extra + spans.telemetry_counter_events(
+            rec_now.telemetry_block(last=rec_now.capacity),
+            rec_now.anomalies_block())
+    try:
+        spans.write_chrome_trace(
+            path, tracer, [(device_label, events)] if events else None,
+            extra_events=extra)
+        print(f"merged host+device trace -> {path}", file=sys.stderr)
+    except OSError as e:
+        print(f"trace-out write failed ({e}); headline unaffected",
+              file=sys.stderr)
+
+
+def _run_bench(args, parser, tracer, fault_plan) -> int:
     from dlnetbench_tpu_torch.core.hardware import hw_key_for_device_name
+    from dlnetbench_tpu_torch.metrics import spans
     from dlnetbench_tpu_torch.models import bench_step as bs
     from dlnetbench_tpu_torch.ops.common import resolve_device
-    parser, args = _parse_args(argv)
     try:
         device = resolve_device(args.platform)
     except RuntimeError as e:
@@ -1280,40 +1791,69 @@ def main(argv=None) -> int:
     else:
         device_name, hw_key = "cpu", None
     k = bs.env_int("DLNB_BENCH_K", 10)
-    train_k, params, tokens, card, cfg = bs.build(k, device=device)
-    summary, loss = time_steps(train_k, params, tokens, k, device)
+    with spans.span("build", what="headline"):
+        train_k, params, tokens, card, cfg = bs.build(k, device=device)
+    injector = None
+    if fault_plan is not None:
+        from dlnetbench_tpu_torch.faults.inject import FaultInjector
+        injector = FaultInjector(fault_plan)
+    with spans.span("timed", what="headline", reps=ROUNDS, k=k):
+        summary, loss = time_steps(train_k, params, tokens, k, device,
+                                   injector)
+    events = None
+    if args.trace_out:
+        # captured while the step and its buffers are still alive
+        events = trace_headline(train_k, params, tokens, device)
     # free the headline's weights and activations before the aux lines
     del train_k, params, tokens
     if device.type == "cuda":
         torch.cuda.empty_cache()
     aux = {}
+
+    def run_aux(key, fn, *fn_args):
+        with spans.span("aux", line=key):
+            out = fn(*fn_args)
+        if out is not None:
+            aux[key] = out
+
     if not args.skip_aux:
+        # the JAX bench's order: the 8-bit lines, the fused A/B lines,
+        # the fault lines, then the serving tier's
+        run_aux("fp8_mlp", bench_fp8_mlp, card, hw_key, device_name,
+                device)
+        run_aux("fp8_swiglu", bench_fp8_swiglu, card, hw_key, device_name,
+                device)
+        run_aux("int8_matmul", bench_int8_matmul, card, hw_key,
+                device_name, device)
         for key, fmt in (("int8_fused_ab", "int8"),
                          ("fp8_fused_ab", "float8")):
-            aux[key] = bench_quant_fused_ab(card, hw_key, device_name,
-                                            device, fmt)
-        # the serving tier's lines (tiny engines; the JAX bench's order)
-        aux["serving_decode"] = bench_serving_decode(
-            device_name, device, args.live_metrics)
-        aux["kv_density_ab"] = bench_kv_density(device_name, device)
-        aux["sampling_ab"] = bench_sampling_ab(device_name, device)
-        aux["longcontext_ab"] = bench_longcontext_ab(card, hw_key,
-                                                     device_name, device)
+            run_aux(key, bench_quant_fused_ab, card, hw_key, device_name,
+                    device, fmt)
+        run_aux("straggler_ab", bench_straggler_ab, args.platform)
+        run_aux("checkpoint_ab", bench_checkpoint_ab, args.platform)
+        # the serving tier's lines (tiny engines)
+        run_aux("serving_decode", bench_serving_decode, device_name,
+                device, args.live_metrics)
+        run_aux("kv_density_ab", bench_kv_density, device_name, device)
+        run_aux("sampling_ab", bench_sampling_ab, device_name, device)
+        run_aux("longcontext_ab", bench_longcontext_ab, card, hw_key,
+                device_name, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        aux["moe_ab"] = bench_moe_ab(card, hw_key, device_name, device)
+        run_aux("moe_ab", bench_moe_ab, card, hw_key, device_name, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         for key, mode in (("int8_step", "master"),
                           ("int8_switchback_step", "switchback")):
-            aux[key] = bench_int8_step(card, hw_key, device_name, device,
-                                       summary["value"], mode)
+            run_aux(key, bench_int8_step, card, hw_key, device_name,
+                    device, summary["value"], mode)
     recommended = recommended_step(
         summary, loss, {"int8_master": aux.get("int8_step"),
                         "int8_switchback": aux.get("int8_switchback_step")})
     if not args.skip_aux:
         print(json.dumps(recommended), flush=True)
-    line = headline(summary, loss, card, cfg, device_name, hw_key)
+    line = headline(summary, loss, card, cfg, device_name, hw_key,
+                    fault_plan)
     line.update(aux)
     line["recommended_step"] = recommended
     rc = 0
@@ -1323,6 +1863,13 @@ def main(argv=None) -> int:
           f"{line['loss']}, vs_baseline {line['vs_baseline']} on "
           f"{device_name}", file=sys.stderr)
     print(json.dumps(line), flush=True)
+    if tracer is not None:
+        spans.disable()
+        label = (f"cuda:{device.index or 0}" if device.type == "cuda"
+                 else "cpu")
+        # the cli's track name for one rank (trace_summary reads it)
+        write_trace(args.trace_out, tracer, f"rank 0 ({label})", events,
+                    line, summary["value"])
     return rc
 
 

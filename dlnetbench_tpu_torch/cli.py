@@ -35,6 +35,17 @@ the flight recorder's counter tracks); ``--telemetry`` (or
 ``global.telemetry`` / ``global.anomalies``, its anomaly dumps landing
 in ``--flight-dir``.  The profile and the trace are auxiliary: a
 capture that fails leaves a note on stderr and the record as it was.
+The resilience flags are the JAX package's too: ``--fault PLAN``
+(inline JSON or ``@path``, ``faults/plan.py``) injects the plan's
+delays at step boundaries and runs its crashes, preemptions and
+rejoins under ``--fault_policy`` (default: the plan's own;
+``faults/policy.py``), and ``--checkpoint_dir`` snapshots the proxy's
+state every ``--checkpoint_every`` steps during a faulted run
+(``--checkpoint_mode stall|async``, ``--checkpoint_backend
+auto|dcp|npz``: ``dcp`` is ``torch.distributed.checkpoint``, in the
+seat of the JAX package's orbax, which is refused by name).  A bad
+plan or a plan/config conflict is a usage error; a failure inside the
+measured run keeps its traceback.
 
 ``serve`` is the JAX package's ``cli serve`` (same flag names, defaults
 and parse-time checks) for the slice the port covers: ``separate`` or
@@ -282,8 +293,76 @@ def _add_proxy(p: argparse.ArgumentParser) -> None:
                    help="attach a variable to the emitted record (the "
                         "sweep driver tags each grid point this way)")
     _add_telemetry(p, "record a fixed-capacity flight ring of per-step "
-                      "samples and run the anomaly engine (band-aware "
-                      "step-time change)")
+                      "samples and run the anomaly engine (watchdog "
+                      "stall / fault / band-aware step-time change)")
+    p.add_argument("--fault", default=None, metavar="PLAN",
+                   help="JSON fault plan (inline or @path; "
+                        "faults/plan.py schema): delay/jitter/crash/"
+                        "preempt/rejoin events injected at step "
+                        "boundaries with deterministic triggers; the "
+                        "record stamps the plan + recovery columns")
+    p.add_argument("--fault_policy", default=None,
+                   choices=["fail_fast", "retry", "shrink"],
+                   help="degradation policy on a scripted failure: "
+                        "fail_fast (crash propagates), retry (bounded "
+                        "backoff, same world), shrink (rebuild over the "
+                        "survivor ranks and finish degraded); default: "
+                        "the plan's own policy")
+    p.add_argument("--checkpoint_dir", default=None, metavar="DIR",
+                   help="enable periodic snapshot checkpointing of the "
+                        "proxy's state during a --fault run "
+                        "(utils/checkpoint.py SnapshotCheckpointer): "
+                        "saves every --checkpoint_every steps, restore-"
+                        "from-latest priced into recovery on a crash/"
+                        "preempt, lost work and goodput stamped into "
+                        "the record")
+    p.add_argument("--checkpoint_every", type=int, default=4,
+                   help="harness steps between saves (plan step units, "
+                        "warmup included; default 4)")
+    p.add_argument("--checkpoint_mode", default="async",
+                   choices=["stall", "async"],
+                   help="stall: the whole durable write rides the timed "
+                        "critical path; async: only the device-to-host "
+                        "snapshot stays in the step (default)")
+    p.add_argument("--checkpoint_backend", default="auto",
+                   choices=["auto", "dcp", "npz", "orbax"],
+                   help="auto = dcp (torch.distributed.checkpoint); npz "
+                        "= the JAX package's npz layout; orbax is the "
+                        "JAX package's and is refused")
+
+
+def _fault_plan(args, parser, cfg):
+    """The ``--fault`` plan with ``--fault_policy`` applied, checked
+    against the run's config (None without ``--fault``); every problem
+    knowable from the flags is a usage error, before any build."""
+    if args.checkpoint_dir and not args.fault:
+        parser.error("--checkpoint_dir prices checkpointing inside a "
+                     "faulted run (faults/policy.py run_faulted) — it "
+                     "needs --fault; a clean run has no recovery to "
+                     "measure")
+    if args.checkpoint_dir and args.checkpoint_every < 1:
+        parser.error("--checkpoint_every must be >= 1 step")
+    if args.checkpoint_dir:
+        from dlnetbench_tpu_torch.utils.checkpoint import resolve_backend
+        try:
+            resolve_backend(args.checkpoint_backend)
+        except ValueError as e:
+            parser.error(f"--checkpoint_backend: {e}")
+    if not args.fault:
+        return None
+    from dlnetbench_tpu_torch.faults.plan import FaultPlan
+    try:
+        plan = FaultPlan.loads(args.fault)
+        if args.fault_policy:
+            plan.policy = args.fault_policy
+        plan.validate()
+    except (ValueError, OSError, KeyError) as e:
+        parser.error(f"--fault: {e}")
+    try:
+        plan.check_config(cfg)
+    except ValueError as e:
+        parser.error(str(e))
+    return plan
 
 
 def _add_pipeline(p: argparse.ArgumentParser) -> None:
@@ -412,6 +491,7 @@ def _run_proxy(args, parser) -> int:
                       size_scale=args.size_scale,
                       time_scale=args.time_scale,
                       reps_per_fence=args.reps_per_fence)
+    plan = _fault_plan(args, parser, cfg)
     owned = not torch.distributed.is_initialized()
     try:
         device = multihost.initialize(args.platform)
@@ -435,7 +515,7 @@ def _run_proxy(args, parser) -> int:
             args, rank if multihost.world_size() > 1 else None)
         try:
             _run_measured(args, parser, stats, cfg, device, dtype,
-                          dtype_name, variables, tracer)
+                          dtype_name, variables, tracer, plan)
         finally:
             # a failure anywhere must not leak this run's tracer or
             # recorder into later runs in this process (the sweep's
@@ -452,7 +532,7 @@ def _run_proxy(args, parser) -> int:
 
 
 def _run_measured(args, parser, stats, cfg, device, dtype, dtype_name,
-                  variables, tracer) -> None:
+                  variables, tracer, plan) -> None:
     from dlnetbench_tpu_torch.metrics.emit import emit_result
     from dlnetbench_tpu_torch.parallel import multihost
     from dlnetbench_tpu_torch.proxies.base import run_proxy
@@ -461,7 +541,31 @@ def _run_measured(args, parser, stats, cfg, device, dtype, dtype_name,
     bundle.global_meta["buffer_dtype"] = dtype_name
     if variables:
         bundle.global_meta["variables"] = variables
-    result = run_proxy(args.proxy, bundle, cfg)
+    if plan is None:
+        result = run_proxy(args.proxy, bundle, cfg)
+    else:
+        from dlnetbench_tpu_torch.faults.policy import (CheckpointPolicy,
+                                                        run_faulted)
+        ckpt = None
+        if args.checkpoint_dir:
+            ckpt = CheckpointPolicy(dir=args.checkpoint_dir,
+                                    every=args.checkpoint_every,
+                                    mode=args.checkpoint_mode,
+                                    backend=args.checkpoint_backend)
+
+        def rebuild(ranks):
+            # a shrink runs this inside the survivors' sub-world, a
+            # rejoin over the full world: the proxy builds over
+            # whichever world is current (the rebuild is priced into
+            # recovery_ms / rejoin_ms)
+            return _build_proxy(args, parser, stats, cfg, device, dtype)
+
+        with spans.span("faulted_run", proxy=args.proxy,
+                        policy=plan.policy):
+            result = run_faulted(args.proxy, bundle, cfg, plan,
+                                 rebuild=rebuild,
+                                 world=multihost.world_size(),
+                                 checkpoint=ckpt)
     events = None
     if args.profile or args.trace_out:
         events = _profile_step(args, bundle, device)

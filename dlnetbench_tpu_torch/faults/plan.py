@@ -1,11 +1,13 @@
 """FaultPlan: the JSON-serializable fault schedule (the port's copy of
 the JAX package's ``faults/plan.py``, as data).
 
-The port reads a plan back out of a record's ``global.fault_plan`` to
-know which runs were faulted (``analysis/bandwidth.py``,
-``analysis/critical_path.py``); injecting one into a run is not ported
-yet.  The wire format is the JAX package's, so a JAX or native record's
-plan round-trips unchanged.
+One plan drives a faulted proxy run (``--fault`` on ``cli.py``; the
+injection is ``faults/inject.py``, the policies ``faults/policy.py``)
+and the analysis layer, which reads it back out of a record's
+``global.fault_plan`` to know which runs were faulted
+(``analysis/bandwidth.py``, ``analysis/critical_path.py``).  The wire
+format is the JAX package's, so a JAX or native record's plan
+round-trips unchanged.
 
 Kinds:
   delay      — fixed straggler latency (``magnitude_us``) on the target
@@ -162,6 +164,44 @@ class FaultPlan:
             with open(text[1:]) as f:
                 text = f.read()
         return cls.from_dict(json.loads(text))
+
+    # ---- harness pre-flight ------------------------------------------
+    def check_config(self, cfg) -> None:
+        """Reject plan/ProxyConfig combinations the segmented
+        retry/shrink policies cannot honor — BEFORE the expensive run,
+        so they surface as usage errors, not mid-run failures."""
+        pre_at = self.first_preempt_iteration()
+        rej_at = self.rejoin_iteration()
+        if pre_at is not None and rej_at is not None and \
+                rej_at < pre_at + 2:
+            raise ValueError(
+                f"fault plan: rejoin at iteration {rej_at} leaves no "
+                f"degraded step after the preempt at {pre_at} — the "
+                f"segmented python tier needs rejoin >= preempt + 2")
+        crash_at = self.first_crash_iteration()
+        if pre_at is not None:
+            crash_at = pre_at if crash_at is None else min(crash_at,
+                                                           pre_at)
+        if crash_at is None or self.policy == "fail_fast":
+            return
+        if getattr(cfg, "reps_per_fence", 1) > 1:
+            raise ValueError(
+                "fault plan: crash triggers need reps_per_fence == 1 "
+                "(the segmented retry/shrink policies recover at step "
+                "granularity, not mid-fence-chain)")
+        if getattr(cfg, "min_exectime_s", 0) > 0:
+            raise ValueError(
+                "fault plan: crash triggers need min_exectime_s == 0 — "
+                "the run-count estimation could extend the measured "
+                "region past the scripted trigger, letting the crash "
+                "escape the retry/shrink policy")
+        warm = max(getattr(cfg, "warmup", 1), 1)
+        if crash_at < warm:
+            raise ValueError(
+                f"fault plan: crash iteration {crash_at} lands inside "
+                f"the {warm}-step warmup; the segmented policies "
+                f"recover measured steps only — move the trigger to "
+                f">= {warm}")
 
     # ---- plan queries (harness + analysis) ---------------------------
     def crash_victims(self, world: int | None = None) -> list[int]:

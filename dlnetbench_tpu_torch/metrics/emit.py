@@ -17,6 +17,12 @@ neither package's parser makes a column of): ``metrics/merge.py`` takes
 it as complete.  The JAX package's ``metrics/parser.py`` reads these
 records as it reads its own.
 
+A degraded run (a fault plan's shrink, ``faults/policy.py``) declares
+the ranks left standing in ``global.degraded_world``: its rows are
+theirs, each keeping its ORIGINAL rank id (row i is rank
+``degraded_world[i]``), and the dead ranks' timers and meta, gathered
+with the rest, are left out.
+
 With the flight recorder on (``metrics/telemetry.py``) the record
 stamps ``global.telemetry`` (this process's ring geometry and tail:
 rank 0's on a multi-rank run) and, when anything fired,
@@ -132,11 +138,24 @@ def result_to_record(result: ProxyResult,
     own timers in rank order (None: ``result.timers_us`` on every row),
     ``rank_meta`` every rank's dict-valued meta (None: none),
     ``rank_anomalies`` every rank's ``anomalies_block`` (None: this
-    process's own, unpooled)."""
+    process's own, unpooled).  Under ``degraded_world`` the first two
+    may hold the whole world's, of which the survivors' are kept."""
     mesh_info = result.global_meta.get("mesh", {})
     devices = mesh_info.get("devices", [{"id": 0, "process": 0}])
     hostname = socket.gethostname()
     proc, num_procs = _process_identity()
+    rank_ids = result.global_meta.get("degraded_world")
+    if rank_ids is not None:
+        if len(rank_ids) != len(devices):
+            raise ValueError(
+                f"degraded_world names {len(rank_ids)} survivors but the "
+                f"mesh has {len(devices)} devices — the shrink rebuild "
+                f"and the plan disagree")
+        world = result.global_meta.get("world_size")
+        if rank_timers_us is not None and len(rank_timers_us) == world:
+            rank_timers_us = [rank_timers_us[r] for r in rank_ids]
+        if rank_meta is not None and len(rank_meta) == world:
+            rank_meta = [rank_meta[r] for r in rank_ids]
     if rank_timers_us is not None and len(rank_timers_us) != len(devices):
         raise ValueError(f"{len(rank_timers_us)} ranks' timers for "
                          f"{len(devices)} devices")
@@ -145,7 +164,7 @@ def result_to_record(result: ProxyResult,
         timers = (rank_timers_us[i] if rank_timers_us is not None
                   else result.timers_us)
         row = {
-            "rank": i,
+            "rank": int(rank_ids[i]) if rank_ids is not None else i,
             "device_id": dev.get("id", i),
             "process_index": dev.get("process", 0),
             "hostname": dev.get("hostname", hostname),

@@ -18,10 +18,10 @@ for byte the one a build without this module writes.
 
 The **anomaly engine** rides the recorder.  Triggers:
 
-  ``stall``      — a watchdog's deadline fired (the JAX package's
-                   utils/watchdog.py; not ported yet)
-  ``fault``      — a scripted crash/preemption was detected (the JAX
-                   package's faults/; not ported yet)
+  ``stall``      — a watchdog's deadline fired
+                   (utils/watchdog.StepWatchdog)
+  ``fault``      — a scripted crash/preemption was detected
+                   (faults/policy.run_faulted)
   ``slo``        — a rolling window of completions breached the SLO
                    (serving/metrics.rolling_slo_breach)
   ``step_time``  — band-aware step-time change detection

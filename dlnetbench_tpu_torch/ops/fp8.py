@@ -39,12 +39,19 @@ def e4m3_product(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
                             scale_a=one, scale_b=one, out_dtype=_F32)
 
 
-def _fp8_matmul(x, w):
+def quantized_weight_dot(x, wq, sw):
+    """``[..., K] x [K, N] -> [..., N]`` against a weight already
+    quantized (``wq`` e4m3, ``sw`` its scale): x quantized per call, the
+    e4m3 product, the JAX epilogue ``acc * (sx * sw)``, result in x's
+    dtype.  Forward only."""
     xq, sx = _quantize(x)
-    wq, sw = _quantize(w)
     acc = e4m3_product(xq.reshape(-1, xq.shape[-1]), wq)
     out = (acc * (sx * sw)).to(x.dtype)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    return out.reshape(*x.shape[:-1], wq.shape[-1])
+
+
+def _fp8_matmul(x, w):
+    return quantized_weight_dot(x, *_quantize(w))
 
 
 def fp8_dot(x, w):

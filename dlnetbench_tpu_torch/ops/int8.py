@@ -27,13 +27,19 @@ def _quantize(x):
     return qmm.quantize_tensor(x, "int8")
 
 
-def int8_product(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
-    """The exact int32 sum ``aq @ bq`` (2-D int8 operands) as f32: on the
-    card ``torch._int_mm`` with the second operand column-major, on the
-    CPU the plain float64 product."""
+def int32_product(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sum ``aq @ bq`` (2-D int8 operands): on the card
+    ``torch._int_mm`` with the second operand column-major (no copy when
+    ``bq`` already is), on the CPU the plain float64 product (every
+    partial sum an integer below 2^53)."""
     if not on_card(aq):
-        return qmm.quantized_product(aq, bq, "int8")
-    return torch._int_mm(aq.contiguous(), qmm.k_major(bq).t()).to(_F32)
+        return (aq.to(torch.float64) @ bq.to(torch.float64)).to(torch.int32)
+    return torch._int_mm(aq.contiguous(), qmm.k_major(bq).t())
+
+
+def int8_product(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """``int32_product`` as f32 (the int32 sum rounded once)."""
+    return int32_product(aq, bq).to(_F32)
 
 
 def _int8_matmul(a, b_mat, out_dtype):

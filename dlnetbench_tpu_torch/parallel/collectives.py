@@ -15,7 +15,8 @@ rank in neither the hop's senders nor its receivers issues no call.
 Each counts its calls in ``COUNTS`` (``counts`` / ``reset_counts``) —
 a hop its ``send`` and its ``recv`` apart — which the tests and
 ``chip_smoke.py`` read to see how many collectives a step issued.
-While a profile is active each also opens a ``record_function``
+Each first calls the fault hook (``set_fault_hook``) with its name and
+group.  While a profile is active each also opens a ``record_function``
 annotation ``dlnb:<kind>`` (``allreduce``, ``allgather``,
 ``reduce_scatter``, ``alltoall``, ``permute`` for a hop), through which
 ``metrics/profiling.py`` gives the device work it launched its kind.
@@ -51,6 +52,24 @@ COUNTS = {"allreduce": 0, "allgather": 0, "reduce_scatter": 0,
 _FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
+# the pre-collective fault hook (faults/inject.py): called with
+# (op_name, group) at every wrapper call.  The wrappers are eager, so it
+# fires per execution (the JAX package's fires once per trace).
+_FAULT_HOOK = None
+
+
+def set_fault_hook(fn) -> None:
+    """Install ``fn(op_name, group)`` as the pre-collective fault hook
+    (None clears it)."""
+    global _FAULT_HOOK
+    _FAULT_HOOK = fn
+
+
+def _maybe_fault(op: str, group) -> None:
+    if _FAULT_HOOK is not None:
+        _FAULT_HOOK(op, group)
+
+
 def counts() -> dict:
     return dict(COUNTS)
 
@@ -78,6 +97,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def allreduce(x: torch.Tensor, group=None, async_op: bool = False):
     """Sum ``x`` over the group's ranks, in place (reference Allreduce,
     MPI_SUM, proxy_classes.hpp:36-37)."""
+    _maybe_fault("allreduce", group)
     COUNTS["allreduce"] += 1
     with _annotate("allreduce"):
         return dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
@@ -88,6 +108,7 @@ def allgather(out: torch.Tensor, x: torch.Tensor, group=None,
               async_op: bool = False):
     """``out`` = every rank's ``x`` concatenated in rank order
     (reference Allgather, fsdp.cpp:86-100)."""
+    _maybe_fault("allgather", group)
     COUNTS["allgather"] += 1
     with _annotate("allgather"):
         return dist.all_gather_into_tensor(out, x, group=group,
@@ -99,6 +120,7 @@ def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group=None,
     """``out`` = this rank's block of the sum of every rank's ``x``
     (reference Reduce_Scatter_block, fsdp.cpp:123-127); ``x`` divides
     evenly by the group's size."""
+    _maybe_fault("reduce_scatter", group)
     COUNTS["reduce_scatter"] += 1
     with _annotate("reduce_scatter"):
         return dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
@@ -111,6 +133,7 @@ def alltoall(out: torch.Tensor, x: torch.Tensor, group=None,
     i (reference Alltoall, proxy_classes.hpp:41; the MoE dispatch and
     combine, hybrid_3d_moe.cpp:161-165).  ``x`` divides evenly by the
     group's size; ``out`` is another buffer of its size."""
+    _maybe_fault("alltoall", group)
     COUNTS["alltoall"] += 1
     with _annotate("alltoall"):
         return dist.all_to_all_single(_bits(out), _bits(x), group=group,
@@ -172,6 +195,7 @@ def ring_shift(out: torch.Tensor, x: torch.Tensor, group=None,
     """Send ``x`` to the rank ``shift`` places on along the group's ring
     and receive ``out`` from the rank ``shift`` places back (JAX
     ``ring_shift``: the ring-attention KV rotation)."""
+    _maybe_fault("ring_shift", group)
     n, i = dist.get_world_size(group), dist.get_rank(group)
     return _hop(out, x, group, (i + shift) % n, (i - shift) % n, async_op)
 
@@ -182,6 +206,7 @@ def shift_up(out: torch.Tensor, x: torch.Tensor, group=None,
     hybrid_2d.cpp:109-132): the last stage sends nothing and the first
     receives zeros; ``senders`` (group ranks) restricts the edges
     further, as the JAX package's per-tick sender sets do."""
+    _maybe_fault("shift_up", group)
     n, i = dist.get_world_size(group), dist.get_rank(group)
     allowed = set(range(n - 1)) if senders is None else set(senders)
     dst = i + 1 if i in allowed and i + 1 < n else None
@@ -192,6 +217,7 @@ def shift_up(out: torch.Tensor, x: torch.Tensor, group=None,
 def shift_down(out: torch.Tensor, x: torch.Tensor, group=None,
                senders=None, async_op: bool = False):
     """Stage s -> s-1 (the backward gradient hop); see ``shift_up``."""
+    _maybe_fault("shift_down", group)
     n, i = dist.get_world_size(group), dist.get_rank(group)
     allowed = set(range(1, n)) if senders is None else set(senders)
     dst = i - 1 if i in allowed and i >= 1 else None

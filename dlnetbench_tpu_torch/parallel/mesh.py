@@ -9,7 +9,9 @@ the JAX mesh's reshape lays out devices: in the FSDP mesh
 ``(replica, shard)`` rank ``r`` sits at ``(r // S, r % S)``, so a ``tp``
 group is S consecutive ranks and a ``dp`` group every S-th rank.  A
 group's ranks ascend with the axis coordinate, so a rank's place in its
-group is its coordinate on that axis.
+group is its coordinate on that axis.  Inside a sub-world
+(``multihost.subworld``, a degraded run's survivors) the ranks are the
+sub-world's and the whole-world group is its group.
 """
 from __future__ import annotations
 
@@ -57,10 +59,11 @@ def _coords(rank: int, shape: tuple) -> tuple:
 
 
 def make_flat_mesh(device: torch.device) -> Mesh:
-    """One axis over every rank: the default group (MPI_COMM_WORLD)."""
+    """One axis over every rank: the default group (MPI_COMM_WORLD), or
+    a sub-world's group."""
     world, r = multihost.world_size(), multihost.rank()
     return Mesh(axes={AXIS_FLAT: world}, coords=(r,),
-                groups={AXIS_FLAT: None},
+                groups={AXIS_FLAT: multihost.world_group()},
                 device=device, rank=r)
 
 
@@ -105,7 +108,7 @@ def second_group(mesh: Mesh, axis: str):
     k = list(mesh.axes).index(axis)
     mine = None
     for ranks in _axis_ranks(shape, k):
-        g = dist.new_group(ranks)
+        g = multihost.new_group(ranks)
         if mesh.rank in ranks:
             mine = g
     _warm(mine, mesh.device)
@@ -140,11 +143,11 @@ def _make_mesh(axes: dict, device: torch.device) -> Mesh:
 
 
 def _group(ranks: list, world: int):
-    """A group over ``ranks``; the default group when that is all of
+    """A group over ``ranks``; the world's group when that is all of
     them (no second communicator over the same ranks)."""
     if len(ranks) == world:
-        return None
-    return dist.new_group(ranks)
+        return multihost.world_group()
+    return multihost.new_group(ranks)
 
 
 def _warm(group, device: torch.device) -> None:

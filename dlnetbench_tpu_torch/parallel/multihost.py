@@ -8,9 +8,22 @@ NCCL on the card (each rank takes ``cuda:LOCAL_RANK``) and gloo on the
 CPU.  A process started without a launcher is world 1: it brings up a
 one-rank group on a free loopback port, so the proxies run the same
 collectives at every world size.
+
+A degraded run (``faults/policy.py``: a fault plan's shrink) goes on
+over the ranks left standing.  ``subworld(ranks, group)`` makes them
+the world for the code inside it: ``world_size``, ``rank``,
+``barrier``, ``all_ranks`` and the meshes' default group
+(``world_group``) are then theirs, so a proxy builds over the
+survivors as it builds over a whole world.  Groups made inside a
+sub-world, and the sub-world's own group, are made by their members
+alone (``use_local_synchronization``): their names come from their
+ranks, so the default group's numbering stays in step on every rank,
+the ranks left out included.  ``host_metadata`` names every rank by its
+rank in the default group.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 
@@ -76,38 +89,91 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+# the active sub-world: (its default-group ranks, their group), or None
+_SUBWORLD: tuple[list, object] | None = None
+
+
+@contextlib.contextmanager
+def subworld(ranks: list, group):
+    """Inside: the default group's ranks ``ranks`` and their ``group``
+    (``local_group(ranks)``) stand for the world.  Only those ranks may
+    enter, and sub-worlds do not nest."""
+    global _SUBWORLD
+    ranks = sorted(ranks)
+    if dist.get_rank() not in ranks:
+        raise ValueError(f"rank {dist.get_rank()} is not in the "
+                         f"sub-world {ranks}")
+    if _SUBWORLD is not None:
+        raise RuntimeError("a sub-world is already active")
+    _SUBWORLD = (ranks, group)
+    try:
+        yield
+    finally:
+        _SUBWORLD = None
+
+
+def world_group():
+    """The group collectives over the whole world take: None (the
+    default group) outside a sub-world, the sub-world's inside."""
+    return _SUBWORLD[1] if _SUBWORLD is not None else None
+
+
+def local_group(ranks: list, backend: str | None = None):
+    """A group over the default-group ranks ``ranks``, made by those
+    ranks alone; None on any other rank, which need not call it."""
+    return dist.new_group(ranks, backend=backend,
+                          use_local_synchronization=True)
+
+
+def new_group(ranks: list):
+    """A group over the world ranks ``ranks`` (``rank()``'s numbering).
+    Outside a sub-world every rank of the default group makes it;
+    inside one only its members do (the ranks out of the run make
+    nothing)."""
+    if _SUBWORLD is not None:
+        return local_group([_SUBWORLD[0][r] for r in ranks])
+    return dist.new_group(ranks)
+
+
 def rank() -> int:
+    if _SUBWORLD is not None:
+        return _SUBWORLD[0].index(dist.get_rank())
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def world_size() -> int:
+    if _SUBWORLD is not None:
+        return len(_SUBWORLD[0])
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def barrier(device: torch.device | None = None) -> None:
-    """Every rank of the default group rendezvous (MPI_Barrier); a no-op
+    """Every rank of the world rendezvous (MPI_Barrier); a no-op
     without a group."""
     if not dist.is_initialized():
         return
+    group = world_group()
     if device is not None and device.type == "cuda":
-        dist.barrier(device_ids=[device.index])
+        dist.barrier(group=group, device_ids=[device.index])
     else:
-        dist.barrier()
+        dist.barrier(group=group)
 
 
 def all_ranks(obj) -> list:
-    """``obj`` from every rank, in rank order (``all_gather_object``);
-    ``[obj]`` without a group."""
+    """``obj`` from every rank of the world, in rank order
+    (``all_gather_object``); ``[obj]`` without a group."""
     if not dist.is_initialized():
         return [obj]
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * world_size()
+    dist.all_gather_object(out, obj, group=world_group())
     return out
 
 
 def host_metadata(device: torch.device | None = None) -> list[dict]:
-    """One record per rank: its index, hostname and local device."""
-    local = {"process": rank(), "hostname": socket.gethostname(),
+    """One record per rank of the world: its rank in the default group,
+    hostname and local device."""
+    local = {"process": dist.get_rank() if dist.is_initialized() else 0,
+             "hostname": socket.gethostname(),
              "local_device_ids": [device.index or 0]
              if device is not None and device.type == "cuda" else []}
     return all_ranks(local)

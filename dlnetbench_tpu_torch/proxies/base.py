@@ -41,6 +41,17 @@ card's ``sm_clock_mhz`` / ``power_w`` where the sampler reads them),
 indexed by harness step (warmup included), and each chain's wall
 feeds the step-time change detector.
 
+A fault plan (``ProxyConfig.fault_injector``, ``faults/inject.py``)
+wraps the FULL step, so its sleeps land inside every timed window,
+warmup included, and its triggers count every harness step; the
+compute and comm legs stay clean.  The injected delay of each chain,
+per iteration, is the ``fault_delay_us`` timer and the ring's
+``fault_delay_us`` field: at world > 1 the largest over the ranks,
+since the step's collectives wait for the slowest.  A
+``ProxyConfig.watchdog`` (``utils/watchdog.py``) is armed around every
+fenced full chain, beats ``warmup`` and ``chain_<i>``, and stamps the
+heartbeat ages into the record (``watchdog_heartbeat_age_s``).
+
 Every rank runs this loop on its own device and keeps its own timers
 (the reference's per-rank arrays); the run count is agreed across ranks,
 since every step holds collectives.  Loop mode (reference
@@ -72,6 +83,13 @@ class ProxyConfig:
     # K step calls per fence: the fence's host cost is paid once per K
     # iterations (utils/timing.time_chain); 1 = the reference's
     reps_per_fence: int = 1
+    # faults.inject.FaultInjector (or None): step-boundary injection
+    # around the FULL step only (the compute/comm legs are the clean
+    # decomposition baseline)
+    fault_injector: object | None = None
+    # utils.watchdog.StepWatchdog (or None): armed around every fenced
+    # full chain; its heartbeat ages are stamped into the record
+    watchdog: object | None = None
 
 
 @dataclasses.dataclass
@@ -87,6 +105,11 @@ class StepBundle:
     variants: dict | None = None
     # this rank's own facts, beside its timers in the record
     rank_meta: dict = dataclasses.field(default_factory=dict)
+    # the proxy's buffers as a pytree, for the checkpoint path
+    # (faults/policy.py + utils/checkpoint.SnapshotCheckpointer): the
+    # bytes a training state of this proxy's size moves.  None: the
+    # proxy declares none, and checkpointing it is refused.
+    state: object | None = None
 
 
 @dataclasses.dataclass
@@ -122,7 +145,7 @@ def _chain_sizes(runs: int, k: int) -> list[int]:
 
 
 def _sample_chain(step: int, k: int, full_s: float, comp_s: list,
-                  energy_j: list, states: list) -> None:
+                  energy_j: list, states: list, fault_us: list) -> None:
     """One flight-ring sample for the fenced full chain just timed:
     its per-iteration wall beside the matched compute leg, the energy
     and the card's state read after it; then the step-time detector."""
@@ -135,18 +158,37 @@ def _sample_chain(step: int, k: int, full_s: float, comp_s: list,
     if states:
         fields["sm_clock_mhz"] = states[-1]["sm_clock_mhz"]
         fields["power_w"] = states[-1]["power_w"]
+    if fault_us:
+        fields["fault_delay_us"] = round(fault_us[-1], 1)
     telemetry.record_step("proxy", step=step, **fields)
     telemetry.observe_step_wall("proxy", full_s * 1e6, step=step)
+
+
+def _full_step(bundle: StepBundle, injector):
+    """The full step, after the injector's step faults when there is
+    one: its sleeps land inside the timed window."""
+    if injector is None:
+        return bundle.full
+    base_full = bundle.full
+
+    def full_step():
+        injector.before_step()
+        return base_full()
+    return full_step
 
 
 def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
               energy_sampler=None) -> ProxyResult:
     dev = bundle.device
+    injector, wd = cfg.fault_injector, cfg.watchdog
+    full_step = _full_step(bundle, injector)
     multihost.barrier(dev)                        # reference dp.cpp:234
     warmup = max(cfg.warmup, 1)
     with spans.span("warmup", proxy=name, reps=warmup):
-        warmup_s = timing.time_callable(bundle.full, reps=warmup,
+        warmup_s = timing.time_callable(full_step, reps=warmup,
                                         device=dev)
+    if wd is not None:
+        wd.beat("warmup")
     if telemetry.is_enabled():
         # a fresh run over a live recorder re-baselines the step-time
         # detector (an in-process sweep's next point is not an anomaly
@@ -163,7 +205,7 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
 
     if cfg.loop:                                  # reference PROXY_LOOP
         while True:
-            bundle.full()
+            full_step()
 
     if energy_sampler is None:            # reference PROXY_ENERGY_PROFILING
         with spans.span("calibrate", what="energy_sampler"):
@@ -186,7 +228,7 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
         timing.fence_rtt_s(dev) * 1e6, 1)
 
     timers: dict[str, list] = {}
-    full_s, comp_s, energy_j = [], [], []
+    full_s, comp_s, energy_j, fault_us = [], [], [], []
     read_state = getattr(energy_sampler, "read_state", None)
     states: dict[str, list] = {"": [], "compute_": []}
     with spans.span("timed", proxy=name, variant="full+compute",
@@ -195,7 +237,17 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
             # energy brackets the fenced full chain only, per iteration
             if energy_sampler is not None:
                 e0 = energy_sampler.read_joules()
-            full_s.append(timing.time_chain(bundle.full, k=k, device=dev))
+            inj0 = injector.injected_delay_us if injector is not None else 0.0
+            if wd is not None:
+                with wd:
+                    full_s.append(timing.time_chain(full_step, k=k,
+                                                    device=dev))
+                wd.beat(f"chain_{ci}")
+            else:
+                full_s.append(timing.time_chain(full_step, k=k,
+                                                device=dev))
+            if injector is not None:
+                fault_us.append((injector.injected_delay_us - inj0) / k)
             if energy_sampler is not None:
                 energy_j.append(
                     max(0.0, energy_sampler.read_joules() - e0) / k)
@@ -208,8 +260,15 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
                     states["compute_"].append(read_state())
             if telemetry.is_enabled():
                 _sample_chain(warmup + sum(chains[:ci]) + k - 1, k,
-                              full_s[-1], comp_s, energy_j, states[""])
+                              full_s[-1], comp_s, energy_j, states[""],
+                              fault_us)
     timers["runtimes"] = [t * 1e6 for t in full_s]
+    if injector is not None:
+        # the step waits for its slowest rank: each chain's injected
+        # delay is the largest any rank slept
+        per_rank = multihost.all_ranks(fault_us)
+        timers["fault_delay_us"] = [round(max(v), 1)
+                                    for v in zip(*per_rank)]
     if energy_sampler is not None:
         timers["energy_consumed"] = energy_j
         energy.close_sampler(energy_sampler)
@@ -242,6 +301,8 @@ def run_proxy(name: str, bundle: StepBundle, cfg: ProxyConfig,
                        for k in chains]
             timers[f"{vname}_time"] = [t * 1e6 for t in v_s]
 
+    if wd is not None:
+        wd.stamp(bundle.global_meta)
     return ProxyResult(
         name=name,
         global_meta=bundle.global_meta,

@@ -13,6 +13,9 @@ Here the burn plays the compute on the current stream and each bucket's
 allreduce is issued on the comm stream after that bucket's burn, so it
 runs beside every burn that follows; the step ends with the compute
 stream waiting on all of them (``parallel/collectives.CommStream``).
+The bundle declares its checkpointable state as the JAX package's does:
+the gradient buckets and the burn's state (``{"grads": [...],
+"burn_state": ...}``).
 """
 from __future__ import annotations
 
@@ -85,4 +88,6 @@ def build(stats: ModelStats, num_buckets: int, cfg: ProxyConfig,
     return StepBundle(full=progs["full"], compute=progs["compute"],
                       comm=progs["comm"], global_meta=meta, device=device,
                       rank_meta={"burn": burnlib.plan(
-                          cal, fwd_iters + num_buckets * bwd_iters)})
+                          cal, fwd_iters + num_buckets * bwd_iters)},
+                      # what a dp trainer of this schedule would snapshot
+                      state={"grads": grads, "burn_state": burner.state})

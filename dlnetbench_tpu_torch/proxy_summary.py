@@ -16,7 +16,9 @@ ticks one after another (above one edge's rate where the two
 directions overlap); and ``runtime / compute`` beside the schedule's
 own bubble, ``ticks_total / (M x (1 + bwd/fwd))`` for a pipeline ((M+S-1)/M for
 gpipe and 1f1b, (3M+S-1)/3M for zb) and 1 elsewhere.  The card's name
-and the world come from the record.
+and the world come from the record.  A faulted record (``--fault``)
+adds ``fault``: its fault globals (``FAULT_KEYS``) and the straggler
+amplification (``analysis/bandwidth.straggler_amplification``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,17 @@ import json
 import statistics
 import sys
 
-from dlnetbench_tpu_torch.analysis.bandwidth import bus_factor
+from dlnetbench_tpu_torch.analysis.bandwidth import (bus_factor,
+                                                     straggler_amplification)
+
+FAULT_KEYS = ("fault_policy", "fault_injected_delay_us", "degraded_world",
+              "fault_iteration", "detection_ms", "recovery_ms",
+              "restore_ms", "lost_steps", "rejoin_ms", "fault_rejoin_step",
+              "goodput", "goodput_useful_steps", "goodput_wall_s",
+              "checkpoint_mode", "checkpoint_backend", "checkpoint_saves",
+              "checkpoint_ms", "checkpoint_stall_ms",
+              "checkpoint_ms_samples", "checkpoint_state_bytes",
+              "checkpoint_drain_saved")
 
 
 def _ms(rec: dict, timer: str) -> float:
@@ -58,6 +70,11 @@ def summarize(rec: dict) -> dict:
             g["num_microbatches"] * (1 + bwd_units))
     else:
         out["bubble_model"] = 1.0
+    if "fault_plan" in g:
+        out["fault"] = {k: g[k] for k in FAULT_KEYS if k in g}
+        amp = straggler_amplification(rec)
+        out["fault"]["straggler_amp"] = None if amp != amp else amp
+        out["fault"]["ranks"] = [r["rank"] for r in rec["ranks"]]
     return out
 
 
