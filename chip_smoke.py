@@ -204,8 +204,8 @@ Phases, in order; any failure exits non-zero:
 9. train through ``dlnetbench_tpu_torch.bench.main([])`` at the bench
    shape (llama3_8b width, 4 layers, vocab 32768, B=2, S=6144, bf16):
    the aux lines come first, under the headline's keys, the one-rank
-   ``straggler A/B`` as its skip note — the 8-bit
-   lines (``fp8_mlp``, ``fp8_swiglu``, ``int8_matmul``: the composed
+   ``straggler A/B`` and ``spmd overlap A/B`` as their skip notes — the
+   8-bit lines (``fp8_mlp``, ``fp8_swiglu``, ``int8_matmul``: the composed
    recipes' library products, never K11) each with a share of the 8-bit
    peak in (0, 1.0], ``checkpoint_ab`` (dcp, 12 measured saves), the
    serving lines among them with ``serving_decode``'s token_parity and
@@ -309,6 +309,29 @@ Phases, in order; any failure exits non-zero:
    ``StepWatchdog`` of 0.2 s around a ~1 s device spin
    (``torch.cuda._sleep``, then a synchronize) fires once and the
    flight recorder writes ``flight_stall.json``;
+10g. the SPMD tier (``models/spmd.py``; no new kernel): (a) a tiny f32
+   step (embed 256, 4 heads: head_dim 64, S 256, 2 layers, 4 experts)
+   on mesh (1, 1, 1), TF32 off, on the card and on the CPU from the same
+   weights, in each sp_mode with the einsum and the grouped expert FFN:
+   the loss within 1e-5 relative, every updated leaf within 1e-5 of its
+   max-abs and its update within 1e-3 of the update's max-abs (plus one
+   ulp of the leaf), K3/K4/K5 launched layers x ticks, K12 (f32) 3 x
+   layers x ticks under ``grouped``; (b) K3/K4/K5 at one microbatch's
+   attention of the bench-shape step (2 x 2048, 16 heads, head_dim
+   128, causal) and K12's gate/up and down products at its dispatch
+   buffer's shape (bf16, int8, e4m3), each against its plain version
+   on seeded inputs; then ``entry.dryrun_multichip(1)`` at the
+   bench's SPMD shape (embed 2048, 16/16 heads, ff 8192, 4 layers, S
+   2048, vocab 32768, 4 experts, bf16; its MoE parity stages f32 at
+   1e-4; the overlap parity and the masked stages need >= 2 and 4
+   ranks), the counters set to 0 before and read after: no stage
+   skipped by the deadline, 9 steps, the three MoE stages, finite
+   losses in each sp_mode, K3/K4/K5 layers x ticks a step, K12 3 x
+   layers x ticks a grouped step, no splash launch; then
+   ``spmd.build(1)`` at that shape with ``moe_ffn_impl="grouped"`` in
+   bf16, int8 and e4m3, 1 + 6 steps each, finite, K3/K4/K5 and K12 as counted, the median ms
+   a step printed beside the card; (c) the bench's ``spmd_overlap_ab``
+   at world 1 prints the JAX bench's skip note and no line;
 10f. ``bench.main(["--skip-aux", "--trace-out", F])``: each of K3/K4/K5
    launched layers x (K x (1 + rounds) + 2K) times (the profiled call
    runs twice, to warm the profiler and recorded), the merged trace
@@ -316,7 +339,8 @@ Phases, in order; any failure exits non-zero:
    events of the recorded call — after the proxy phases, since a
    profiler session slows the host's later launches;
 11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a and
-   7c), then the ``ok`` JSON line last.
+   7c; K3/K4/K5's over 9, 10f and 10g (b); K12's per format over 9 or
+   8d and 10g (b)), then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
 the timed phases (lines starting ``smi``).
@@ -405,7 +429,7 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels);
 # all 198 must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 245
+CARD_TESTS_MIN = 264
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2675,10 +2699,10 @@ def train_phase(torch) -> dict:
     if [ln["metric"] for ln in measured] != [line[k]["metric"]
                                              for k in TRAIN_AUX_KEYS] \
             or line["recommended_step"]["metric"] != "recommended_step" \
-            or skipped != ["straggler A/B"]:
+            or skipped != ["straggler A/B", "spmd overlap A/B"]:
         fail(f"train: aux lines {[ln.get('metric') for ln in lines]} do "
              f"not match the headline's keys {TRAIN_AUX_KEYS} with the "
-             f"one-rank straggler A/B skipped")
+             f"one-rank straggler and spmd overlap A/B lines skipped")
     for key in ("fp8_mlp", "fp8_swiglu", "int8_matmul"):
         vs = line[key]["vs_baseline"]
         if vs is None or not 0 < vs <= 1.0:
@@ -3430,6 +3454,240 @@ def faults_phase(torch, card: str) -> None:
     say(f"faults phase: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+SPMD_CARD_STEP = dict(vocab_size=512, embed_dim=256, num_heads=4,
+                      num_kv_heads=4, ff_dim=512, seq_len=256, num_layers=2,
+                      batch=4, num_microbatches=2)
+SPMD_TOL = 1e-5
+# each leaf's update (new - initial), card against CPU: within 1e-3 of
+# the update's max-abs, plus one f32 ulp of the leaf's largest value
+# (p - lr * g rounds at the leaf's ulp on each side), as
+# tests/test_torch_spmd.py holds the port's update to JAX's
+SPMD_UPDATE_TOL = 1e-3
+SPMD_TIMED_STEPS = 6
+# dryrun_multichip(1): megatron, ring and Ulysses, one step each, and
+# two steps (reference and variant) for each MoE parity stage
+SPMD_MOE_STAGES = ("moe_a2a=decomposed", "moe_ffn_impl=grouped",
+                   "moe_a2a=decomposed+grouped")
+SPMD_DRYRUN_STEPS = 3 + 2 * len(SPMD_MOE_STAGES)
+SPMD_QUANTS = (("bf16", "none"), ("int8", "int8"), ("e4m3", "float8"))
+
+
+def spmd_reference_phase(torch) -> None:
+    """10g (a): the tiny f32 SPMD step on mesh (1, 1, 1), TF32 off, on
+    the card and on the CPU from the same weights and tokens, in each
+    sp_mode with the einsum and the grouped expert FFN: the loss within
+    1e-5 relative, every updated leaf within 1e-5 of its max-abs and
+    its update (new - initial) within 1e-3 of the update's max-abs plus
+    one ulp of the leaf; K3/K4/K5 launched layers x ticks and K12 (f32)
+    3 x layers x ticks under ``grouped``."""
+    import numpy as np
+
+    from dlnetbench_tpu_torch.models import spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    per = SPMD_CARD_STEP["num_layers"] * SPMD_CARD_STEP["num_microbatches"]
+    worst, worst_upd = 0.0, (0.0, "")
+    for sp_mode in ("megatron", "ring", "ulysses"):
+        for ffn in ("einsum", "grouped"):
+            cfg = spmd.SpmdConfig(**SPMD_CARD_STEP, sp_mode=sp_mode,
+                                  moe_ffn_impl=ffn)
+            reset_flash_counts()
+            reset_gmm_counts()
+            (l_card,), card_tree = spmd.run_one_rank(cfg, "cuda")
+            counts, k12 = flash_counts(), gmm_counts()
+            (l_cpu,), cpu_tree = spmd.run_one_rank(cfg, "cpu")
+            want_k12 = 3 * per if ffn == "grouped" else 0
+            if counts != {"fwd": per, "dq": per, "dkv": per} \
+                    or k12 != want_k12:
+                fail(f"spmd reference {sp_mode}/{ffn}: flash launches "
+                     f"{counts} (want {per} each), K12 {k12} (want "
+                     f"{want_k12})")
+            if not (math.isfinite(l_card)
+                    and abs(l_card - l_cpu) <= SPMD_TOL * abs(l_cpu)):
+                fail(f"spmd reference {sp_mode}/{ffn}: card loss {l_card} "
+                     f"vs CPU {l_cpu}")
+            init = spmd.init_params(cfg)     # run_one_rank's weights
+            keys = [(k, None) for k in ("embed", "final_norm", "head")]
+            keys += [("layers", k) for k in spmd.LAYER_KEYS]
+            for outer, inner in keys:
+                got, want, p0 = (t[outer] if inner is None
+                                 else t[outer][inner]
+                                 for t in (card_tree, cpu_tree, init))
+                p0 = p0.numpy()
+                name = inner or outer
+                err = float(np.abs(got - want).max()) \
+                    / float(np.abs(want).max())
+                worst = max(worst, err)
+                if not err <= SPMD_TOL:
+                    fail(f"spmd reference {sp_mode}/{ffn}: {name} "
+                         f"{err:.3e} of its max-abs from the CPU's")
+                uscale = float(np.abs(want - p0).max())
+                uerr = float(np.abs((got - p0) - (want - p0)).max())
+                ulp = float(np.spacing(np.abs(p0).max()))
+                worst_upd = max(worst_upd, (uerr / max(uscale, 1e-30),
+                                            f"{sp_mode}/{ffn} {name}"))
+                if not uerr <= SPMD_UPDATE_TOL * uscale + ulp:
+                    fail(f"spmd reference {sp_mode}/{ffn}: {name}'s "
+                         f"update off the CPU's by {uerr:.3e} (update "
+                         f"max-abs {uscale:.3e}, bar {SPMD_UPDATE_TOL} "
+                         f"of it + ulp {ulp:.3e})")
+            say(f"spmd reference {sp_mode}/{ffn}: loss card {l_card:.7f} "
+                f"CPU {l_cpu:.7f}; flash {counts}, K12 {k12}")
+    say(f"spmd reference: every leaf within {worst:.3e} of its max-abs "
+        f"(bar {SPMD_TOL}); every update within {worst_upd[0]:.3e} of its "
+        f"max-abs ({worst_upd[1]}; bar {SPMD_UPDATE_TOL} + one ulp of the "
+        f"leaf)")
+
+
+def spmd_kernel_phase(torch) -> None:
+    """10g (b), first: the kernels of the bench-shape bf16 SPMD step at
+    the shapes the step hands them, each against its plain version on
+    the same seeded inputs, outside the counted run: K3/K4/K5 at one
+    microbatch's causal attention (``flash_phase``'s bars: every row of
+    O, dq, dk, dv within 2^-6 of its max-abs, lse and D within 1e-3),
+    and K12's expert products at the dispatch buffer's shape, gate/up
+    and down, in bf16, int8 and e4m3 (``gmm_check``'s bars: bf16 and
+    e4m3 by the row, int8 bit-exact).  The grouped FFN's backward is
+    batched library products and launches no kernel."""
+    from dlnetbench_tpu_torch import entry
+    from dlnetbench_tpu_torch.models import moe as MoE
+    from dlnetbench_tpu_torch.models import spmd
+    from dlnetbench_tpu_torch.ops import grouped_matmul as GM
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    cfg = spmd.SpmdConfig(**entry.BENCH_SPMD, batch=4, num_microbatches=2)
+    mb = cfg.batch // cfg.num_microbatches
+    flash_phase(torch, (mb, cfg.seq_len, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, True), {}, timed=False)
+    e, d, f = cfg.num_experts, cfg.embed_dim, cfg.ff_dim
+    c = MoE.group_capacity(mb * cfg.seq_len, cfg.top_k, e,
+                           cfg.capacity_factor)
+    full = torch.full((e,), c, dtype=torch.int32, device="cuda")
+    rand = seeded(torch, 47)
+    for fmt in (None, "int8", "float8"):
+        for label, k, n in (("gate/up", d, f), ("down", f, d)):
+            x = rand(e, c, k)
+            w = rand(e, k, n, scale=k ** -0.5)
+            sx = sw = None
+            if fmt:
+                w, sw = GM.quantize_experts(w, fmt)
+                sx = Q.scale_from_amax(GM.expert_amax(x), fmt)
+            y = GM.grouped_matmul(x, w, sx=sx, sw=sw, fmt=fmt)
+            torch.cuda.synchronize()
+            ref = GM.plain_grouped_matmul(x, w, None, sx, sw, fmt)
+            tag = (f"spmd K12 {fmt or 'bf16'} {label} [{e}, {c}, {k}] x "
+                   f"[{k}, {n}]")
+            errs = gmm_check(torch, fmt, y, ref, full, tag)
+            say(f"{tag}: max abs err {errs['max_abs_err']:.3e}, worst row "
+                f"{errs['row']:.3e}, Frobenius {errs['fro']:.3e}")
+            del x, w, y, ref
+    torch.cuda.empty_cache()
+
+
+def spmd_phase(torch, card: str) -> dict:
+    """10g (b) and (c): ``entry.dryrun_multichip(1)`` at the bench's
+    SPMD shape (``entry.BENCH_SPMD``, bf16; its MoE parity stages f32),
+    the counters set to 0 before and read after: no stage skipped by
+    its deadline, ``SPMD_DRYRUN_STEPS`` steps, K3/K4/K5 launched
+    layers x ticks for each of its ``steps`` train steps, K12 (f32) 3 x
+    layers x ticks for each step of a grouped stage, no splash kernel;
+    then ``spmd.build(1)`` at the same shape with ``moe_ffn_impl=
+    "grouped"`` in bf16, int8 and e4m3 (``moe_ffn_quant``): one warm
+    and ``SPMD_TIMED_STEPS`` fenced steps each, finite losses and
+    parameters, K3/K4/K5 layers x ticks and K12 3 x layers x ticks a
+    step, the median ms a step beside the card; and the bench's
+    ``spmd_overlap_ab`` at world 1: the JAX bench's skip note and no
+    line.  Returns the launches for the kernels line."""
+    import contextlib
+    import io
+
+    from dlnetbench_tpu_torch import bench, entry
+    from dlnetbench_tpu_torch.models import spmd
+    from dlnetbench_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    layers, ticks = entry.BENCH_SPMD["num_layers"], 2
+    per = layers * ticks
+    reset_flash_counts()
+    reset_gmm_counts()
+    out = entry.dryrun_multichip(1, shape="bench", log=say)
+    torch.cuda.synchronize()
+    counts, k12, masked = flash_counts(), gmm_counts(), splash_counts()
+    if out["skipped"] or out["steps"] != SPMD_DRYRUN_STEPS \
+            or tuple(out["moe"]) != SPMD_MOE_STAGES:
+        fail(f"spmd dryrun: stages skipped {out['skipped']}, {out['steps']} "
+             f"steps (want {SPMD_DRYRUN_STEPS}), MoE stages "
+             f"{list(out['moe'])} (want {list(SPMD_MOE_STAGES)})")
+    want = out["steps"] * per
+    # one grouped step a grouped stage (its reference is the einsum's)
+    grouped = sum(1 for label in out["moe"] if "grouped" in label)
+    if counts != {"fwd": want, "dq": want, "dkv": want} \
+            or k12 != 3 * per * grouped or any(masked.values()):
+        fail(f"spmd dryrun: flash launches {counts} (want {want} each: "
+             f"{out['steps']} steps x {per}), K12 {k12} (want "
+             f"{3 * per * grouped}), splash {masked} (want none)")
+    if set(out["loss"]) != {"megatron", "ring", "ulysses"} \
+            or not all(math.isfinite(v) for v in out["loss"].values()):
+        fail(f"spmd dryrun: losses {out['loss']}")
+    say(f"spmd dryrun_multichip(1) bench shape: losses {out['loss']}, "
+        f"{out['steps']} steps, flash launches {counts}, K12 (f32) {k12}")
+    launches = {"flash": dict(counts), "k12": {}}
+    device = multihost.initialize("cuda")
+    try:
+        for label, quant in SPMD_QUANTS:
+            cfg = spmd.SpmdConfig(**entry.BENCH_SPMD, batch=4,
+                                  num_microbatches=ticks,
+                                  moe_ffn_impl="grouped",
+                                  moe_ffn_quant=quant)
+            _, _, step, params, tokens = spmd.build(1, cfg, device=device)
+            reset_flash_counts()
+            reset_gmm_counts()
+            params, loss = step(params, tokens)
+            ms, losses = [], [float(loss)]
+            for _ in range(SPMD_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, loss = step(params, tokens)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+            steps = SPMD_TIMED_STEPS + 1
+            counts, k12 = flash_counts(), gmm_counts()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t, _ in spmd._leaves_with_specs(params,
+                                                             cfg.sp_mode))
+            if counts != {"fwd": steps * per, "dq": steps * per,
+                          "dkv": steps * per} \
+                    or k12 != 3 * per * steps \
+                    or not all(math.isfinite(v) for v in losses) \
+                    or not finite:
+                fail(f"spmd grouped {label}: flash {counts} (want "
+                     f"{steps * per} each), K12 {k12} (want "
+                     f"{3 * per * steps}), losses {losses}, params finite "
+                     f"{finite}")
+            for kind in counts:
+                launches["flash"][kind] += counts[kind]
+            launches["k12"][label] = k12
+            say(f"spmd step grouped {label}: {statistics.median(ms):.3f} "
+                f"ms a step (median of {SPMD_TIMED_STEPS}, min "
+                f"{min(ms):.3f}) on {card}; losses "
+                f"{[round(v, 4) for v in losses]}; flash {counts}, K12 {k12}")
+            del params, step
+            torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = bench.bench_overlap_ab("cuda")
+    note = [json.loads(t) for t in buf.getvalue().strip().splitlines()]
+    want_note = {"metric": "spmd overlap A/B",
+                 "skipped": "needs >= 2 devices, have 1 — single-chip "
+                            "session has no communication to overlap"}
+    if line is not None or note != [want_note]:
+        fail(f"spmd_overlap_ab at world 1: line {line}, printed {note}")
+    say(f"spmd_overlap_ab at world 1: {json.dumps(note[0])}")
+    say(f"spmd phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def trace_phase(torch) -> dict:
     """``bench.main(["--skip-aux", "--trace-out", F])`` (10f): rc 0;
     K3/K4/K5 each launched layers x (K x (1 + rounds) + 2K) times (the
@@ -4149,6 +4407,11 @@ def main(argv: list[str]) -> int:
     smi_sample("faults")
     faults_phase(torch, card)
     torch.cuda.empty_cache()
+    smi_sample("spmd")
+    spmd_reference_phase(torch)
+    spmd_kernel_phase(torch)
+    spmd = spmd_phase(torch, card)
+    torch.cuda.empty_cache()
     traced = trace_phase(torch)
     torch.cuda.empty_cache()
     # the decode loop's profiled run, after the proxies as every
@@ -4190,7 +4453,8 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda",
                         "source": FLASH_SRC,
                         "replaces": FLASH_REPLACES[kind],
-                        "launches": trained["counts"][kind] + traced[kind],
+                        "launches": (trained["counts"][kind] + traced[kind]
+                                     + spmd["flash"][kind]),
                         **flash[kind]})
     row = splash[SPLASH_SPECS[0][0]]
     for kind, label in (
@@ -4217,11 +4481,11 @@ def main(argv: list[str]) -> int:
                         "launches": quant_launches[key], **res})
     for kind, label, launches in (
             ("bf16", f"K12 grouped_matmul (bf16; {WG_DESIGN})",
-             trained["k12"]),
+             trained["k12"] + spmd["k12"]["bf16"]),
             ("int8", f"K12 grouped_matmul (int8; {WG_DESIGN})",
-             moe_quant["int8"]),
+             moe_quant["int8"] + spmd["k12"]["int8"]),
             ("e4m3", f"K12 grouped_matmul (e4m3; {WG_DESIGN})",
-             moe_quant["float8"])):
+             moe_quant["float8"] + spmd["k12"]["e4m3"])):
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": GMM_REPLACES, "launches": launches,
                         **gmm[kind]})

@@ -61,8 +61,11 @@ under the plain-causal, window(S/16) and segment(avg=S/8) masks, with
 each mask's block accounting at K6's own tiles; shapes from
 ``DLNB_BENCH_LC_{SEQ,HEADS,KV_HEADS,WINDOW,SEG,K}``), ``int8_step`` and ``int8_switchback_step`` (the headline step with
 ``mlp_dtype="int8"``, priced by the split-peak roofline), and
-``recommended_step`` (the fastest of bf16, int8_master and
-int8_switchback whose loss is within 2 % of bf16's).  ``--skip-aux``
+``spmd_overlap_ab`` (last, as in the JAX bench: the SPMD step's
+paired overlap-vs-baseline A/B, ``models/overlap_bench.py``; one rank
+prints the JAX bench's skip note) and ``recommended_step`` (the
+fastest of bf16, int8_master and int8_switchback whose loss is within
+2 % of bf16's).  ``--skip-aux``
 prints the headline alone.  An auxiliary line that fails fails the run:
 nothing degrades to a skip marker (``straggler_ab``'s note says the line
 cannot run on one rank, and a preset without an 8-bit peak skips that
@@ -1537,6 +1540,35 @@ def bench_straggler_ab(platform: str) -> dict | None:
     return line
 
 
+def bench_overlap_ab(platform: str) -> dict | None:
+    """Paired overlap-vs-baseline A/B of the SPMD train step
+    (``models/overlap_bench.py``): the real dp x pp x tp step with
+    ``tp_overlap="decomposed"`` + ``grad_sync="bucketed"`` against the
+    blocking baseline, interleaved rounds, and the measured overlap
+    fraction from the full / compute / comm decomposition, at the JAX
+    bench's shape (``entry.BENCH_SPMD``: embed 2048, 16/16 heads, ff
+    8192, 4 layers, S 2048, vocab 32768, 4 experts, bf16).  It needs a
+    world of >= 2 ranks — one rank has no communication to overlap — so
+    a bench process alone prints the JAX bench's skip note; the
+    four-card counterpart is ``torchrun --nproc_per_node 4 -m
+    dlnetbench_tpu_torch.entry --shape bench``."""
+    from dlnetbench_tpu_torch.entry import BENCH_SPMD
+    from dlnetbench_tpu_torch.models import overlap_bench, spmd
+    from dlnetbench_tpu_torch.parallel import multihost
+
+    n = multihost.launcher_world()
+    if n < 2:
+        skipped("spmd overlap A/B",
+                f"needs >= 2 devices, have {n} — single-chip session has "
+                f"no communication to overlap")
+        return None
+    with proxy_world(platform) as device:
+        mesh = spmd.grid_mesh(*spmd.factor_mesh(n), device)
+        line = overlap_bench.measure(mesh, cfg_kwargs=dict(BENCH_SPMD))
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def bench_checkpoint_ab(platform: str) -> dict:
     """Paired stall-vs-async checkpoint A/B: the tiny dp step with a
     per-step snapshot save (``utils/checkpoint.SnapshotCheckpointer``,
@@ -1847,6 +1879,9 @@ def _run_bench(args, parser, tracer, fault_plan) -> int:
                           ("int8_switchback_step", "switchback")):
             run_aux(key, bench_int8_step, card, hw_key, device_name,
                     device, summary["value"], mode)
+        # last of all, as in the JAX bench: six train-step programs of
+        # its own (2 configs x 3 A/B variants); one rank skips it
+        run_aux("spmd_overlap_ab", bench_overlap_ab, args.platform)
     recommended = recommended_step(
         summary, loss, {"int8_master": aux.get("int8_step"),
                         "int8_switchback": aux.get("int8_switchback_step")})

@@ -167,13 +167,26 @@ class _ProductF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        gc = g.to(a.dtype)
+        gc = f32_cotangent(g, a, b)
         da = db = None
         if ctx.needs_input_grad[0]:
             da = _product_f32(gc, b.transpose(-1, -2)).to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = _product_f32(a.transpose(-1, -2), gc).to(b.dtype)
         return da, db
+
+
+def f32_cotangent(g: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """The cotangent that ``a @ b``'s gradient products multiply, ``g``
+    that of its f32 result: on the card, with two narrower operands of
+    one dtype, rounded to their dtype, so each gradient product is again
+    a tensor-core product with f32 sums; otherwise ``g`` as it is (the
+    JAX formulas exactly).  ``_ProductF32`` and the decomposed
+    collective matmuls (``ops/collective_matmul.py``) share it."""
+    if g.is_cuda and a.dtype == b.dtype != g.dtype:
+        return g.to(a.dtype)
+    return g
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ expert FFN.
 
 Routing is computed by ``layers.capacity_routing`` as indices (gathers,
 no one-hot einsum); the one-hots are built only where the return value
-promises them.  Not ported yet: ``spmd_a2a_elems`` (the SPMD tier).
+promises them.  ``spmd_a2a_elems`` is the SPMD step's per-rank
+dispatch-buffer size, the schedule twin of ``a2a_elems_per_rank``.
 """
 from __future__ import annotations
 
@@ -174,7 +175,9 @@ def expert_ffn(xe, w_gate, w_up, w_down, *, impl: str = "einsum",
     buffers -> ``[E, C, d]`` f32.
 
     * ``impl="einsum"`` — batched library products with f32 results
-      (``layers.expert_swiglu``);
+      (``layers.expert_swiglu``); ``mlp_int8`` runs its three products
+      through ``ops/int8.int8_dot_batched`` (per-tensor scales, exact
+      int32 sums, straight-through backward);
     * ``impl="grouped"`` — the grouped matmul (kernel K12 on the card)
       with optional fused int8/e4m3 quantization (``quant``) and
       count-aware row skipping (``counts``).
@@ -187,10 +190,12 @@ def expert_ffn(xe, w_gate, w_up, w_down, *, impl: str = "einsum",
         raise ValueError(f"moe.expert_ffn: unknown impl {impl!r} "
                          f"(einsum | grouped)")
     if mlp_int8:
-        raise ValueError(
-            "moe.expert_ffn: mlp_int8 (the int8_dot_batched recipe) is "
-            "not ported yet; it lands with the SPMD tier (ROADMAP.md "
-            "queue 1)")
+        from dlnetbench_tpu_torch.ops.int8 import int8_dot_batched
+        dt = xe.dtype
+        g = int8_dot_batched(xe, w_gate.to(dt))
+        u = int8_dot_batched(xe, w_up.to(dt))
+        h = torch.nn.functional.silu(g.to(_F32)) * u.to(_F32)
+        return int8_dot_batched(h.to(dt), w_down.to(dt)).to(_F32)
     return L.expert_swiglu(xe, w_gate, w_up, w_down)
 
 
@@ -219,3 +224,17 @@ def a2a_elems_per_rank(tokens_per_mb: int, top_k: int, embed_dim: int,
     """The native schedule's per-rank all-to-all message arithmetic:
     ``tokens_per_mb * top_k * embed_dim // num_expert_shards``."""
     return tokens_per_mb * top_k * embed_dim // ep
+
+
+def spmd_a2a_elems(cfg, dp: int, tp: int) -> int:
+    """The SPMD step's per-rank dispatch-buffer elements per microbatch
+    tick: the ``[E, C, d]`` buffer its MoE block hands the EP
+    all-to-all (``models/spmd.py``).  At ``capacity_factor == 1`` (and
+    divisible shapes) this equals ``a2a_elems_per_rank`` over this
+    rank's token share."""
+    mb_size = cfg.batch // (dp * cfg.num_microbatches)
+    t_loc = mb_size * (cfg.seq_len // tp)
+    cap = group_capacity(cfg.moe_group_tokens or t_loc, cfg.top_k,
+                         cfg.num_experts, cfg.capacity_factor)
+    n_groups = t_loc // (cfg.moe_group_tokens or t_loc)
+    return cfg.num_experts * n_groups * cap * cfg.embed_dim

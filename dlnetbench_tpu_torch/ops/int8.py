@@ -12,6 +12,12 @@ a Pallas kernel, so on the card it is a library call, ``torch._int_mm``
 (int8 x int8 -> int32, exact); on the CPU it is the plain exact product
 (``quantized_matmul.quantized_product``).  It never stands in for the
 fused kernel K11.
+
+``int8_dot_batched`` is the expert-parallel sibling (``[E, C, K] x [E,
+K, N]``, per-tensor scales, one exact int32 product per expert: one
+``torch._int_mm`` each on the card), with the straight-through
+backward: ``moe.expert_ffn(mlp_int8=True)`` runs the expert SwiGLU's
+three products through it.
 """
 from __future__ import annotations
 
@@ -103,3 +109,61 @@ def swiglu_int8_sb(x, w_gate, w_up, w_down):
     dtype."""
     return qmm.QuantSwiGLU.apply(x, w_gate, w_up, w_down, _swiglu_int8_fwd,
                                  _sb_dot)
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    pad = size - t.shape[dim]
+    if pad <= 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def _int_mm_exact(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """``int32_product`` for any shape: ``torch._int_mm`` takes more than
+    16 rows and K, N multiples of 8, so the card pads the operands with
+    zeros (exact) and cuts the result back."""
+    if not on_card(aq):
+        return int32_product(aq, bq)
+    m, k = aq.shape
+    n = bq.shape[1]
+    r8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    a = _pad_to(_pad_to(aq, 0, max(24, r8(m))), 1, r8(k))
+    b = _pad_to(_pad_to(bq, 0, r8(k)), 1, r8(n))
+    return int32_product(a, b)[:m, :n]
+
+
+def _int8_batched_product(x, w):
+    xq, sx = _quantize(x)
+    wq, sw = _quantize(w)
+    acc = torch.stack([_int_mm_exact(xq[e], wq[e])
+                       for e in range(x.shape[0])])
+    return (acc.to(_F32) * (sx * sw)).to(x.dtype)
+
+
+class _Int8DotBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _int8_batched_product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from dlnetbench_tpu_torch.models.layers import dot_f32
+        x, w = ctx.saved_tensors
+        dx = dot_f32(dy, w.transpose(1, 2)).to(x.dtype)
+        dw = dot_f32(x.transpose(1, 2), dy).to(w.dtype)
+        return dx, dw
+
+
+def int8_dot_batched(x, w):
+    """``[E, C, K] x [E, K, N] -> [E, C, N]`` in x's dtype: both operands
+    quantized per tensor, int32 sums per expert (exact), the scales
+    re-applied; the backward is straight-through in the master dtype
+    (``dx = dy . w^T``, ``dw = x^T . dy`` per expert, f32 sums)."""
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"int8_dot_batched: x {tuple(x.shape)} must be "
+                         f"[E, C, K] and w {tuple(w.shape)} [E, K, N]")
+    return _Int8DotBatched.apply(x, w)

@@ -25,6 +25,13 @@ The byte-moving ops (``alltoall`` and the hops) move float8 tensors as
 their ``uint8`` view: they move bits, and the view is the same bits in
 a type every backend carries.
 
+``permute`` sends several cyclic hops in one batch (the collective
+matmuls' two ring directions).  The differentiable forms at the end
+(``all_gather``, ``psum_scatter``, ``psum``, ``all_to_all``,
+``ppermute``, and ``pmax`` without a backward) carry the SPMD step's
+collectives through autograd with the transposes the JAX package
+applies.
+
 ``CommStream`` gives the reference's issue order, which the JAX package
 writes as ``tie`` and ``fence``: a collective issued after a burn starts
 after that burn (the comm stream waits on the compute stream), runs
@@ -94,14 +101,16 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype in _FLOAT8 else t
 
 
-def allreduce(x: torch.Tensor, group=None, async_op: bool = False):
+def allreduce(x: torch.Tensor, group=None, async_op: bool = False,
+              op: str = "sum"):
     """Sum ``x`` over the group's ranks, in place (reference Allreduce,
-    MPI_SUM, proxy_classes.hpp:36-37)."""
+    MPI_SUM, proxy_classes.hpp:36-37); ``op="max"`` takes the largest
+    instead (the JAX package's ``pmax``)."""
     _maybe_fault("allreduce", group)
     COUNTS["allreduce"] += 1
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     with _annotate("allreduce"):
-        return dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
-                               async_op=async_op)
+        return dist.all_reduce(x, op=red, group=group, async_op=async_op)
 
 
 def allgather(out: torch.Tensor, x: torch.Tensor, group=None,
@@ -160,24 +169,33 @@ def _hop(out: torch.Tensor, x: torch.Tensor, group, dst, src,
     """Send ``x`` to group rank ``dst`` and receive ``out`` from group
     rank ``src`` (``None``: no such edge) in one ``batch_isend_irecv``;
     ``out`` is zeroed when nothing arrives."""
-    if dst is not None:
-        COUNTS["send"] += 1
-    if src is not None:
-        COUNTS["recv"] += 1
-    else:
-        out.zero_()
+    return _hops([(out, x, dst, src)], group, async_op)
+
+
+def _hops(edges: list, group, async_op: bool):
+    """Several hops ``(out, x, dst, src)`` in one ``batch_isend_irecv``
+    (see ``_hop``); the k-th hop's messages carry tag k, so two hops
+    between the same pair of ranks cannot cross."""
     me = dist.get_rank(group)
+    gloo = dist.get_backend(group) == "gloo"
+    ops = []
     with _annotate("permute"):
-        if dst == me and src == me and dist.get_backend(group) == "gloo":
-            out.copy_(x)         # gloo has no pair to its own rank
-            dst = src = None
-        ops = []
-        if dst is not None:
-            ops.append(dist.P2POp(dist.isend, _bits(x),
-                                  _global(group, dst), group))
-        if src is not None:
-            ops.append(dist.P2POp(dist.irecv, _bits(out),
-                                  _global(group, src), group))
+        for tag, (out, x, dst, src) in enumerate(edges):
+            if dst is not None:
+                COUNTS["send"] += 1
+            if src is not None:
+                COUNTS["recv"] += 1
+            else:
+                out.zero_()
+            if dst == me and src == me and gloo:
+                out.copy_(x)     # gloo has no pair to its own rank
+                continue
+            if dst is not None:
+                ops.append(dist.P2POp(dist.isend, _bits(x),
+                                      _global(group, dst), group, tag))
+            if src is not None:
+                ops.append(dist.P2POp(dist.irecv, _bits(out),
+                                      _global(group, src), group, tag))
         handle = _Handles(dist.batch_isend_irecv(ops) if ops else [])
     if async_op:
         return handle
@@ -223,6 +241,18 @@ def shift_down(out: torch.Tensor, x: torch.Tensor, group=None,
     dst = i - 1 if i in allowed and i >= 1 else None
     src = i + 1 if i + 1 in allowed and i + 1 < n else None
     return _hop(out, x, group, dst, src, async_op)
+
+
+def permute(outs: list, xs: list, group=None, offsets=(),
+            async_op: bool = False):
+    """Ring hops at several offsets in one ``batch_isend_irecv``: ``xs[j]``
+    to the group rank ``offsets[j]`` places on, ``outs[j]`` from the rank
+    ``offsets[j]`` places back (the JAX package's cyclic ``ppermute``;
+    the collective matmuls' two ring directions travel in one batch)."""
+    _maybe_fault("permute", group)
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return _hops([(o, x, (i + k) % n, (i - k) % n)
+                  for o, x, k in zip(outs, xs, offsets)], group, async_op)
 
 
 class Order:
@@ -301,3 +331,172 @@ class CommStream:
         for h in self._handles:
             h.wait()
         self._handles.clear()
+
+
+# ------------------------------------------------ differentiable forms
+# The SPMD step (models/spmd.py) differentiates through its collectives,
+# as the JAX package's ``jax.grad`` does through ``lax`` collectives
+# under ``shard_map(check_vma=False)``.  Each op below is the JAX op on
+# this rank's shard, with the transpose JAX applies as its backward:
+#
+#   all_gather (tiled)        <-> psum_scatter (sum)
+#   psum                       -> psum of the cotangent
+#   all_to_all(split, concat)  -> all_to_all(concat, split)
+#   ppermute(perm)             -> ppermute(inverse perm)
+#
+# Every rank's loss is seeded with 1, so a psum's backward sums the
+# cotangents of every rank's copy: the gradient of the sum of the
+# ranks' losses, which is what the vocab-parallel loss's 1/tp seeds
+# rely on.  ``pmax`` has no backward (the JAX package only takes it of a
+# ``stop_gradient`` value).  Every call goes through the counted,
+# fault-hooked wrappers above.
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((group_size(group) * xt.shape[0], *xt.shape[1:]))
+    allgather(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // group_size(group), *xt.shape[1:]))
+    reduce_scatter(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    allreduce(out, group=group)
+    return out
+
+
+def _a2a(x: torch.Tensor, group, split: int, concat: int) -> torch.Tensor:
+    parts = torch.stack(x.chunk(group_size(group), dim=split)).contiguous()
+    out = torch.empty_like(parts, memory_format=torch.contiguous_format)
+    alltoall(out, parts, group=group)
+    return torch.cat(out.unbind(0), dim=concat)
+
+
+def _edges(perm, me: int) -> tuple:
+    dst = next((d for s, d in perm if s == me), None)
+    src = next((s for s, d in perm if d == me), None)
+    return dst, src
+
+
+def _permute_pairs(x: torch.Tensor, group, perm) -> torch.Tensor:
+    _maybe_fault("ppermute", group)
+    x = x.contiguous()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dst, src = _edges(perm, dist.get_rank(group))
+    _hop(out, x, group, dst, src, async_op=False)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _a2a(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group, ctx.concat, ctx.split), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _permute_pairs(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _permute_pairs(g, ctx.group, inverse), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order
+    (``lax.all_gather(tiled=True)``); backward: ``psum_scatter``."""
+    return _AllGather.apply(x, group, dim)
+
+
+def psum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``
+    (``lax.psum_scatter(tiled=True)``); backward: ``all_gather``."""
+    return _PsumScatter.apply(x, group, dim)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` (``lax.psum``); backward: the psum
+    of the cotangent."""
+    return _Psum.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group, split: int,
+               concat: int) -> torch.Tensor:
+    """``x``'s n blocks along ``split`` to the n ranks, the blocks
+    received concatenated along ``concat`` in rank order
+    (``lax.all_to_all(tiled=True)``); backward: the reverse."""
+    return _AllToAll.apply(x, group, split, concat)
+
+
+def ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """``lax.ppermute``: ``perm`` holds (source, destination) group
+    ranks; a rank no pair sends to receives zeros.  Backward: the
+    inverse permutation."""
+    return _PPermute.apply(x, group, tuple(perm))
+
+
+def ring_perm(n: int, offset: int) -> tuple:
+    """The cyclic permutation sending rank i to rank i + offset."""
+    return tuple((i, (i + offset) % n) for i in range(n))
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise largest of every rank's ``x`` (``lax.pmax``);
+    no backward: take it of a value that carries no gradient."""
+    if x.requires_grad:
+        raise ValueError("pmax has no backward: pass a detached value")
+    out = x.contiguous().clone()
+    allreduce(out, group=group, op="max")
+    return out

@@ -147,6 +147,14 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def launcher_world() -> int:
+    """The world's size before or after joining it: the group's when one
+    is up, else the launcher's ``WORLD_SIZE`` (1 without a launcher)."""
+    if dist.is_initialized():
+        return world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def barrier(device: torch.device | None = None) -> None:
     """Every rank of the world rendezvous (MPI_Barrier); a no-op
     without a group."""

@@ -201,8 +201,19 @@ def _rank0(group) -> bool:
         else dist.get_rank() == 0
 
 
+def _rank_prefix() -> str:
+    """The keys' prefix of this rank's leaves in a dcp save of
+    ``train_with_checkpointing``: ``r<rank>.`` at world > 1, where each
+    rank's leaves may be its own shards (the SPMD step's), so each
+    rank's are written and read apart; none at world 1."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return f"r{dist.get_rank()}."
+    return ""
+
+
 def _dcp_save(ckpt_dir: Path, step: int, leaves: list, keep: int,
-              group=None) -> None:
+              group=None, prefix: str = "") -> None:
     """Every rank of ``group`` (the default group when None; no group
     at all when none is up) writes into ``<step>.tmp/``, then its
     first rank publishes it as ``<step>/`` and prunes; the ranks meet
@@ -218,7 +229,7 @@ def _dcp_save(ckpt_dir: Path, step: int, leaves: list, keep: int,
         shutil.rmtree(tmp)
     if up:
         dist.barrier(group=group)
-    dcp.save({f"a{i}": t for i, t in enumerate(leaves)},
+    dcp.save({f"{prefix}a{i}": t for i, t in enumerate(leaves)},
              checkpoint_id=str(tmp), process_group=group, no_dist=not up)
     if lead:
         if final.exists():
@@ -230,12 +241,13 @@ def _dcp_save(ckpt_dir: Path, step: int, leaves: list, keep: int,
         dist.barrier(group=group)
 
 
-def _dcp_restore(ckpt_dir: Path, step: int, template, group=None):
+def _dcp_restore(ckpt_dir: Path, step: int, template, group=None,
+                 prefix: str = ""):
     import torch.distributed as dist
     import torch.distributed.checkpoint as dcp
     leaves = flatten(template)
     out = [torch.empty_like(t, device="cpu") for t in leaves]
-    dcp.load({f"a{i}": t for i, t in enumerate(out)},
+    dcp.load({f"{prefix}a{i}": t for i, t in enumerate(out)},
              checkpoint_id=str(ckpt_dir / str(step)), process_group=group,
              no_dist=not dist.is_initialized())
     return unflatten(template, [o.to(t.device)
@@ -256,12 +268,17 @@ def save_checkpoint(ckpt_dir: Path | str, step: int, state,
     """Save ``state`` as the checkpoint for ``step``; blocks until
     durable.  ``dcp`` is collective over the default group when one is
     up."""
+    _save(Path(ckpt_dir), step, state, keep, backend, prefix="")
+
+
+def _save(d: Path, step: int, state, keep: int, backend: str,
+          prefix: str) -> None:
     leaves = flatten(state)
     if resolve_backend(backend) == "npz":
-        _npz_save(Path(ckpt_dir), step, [to_host(t) for t in leaves], keep)
+        _npz_save(d, step, [to_host(t) for t in leaves], keep)
         return
-    _dcp_save(Path(ckpt_dir), step, [t.detach().cpu() for t in leaves],
-              keep)
+    _dcp_save(d, step, [t.detach().cpu() for t in leaves], keep,
+              prefix=prefix)
 
 
 def latest_step(ckpt_dir: Path | str) -> int | None:
@@ -277,6 +294,11 @@ def restore_checkpoint(ckpt_dir: Path | str, template,
     """Restore the state saved at ``step`` (default: the latest across
     both layouts) as ``template``'s structure, dtypes and devices;
     returns ``(state, step)``.  The layout is read from the disk."""
+    return _restore(ckpt_dir, template, step, group, prefix="")
+
+
+def _restore(ckpt_dir: Path | str, template, step: int | None, group,
+             prefix: str):
     d = Path(ckpt_dir)
     if not d.exists():
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -287,7 +309,7 @@ def restore_checkpoint(ckpt_dir: Path | str, template,
     if step in _npz_steps(d):
         return _npz_restore(d, step, template), step
     if step in _dcp_steps(d):
-        return _dcp_restore(d, step, template, group), step
+        return _dcp_restore(d, step, template, group, prefix), step
     raise FileNotFoundError(
         f"no checkpoint for step {step} under {ckpt_dir} "
         f"(available: {sorted(_npz_steps(d) + _dcp_steps(d))})")
@@ -301,12 +323,18 @@ def train_with_checkpointing(step_fn, params, batch, *, num_steps: int,
 
     ``step_fn(params, batch) -> (params, loss)``.  Returns (params,
     losses, start_step): ``start_step`` > 0 means a checkpoint was
-    resumed and ``losses`` covers only the steps executed now."""
+    resumed and ``losses`` covers only the steps executed now.  At
+    world > 1 every rank runs the loop and keeps its own leaves apart
+    (they may be its own shards, as the SPMD step's are): npz under
+    ``rank<r>/``, dcp under keys prefixed ``r<rank>.``."""
     backend = resolve_backend(backend)
+    if backend == "npz":
+        ckpt_dir = _rank_dir(ckpt_dir)
+    prefix = _rank_prefix()
     start = 0
     existing = latest_step(ckpt_dir)
     if existing is not None:
-        params, _ = restore_checkpoint(ckpt_dir, params, step=existing)
+        params, _ = _restore(ckpt_dir, params, existing, None, prefix)
         start = existing + 1  # the saved step already completed
         if log:
             log(f"resumed from step {existing}")
@@ -315,8 +343,7 @@ def train_with_checkpointing(step_fn, params, batch, *, num_steps: int,
         params, loss = step_fn(params, batch)
         losses.append(loss)  # no host read inside the loop
         if (step + 1) % save_every == 0 or step == num_steps - 1:
-            save_checkpoint(ckpt_dir, step, params, keep=keep,
-                            backend=backend)
+            _save(Path(ckpt_dir), step, params, keep, backend, prefix)
     return params, [float(v) for v in losses], start
 
 

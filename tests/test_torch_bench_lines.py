@@ -175,6 +175,17 @@ def test_straggler_ab_skips_on_one_rank_with_jax_note(capsys):
                                  "collective for a straggler to gate"}
 
 
+def test_spmd_overlap_ab_skips_on_one_rank_with_jax_note(capsys):
+    """A bench process alone is one rank: the JAX bench's note for one
+    device (``bench.py``'s ``_bench_overlap_ab``), and no line."""
+    assert T_bench.bench_overlap_ab("cpu") is None
+    marker = json.loads(capsys.readouterr().out)
+    assert marker == {"metric": "spmd overlap A/B",
+                      "skipped": "needs >= 2 devices, have 1 — "
+                                 "single-chip session has no "
+                                 "communication to overlap"}
+
+
 def test_straggler_ab_line_schema_locked(monkeypatch, capsys):
     """With >= 2 ranks (a world mocked here; rank 1 is the straggler):
     the JAX bench's schema — the amplification, both step bands, the

@@ -499,8 +499,9 @@ AUX_KEYS = ("fp8_mlp", "fp8_swiglu", "int8_matmul", "int8_fused_ab",
             "fp8_fused_ab", "checkpoint_ab", "serving_decode",
             "kv_density_ab", "sampling_ab", "longcontext_ab", "moe_ab",
             "int8_step", "int8_switchback_step", "recommended_step")
-# a bench process alone is one rank: straggler_ab prints its skip note
-SKIPPED = ["straggler A/B"]
+# a bench process alone is one rank: straggler_ab and spmd_overlap_ab
+# print their skip notes
+SKIPPED = ["straggler A/B", "spmd overlap A/B"]
 
 
 @pytest.mark.parametrize("argv", [
