@@ -104,6 +104,18 @@ Phases, in order; any failure exits non-zero:
 5f. the card-only pytest cases (tests/test_torch_card_*.py, which import
    no jax) in a subprocess, ``pytest --noconftest -m cuda``: rc 0 and at
    least CARD_TESTS_MIN cases passed (every case of those files);
+5g. the tuner (run after 5d): ``python -m dlnetbench_tpu_torch.tuning
+   tune``'s entry point on the card for ``quantized_matmul`` (e4m3,
+   [2048, 4096] @ [4096, 14336], clusters 1, 2, 4) and
+   ``paged_attention`` (the served decode geometry, every divisor of its
+   32 pages a slot) into a fresh DB under build/: each committed record
+   names this card's chip key (``h100_sxm`` on an H100 SXM) and consults
+   back as a hit through the real sites (``fused_matmul``,
+   ``kv_cache.decode_split``); K11 under every cluster and K1 under
+   every split held to their plain versions at 5b's and 3's bars, and
+   under the tuned configs; then the bench's ``tuned_ab`` line on that
+   DB (the e4m3 fused SwiGLU chain frozen against DB-tuned clusters, its
+   bands printed); the DB is switched off again after;
 6. a tiny f32 model served on the card and on the CPU (plain versions)
    with the same weights: greedy token streams must be equal, for each
    cache dtype;
@@ -207,7 +219,8 @@ Phases, in order; any failure exits non-zero:
    ``straggler A/B`` and ``spmd overlap A/B`` as their skip notes — the
    8-bit lines (``fp8_mlp``, ``fp8_swiglu``, ``int8_matmul``: the composed
    recipes' library products, never K11) each with a share of the 8-bit
-   peak in (0, 1.0], ``checkpoint_ab`` (dcp, 12 measured saves), the
+   peak in (0, 1.0], ``tuned_ab`` (its bands, an ephemeral DB),
+   ``checkpoint_ab`` (dcp, 12 measured saves), the
    serving lines among them with ``serving_decode``'s token_parity and
    ``sampling_ab``'s token_identity true and ``kv_density_ab``'s int8
    and fp8 parity bars held — with the A/B
@@ -216,7 +229,8 @@ Phases, in order; any failure exits non-zero:
    (0, 1.05]; the ``moe_ab`` line carries the three variants' bands, the
    ratio bands and the routing globals; each of K3/K4/K5 launched layers
    x steps times (warm calls included, the moe_ab chains too); K11 as
-   often as the A/B chains launch it and K12 3 x 2 layers x the grouped
+   often as the A/B chains and the tuned_ab searches and chains launch
+   it and K12 3 x 2 layers x the grouped
    chain's steps; the ``longcontext_ab`` line (before ``moe_ab``) with
    K3 launched K x (1 + rounds) more for its dense leg and K6 3 x as
    often for its splash legs; then at its S=64k operands: K6 under the
@@ -426,10 +440,10 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # the card-only pytest cases, in files that import no jax (59 of them
 # moved there from the jax-importing test files, 46 added with the split
 # K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
-# and sequence-parallel proxies, 4 with the observability channels);
-# all 198 must pass
+# and sequence-parallel proxies, 4 with the observability channels, 26
+# with the tuner's knobs); all must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 264
+CARD_TESTS_MIN = 290
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -2647,10 +2661,171 @@ def quant_train_phase(torch) -> dict:
 
 
 TRAIN_AUX_KEYS = ("fp8_mlp", "fp8_swiglu", "int8_matmul", "int8_fused_ab",
-                  "fp8_fused_ab", "checkpoint_ab", "serving_decode",
+                  "fp8_fused_ab", "tuned_ab", "checkpoint_ab",
+                  "serving_decode",
                   "kv_density_ab", "sampling_ab", "longcontext_ab",
                   "moe_ab", "int8_step", "int8_switchback_step",
                   "recommended_step")
+
+
+def tuned_ab_check(bench, line: dict) -> int:
+    """The ``tuned_ab`` line's bands, configs and search meta; returns the
+    K11 launches it made: each searched projection's candidates a warm
+    chain and ``ROUNDS`` measured ones (two when pruned), then the frozen
+    and tuned SwiGLU chains (3 products a step) warm and ``ROUNDS``
+    times, ``TUNED_AB_K`` launches or steps a chain."""
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    for var in ("tuned_ms", "frozen_ms", "ratio_tuned_vs_frozen"):
+        band = line[var]
+        if set(band) != {"value", "best", "band", "n"} \
+                or band["n"] != bench.ROUNDS or not band["value"] > 0:
+            fail(f"tuned_ab: {var} band {band}")
+    chains = 0
+    for stage in ("up", "down"):
+        cfg, meta = line["configs"][stage], line["search"][stage]
+        if set(cfg) != {"cluster"} or cfg["cluster"] not in Q.CLUSTERS \
+                or not isinstance(line["band_disjoint_win"], bool):
+            fail(f"tuned_ab: {stage} config {cfg}")
+        if not meta.get("reused_db_record"):
+            chains += ((1 + bench.ROUNDS) * meta["candidates"]
+                       - (bench.ROUNDS - 2) * meta["pruned"])
+    say(f"tuned_ab: tuned {line['tuned_ms']['value']} ms band "
+        f"{line['tuned_ms']['band']}, frozen {line['frozen_ms']['value']} "
+        f"ms band {line['frozen_ms']['band']}, ratio "
+        f"{line['ratio_tuned_vs_frozen']['value']} band "
+        f"{line['ratio_tuned_vs_frozen']['band']}, band-disjoint win "
+        f"{line['band_disjoint_win']}; clusters {line['configs']}, prior "
+        f"hits {line['db_prior_hit']}, search {line['search']}")
+    return bench.TUNED_AB_K * (chains + 2 * (1 + bench.ROUNDS) * 3)
+
+
+# the tuning phase's K11 shape (the bench MLP's up projection at 2048
+# tokens) and its tune CLI runs
+TUNE_QMM = (2048, 4096, 14336)
+
+
+def tune_cli(argv: list) -> dict:
+    """``python -m dlnetbench_tpu_torch.tuning tune ...``'s entry point
+    in this process; returns the committed record (its last stdout
+    line)."""
+    import contextlib
+    import io
+
+    from dlnetbench_tpu_torch.tuning.__main__ import main as tune_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tune_main(["tune", *argv])
+    if rc != 0:
+        fail(f"tuning: tune {' '.join(argv)} rc {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def tuning_phase(torch, name: str) -> None:
+    """5g: the tune CLI on the card for K11 (e4m3) and K1 into a fresh
+    DB, its records consulted back as hits through the real sites, every
+    cluster and split held to the plain versions, then the ``tuned_ab``
+    line on that DB.  The DB is switched off again after."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from dlnetbench_tpu_torch import bench, tuning
+    from dlnetbench_tpu_torch.core.hardware import hw_key_for_device_name
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.ops import paged_attention as PA
+    from dlnetbench_tpu_torch.ops import quantized_matmul as Q
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    t0 = time.perf_counter()
+    db_dir = OUT / "tuning_db"
+    shutil.rmtree(db_dir, ignore_errors=True)
+    dev = torch.device("cuda")
+    chip = tuning.hw_key(dev)
+    if chip != hw_key_for_device_name(name):
+        fail(f"tuning: chip key {chip!r} for {name!r}")
+    t, d, n = TUNE_QMM
+    recs = {
+        "quantized_matmul": tune_cli([
+            "--op", "quantized_matmul", "--db", str(db_dir), "--fmt",
+            "float8", "--tokens", str(t), "--d", str(d), "--n", str(n)]),
+        "paged_attention": tune_cli([
+            "--op", "paged_attention", "--db", str(db_dir), "--batch",
+            str(B), "--heads", str(HQ), "--kv_heads", str(HKV),
+            "--head_dim", str(DH), "--pages", str(PMAX), "--page_size",
+            str(PAGE)])}
+    for op, rec in recs.items():
+        say(f"tuning: committed {json.dumps(rec)}")
+        if rec["hw"] != chip or rec["op"] != op:
+            fail(f"tuning: {op} record names chip {rec['hw']!r}, not this "
+                 f"card's {chip!r}")
+    if recs["quantized_matmul"]["meta"]["candidates"] != len(Q.CLUSTERS) \
+            or recs["paged_attention"]["meta"]["candidates"] != 6:
+        fail(f"tuning: candidate grids {recs}")
+    rand = seeded(torch, 41)
+    x = rand(t, d)
+    wq, sw = Q.quantize_tensor(rand(d, n, scale=d ** -0.5), "float8")
+    sx = Q.scale_from_amax(Q.amax_of(x), "float8")
+    ref, _ = Q.plain_fused_matmul(x, wq, sw, sx, "float8", False)
+    for c in Q.CLUSTERS:
+        qmm_check(torch, "float8", Q.fused_matmul(x, wq, sw, sx,
+                                                  fmt="float8", cluster=c),
+                  ref, f"tuning: K11 e4m3 cluster {c}")
+    q, pools, _, lengths, bt = decode_operands(torch, "bf16")
+    gref = PA.gather_attention(q, *pools, lengths, bt)
+    splits = [p for p in range(1, PMAX + 1) if PMAX % p == 0]
+    for p in splits:
+        got = PA.paged_attention(q, *pools, lengths, bt, split=p)
+        if not torch.allclose(got.float(), gref.float(), rtol=TOL,
+                              atol=TOL):
+            fail(f"tuning: K1 split {p}: max abs err "
+                 f"{abs_err(got, gref):.3e} (bar {TOL})")
+    os.environ[tuning.ENV_DB_DIR] = str(db_dir)
+    tuning.reset()
+    try:
+        y = Q.fused_matmul(x, wq, sw, sx, fmt="float8")
+        qmm_check(torch, "float8", y, ref, "tuning: K11 under the tuned "
+                  "cluster")
+        split = KV.decode_split(B, HQ, HKV, DH, PMAX, PAGE, None, dev)
+        got = KV.paged_attention_decode(q, *pools, lengths, bt, split=split)
+        if not torch.allclose(got.float(), gref.float(), rtol=TOL,
+                              atol=TOL):
+            fail(f"tuning: K1 under the tuned split {split}: max abs err "
+                 f"{abs_err(got, gref):.3e}")
+        prov = tuning.provenance()
+        for op, rec in recs.items():
+            site = prov["sites"].get(f"{op}|{rec['key']}")
+            if not site or not site["hit"] or \
+                    site["config"] != rec["config"]:
+                fail(f"tuning: {op} record not consulted back as a hit: "
+                     f"{site}")
+        if split != recs["paged_attention"]["config"][
+                "pages_per_compute_block"]:
+            fail(f"tuning: decode_split {split} != the record's")
+        del x, wq, ref, y, q, pools, gref, got
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            line = bench.bench_tuned_ab(BS.bench_card(),
+                                        hw_key_for_device_name(name), name,
+                                        dev)
+        say(f"tuning: tuned_ab line {buf.getvalue().strip()}")
+        tuned_ab_check(bench, line)
+        if "[ephemeral]" in line["metric"] or \
+                line["db_path"] != str(db_dir / tuning.DB_FILENAME):
+            fail(f"tuning: tuned_ab did not commit to the phase's DB: "
+                 f"{line['db_path']}")
+        held = tuning.TuningDB(db_dir).load()
+        if len(held) != 4 or {r["hw"] for r in held.values()} != {chip}:
+            fail(f"tuning: DB after tuned_ab holds {list(held)}")
+    finally:
+        os.environ.pop(tuning.ENV_DB_DIR, None)
+        tuning.reset()
+    torch.cuda.empty_cache()
+    say(f"tuning phase: K11 clusters {list(Q.CLUSTERS)} and K1 splits "
+        f"{splits} held to the plain versions; elected cluster "
+        f"{recs['quantized_matmul']['config']['cluster']} at [{t}, {d}] x "
+        f"[{d}, {n}] and {recs['paged_attention']['config']} at the "
+        f"decode shape; {time.perf_counter() - t0:.1f} s")
 
 
 def trace_events(path: Path) -> dict:
@@ -2722,10 +2897,12 @@ def train_phase(torch) -> dict:
     if not rel <= 0.02:
         fail(f"train: int8_step loss {line['int8_step']['loss']} not "
              f"within 2 % of the headline's {line['loss']}")
-    want_k11 = 2 * 2 * (1 + bench.ROUNDS) * bench.AB_K
+    tuned_k11 = tuned_ab_check(bench, line["tuned_ab"])
+    want_k11 = 2 * 2 * (1 + bench.ROUNDS) * bench.AB_K + tuned_k11
     if k11 != want_k11:
         fail(f"train: K11 launches {k11} != {want_k11} (2 formats x 2 "
-             f"fused variants x {1 + bench.ROUNDS} chains x {bench.AB_K})")
+             f"fused variants x {1 + bench.ROUNDS} chains x {bench.AB_K}, "
+             f"and tuned_ab's {tuned_k11})")
     moe = line["moe_ab"]
     sh = bench.moe_ab_shape(BS.bench_card())
     for var in ("dense_ms", "moe_ms", "moe_grouped_ms"):
@@ -3936,12 +4113,17 @@ def paired_paged(torch, lib, parent: Path, turns, stream) -> None:
     import ctypes
 
     from dlnetbench_tpu_torch.ops import paged_attention as PA
-    split = "void* workspace" in (parent / SRC).read_text()
+    text = (parent / SRC).read_text()
+    split = "void* workspace" in text
+    # a parent whose entry takes the pages a split last gets 0 (its
+    # default split)
+    tail = [0] if "int split)" in text else []
     fn = lib.dlnb_paged_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (10 if split
                                                               else 8)
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * len(tail))
     scratch = ([torch.empty(B * HQ * PMAX * (DH + 2), device="cuda"),
                 torch.zeros(B * HKV, dtype=torch.int32, device="cuda")]
                if split else [])
@@ -3959,7 +4141,7 @@ def paired_paged(torch, lib, parent: Path, turns, stream) -> None:
                     *[x.data_ptr() if x is not None else None for x in sc],
                     lengths.data_ptr(), bt.data_ptr(),
                     got["old"].data_ptr(), *[x.data_ptr() for x in scratch],
-                    B, HQ, HKV, NUM_PAGES, PAGE, DH, PMAX, stream())
+                    B, HQ, HKV, NUM_PAGES, PAGE, DH, PMAX, stream(), *tail)
             if rc:
                 fail(f"paired: parent dlnb_paged_attention rc {rc}")
 
@@ -4004,9 +4186,14 @@ def paired_phase(torch, parent: Path) -> list:
             fail(f"paired: the parent's {src} did not build:\n{log[-3000:]}")
         libs[src] = ctypes.CDLL(str(path))
     lib = libs[MLP_SRC]
+    # a parent whose K11/K12 entries take a cluster size last gets 0 (its
+    # preference); an older one takes the argument list without it
+    tail = ([0] if "void* stream, int cluster)" in (parent / MLP_SRC)
+            .read_text() else [])
+    cut = None if tail else -1
     lib.dlnb_qmm.restype = lib.dlnb_gmm.restype = ctypes.c_int
-    lib.dlnb_qmm.argtypes = Q._fn().argtypes
-    lib.dlnb_gmm.argtypes = GM._fn().argtypes
+    lib.dlnb_qmm.argtypes = Q._fn().argtypes[:cut]
+    lib.dlnb_gmm.argtypes = GM._fn().argtypes[:cut]
     lib.dlnb_dgdu.restype = lib.dlnb_dwd.restype = ctypes.c_int
     lib.dlnb_dgdu.argtypes = MB._fn("dlnb_dgdu", 6).argtypes
     lib.dlnb_dwd.argtypes = MB._fn("dlnb_dwd", 4).argtypes
@@ -4107,7 +4294,7 @@ def paired_phase(torch, parent: Path) -> list:
                                   0, x.data_ptr(), w_t.data_ptr(),
                                   sx.data_ptr(), sw.data_ptr(),
                                   y_old.data_ptr(), None, MLP_T, n, k,
-                                  stream())
+                                  stream(), *tail)
                 if rc:
                     fail(f"paired: parent dlnb_qmm rc {rc}")
 
@@ -4150,7 +4337,7 @@ def paired_phase(torch, parent: Path) -> list:
                         x.data_ptr(), w_k.data_ptr(), counts.data_ptr(),
                         sx.data_ptr() if fmt else None,
                         sw.data_ptr() if fmt else None, y_old.data_ptr(),
-                        GMM_E, GMM_C, n, k, stream())
+                        GMM_E, GMM_C, n, k, stream(), *tail)
                     if rc:
                         fail(f"paired: parent dlnb_gmm rc {rc}")
 
@@ -4359,6 +4546,7 @@ def main(argv: list[str]) -> int:
     gmm = gmm_phase(torch, peak)
     torch.cuda.empty_cache()
     smi_sample("after K12")
+    tuning_phase(torch, name)
     if "--paired" in argv:
         paired_phase(torch, Path(argv[argv.index("--paired") + 1]).resolve())
         torch.cuda.empty_cache()

@@ -29,7 +29,13 @@ products (``torch._scaled_mm`` with unit scales and the JAX epilogue,
 8-bit peak; the MLP recipes' ``int8_fused_ab`` and ``fp8_fused_ab``
 (paired interleaved rounds
 of composed / fused / fused_delayed up-projection chains at the bench
-shape, K=8: the fused variants run kernel K11); the fault lines
+shape, K=8: the fused variants run kernel K11); ``tuned_ab`` (the e4m3
+fused SwiGLU chain on K11, K=4, frozen-default against DB-tuned cluster
+sizes per projection: a seeded three-candidate search per projection
+shape, committed to ``DLNB_TUNING_DB_DIR`` or an ephemeral DB, a record
+already there measured and never overwritten, then paired interleaved
+rounds; with ``DLNB_TUNING_DB_DIR`` set the headline stamps it as
+``tuning_db_dir``); the fault lines
 ``straggler_ab`` (the tiny DP step clean and with a delay on rank 1,
 interleaved: it needs a world of >= 2 ranks, so a bench process alone
 prints the JAX bench's skip note) and ``checkpoint_ab`` (the tiny DP
@@ -387,6 +393,218 @@ def bench_quant_fused_ab(card, hw_key, device_name: str, device,
     # attribution of the fused path (the line's value)
     line = stamp_attr(line, time_s=summaries["fused"]["value"], flops=flops,
                       nbytes=nbytes, hw=hw, dtype_key=peak_key)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+TUNED_AB_K = 4   # chained swiglu steps of the tuned A/B (the JAX bench's)
+
+
+def tuned_ab_line(summaries_s: dict, round_times_s: dict,
+                  flops_per_iter: int, roofline_time_s: float | None, *,
+                  metric: str, db_path: str, configs: dict,
+                  db_prior_hit: dict, search_meta: dict) -> dict:
+    """The tuned-vs-frozen A/B line (the JAX bench's ``_tuned_ab_line``
+    schema): ``value`` is the tuned chain's median ms; both variants ship
+    ``{value, best, band, n}`` in ms and their rates; the paired
+    per-round ratio band says what tuning bought, and
+    ``band_disjoint_win`` whether the win cleared the noise bands.
+    ``vs_baseline`` and ``vs_baseline_frozen`` are null without a
+    roofline (the CPU)."""
+    from dlnetbench_tpu_torch.metrics import stats
+    tuned, frozen = summaries_s["tuned"], summaries_s["frozen"]
+    ratios = [t / f for t, f in zip(round_times_s["tuned"],
+                                    round_times_s["frozen"]) if f > 0]
+    line = {
+        "metric": metric,
+        "value": round(tuned["value"] * 1e3, 3),
+        "unit": "ms",
+        **band_ms(tuned),
+        "vs_baseline": (None if roofline_time_s is None
+                        else round(roofline_time_s / tuned["value"], 4)),
+        "vs_baseline_frozen": (
+            None if roofline_time_s is None
+            else round(roofline_time_s / frozen["value"], 4)),
+        "tflops_tuned": round(flops_per_iter / tuned["value"] / 1e12, 2),
+        "tflops_frozen": round(flops_per_iter / frozen["value"] / 1e12,
+                               2),
+        "tuned_ms": {"value": round(tuned["value"] * 1e3, 3),
+                     **band_ms(tuned)},
+        "frozen_ms": {"value": round(frozen["value"] * 1e3, 3),
+                      **band_ms(frozen)},
+        "ratio_tuned_vs_frozen": stats.summarize(ratios, ndigits=4),
+        "band_disjoint_win": bool(
+            tuned["value"] < frozen["value"]
+            and stats.bands_overlap(tuned["band"],
+                                    frozen["band"]) is False),
+        "db_path": db_path,
+        "db_prior_hit": db_prior_hit,
+        "configs": configs,
+        "search": search_meta,
+    }
+    return stats.flag_low_mode(flag_above_peak(line))
+
+
+def bench_tuned_ab(card, hw_key, device_name: str, device) -> dict | None:
+    """Tuned-vs-frozen e4m3 fused SwiGLU A/B on kernel K11 (the JAX
+    bench's ``tuned_ab``, with the card's knob: K11's cluster size in
+    place of the TPU kernel's grid blocks).  For each projection shape
+    (gate/up ``(T, D) @ (D, F)``, down ``(T, F) @ (F, D)``) the seeded
+    search (``tuning``: splitmix64 candidate order, K-chained fence
+    timing, band-aware pruning) runs over three candidates with the
+    frozen default among them (``default_cluster``, what an untuned
+    launch takes, and the other cluster sizes that divide N / 256) and
+    commits the winner to the tuning DB (``DLNB_TUNING_DB_DIR`` if set,
+    else an ephemeral directory; the line says which).  A record the DB
+    already holds for a key is measured, never overwritten.  Then the
+    whole chain (gate, up, silu * up, down, ``TUNED_AB_K`` steps) runs
+    frozen and tuned in paired interleaved rounds.  An ephemeral DB is
+    removed after the line."""
+    import shutil
+    import tempfile
+
+    from dlnetbench_tpu_torch import tuning
+    from dlnetbench_tpu_torch.models import bench_step as bs
+    from dlnetbench_tpu_torch.ops import quantized_matmul as qmm
+    fmt = "float8"
+    hw, where = _eight_bit_hw(hw_key, fmt, "tuned A/B")
+    if where is None:
+        return None
+    tokens, d, f = bs.BATCH * bs.SEQ, card.embed_dim, card.ff_dim
+    x = _seeded((tokens, d), 13, device)
+    h0 = _seeded((tokens, f), 17, device)
+    weights = {}
+    for name, shape, seed in (("gate", (d, f), 14), ("up", (d, f), 15),
+                              ("down", (f, d), 16)):
+        wq, sw = qmm.quantize_tensor(_seeded(shape, seed, device, 0.02),
+                                     fmt)
+        weights[name] = (qmm.k_major(wq).t(), sw)  # column-major
+
+    db_root = tuning.db_dir()
+    ephemeral = db_root is None
+    if ephemeral:
+        db_root = tempfile.mkdtemp(prefix="dlnb_tuning_ephemeral_")
+    try:
+        return _tuned_ab(tokens, d, f, x, h0, weights, db_root, ephemeral,
+                         device, device_name, hw, where)
+    finally:
+        if ephemeral:
+            shutil.rmtree(db_root, ignore_errors=True)
+
+
+def _tuned_ab(tokens, d, f, x, h0, weights, db_root, ephemeral, device,
+              device_name, hw, where) -> dict:
+    """``bench_tuned_ab``'s search, commit and paired rounds on the DB
+    at ``db_root``."""
+    from dlnetbench_tpu_torch import tuning
+    from dlnetbench_tpu_torch.core.hardware import BYTES_PER_ELEMENT
+    from dlnetbench_tpu_torch.ops import quantized_matmul as qmm
+    from dlnetbench_tpu_torch.utils.timing import fence, time_callable
+    fmt, k = "float8", TUNED_AB_K
+    db = tuning.TuningDB(db_root)
+    hwk = tuning.hw_key(device)
+
+    def dot(xc, proj: str, cluster: int):
+        wq, sw = weights[proj]
+        sx = qmm.scale_from_amax(qmm.amax_of(xc), fmt)
+        return qmm.fused_matmul(xc, wq, sw, sx, fmt=fmt, cluster=cluster)
+
+    def stage_chain(proj: str, carry, cluster: int):
+        def run():
+            for _ in range(k):
+                # a slice fed back: each product depends on the last
+                carry[:, :d] += dot(carry, proj, cluster)[:, :d] * 1e-6
+            return carry
+        return run
+
+    shapes = {"up": (tokens, d, f, "up", x), "down": (tokens, f, d, "down",
+                                                      h0)}
+    frozen = {name: {"cluster": qmm.default_cluster(n)}
+              for name, (_, _, n, _, _) in shapes.items()}
+    configs: dict = {}
+    db_prior_hit: dict = {}
+    search_meta: dict = {}
+    for name, (t_, k_, n_, proj, arg) in shapes.items():
+        key = tuning.params.quantized_matmul_key(t_, k_, n_, fmt,
+                                                 arg.dtype)
+        prior = db.get("quantized_matmul", key, hwk)
+        db_prior_hit[name] = prior is not None
+        if prior is not None:
+            # a record the DB holds (a CLI tune, perhaps over a richer
+            # grid) is measured, never overwritten by this line's search
+            cfg = {**frozen[name], **prior.get("config", {})}
+            qmm.check_cluster(cfg, n_, "tuned A/B")
+            configs[name] = cfg
+            search_meta[name] = {"reused_db_record": True,
+                                 "tuned_band": prior.get("band")}
+            continue
+        candidates = [dict(frozen[name])] + [
+            {"cluster": c} for c in qmm.CLUSTERS
+            if c != frozen[name]["cluster"] and (n_ // qmm.TILE_N) % c == 0]
+        progs: dict = {}
+        carry = arg.clone()         # the stage chains' own, updated in place
+
+        def measure(cfg, _proj=proj, _carry=carry, _progs=progs):
+            c = cfg["cluster"]
+            if c not in _progs:
+                _progs[c] = stage_chain(_proj, _carry, c)
+                _progs[c]()                          # warm
+                fence(device)
+            return time_callable(_progs[c], reps=1, device=device)[0] / k
+
+        res = tuning.tune_and_commit(db, "quantized_matmul", key, hwk,
+                                     candidates, measure, seed=0,
+                                     rounds=ROUNDS, k=k)
+        configs[name] = res["config"]
+        search_meta[name] = {
+            "candidates": len(candidates), "pruned": res["pruned"],
+            "seed": res["seed"],
+            "tuned_band_ms": {
+                kk: ([round(v * 1e3, 3) for v in vv] if kk == "band"
+                     else round(vv * 1e3, 3) if kk in ("value", "best")
+                     else vv)
+                for kk, vv in res["band"].items()}}
+
+    def swiglu_chain(c_up: int, c_down: int):
+        def run():
+            xc = x
+            for _ in range(k):
+                g = dot(xc, "gate", c_up)
+                u = dot(xc, "up", c_up)
+                h = qmm.silu_hidden(g, u)
+                xc = (xc + dot(h, "down", c_down) * 1e-6).to(xc.dtype)
+            return xc
+        return run
+
+    progs = {
+        "frozen": swiglu_chain(frozen["up"]["cluster"],
+                               frozen["down"]["cluster"]),
+        "tuned": swiglu_chain(configs["up"]["cluster"],
+                              configs["down"]["cluster"]),
+    }
+    for prog in progs.values():
+        prog()                                       # warm
+    fence(device)
+    summaries, round_times = measure_paired(progs, k, device)
+    flops = 6 * tokens * d * f      # three T*D*F products an iteration
+    # fused-path traffic: x and h read once in bf16 (no quantized copy
+    # in memory), the e4m3 weights read, the bf16 outputs written
+    nbytes = int(BYTES_PER_ELEMENT["bfloat16"]
+                 * (tokens * d + 2 * tokens * f + tokens * f + tokens * d)
+                 + BYTES_PER_ELEMENT[fmt] * (2 * d * f + f * d))
+    line = tuned_ab_line(
+        summaries, round_times, flops,
+        roofline_s(flops, nbytes, hw, fmt) if hw else None,
+        metric=(f"tuned A/B: fp8(e4m3) fused swiglu chain on K11, "
+                f"DB-tuned vs frozen-default cluster sizes (seeded search "
+                f"committed to the tuning DB"
+                f"{' [ephemeral]' if ephemeral else ''}; paired "
+                f"interleaved rounds), {tokens} tok D={d} F={f}, "
+                f"{device_name} ({where})"),
+        db_path=str(db.path), configs=configs,
+        db_prior_hit=db_prior_hit, search_meta=search_meta)
+    line = stamp_attr(line, time_s=summaries["tuned"]["value"],
+                      flops=flops, nbytes=nbytes, hw=hw, dtype_key=fmt)
     print(json.dumps(line), flush=True)
     return line
 
@@ -1809,6 +2027,7 @@ def write_trace(path: str, tracer, device_label: str, events,
 
 
 def _run_bench(args, parser, tracer, fault_plan) -> int:
+    from dlnetbench_tpu_torch import tuning
     from dlnetbench_tpu_torch.core.hardware import hw_key_for_device_name
     from dlnetbench_tpu_torch.metrics import spans
     from dlnetbench_tpu_torch.models import bench_step as bs
@@ -1817,6 +2036,11 @@ def _run_bench(args, parser, tracer, fault_plan) -> int:
         device = resolve_device(args.platform)
     except RuntimeError as e:
         parser.error(str(e))
+    # the tuning DB, an opt-in warm-state directory, is stamped into the
+    # headline so every artifact says which tuning state produced it
+    tuning_db_dir = tuning.db_dir()
+    if tuning_db_dir:
+        print(f"tuning db: {tuning_db_dir}", file=sys.stderr)
     if device.type == "cuda":
         device_name = torch.cuda.get_device_name(device)
         hw_key = hw_key_for_device_name(device_name)
@@ -1861,6 +2085,8 @@ def _run_bench(args, parser, tracer, fault_plan) -> int:
                          ("fp8_fused_ab", "float8")):
             run_aux(key, bench_quant_fused_ab, card, hw_key, device_name,
                     device, fmt)
+        run_aux("tuned_ab", bench_tuned_ab, card, hw_key, device_name,
+                device)
         run_aux("straggler_ab", bench_straggler_ab, args.platform)
         run_aux("checkpoint_ab", bench_checkpoint_ab, args.platform)
         # the serving tier's lines (tiny engines)
@@ -1889,6 +2115,8 @@ def _run_bench(args, parser, tracer, fault_plan) -> int:
         print(json.dumps(recommended), flush=True)
     line = headline(summary, loss, card, cfg, device_name, hw_key,
                     fault_plan)
+    if tuning_db_dir:
+        line["tuning_db_dir"] = tuning_db_dir
     line.update(aux)
     line["recommended_step"] = recommended
     rc = 0

@@ -30,6 +30,23 @@ import time
 
 from dlnetbench_tpu_torch.faults.plan import FaultPlan
 
+# ``time.sleep`` wakes late: by 0.5-0.8 ms in the median and up to
+# 1.5 ms for a 20 ms sleep on an H100 machine's virtualised host
+# (``host_probe``, PERF.md §6).  A delay's last SPIN_S spins on the
+# clock, so the step idles for the plan's delay to within
+# microseconds, as it records.
+SPIN_S = 2e-3
+
+
+def wait(seconds: float) -> None:
+    """Block for ``seconds``: ``time.sleep`` until ``SPIN_S`` before
+    the deadline, then spin on ``time.perf_counter`` up to it."""
+    end = time.perf_counter() + seconds
+    if seconds > SPIN_S:
+        time.sleep(seconds - SPIN_S)
+    while time.perf_counter() < end:
+        pass
+
 
 class RankFailure(RuntimeError):
     """A fault-plan scripted rank death."""
@@ -139,5 +156,5 @@ class FaultInjector:
 
     def _sleep(self, us: float) -> None:
         if us > 0:
-            time.sleep(us / 1e6)
+            wait(us / 1e6)
             self.injected_delay_us += us

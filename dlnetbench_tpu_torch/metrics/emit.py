@@ -38,8 +38,9 @@ dispatch decomposition): the fractions of the wall-clock spent in
 compute, HBM, exposed communication and the host, and the verdict word
 of the hardware that ran it (``sm``, ``nvlink``, ``network``,
 ``host``).  It is derived data: a failure to stamp it is printed and
-never costs the measurement.  The tuning stamp waits for the port's
-``tuning/``.
+never costs the measurement.  ``global.tuning`` (``stamp_tuning``) says
+which tuned configs the process's kernels and SPMD knobs ran under, and
+is absent when nothing consulted the tuning DB.
 """
 from __future__ import annotations
 
@@ -111,6 +112,25 @@ def stamp_attribution(record: dict) -> dict:
     return record
 
 
+def stamp_tuning(g: dict) -> dict:
+    """Stamp ``tuning``, the process's consult provenance
+    (``tuning.provenance``: ``{db_dir, hits, misses, sites}``), into the
+    global block ``g`` (in place; returned).  Nothing is stamped when no
+    tunable site consulted (tuning off, or no site on the path), so an
+    untuned record is byte for byte a build's without the tuner.  It is
+    derived data: a failure to stamp it is printed and never costs the
+    measurement."""
+    try:
+        from dlnetbench_tpu_torch import tuning
+        prov = tuning.provenance()
+        if prov is not None:
+            g.setdefault("tuning", prov)
+    except Exception as e:
+        print(f"tuning provenance stamping failed ({type(e).__name__}: "
+              f"{e}); record unaffected", file=sys.stderr)
+    return g
+
+
 def pool_anomalies(rank_blocks: list) -> dict | None:
     """Every rank's ``anomalies_block`` (None where a rank's run was
     clean), in rank order, as one block: counts summed by trigger, the
@@ -177,6 +197,7 @@ def result_to_record(result: ProxyResult,
         ranks.append(row)
     g = {k: v for k, v in result.global_meta.items() if k != "mesh"}
     g.setdefault("transport", transport_label(mesh_info))
+    stamp_tuning(g)
     rec_now = telemetry.current()
     if rec_now is not None:
         g.setdefault("telemetry", rec_now.telemetry_block())

@@ -82,7 +82,7 @@ def build_programs(mesh, cfg_kwargs: dict | None = None, seed: int = 0):
     base = spmd.SpmdConfig(tp_overlap="none", grad_sync="monolithic", **kw)
     # the defaults resolved here, so the metric names the chunk grain
     # the programs ran
-    base = base.resolve_tuned(dp, pp, tp)
+    base = base.resolve_tuned(dp, pp, tp, mesh.device)
     over = dataclasses.replace(base, tp_overlap="decomposed",
                                grad_sync="bucketed")
     cfgs = {"baseline": base, "overlapped": over}

@@ -77,6 +77,32 @@ LAYER_KEYS = ("wq", "wk", "wv", "wo", "norm1", "norm2", "w_router",
               "w_gate", "w_up", "w_down")
 
 
+def _agreed(values: tuple, device=None) -> tuple:
+    """``values`` (ints) once every rank of the process group resolved
+    the same; a ValueError on every rank, naming each rank's values,
+    when one did not.  One all-gather, on ``device`` (by default the
+    group backend's: the card for NCCL, the CPU for gloo); nothing
+    without a group of two or more ranks."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() < 2:
+        return values
+    if device is None:
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mine = torch.tensor(values, dtype=torch.int64,
+                        device=torch.device(device))
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    rows = [tuple(int(v) for v in t.tolist()) for t in every]
+    if any(r != rows[0] for r in rows):
+        raise ValueError(
+            f"resolve_tuned: the ranks resolved different "
+            f"(tp_overlap_chunks, grad_bucket_layers): {rows} in rank "
+            f"order — every rank must read one tuning DB "
+            f"(DLNB_TUNING_DB_DIR) or none")
+    return values
+
+
 @dataclasses.dataclass(frozen=True)
 class SpmdConfig:
     """The JAX package's ``SpmdConfig``, field for field (its comments
@@ -120,17 +146,61 @@ class SpmdConfig:
     def torch_dtype(self):
         return DTYPES[self.dtype]
 
-    def resolve_tuned(self, dp: int, pp: int, tp: int) -> "SpmdConfig":
+    def resolve_tuned(self, dp: int, pp: int, tp: int,
+                      device=None) -> "SpmdConfig":
         """Concrete overlap-grain and bucket-size knobs: explicit values
-        pass through, ``None`` takes the frozen defaults (chunks 2,
-        bucket 1).  The port has no tuning database yet, so nothing is
-        consulted: this is what the JAX package resolves on an empty
-        one.  Returns self when nothing needed resolving."""
-        del dp, pp, tp
-        chunks = 2 if self.tp_overlap_chunks is None \
-            else self.tp_overlap_chunks
-        bucket = 1 if self.grad_bucket_layers is None \
-            else self.grad_bucket_layers
+        pass through; a ``None`` field consults the tuning DB
+        (``tuning.consult`` on ``device``'s chip, frozen after the first
+        consult) and takes the frozen default (chunks 2, bucket 1) on a
+        miss, so an empty DB is bit-identical to an untuned run.  A knob
+        whose mode is off (``tp_overlap='none'``,
+        ``grad_sync='monolithic'``) takes its default with no consult:
+        the step does not depend on it.
+
+        One process runs each rank, and ranks that resolved different
+        grains would issue different collectives and hang the step.  So
+        when a knob was consulted the ranks of the process group agree
+        on the answer first (``_agreed``): a rank that resolved another
+        value fails the build on every rank, loudly.  Returns self when
+        nothing needed resolving."""
+        chunks, bucket = self.tp_overlap_chunks, self.grad_bucket_layers
+        if chunks is None or bucket is None:
+            from dlnetbench_tpu_torch import tuning
+
+            def positive(field):
+                def check(cfg):
+                    v = cfg.get(field)
+                    if not isinstance(v, int) or v < 1:
+                        raise ValueError(f"{field}={v!r} is not a "
+                                         f"positive int")
+                return check
+            consulted = False
+            if chunks is None:
+                if self.tp_overlap != "decomposed":
+                    chunks = 2   # inert knob: frozen default, no consult
+                else:
+                    chunks = tuning.consult(
+                        "tp_overlap_chunks",
+                        tuning.params.tp_overlap_chunks_key(
+                            self.embed_dim, self.ff_dim, self.seq_len,
+                            tp, self.dtype),
+                        {"chunks": 2}, validate=positive("chunks"),
+                        device=device)["chunks"]
+                    consulted = True
+            if bucket is None:
+                if self.grad_sync != "bucketed":
+                    bucket = 1   # inert knob: frozen default, no consult
+                else:
+                    bucket = tuning.consult(
+                        "grad_bucket_layers",
+                        tuning.params.grad_bucket_layers_key(
+                            self.num_layers, dp, pp, self.embed_dim,
+                            self.ff_dim),
+                        {"layers": 1}, validate=positive("layers"),
+                        device=device)["layers"]
+                    consulted = True
+            if consulted:
+                chunks, bucket = _agreed((chunks, bucket), device)
         if (chunks, bucket) == (self.tp_overlap_chunks,
                                 self.grad_bucket_layers):
             return self
@@ -765,7 +835,7 @@ def make_train_step(mesh, cfg: SpmdConfig, variant: str = "full"):
     variant returns the rank's local loss).  ``params`` are not
     modified."""
     dp, pp, tp = (mesh.axes[a] for a in (AXIS_DP, AXIS_PP, AXIS_TP))
-    cfg = cfg.resolve_tuned(dp, pp, tp)
+    cfg = cfg.resolve_tuned(dp, pp, tp, mesh.device)
     cfg.validate(dp, pp, tp)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")

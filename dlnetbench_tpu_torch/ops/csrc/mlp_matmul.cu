@@ -1225,13 +1225,21 @@ cudaError_t wg_launch(const void* x, const void* w, const float* sx,
   return cudaGetLastError();
 }
 
+// cluster: 0 takes the preference (g_cluster) and then the largest of it,
+// half of it, ... that divides N / 256; 1, 2 or 4 is taken as given and
+// must divide N / 256
 template <typename TX, int FMT>
 cudaError_t q8_cluster(const void* x, const void* w, const float* sx,
                        const float* sw, void* y, float* amax,
                        const int* counts, int E, int M, int N, int K,
-                       cudaStream_t st) {
-  int cl = g_cluster;
-  while (cl > 1 && (N / kBN) % cl) cl /= 2;
+                       int cluster, cudaStream_t st) {
+  int cl = cluster;
+  if (cl == 0) {
+    cl = g_cluster;
+    while (cl > 1 && (N / kBN) % cl) cl /= 2;
+  } else if ((cl != 1 && cl != 2 && cl != 4) || (N / kBN) % cl) {
+    return cudaErrorInvalidValue;
+  }
   if (cl == 4)
     return wg_launch<TX, FMT, 4>(x, w, sx, sw, y, amax, counts, {}, E, M,
                                  N, K,
@@ -1249,13 +1257,13 @@ template <typename TX>
 cudaError_t q8_dispatch(int fmt, const void* x, const void* w,
                         const float* sx, const float* sw, void* y,
                         float* amax, const int* counts, int E, int M, int N,
-                        int K, cudaStream_t st) {
+                        int K, int cluster, cudaStream_t st) {
   if (fmt == kInt8)
     return q8_cluster<TX, kInt8>(x, w, sx, sw, y, amax, counts, E, M, N, K,
-                                 st);
+                                 cluster, st);
   if (fmt == kE4M3)
     return q8_cluster<TX, kE4M3>(x, w, sx, sw, y, amax, counts, E, M, N, K,
-                                 st);
+                                 cluster, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1265,25 +1273,28 @@ extern "C" {
 
 // K11: y [M, N] (x's dtype) = quant(x [M, K] / sx) . w_t [N, K]^T, times
 // sx * sw; with amax != 0, also max |x| into amax_out (a zeroed f32
-// scalar).  sx and sw are f32 scalars on the card.
+// scalar).  sx and sw are f32 scalars on the card.  cluster: this
+// launch's cluster size (1, 2 or 4, dividing N / 256), or 0 for the
+// preference of dlnb_qmm_set_cluster.
 int dlnb_qmm(int dtype, int fmt, int amax, const void* x, const void* w_t,
              const float* sx, const float* sw, void* y, float* amax_out,
-             int M, int N, int K, void* stream) {
+             int M, int N, int K, void* stream, int cluster) {
   if (M % kBM || N % kBN || K % 64 || (amax && amax_out == nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   float* am = amax ? amax_out : nullptr;
   if (dtype == kBF16)
     return q8_dispatch<bf16>(fmt, x, w_t, sx, sw, y, am, nullptr, 1, M, N,
-                             K, st);
+                             K, cluster, st);
   if (dtype == kF32)
     return q8_dispatch<float>(fmt, x, w_t, sx, sw, y, am, nullptr, 1, M, N,
-                              K, st);
+                              K, cluster, st);
   return cudaErrorInvalidValue;
 }
 
-// The cluster size (1, 2 or 4) K11's and K12's 8-bit launches prefer;
-// returns the previous one, or -1 for another value (nothing changes).
+// The cluster size (1, 2 or 4) K11's and K12's 8-bit launches prefer
+// when they are given none (cluster 0); returns the previous one, or -1
+// for another value (nothing changes).
 int dlnb_qmm_set_cluster(int cl) {
   if (cl != 1 && cl != 2 && cl != 4) return -1;
   const int prev = g_cluster;
@@ -1337,10 +1348,11 @@ int dlnb_dwd_set_cluster(int cl) {
 // [E, K, N] in x's dtype (bf16: N % 256 == 0, K % 64 == 0; f32: any shape).
 // fmt int8 / e4m3: w_t [E, N, K] quantized (K-major), sx and sw f32 [E] on
 // the card, N % 256 == 0, K % 64 == 0.  M is free: rows past it are never
-// read.
+// read.  cluster: as dlnb_qmm's for int8 / e4m3; bf16 and f32 take 0 or 1
+// (their one config).
 int dlnb_gmm(int dtype, int fmt, const void* x, const void* w,
              const int* counts, const float* sx, const float* sw, void* y,
-             int E, int M, int N, int K, void* stream) {
+             int E, int M, int N, int K, void* stream, int cluster) {
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
@@ -1349,12 +1361,13 @@ int dlnb_gmm(int dtype, int fmt, const void* x, const void* w,
       return cudaErrorInvalidValue;
     if (dtype == kBF16)
       return q8_dispatch<bf16>(fmt, x, w, sx, sw, y, nullptr, counts, E, M,
-                               N, K, st);
+                               N, K, cluster, st);
     if (dtype == kF32)
       return q8_dispatch<float>(fmt, x, w, sx, sw, y, nullptr, counts, E, M,
-                                N, K, st);
+                                N, K, cluster, st);
     return cudaErrorInvalidValue;
   }
+  if (cluster != 0 && cluster != 1) return cudaErrorInvalidValue;
   if (dtype == kBF16) {
     if (N % kBN || K % kBf16K) return cudaErrorInvalidValue;
     return wg_launch<bf16, kNoQuant, 1>(x, w, nullptr, nullptr, y, nullptr,

@@ -32,7 +32,9 @@
 //   * the grid is (Hkv, B, n_split).  Each slot's block-table row is cut
 //     into splits of whole pages, at least kSplitTokens (64) tokens each
 //     (split_pages: sized on the host from pmax and the page size, never
-//     from lengths, which stay on the card: no host sync).  A block
+//     from lengths, which stay on the card: no host sync; a caller may
+//     pass its own pages a split, the tuner's pages_per_compute_block,
+//     as a runtime argument).  A block
 //     whose split starts at or past its slot's length exits at once, so
 //     the live blocks are sum_b ceil(len_b / split) * Hkv — at the
 //     served shape 8 x 8 x 8 = 512 blocks, 240 of them live, where one
@@ -535,16 +537,18 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* lengths,
            const void* block_tables, void* out, void* workspace,
            void* counters, int batch, int hq, int hkv, int num_pages,
-           int page_size, int head_dim, int pmax, cudaStream_t stream) {
+           int page_size, int head_dim, int pmax, int split,
+           cudaStream_t stream) {
   constexpr int elt = static_cast<int>(sizeof(PT));
   if (batch < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > 32 ||
       head_dim % 32 != 0 || head_dim > 256 || page_size < 1 || pmax < 1 ||
       num_pages < 1 || batch > 65535 || workspace == nullptr ||
-      counters == nullptr)
+      counters == nullptr || split < 0 || split > pmax)
     return cudaErrorInvalidValue;
   const int group = hq / hkv;
-  const int pps = split_pages(page_size, pmax);
+  const int pps = split > 0 ? split : split_pages(page_size, pmax);
   const int n_split = (pmax + pps - 1) / pps;
+  if (n_split > kMaxSplits) return cudaErrorInvalidValue;
   const int tile = tile_tokens(head_dim, elt);
   const Smem L(group, head_dim, elt, tile, pps);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;
@@ -575,20 +579,23 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // workspace: f32, workspace_floats(batch, hq, hkv, head_dim, page_size,
-// pmax) of ops/paged_attention.py; counters: int32 [batch * hkv], zero
-// on entry and left zero (the combining block resets its own)
+// pmax, split) of ops/paged_attention.py; counters: int32 [batch * hkv],
+// zero on entry and left zero (the combining block resets its own).
+// split: the pages a split takes (1..pmax; the tuner's
+// pages_per_compute_block), or 0 for split_pages(page_size, pmax)
 extern "C" int dlnb_paged_attention(
     int q_dtype, int page_dtype, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
     const void* lengths, const void* block_tables, void* out,
     void* workspace, void* counters, int batch, int hq, int hkv,
-    int num_pages, int page_size, int head_dim, int pmax, void* stream) {
+    int num_pages, int page_size, int head_dim, int pmax, void* stream,
+    int split) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLNB_LAUNCH(QT, PT, SCALED)                                        \
   return launch<QT, PT, SCALED>(q, k_pages, v_pages, k_scale, v_scale,     \
                                 lengths, block_tables, out, workspace,     \
                                 counters, batch, hq, hkv, num_pages,       \
-                                page_size, head_dim, pmax, s)
+                                page_size, head_dim, pmax, split, s)
   const bool scaled = k_scale != nullptr && v_scale != nullptr;
   if (q_dtype == kF32 && page_dtype == kF32 && !scaled)
     DLNB_LAUNCH(float, float, false);

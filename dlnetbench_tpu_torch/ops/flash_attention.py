@@ -35,6 +35,12 @@ chunk's key range, so memory is O(chunk x range) and never S x S.  Under
 the plain-causal spec the plain splash versions are the plain flash
 versions (as K6/K7/K8 are then bitwise K3/K4/K5).
 
+The four ops consult the tuning DB (``consult_tiles``: ops ``flash_fwd``,
+``flash_bwd``, ``splash_fwd``, ``splash_bwd`` under the JAX package's keys
+and field names).  Each card kernel is compiled for one tile, so the
+only config a DB may name is that tile (``FWD_CONFIG``, ``BWD_CONFIG``):
+a hit naming another is refused, and tile variants are kernel work.
+
 Bound on the H100 at the training shape: operations (each kernel does
 0.6-1.2e12 FLOP on ~0.3 GB); the design notes are in the CUDA source.
 """
@@ -325,10 +331,45 @@ def backward(q, k, v, out, lse, dout, causal: bool):
     return plain_backward(q, k, v, out, lse, dout, causal)
 
 
+# the tuning DB's configs of the four attention ops (the JAX package's
+# field names) at the one tile each card kernel is compiled for
+FWD_CONFIG = {"block_q": FWD_TILES[0], "block_k": FWD_TILES[1]}
+BWD_CONFIG = {"bq_dq": DQ_TILES[0], "bk_dq": DQ_TILES[1],
+              "bq_dkv": DKV_TILES[0], "bk_dkv": DKV_TILES[1]}
+
+
+def consult_tiles(op: str, q, k, label, default: dict) -> dict:
+    """The tuning DB's config for attention op ``op`` ("flash_fwd",
+    "flash_bwd", "splash_fwd" or "splash_bwd") at q/k's shape (the JAX
+    package's keys: ``label`` is ``causal`` for the flash ops, the
+    ``MaskSpec.label()`` for the splash ones), or ``default``.  The card's
+    kernels have one compiled tile each, so ``default`` is the only config
+    they can take: a hit naming another tile is refused (with the JAX
+    package's message shape), never run on another one."""
+    from dlnetbench_tpu_torch import tuning
+    if not tuning.enabled():
+        return dict(default)
+    b, s, hq, dh = q.shape
+    if op.startswith("flash"):
+        key = tuning.params.flash_fwd_key(b, s, hq, k.shape[2], dh, label,
+                                          q.dtype)
+    else:
+        key = tuning.params.splash_key(b, s, hq, k.shape[2], dh, label,
+                                       q.dtype)
+
+    def check(cfg: dict) -> None:
+        got = {name: cfg.get(name) for name in default}
+        if got != default:
+            raise ValueError(f"{op}: tuned blocks {got} are not the card "
+                             f"kernel's one compiled tile {default}")
+    return tuning.consult(op, key, default, validate=check, device=q.device)
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        consult_tiles("flash_fwd", q, k, bool(causal), FWD_CONFIG)
         out, lse = forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -337,6 +378,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        consult_tiles("flash_bwd", q, k, bool(ctx.causal), BWD_CONFIG)
         dq, dk, dv = backward(q, k, v, out, lse, dout.contiguous(),
                               ctx.causal)
         return dq, dk, dv, None
@@ -629,6 +671,7 @@ class _SplashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, spec):
+        consult_tiles("splash_fwd", q, k, spec.label(), FWD_CONFIG)
         out, lse = splash_forward(q, k, v, spec)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.spec = spec
@@ -637,6 +680,7 @@ class _SplashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        consult_tiles("splash_bwd", q, k, ctx.spec.label(), BWD_CONFIG)
         dq, dk, dv = splash_backward(q, k, v, out, lse, dout.contiguous(),
                                      ctx.spec)
         return dq, dk, dv, None

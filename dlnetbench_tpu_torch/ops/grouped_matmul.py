@@ -26,8 +26,12 @@ The two agree wherever the dispatch buffers keep their contract (rows
 past the count are zero), and everywhere on the live rows and on the
 rows the TPU kernel zeroes.  The TPU kernel's grid blocks are validated
 as the JAX package validates them; the port's kernel runs its one frozen
-tile (the tuning DB is not ported).  There is no fall back from the
-card to the plain version.
+tile, and its knob is K11's: the cluster size of the 8-bit products.
+Each product consults the tuning DB (op ``grouped_ffn``, the JAX
+package's key with ``fmt="none"`` for the master dtype) unless the
+caller passes ``cluster``; bf16 and f32 have the one config ``{"cluster":
+1}``, and a DB hit naming another is refused.  There is no fall back
+from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ _F32 = torch.float32
 # the JAX package's frozen default grid blocks (validated, not used: the
 # card's kernel has one tile)
 DEFAULT_BLOCKS = {"block_c": 512, "block_n": 1024, "block_k": 1024}
+# the one cluster size of the bf16 and f32 kernels
+MASTER_CLUSTERS = (1,)
 # the C entry's format codes (csrc/mlp_matmul.cu): -1 is no quantization
 FMT_CODES = {None: -1, **Q.FMT_CODES}
 # what the tensor-core kernels take: N a multiple of 256 and K of 64 (C
@@ -144,15 +150,47 @@ def _fn():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int])
     return fn
 
 
-def kernel_grouped_matmul(x, w, counts, sx, sw, fmt):
+def check_cluster(cfg: dict, n: int, fmt: str | None) -> None:
+    """A cluster size K12 can take: for int8 / e4m3 K11's rule
+    (``quantized_matmul.check_cluster``), for bf16 and f32 their one
+    config, 1 (ValueError otherwise)."""
+    if fmt:
+        Q.check_cluster(cfg, n, "grouped_matmul")
+    elif cfg.get("cluster") not in MASTER_CLUSTERS:
+        raise ValueError(f"grouped_matmul: tuned cluster="
+                         f"{cfg.get('cluster')!r}, but the master-dtype "
+                         f"kernel has the one config cluster=1")
+
+
+def tuned_cluster(e: int, c: int, kdim: int, n: int, fmt: str | None,
+                  xdtype, device) -> int:
+    """K12's cluster size for one product on ``device``: the tuning DB's
+    answer (op ``grouped_ffn``; frozen after the first consult) or the
+    default (``quantized_matmul.default_cluster`` for 8-bit, 1 for the
+    master dtype).  With the tuner off, 0: the launch's own default."""
+    from dlnetbench_tpu_torch import tuning
+    if not tuning.enabled():
+        return 0
+    default = Q.default_cluster(n) if fmt else MASTER_CLUSTERS[0]
+    return tuning.consult(
+        "grouped_ffn",
+        tuning.params.grouped_ffn_key(e, c, kdim, n, fmt or "none",
+                                      xdtype),
+        {"cluster": default},
+        validate=lambda cfg: check_cluster(cfg, n, fmt),
+        device=device)["cluster"]
+
+
+def kernel_grouped_matmul(x, w, counts, sx, sw, fmt, cluster: int = 0):
     """K12 on the card: x ``[E, C, K]`` (bf16 or f32); ``w`` ``[E, K, N]``
     in x's dtype, or with ``fmt`` the quantized weight K-major, ``[E, N,
     K]``; ``counts`` int32 ``[E]`` or None (every row); ``sx``/``sw`` f32
-    ``[E]`` (quantized only), all read on the card."""
+    ``[E]`` (quantized only), all read on the card.  ``cluster``: this
+    launch's cluster size (``check_cluster``), or 0 for the default."""
     global grouped_launches
     e, c, k = x.shape
     if x.dtype not in Q.DTYPE_CODES:
@@ -191,6 +229,8 @@ def kernel_grouped_matmul(x, w, counts, sx, sw, fmt):
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError("grouped_matmul: operands must be contiguous")
+    if cluster:
+        check_cluster({"cluster": cluster}, n, fmt)
     y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -199,10 +239,11 @@ def kernel_grouped_matmul(x, w, counts, sx, sw, fmt):
                    counts.data_ptr() if counts is not None else None,
                    sx.data_ptr() if fmt else None,
                    sw.data_ptr() if fmt else None, y.data_ptr(), e, c, n, k,
-                   stream)
+                   stream, int(cluster))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel: cudaError_t {rc} (x "
-                           f"{tuple(x.shape)} {x.dtype}, N={n}, fmt {fmt})")
+                           f"{tuple(x.shape)} {x.dtype}, N={n}, fmt {fmt}, "
+                           f"cluster {cluster})")
     grouped_launches += 1
     return y
 
@@ -224,7 +265,7 @@ def _check_blocks(block_c, block_n, block_k) -> None:
 def grouped_matmul(x, w, *, counts=None, sx=None, sw=None,
                    fmt: str | None = None, out_dtype=None,
                    block_c: int | None = None, block_n: int | None = None,
-                   block_k: int | None = None):
+                   block_k: int | None = None, cluster: int | None = None):
     """``[E, C, K] @ [E, K, N] -> [E, C, N]`` per-expert matmul.
 
     ``counts`` ([E], optional): valid rows per expert — rows at or past
@@ -233,7 +274,10 @@ def grouped_matmul(x, w, *, counts=None, sx=None, sw=None,
     expert (``quantize_experts``), ``sw`` [E] its scales and ``sx`` [E]
     the per-expert activation scales the kernel quantizes against.  The
     result is in ``out_dtype`` (default x's dtype; the card's kernel
-    writes x's dtype only)."""
+    writes x's dtype only).  An explicit ``cluster`` wins; with none and
+    no explicit grid blocks the tuning DB is consulted
+    (``tuned_cluster``), on the CPU too, where the plain version's
+    result does not depend on it."""
     e, c, kdim = x.shape
     if w.shape[0] != e or w.shape[1] != kdim:
         raise ValueError(f"grouped_matmul: shape mismatch "
@@ -248,6 +292,13 @@ def grouped_matmul(x, w, *, counts=None, sx=None, sw=None,
         sx = torch.as_tensor(sx, dtype=_F32, device=x.device).reshape(e)
         sw = torch.as_tensor(sw, dtype=_F32, device=x.device).reshape(e)
     _check_blocks(block_c, block_n, block_k)
+    n = w.shape[2]
+    if cluster is None:
+        cluster = (tuned_cluster(e, c, kdim, n, fmt, x.dtype, x.device)
+                   if block_c is None and block_n is None
+                   and block_k is None else 0)
+    else:
+        check_cluster({"cluster": cluster}, n, fmt)
     if counts is not None:
         counts = torch.as_tensor(counts, device=x.device).to(torch.int32)
     if not on_card(x):
@@ -257,7 +308,8 @@ def grouped_matmul(x, w, *, counts=None, sx=None, sw=None,
                          f"{x.dtype}, not {out_dtype}")
     if fmt:
         w = w.transpose(1, 2).contiguous()     # K-major per expert
-    return kernel_grouped_matmul(x.contiguous(), w, counts, sx, sw, fmt)
+    return kernel_grouped_matmul(x.contiguous(), w, counts, sx, sw, fmt,
+                                 cluster)
 
 
 # ----------------------------------------------------- the expert FFN

@@ -15,11 +15,12 @@ tokens, the one just written included); page_indices ``[B, Pmax]``
 int32 (each slot's block table).  Returns ``[B, Hq, Dh]`` in q's dtype.
 
 The kernel splits each slot's sequence over blocks of whole pages
-(``split_pages``) and combines the partials in split order in the block
-that finishes last; the wrapper hands it an f32 workspace for the
-partials (``workspace_floats``) and a zeroed int32 counter per (slot,
-KV head) that the kernel leaves zero (``counters``, one buffer per
-device and stream, grown when needed).
+(``split_pages`` by default; a caller's ``split``, the tuner's
+``pages_per_compute_block``, otherwise) and combines the partials in
+split order in the block that finishes last; the wrapper hands it an
+f32 workspace for the partials (``workspace_floats``) and a zeroed int32
+counter per (slot, KV head) that the kernel leaves zero (``counters``,
+one buffer per device and stream, grown when needed).
 """
 from __future__ import annotations
 
@@ -52,25 +53,37 @@ _counters: dict = {}
 
 
 def split_pages(page_size: int, pmax: int) -> int:
-    """Pages a split of the kernel takes (csrc/paged_attention.cu,
-    ``split_pages``): sized from the block table's width, never from the
-    lengths, which stay on the card."""
+    """Pages a split of the kernel takes by default (csrc/
+    paged_attention.cu, ``split_pages``): sized from the block table's
+    width, never from the lengths, which stay on the card."""
     pps = -(-SPLIT_TOKENS // page_size)
     pps = max(pps, -(-pmax // MAX_SPLITS))
     return min(pps, pmax)
 
 
-def num_splits(page_size: int, pmax: int) -> int:
-    """The grid's split count (its z dimension)."""
-    return -(-pmax // split_pages(page_size, pmax))
+def num_splits(page_size: int, pmax: int, split: int | None = None) -> int:
+    """The grid's split count (its z dimension) when a split takes
+    ``split`` pages (None: ``split_pages``)."""
+    return -(-pmax // (split or split_pages(page_size, pmax)))
 
 
 def workspace_floats(batch: int, hq: int, hkv: int, head_dim: int,
-                     page_size: int, pmax: int) -> int:
+                     page_size: int, pmax: int,
+                     split: int | None = None) -> int:
     """f32 values of the kernel's workspace: every split's partial
     ``acc [G, Dh]`` and ``(m, l) [G, 2]`` per (slot, KV head)."""
-    return (batch * hkv * num_splits(page_size, pmax) * (hq // hkv)
+    return (batch * hkv * num_splits(page_size, pmax, split) * (hq // hkv)
             * (head_dim + 2))
+
+
+def check_split(split: int, pmax: int) -> None:
+    """A split the kernel takes: whole pages, 1 to ``pmax``, in at most
+    ``MAX_SPLITS`` splits (ValueError otherwise)."""
+    if not isinstance(split, int) or split < 1 or split > pmax \
+            or -(-pmax // split) > MAX_SPLITS:
+        raise ValueError(f"paged attention: {split!r} pages a split for "
+                         f"{pmax} pages a slot (1..{pmax}, at most "
+                         f"{MAX_SPLITS} splits)")
 
 
 def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -177,19 +190,20 @@ def check_operands(q, k_pages, v_pages, lengths, page_indices, *,
 
 
 def launch(q, k_pages, v_pages, lengths, page_indices, k_scale=None,
-           v_scale=None) -> torch.Tensor:
+           v_scale=None, split: int | None = None) -> torch.Tensor:
     """Call the C entry on the current stream; raise on its error code.
-    Operands must already have passed ``check_operands``."""
+    Operands must already have passed ``check_operands``, and a ``split``
+    (pages a split takes; None: ``split_pages``) ``check_split``."""
     fn = _build.library("paged_attention").dlnb_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int])
     out = torch.empty_like(q)
     b, hq, dh = q.shape
     hkv, p, s, _ = k_pages.shape
     pmax = page_indices.shape[1]
-    ws = torch.empty(workspace_floats(b, hq, hkv, dh, s, pmax),
+    ws = torch.empty(workspace_floats(b, hq, hkv, dh, s, pmax, split),
                      dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     cnt = counters(q.device, stream, b * hkv)
@@ -200,24 +214,30 @@ def launch(q, k_pages, v_pages, lengths, page_indices, k_scale=None,
                 v_scale.data_ptr() if v_scale is not None else None,
                 lengths.data_ptr(), page_indices.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, hq, hkv,
-                p, s, dh, pmax, stream)
+                p, s, dh, pmax, stream, split or 0)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel: cudaError_t {rc} "
                            f"(q {tuple(q.shape)} {q.dtype}, pages "
-                           f"{tuple(k_pages.shape)} {k_pages.dtype})")
+                           f"{tuple(k_pages.shape)} {k_pages.dtype}, "
+                           f"split {split})")
     return out
 
 
-def paged_attention(q, k_pages, v_pages, lengths, page_indices):
+def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
+                    split: int | None = None):
     """K1: decode attention over a bf16/f32 page pool (pages in q's
-    dtype).  CUDA tensors launch the kernel; CPU tensors run
+    dtype).  CUDA tensors launch the kernel, a split taking ``split``
+    pages (None: ``split_pages``; the result does not depend on it
+    beyond the order of the f32 sums); CPU tensors run
     ``gather_attention``."""
     global launches
+    if split is not None:
+        check_split(split, page_indices.shape[1])
     if not on_card(q):
         return gather_attention(q, k_pages, v_pages, lengths,
                                 page_indices)
     check_operands(q, k_pages, v_pages, lengths, page_indices,
                    page_dtypes=(q.dtype,))
-    out = launch(q, k_pages, v_pages, lengths, page_indices)
+    out = launch(q, k_pages, v_pages, lengths, page_indices, split=split)
     launches += 1
     return out

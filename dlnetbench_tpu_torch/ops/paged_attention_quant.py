@@ -37,15 +37,18 @@ def dequant_gather_attention(q, k_pages, v_pages, k_scale, v_scale,
 
 
 def quant_paged_attention(q, k_pages, v_pages, k_scale, v_scale, lengths,
-                          page_indices, *, fmt: str):
+                          page_indices, *, fmt: str,
+                          split: int | None = None):
     """K2.  ``fmt`` names the recipe ('int8' | 'float8') and must match
-    the pools' dtype."""
+    the pools' dtype; ``split`` is K1's (pages a split takes)."""
     global launches
     if fmt not in FORMATS:
         raise ValueError(f"quant_paged_attention: unknown fmt {fmt!r}")
     if k_pages.dtype != FORMATS[fmt]:
         raise ValueError(f"quant_paged_attention: fmt {fmt!r} but pages "
                          f"are {k_pages.dtype}")
+    if split is not None:
+        _pa.check_split(split, page_indices.shape[1])
     if not on_card(q):
         return dequant_gather_attention(q, k_pages, v_pages, k_scale,
                                         v_scale, lengths, page_indices)
@@ -53,6 +56,6 @@ def quant_paged_attention(q, k_pages, v_pages, k_scale, v_scale, lengths,
                        page_dtypes=(FORMATS[fmt],), k_scale=k_scale,
                        v_scale=v_scale)
     out = _pa.launch(q, k_pages, v_pages, lengths, page_indices, k_scale,
-                     v_scale)
+                     v_scale, split)
     launches += 1
     return out

@@ -135,15 +135,16 @@ def _fn():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
     return fn
 
 
 def set_cluster(size: int) -> int:
     """The cluster size (one of ``CLUSTERS``) the card's 8-bit K11 and
-    K12 launches prefer from now on; returns the previous one.  A launch
-    takes the largest of size, size / 2, ... that divides N / 256.
-    Builds the kernels if needed."""
+    K12 launches prefer from now on when they are given none (the
+    tuner off and no ``cluster`` argument); returns the previous one.
+    Such a launch takes the largest of size, size / 2, ... that divides
+    N / 256.  Builds the kernels if needed."""
     if size not in CLUSTERS:
         raise ValueError(f"cluster size {size!r}: one of {CLUSTERS}")
     fn = _build.library("mlp_matmul").dlnb_qmm_set_cluster
@@ -151,10 +152,51 @@ def set_cluster(size: int) -> int:
     return int(fn(size))
 
 
-def kernel_fused_matmul(x2, w_t, sw, sx, fmt: str, collect_amax: bool):
+def default_cluster(n: int) -> int:
+    """The cluster size an untuned launch of N output columns takes: the
+    largest of 4, 2, 1 that divides N / 256 (the kernel's default rule
+    at its default preference)."""
+    c = CLUSTERS[-1]
+    while c > 1 and (n // TILE_N) % c:
+        c //= 2
+    return c
+
+
+def check_cluster(cfg: dict, n: int, what: str) -> None:
+    """A tuned ``{"cluster": c}`` the 8-bit kernel can take: c one of
+    ``CLUSTERS`` and dividing N / 256 (ValueError otherwise)."""
+    c = cfg.get("cluster")
+    if c not in CLUSTERS or (n // TILE_N) % c:
+        raise ValueError(f"{what}: tuned cluster={c!r} is not one of "
+                         f"{CLUSTERS} dividing N/{TILE_N} = {n // TILE_N}")
+
+
+def tuned_cluster(t: int, kdim: int, n: int, fmt: str, xdtype,
+                  device) -> int:
+    """K11's cluster size for a ``(t, kdim) @ (kdim, n)`` product on
+    ``device``: the tuning DB's answer (op ``quantized_matmul``, the JAX
+    package's key; frozen after the first consult) or
+    ``default_cluster(n)``.  With the tuner off, 0: the launch takes the
+    process-wide preference (``set_cluster``), as an untuned build's
+    does."""
+    from dlnetbench_tpu_torch import tuning
+    if not tuning.enabled():
+        return 0
+    return tuning.consult(
+        "quantized_matmul",
+        tuning.params.quantized_matmul_key(t, kdim, n, fmt, xdtype),
+        {"cluster": default_cluster(n)},
+        validate=lambda cfg: check_cluster(cfg, n, "fused_matmul"),
+        device=device)["cluster"]
+
+
+def kernel_fused_matmul(x2, w_t, sw, sx, fmt: str, collect_amax: bool,
+                        cluster: int = 0):
     """K11 on the card: ``(y, amax)`` from x2 ``[T, K]`` and the
     K-major quantized weight ``w_t [N, K]``; sw and sx are f32 scalars
-    on the card (read there: nothing waits for them here)."""
+    on the card (read there: nothing waits for them here).  ``cluster``
+    is this launch's cluster size (one of ``CLUSTERS``, dividing N /
+    256), or 0 for the process-wide preference (``set_cluster``)."""
     global fused_launches
     _check_fmt(fmt)
     t, k = x2.shape
@@ -171,6 +213,8 @@ def kernel_fused_matmul(x2, w_t, sw, sx, fmt: str, collect_amax: bool):
             f"fused_matmul: the kernel takes [T, K] @ [K, N] with T, N and "
             f"K multiples of {TILE_M}, {TILE_N} and {TILE_K}; got T={t} "
             f"K={k} N={n}, and a CUDA tensor has no other path")
+    if cluster:
+        check_cluster({"cluster": cluster}, n, "fused_matmul")
     scales = [s.reshape(()) for s in (sx, sw)]
     for tns in (x2, w_t, *scales):
         if tns.device != x2.device:
@@ -190,10 +234,11 @@ def kernel_fused_matmul(x2, w_t, sw, sx, fmt: str, collect_amax: bool):
                    x2.data_ptr(), w_t.data_ptr(), scales[0].data_ptr(),
                    scales[1].data_ptr(), y.data_ptr(),
                    amax.data_ptr() if collect_amax else None, t, n, k,
-                   stream)
+                   stream, int(cluster))
     if rc != 0:
         raise RuntimeError(f"fused_matmul kernel: cudaError_t {rc} (x "
-                           f"{tuple(x2.shape)} {x2.dtype}, {fmt})")
+                           f"{tuple(x2.shape)} {x2.dtype}, {fmt}, cluster "
+                           f"{cluster})")
     fused_launches += 1
     return y, amax
 
@@ -206,14 +251,18 @@ def k_major(wq: torch.Tensor) -> torch.Tensor:
 
 
 def fused_matmul(x, wq, sw, sx, *, fmt: str, out_dtype=None,
-                 collect_amax: bool = False):
+                 collect_amax: bool = False, cluster: int | None = None):
     """``[..., K]`` master-dtype x  @  ``[K, N]`` pre-quantized w  ->
     ``[..., N]``; returns ``y`` or ``(y, amax)`` with ``collect_amax``.
 
     ``sx`` is the provided activation scale (fresh or carried), ``sw``
     the weight scale from ``quantize_tensor``.  The TPU kernel's grid
     blocks (``block_m``/``block_n``/``block_k``) do not exist here: the
-    card's kernel has one fixed 128 x 256 output tile."""
+    card's kernel has one fixed 128 x 256 output tile, and its knob is
+    the cluster size.  An explicit ``cluster`` wins; with none the
+    tuning DB is consulted per (shape, dtype, chip) key
+    (``tuned_cluster``), on the CPU too, where the plain version's
+    result does not depend on it."""
     _check_fmt(fmt)
     lead, kdim = x.shape[:-1], x.shape[-1]
     n = wq.shape[1]
@@ -222,12 +271,17 @@ def fused_matmul(x, wq, sw, sx, *, fmt: str, out_dtype=None,
                          f"x[..., {kdim}] @ wq[{wq.shape[0]}, {n}]")
     x2 = x.reshape(-1, kdim)
     sx = torch.as_tensor(sx, dtype=_F32, device=x.device)
+    if cluster is None:
+        cluster = tuned_cluster(x2.shape[0], kdim, n, fmt, x.dtype,
+                                x.device)
+    else:
+        check_cluster({"cluster": cluster}, n, "fused_matmul")
     if on_card(x):
         if out_dtype not in (None, x.dtype):
             raise ValueError(f"fused_matmul: the kernel writes x's dtype "
                              f"{x.dtype}, not {out_dtype}")
         y, amax = kernel_fused_matmul(x2.contiguous(), k_major(wq), sw, sx,
-                                      fmt, collect_amax)
+                                      fmt, collect_amax, cluster)
     else:
         y, amax = plain_fused_matmul(x2, wq, sw, sx, fmt, collect_amax,
                                      out_dtype)

@@ -36,6 +36,22 @@ from dlnetbench_tpu_torch.utils.net import free_port
 
 PORT_ATTEMPTS = 5
 
+# NCCL's flight recorder (torch's c10d trace buffer, 2000 entries unless
+# the environment says otherwise) records every collective at its issue:
+# with it the one-card MoE proxy step's 512 all-to-alls took 54.1-82.0
+# ms of host time to issue on an H100, without it 58.0-60.2 ms
+# (``host_probe``, PERF.md §6).  The port keeps its own flight recorder
+# (metrics/telemetry.py), so a run turns NCCL's off unless its
+# environment sizes the buffer.
+NCCL_TRACE_VARS = ("TORCH_FR_BUFFER_SIZE", "TORCH_NCCL_TRACE_BUFFER_SIZE")
+
+
+def quiet_nccl_trace(env=os.environ) -> None:
+    """Size NCCL's trace buffer to 0 unless ``env`` sizes it; read
+    when the process's first NCCL group is made."""
+    if not any(v in env for v in NCCL_TRACE_VARS):
+        env["TORCH_NCCL_TRACE_BUFFER_SIZE"] = "0"
+
 
 def initialize(platform: str = "cuda") -> torch.device:
     """Join (or, at world 1, create) the default process group; returns
@@ -55,6 +71,8 @@ def initialize(platform: str = "cuda") -> torch.device:
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl":
+        quiet_nccl_trace()
     if dist.is_initialized():
         if dist.get_backend() != backend:
             raise RuntimeError(

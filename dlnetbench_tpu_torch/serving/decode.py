@@ -43,6 +43,7 @@ from dlnetbench_tpu_torch.ops.paged_attention import take_pages
 from dlnetbench_tpu_torch.serving.arrivals import _Rng
 from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, MASK_VALUE,
                                                    CacheConfig,
+                                                   decode_split,
                                                    dequant_gathered,
                                                    paged_attention_decode,
                                                    span_plan, write_gate,
@@ -109,11 +110,34 @@ def _moe_mlp(cfg: TransformerConfig, lp: dict, y, rows: int, active,
                           bias=moe_bias, active=active)
 
 
+class SplitOnce:
+    """K1/K2's pages a split for one decode program, resolved at its
+    first call, where the batch, the block-table width and the device
+    are known (``kv_cache.decode_split``: the tuning DB's answer, or 0,
+    the kernel's own split, with the tuner off), and kept for every
+    later call: the served step consults nothing per launch."""
+    __slots__ = ("cfg", "cache_cfg", "done", "value")
+
+    def __init__(self, cfg: TransformerConfig, cache_cfg: CacheConfig):
+        self.cfg, self.cache_cfg = cfg, cache_cfg
+        self.done, self.value = False, 0
+
+    def __call__(self, block_tables) -> int:
+        if not self.done:
+            cc = self.cache_cfg
+            self.value = decode_split(
+                block_tables.shape[0], self.cfg.num_heads, cc.num_kv_heads,
+                cc.head_dim, block_tables.shape[1], cc.page_size,
+                cc.quant_fmt, block_tables.device)
+            self.done = True
+        return self.value
+
+
 def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
                  pools, tokens, positions, write_ok, block_tables, *,
                  layers: int | None = None, attn_impl: str = "auto",
                  moe_bias=None, sampler=None, uids=None, gstate=None,
-                 return_logits: bool = False):
+                 return_logits: bool = False, split: int | None = None):
     """One batched single-token step over the paged cache.  ``write_ok``
     [B] gates the k/v write (an inactive slot's next token is garbage
     the caller ignores).  Attention covers ``positions + 1`` tokens: the
@@ -125,7 +149,8 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
     to the return.  A MoE model returns ``(pools, next_tokens,
     (expert_load, rounds))`` instead, summed over the layers
     (``moe_bias``: the seeded skew; ``write_ok`` masks inactive slots out
-    of routing)."""
+    of routing).  ``split`` is the kernels' pages a split (``SplitOnce``;
+    0: the kernel's own)."""
     b = tokens.shape[0]
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -169,7 +194,7 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
             att_lengths, block_tables,
             k_scale=k_scale[li] if quant else None,
             v_scale=v_scale[li] if quant else None,
-            fmt=cache_cfg.quant_fmt, impl=attn_impl)
+            fmt=cache_cfg.quant_fmt, impl=attn_impl, split=split)
         x = x + att.reshape(b, cfg.embed_dim) @ lp["wo"]
         y = L.rmsnorm(x, lp["norm2"])
         if moe:
@@ -220,6 +245,7 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
     n_pools = 4 if cache_cfg.quantized else 2
     n_ops = 6 if sampler is not None else 4
     moe = cfg.num_experts > 1
+    split_for = SplitOnce(cfg, cache_cfg)
 
     def decode_step(params, *args):
         if len(args) != n_pools + n_ops:
@@ -231,7 +257,8 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
         out = _step_tokens(cfg, cache_cfg, params, pools, tokens,
                            positions, active, block_tables,
                            attn_impl=attn_impl, moe_bias=moe_bias,
-                           sampler=sampler, uids=uids, gstate=gstate)
+                           sampler=sampler, uids=uids, gstate=gstate,
+                           split=split_for(block_tables))
         if moe:
             pools, nxt, (load, rounds) = out
             return (*pools, nxt, load, rounds)
@@ -289,6 +316,7 @@ def make_multi_step_decode(cfg: TransformerConfig,
     n_pools = 4 if cache_cfg.quantized else 2
     advance = sampler is not None and sampler.trans_dev is not None
     moe = cfg.num_experts > 1
+    split_for = SplitOnce(cfg, cache_cfg)
 
     def multi_step(params, *args):
         if len(args) != n_pools + 3:
@@ -308,6 +336,7 @@ def make_multi_step_decode(cfg: TransformerConfig,
         load = torch.zeros((cfg.num_experts,), dtype=torch.int32,
                            device=dev)
         rounds = 0
+        split = split_for(block_tables)
         for _ in range(min(int(n_steps), n_max)):
             last, pos = st[STATE_LAST], st[STATE_POS]
             act = st[STATE_REM] > 0
@@ -315,7 +344,7 @@ def make_multi_step_decode(cfg: TransformerConfig,
                 cfg, cache_cfg, params, pools, last, pos, act,
                 block_tables, attn_impl=attn_impl, moe_bias=moe_bias,
                 sampler=sampler, uids=st[STATE_UID],
-                gstate=st[STATE_GRAMMAR])
+                gstate=st[STATE_GRAMMAR], split=split)
             if moe:
                 pools, nxt, (load_s, rounds_s) = step_out
                 load += load_s

@@ -37,7 +37,10 @@ package's ``serving/kv_cache.py``).
   two of the JAX package's names: ``auto`` launches the Hopper kernel
   on a CUDA tensor and runs its plain version (the JAX package's gather
   math) on a CPU tensor; ``gather`` is the plain version, run only when
-  a caller names it.
+  a caller names it.  The kernels' pages a split is the tuner's
+  ``pages_per_compute_block`` (``decode_split``, resolved once per decode
+  program; ``resolve_pages_per_compute_block``, the JAX package's
+  function).
 * ``pages_for_pool_bytes`` — the pages a byte budget buys under a cache
   geometry and dtype (the equal-pool-bytes axis of the density A/B).
 """
@@ -642,26 +645,107 @@ def dequant_gathered(pages_g, scales_g):
 # decode attention over the page pool
 
 
+def _check_divides(p, pages_per_seq: int, what: str = "") -> None:
+    if not isinstance(p, int) or p < 1 or pages_per_seq % p:
+        raise ValueError(
+            f"{what}pages_per_compute_block={p!r} does not divide "
+            f"pages_per_seq {pages_per_seq}")
+
+
+def decode_split(b: int, hq: int, hkv: int, dh: int, pages_per_seq: int,
+                 page_size: int, fmt: str | None = None,
+                 device=None) -> int:
+    """K1/K2's pages a split for a decode batch of this geometry on
+    ``device``, resolved once where the shapes are fixed (the decode
+    programs' build): the tuning DB's ``pages_per_compute_block`` (op
+    ``paged_attention``, or ``paged_attention_quant`` with ``fmt``; the
+    JAX package's keys; validated to divide ``pages_per_seq``, as the
+    JAX package validates it), or the kernel's ``split_pages`` on a
+    miss.  0 with the tuner off: the launch sizes its own split, as an
+    untuned build's does, and the served step's host path does no more
+    work than it did."""
+    from dlnetbench_tpu_torch import tuning
+    from dlnetbench_tpu_torch.ops.paged_attention import split_pages
+    if not tuning.enabled():
+        return 0
+    if fmt is None:
+        op = "paged_attention"
+        key = tuning.params.paged_attention_key(pages_per_seq, page_size,
+                                                b, hq, hkv, dh)
+    else:
+        op = "paged_attention_quant"
+        key = tuning.params.paged_attention_quant_key(
+            pages_per_seq, page_size, b, hq, hkv, dh, fmt)
+    cfg = tuning.consult(
+        op, key,
+        {"pages_per_compute_block": split_pages(page_size, pages_per_seq)},
+        validate=lambda c: _check_divides(c.get("pages_per_compute_block"),
+                                          pages_per_seq),
+        device=device)
+    return cfg["pages_per_compute_block"]
+
+
+def resolve_pages_per_compute_block(q, k_pages, page_indices,
+                                    pages_per_compute_block: int | None,
+                                    fmt: str | None = None) -> int:
+    """The kernels' pages a split (the JAX package's
+    ``pages_per_compute_block`` knob, the same function): an explicit
+    value wins and must divide the per-sequence page count exactly
+    (with JAX's message); None consults the tuning DB
+    (``decode_split``) and takes the kernel's ``split_pages`` on a miss
+    or with the tuner off."""
+    from dlnetbench_tpu_torch.ops.paged_attention import split_pages
+    pages_per_seq = page_indices.shape[1]
+    if pages_per_compute_block is not None:
+        _check_divides(pages_per_compute_block, pages_per_seq,
+                       "paged_attention: ")
+        return pages_per_compute_block
+    b, hq, dh = q.shape
+    hkv, _, page_size, _ = k_pages.shape
+    return (decode_split(b, hq, hkv, dh, pages_per_seq, page_size, fmt,
+                         q.device)
+            or split_pages(page_size, pages_per_seq))
+
+
 def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
                            k_scale=None, v_scale=None,
-                           fmt: str | None = None, impl: str = "auto"):
+                           fmt: str | None = None, impl: str = "auto",
+                           pages_per_compute_block: int | None = None,
+                           split: int | None = None):
     """One decode step's attention for a batch of slots over ONE layer's
     pools (``[Hkv, P, S, Dh]``).  ``q`` must be pre-scaled by
     ``head_dim**-0.5``.  With ``k_scale``/``v_scale`` (+ ``fmt``) the
     pools are quantized and K2 runs; otherwise K1.  ``impl``: ``auto``
     (the kernel on a CUDA tensor, its plain version on a CPU tensor) or
-    ``gather`` (the plain version on either device)."""
+    ``gather`` (the plain version on either device).
+
+    The kernels' pages a split: ``split`` when the caller resolved it
+    already (the decode programs, once: ``decode_split``; 0 is the
+    kernel's own ``split_pages``), else
+    ``pages_per_compute_block`` resolved as the JAX package resolves it
+    (``resolve_pages_per_compute_block``: an explicit value must divide
+    the pages a slot; None consults the tuning DB on the kernel path).
+    An explicit value is validated on every path, the plain one
+    included; the plain versions' results do not depend on it."""
     if k_scale is not None and fmt is None:
         raise ValueError("paged_attention_decode: scale arrays need "
                          "fmt ('int8'|'float8')")
     if impl not in ATTN_IMPLS:
         raise ValueError(f"paged_attention_decode: unknown impl "
                          f"{impl!r} (auto|gather)")
+    if pages_per_compute_block is not None:
+        _check_divides(pages_per_compute_block, page_indices.shape[1],
+                       "paged_attention: ")
     if impl == "gather":
         return gather_attention(q, k_pages, v_pages, lengths,
                                 page_indices, k_scale, v_scale)
+    if split is None and q.is_cuda:
+        split = resolve_pages_per_compute_block(
+            q, k_pages, page_indices, pages_per_compute_block,
+            fmt if k_scale is not None else None)
     if k_scale is not None:
         return quant_paged_attention(q, k_pages, v_pages, k_scale,
                                      v_scale, lengths, page_indices,
-                                     fmt=fmt)
-    return paged_attention(q, k_pages, v_pages, lengths, page_indices)
+                                     fmt=fmt, split=split or None)
+    return paged_attention(q, k_pages, v_pages, lengths, page_indices,
+                           split=split or None)

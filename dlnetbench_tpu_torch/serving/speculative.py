@@ -49,9 +49,9 @@ from dlnetbench_tpu_torch.ops.paged_attention import take_pages
 from dlnetbench_tpu_torch.serving.decode import (STATE_GRAMMAR,
                                                  STATE_LAST, STATE_LIMIT,
                                                  STATE_POS, STATE_REM,
-                                                 STATE_UID, _check_impl,
-                                                 _layer, _logits,
-                                                 _step_tokens,
+                                                 STATE_UID, SplitOnce,
+                                                 _check_impl, _layer,
+                                                 _logits, _step_tokens,
                                                  check_config)
 from dlnetbench_tpu_torch.serving.kv_cache import (MASK_VALUE, CacheConfig,
                                                    write_gate, write_rows)
@@ -220,11 +220,14 @@ def make_spec_decode_loop(cfg: TransformerConfig,
     advance = sampler is not None and sampler.trans_dev is not None
     i32 = torch.int32
 
+    split_for = SplitOnce(cfg, cache_cfg)
+
     def draft_truncated(params, pools, last, pos, act, limits, uids, g0,
                         block_tables):
         """``spec_k`` drafter steps: the drafts ``[B, spec_k]`` and, when
         sampling, each step's distribution and its value at the draw."""
         rows = torch.arange(last.shape[0], device=last.device)
+        split = split_for(block_tables)
         prev, dpos, gd = last, pos, g0
         ds, q_list, q_at_draft = [], [], []
         for _ in range(spec_k):
@@ -233,12 +236,12 @@ def make_spec_decode_loop(cfg: TransformerConfig,
                 pools, prev = _step_tokens(
                     cfg, cache_cfg, params, pools, prev, dpos, ok,
                     block_tables, layers=drafter_layers,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, split=split)
             else:
                 pools, _, dlog = _step_tokens(
                     cfg, cache_cfg, params, pools, prev, dpos, ok,
                     block_tables, layers=drafter_layers,
-                    attn_impl=attn_impl, return_logits=True)
+                    attn_impl=attn_impl, return_logits=True, split=split)
                 qj = sampler.probs(dlog, gd)
                 prev = sampler.draw_from_probs(
                     qj, sampler.u01(uids, dpos, LANE_DRAFT))

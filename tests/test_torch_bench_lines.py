@@ -200,6 +200,8 @@ def test_straggler_ab_line_schema_locked(monkeypatch, capsys):
     monkeypatch.setattr(multihost, "rank", lambda: 1)
     slept = []
     monkeypatch.setattr("time.sleep", lambda s: slept.append(s))
+    monkeypatch.setattr("dlnetbench_tpu_torch.faults.inject.wait",
+                        lambda s: slept.append(s))
     seq = itertools.cycle([0.001])
 
     def fake_time_chain(fn, k, device=None):
@@ -265,6 +267,8 @@ def test_bench_fault_delays_ride_the_timed_window(tiny, monkeypatch):
     from dlnetbench_tpu_torch.utils import timing
     slept = []
     monkeypatch.setattr("time.sleep", lambda s: slept.append(s))
+    monkeypatch.setattr("dlnetbench_tpu_torch.faults.inject.wait",
+                        lambda s: slept.append(s))
 
     def scripted(fn, reps, device=None):
         for _ in range(reps):

@@ -10,7 +10,7 @@ layers, f32), its weights handed to the port through numpy."""
 from __future__ import annotations
 
 import dataclasses
-import time
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +36,8 @@ from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 from dlnetbench_tpu_torch.serving.arrivals import Request, _Rng
 from dlnetbench_tpu_torch.serving.device_state import (DeviceDecodeState,
                                                        SyncContractError)
+
+import scripted_clock
 
 MODEL = dict(vocab_size=64, embed_dim=32, num_heads=4, num_kv_heads=2,
              ff_dim=64, num_layers=2, seq_len=32)
@@ -79,7 +81,8 @@ def jax_streams(weights):
         if key not in memo:
             eng = JEngine(jax_model(), JServing(**{**SERVING, **kw}),
                           params=weights[0])
-            done, _ = eng.run(JPlan.from_dict(PLAN).sample())
+            done, _ = scripted_clock.run(eng,
+                                         JPlan.from_dict(PLAN).sample())
             assert len(done) == PLAN["num_requests"]
             memo[key] = dict(eng.token_streams)
         return memo[key]
@@ -89,7 +92,7 @@ def jax_streams(weights):
 def port_run(tp, **kw):
     eng = TS.Engine(torch_model(), TS.ServingConfig(**{**SERVING, **kw}),
                     params=tp, device="cpu")
-    done, _ = eng.run(TPlan.from_dict(PLAN).sample())
+    done, _ = scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
     assert len(done) == PLAN["num_requests"]
     assert eng.cache.pages_in_use == 0
     return dict(eng.token_streams), eng
@@ -135,7 +138,7 @@ def test_multi_step_n1_is_classic_engine(weights, jax_streams):
                     params=tp, device="cpu")
     assert eng._loop is None and eng._decode is not None
     assert eng.dstate is None
-    eng.run(TPlan.from_dict(PLAN).sample())
+    scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
     assert dict(eng.token_streams) == jax_streams()
     blk = eng.decode_loop_block()
     assert blk["steps_per_dispatch"] == 1.0
@@ -354,7 +357,7 @@ def test_device_state_stale_mutation_refused():
 # adaptive N
 
 
-def test_pick_n_steps_policy_matches_jax(weights):
+def test_pick_n_steps_policy_matches_jax(weights, monkeypatch):
     """The scripted policy, on the port's engine and JAX's side by
     side: nothing waiting runs N, pending work caps at the shortest
     remaining output, an arrival due in ~2 measured steps caps at 2, a
@@ -368,10 +371,16 @@ def test_pick_n_steps_policy_matches_jax(weights):
     jeng = JEngine(jax_model(), JServing(**SERVING, multi_step_n=8),
                    params=jp)
     picks = []
+    # both schedulers on one scripted clock: no time passes between the
+    # engine's start and its picks, however slow the host
+    clock = scripted_clock.ScriptedClock()
+    for eng in (teng, jeng):
+        monkeypatch.setattr(sys.modules[type(eng).__module__], "time",
+                            clock)
     for eng, slot_cls, req_cls in ((teng, TS._SlotState, Request),
                                    (jeng, JSlot, JRequest)):
         eng._reset_state()
-        eng._t0 = time.monotonic()
+        eng._t0 = clock.monotonic()
 
         def slot(prompt, out, generated):
             st = slot_cls(req_cls(rid=0, arrival_s=0.0,

@@ -47,9 +47,11 @@ CKPT = ["--checkpoint_every", "2", "--checkpoint_mode", "stall"]
 # ------------------------------------------------------------ injector
 @pytest.fixture
 def no_sleep(monkeypatch):
-    """Every time.sleep recorded in µs instead of slept."""
+    """Every sleep (``time.sleep``; the port injector's ``wait``)
+    recorded in µs instead of slept."""
     slept = []
     monkeypatch.setattr(time, "sleep", lambda s: slept.append(s * 1e6))
+    monkeypatch.setattr(T_inject, "wait", lambda s: slept.append(s * 1e6))
     return slept
 
 
@@ -142,6 +144,23 @@ def test_parallel_stragglers_gate_on_max_not_sum(no_sleep):
     _steps(controller, 2)
     assert max(i.injected_delay_us for i in ranks) \
         == controller.injected_delay_us == 140.0
+
+
+
+@pytest.mark.parametrize("seconds", [0.0005, 0.004])
+def test_injector_wait_sleeps_short_of_the_deadline_then_spins(
+        seconds, monkeypatch):
+    """``wait`` hands ``time.sleep`` all but ``SPIN_S`` of a delay
+    (nothing of a shorter one) and returns no earlier than the
+    deadline: a late wake of the sleep lands inside the spin."""
+    slept, real = [], time.sleep
+    monkeypatch.setattr(time, "sleep", lambda s: (slept.append(s), real(s)))
+    t0 = time.perf_counter()
+    T_inject.wait(seconds)
+    assert time.perf_counter() - t0 >= seconds
+    spin = T_inject.SPIN_S
+    assert slept == ([] if seconds <= spin
+                     else [pytest.approx(seconds - spin)])
 
 
 TRIGGERS = {

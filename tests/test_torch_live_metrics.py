@@ -25,6 +25,8 @@ from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 from dlnetbench_tpu_torch.serving.metrics import Completed as TCompleted
 from dlnetbench_tpu_torch.serving.metrics import LiveMetricsWriter as TWriter
 
+import scripted_clock
+
 # the JAX package's locked line schema (tests/test_bench_aux.py)
 KEYS = {"run", "t_s", "window_s", "completed", "ttft_ms", "tpot_ms",
         "queue_depth", "active_slots", "kv_occupancy", "engine_steps"}
@@ -130,8 +132,8 @@ def test_engine_streams_schema_complete_lines(tmp_path):
     mc, cfg, eng = _engine()
     path = tmp_path / "live.jsonl"
     eng.live = TWriter(path, window_s=0.0)
-    eng.run(TPlan.from_dict(PLAN).sample())
-    eng.run(TPlan.from_dict(PLAN).sample())
+    scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
+    scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
     lines = [json.loads(ln) for ln in path.read_text().splitlines()]
     assert lines and all(set(ln) == KEYS for ln in lines)
     assert any(ln["completed"] >= 1 for ln in lines)

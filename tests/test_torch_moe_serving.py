@@ -33,6 +33,8 @@ from dlnetbench_tpu_torch.serving import moe_decode as TMD
 from dlnetbench_tpu_torch.serving import scheduler as TS
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 
+import scripted_clock
+
 # tests/test_moe_serving.py's model and engine
 MODEL = dict(vocab_size=64, embed_dim=32, num_heads=4, num_kv_heads=2,
              ff_dim=64, num_layers=2, seq_len=32, num_experts=4, top_k=2,
@@ -84,7 +86,8 @@ def jax_engine_runs(weights):
         if key not in memo:
             eng = JEngine(jax_model(), JServing(**{**SERVING, **kw}),
                           params=weights[0])
-            done, _ = eng.run(JPlan.from_dict(PLAN).sample())
+            done, _ = scripted_clock.run(eng,
+                                         JPlan.from_dict(PLAN).sample())
             assert len(done) == PLAN["num_requests"]
             memo[key] = (dict(eng.token_streams), eng.moe_block())
         return memo[key]
@@ -100,7 +103,7 @@ def port_engine(tp, model=None, **kw):
 def port_run(tp, plan=PLAN, **kw):
     eng = port_engine(tp, **kw)
     reqs = TPlan.from_dict(plan).sample()
-    done, _ = eng.run(reqs)
+    done, _ = scripted_clock.run(eng, reqs)
     assert len(done) == len(reqs)
     assert eng.cache.pages_in_use == 0
     return dict(eng.token_streams), eng
@@ -263,7 +266,7 @@ def test_moe_skew_raises_rounds_and_imbalance():
     for skew in (0.0, 50.0):
         eng = port_engine(tp, model=mc, slots=8, num_pages=160,
                           moe_skew=skew, moe_skew_seed=1)
-        eng.run(TPlan.from_dict(plan).sample())
+        scripted_clock.run(eng, TPlan.from_dict(plan).sample())
         blocks[skew] = eng.moe_block()
     b, s = blocks[0.0], blocks[50.0]
     assert s["load_imbalance"] > b["load_imbalance"]

@@ -31,6 +31,8 @@ from dlnetbench_tpu_torch.serving import kv_cache as TKV
 from dlnetbench_tpu_torch.serving import scheduler as TS
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 
+import scripted_clock
+
 DATA = Path(__file__).parent / "data"
 PREFIX_PLAN = f"@{DATA / 'arrival_prefix.json'}"
 # the JAX density tests' tiny model and engine (tests/test_kv_density.py)
@@ -92,7 +94,7 @@ def jax_streams(weights):
         if key not in memo:
             eng = JEngine(jax_model(), JServing(**{**SERVING, **kw}),
                           params=weights[0])
-            done, _ = eng.run(_plan(spec)[0].sample())
+            done, _ = scripted_clock.run(eng, _plan(spec)[0].sample())
             assert len(done) == len(_plan(spec)[0].sample())
             memo[key] = dict(eng.token_streams)
         return memo[key]
@@ -103,7 +105,7 @@ def port_run(tp, spec, **kw):
     eng = TS.Engine(torch_model(), TS.ServingConfig(**{**SERVING, **kw}),
                     params=tp, device="cpu")
     reqs = _plan(spec)[1].sample()
-    done, _ = eng.run(reqs)
+    done, _ = scripted_clock.run(eng, reqs)
     assert len(done) == len(reqs)
     assert eng.cache.pages_in_use == 0
     assert not eng.cache.trie._node_of_page

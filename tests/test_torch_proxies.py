@@ -754,3 +754,18 @@ def test_detect_sampler_gives_no_host_joules_for_a_card(monkeypatch):
     monkeypatch.setattr(T_energy, "HwmonSampler", host_sensor)
     monkeypatch.setattr(T_energy, "_CACHED", {})
     assert T_energy.detect_sampler(torch.device("cuda", 0)) is None
+
+
+@pytest.mark.parametrize("env, want", [
+    ({}, "0"),
+    ({"TORCH_NCCL_TRACE_BUFFER_SIZE": "64"}, "64"),
+    ({"TORCH_FR_BUFFER_SIZE": "8"}, None)])
+def test_nccl_trace_buffer_is_off_unless_the_environment_sizes_it(env,
+                                                                  want):
+    """NCCL's flight recorder costs host time at every collective issue:
+    ``multihost.initialize`` sizes its buffer to 0 before the first NCCL
+    group, unless either of torch's names for the size is set."""
+    from dlnetbench_tpu_torch.parallel import multihost
+    env = dict(env)
+    multihost.quiet_nccl_trace(env)
+    assert env.get("TORCH_NCCL_TRACE_BUFFER_SIZE") == want

@@ -30,6 +30,8 @@ from dlnetbench_tpu_torch.serving import sampling as SMP
 from dlnetbench_tpu_torch.serving import scheduler as TS
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 
+import scripted_clock
+
 MODEL = dict(vocab_size=64, embed_dim=32, num_heads=4, num_kv_heads=2,
              ff_dim=64, num_layers=2, seq_len=64)
 SAMPLED = dict(slots=2, page_size=4, num_pages=64, max_seq_len=64,
@@ -61,14 +63,14 @@ def port_streams(tp, **kw) -> dict:
     eng = TS.Engine(ttfm.TransformerConfig(**MODEL, dtype="float32"),
                     TS.ServingConfig(**{**SAMPLED, **kw}), params=tp,
                     device="cpu")
-    done, _ = eng.run(TPlan.from_dict(PLAN).sample())
+    done, _ = scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
     assert len(done) == PLAN["num_requests"]
     return dict(eng.token_streams)
 
 
 def jax_streams(jc, jp, **kw) -> dict:
     eng = JEngine(jc, JServing(**{**SAMPLED, **kw}), params=jp)
-    eng.run(JPlan.from_dict(PLAN).sample())
+    scripted_clock.run(eng, JPlan.from_dict(PLAN).sample())
     return dict(eng.token_streams)
 
 

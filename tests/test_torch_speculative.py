@@ -31,6 +31,8 @@ from dlnetbench_tpu_torch.serving import scheduler as TS
 from dlnetbench_tpu_torch.serving import speculative as SP
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan as TPlan
 
+import scripted_clock
+
 MODEL = dict(vocab_size=64, embed_dim=32, num_heads=4, num_kv_heads=2,
              ff_dim=64, num_layers=2, seq_len=32)
 SERVING = dict(slots=4, page_size=4, num_pages=32, max_seq_len=32,
@@ -66,13 +68,15 @@ def weights():
 
 
 def _engines(weights, plan=PLAN, **kw):
-    """(port engine, JAX engine) after one run of ``plan`` each."""
+    """(port engine, JAX engine) after one run of ``plan`` each, both on
+    the scripted clock (one admission schedule whatever the host's
+    speed)."""
     jp, tp = weights
     teng = TS.Engine(torch_model(), TS.ServingConfig(**SERVING, **kw),
                      params=tp, device="cpu")
-    teng.run(TPlan.from_dict(plan).sample())
+    scripted_clock.run(teng, TPlan.from_dict(plan).sample())
     jeng = JEngine(jax_model(), JServing(**SERVING, **kw), params=jp)
-    jeng.run(JPlan.from_dict(plan).sample())
+    scripted_clock.run(jeng, JPlan.from_dict(plan).sample())
     return teng, jeng
 
 
@@ -81,7 +85,7 @@ def one_step(weights):
     _, tp = weights
     eng = TS.Engine(torch_model(), TS.ServingConfig(**SERVING), params=tp,
                     device="cpu")
-    eng.run(TPlan.from_dict(PLAN).sample())
+    scripted_clock.run(eng, TPlan.from_dict(PLAN).sample())
     return dict(eng.token_streams)
 
 
@@ -117,6 +121,32 @@ def test_spec_sampled_streams_equal_jax(weights):
     assert teng._drafted == jeng._drafted
 
 
+def test_spec_sampled_streams_hold_on_a_slow_host(weights):
+    """The sampled speculative comparison does not depend on the host's
+    speed: with every port engine step made 5 ms slower on the wall
+    clock the scripted schedule, and with it the stream, stays JAX's."""
+    import time
+
+    kw = dict(multi_step_n=8, speculative=True, spec_k=3,
+              drafter="truncated", drafter_layers=1, temperature=0.8,
+              top_p=0.9, sample_seed=11)
+    jp, tp = weights
+    teng = TS.Engine(torch_model(), TS.ServingConfig(**SERVING, **kw),
+                     params=tp, device="cpu")
+    step = teng._step
+
+    def slow_step():
+        time.sleep(0.005)
+        step()
+
+    teng._step = slow_step
+    scripted_clock.run(teng, TPlan.from_dict(PLAN).sample())
+    jeng = JEngine(jax_model(), JServing(**SERVING, **kw), params=jp)
+    scripted_clock.run(jeng, JPlan.from_dict(PLAN).sample())
+    assert dict(teng.token_streams) == dict(jeng.token_streams)
+    assert teng._accepted == jeng._accepted
+
+
 def test_spec_engine_first_draw_matches_unfused(weights):
     """The statistically sound end-to-end half of losslessness for one
     seed: the speculative engine's FIRST emitted token per request is
@@ -132,7 +162,7 @@ def test_spec_engine_first_draw_matches_unfused(weights):
                           drafter_layers=1)):
         eng = TS.Engine(torch_model(), TS.ServingConfig(**base, **over),
                         params=tp, device="cpu")
-        eng.run(TPlan.from_dict(plan).sample())
+        scripted_clock.run(eng, TPlan.from_dict(plan).sample())
         streams.append(dict(eng.token_streams))
     ns, sp = streams
     assert sorted(ns) == sorted(sp) and len(ns) == 24

@@ -496,7 +496,7 @@ HEADLINE_KEYS = {"metric", "value", "best", "band", "n", "vs_baseline",
 
 
 AUX_KEYS = ("fp8_mlp", "fp8_swiglu", "int8_matmul", "int8_fused_ab",
-            "fp8_fused_ab", "checkpoint_ab", "serving_decode",
+            "fp8_fused_ab", "tuned_ab", "checkpoint_ab", "serving_decode",
             "kv_density_ab", "sampling_ab", "longcontext_ab", "moe_ab",
             "int8_step", "int8_switchback_step", "recommended_step")
 # a bench process alone is one rank: straggler_ab and spmd_overlap_ab
@@ -533,6 +533,10 @@ def test_bench_entry_prints_the_headline_line_on_cpu(argv):
                 if "skipped" in ln] == SKIPPED
         for key in ("int8_fused_ab", "fp8_fused_ab"):
             assert {"composed", "fused", "fused_delayed"} <= set(line[key])
+        assert {"tuned_ms", "frozen_ms", "ratio_tuned_vs_frozen",
+                "band_disjoint_win", "db_prior_hit", "configs",
+                "search"} <= set(line["tuned_ab"])
+        assert "[ephemeral]" in line["tuned_ab"]["metric"]
         assert {"dense_ms", "moe_ms", "moe_grouped_ms",
                 "ratio_moe_grouped_vs_dense"} <= set(line["moe_ab"])
         assert {"dense", "splash_causal", "splash_window",
