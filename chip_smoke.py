@@ -182,6 +182,25 @@ Phases, in order; any failure exits non-zero:
    chunks) — exactly layers a fused trip — and the skewed run's
    ``rounds_mean`` exceeds the balanced run's; TPOT p50, ``rounds_mean``
    and the per-expert load printed for each run;
+7d. the serving-at-scale phase, at the served model's width, on two
+   cards where there are two and on cuda:0 named twice otherwise (the
+   list printed): K1 (bf16) and K2 (int8) over pools split along the KV
+   heads at 3's decode shape, within SHARD_TOL (K1's bar) of the
+   unsharded launch, one launch a shard; ``cli serve --kv_shard 2``
+   (bf16, int8) on the first 8 requests of 7's plan, K1/K2 launched 2 x
+   layers x device steps, the streams' agreement with 7's printed; the
+   migration channel at the served geometry (24 pages in 8-page chunks,
+   bf16 / int8 / e4m3): the pages land bit for bit, bytes = pages x
+   page_bytes, the send's ms printed; ``--world 2 --disaggregate``
+   (int8): every request sent once, bytes under 0.55 x bf16's, K2
+   layers x decode steps, agreement with 7's int8 streams and TTFT /
+   TPOT p50 of both printed with the migration block's ms p50 and
+   overlap; ``--replicas 2 --routing prefix_affinity --prefix_sharing``
+   on 7c's prefix-heavy plan (first 8 requests) against one sharing
+   engine: the assignment, the hit rates and the agreement printed; and
+   ``--world 2`` with a crash of rank 1 at step 12 under ``shrink``:
+   every request completes on ``degraded_world`` [0] with 4 slots.  The
+   counters are set to 0 before each served run and read after it;
 8. a tiny f32 model (TF32 off) takes 2 SGD steps on the card (K3/K4/K5,
    f32 kernels) and on the CPU (plain versions) from the same weights
    and tokens: losses within 1e-5 relative and every parameter within
@@ -352,8 +371,8 @@ Phases, in order; any failure exits non-zero:
    holding the host spans build, timed and profile and K3/K4/K5 device
    events of the recorded call — after the proxy phases, since a
    profiler session slows the host's later launches;
-11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a and
-   7c; K3/K4/K5's over 9, 10f and 10g (b); K12's per format over 9 or
+11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a, 7c
+   and 7d; K3/K4/K5's over 9, 10f and 10g (b); K12's per format over 9 or
    8d and 10g (b)), then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -441,9 +460,10 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # moved there from the jax-importing test files, 46 added with the split
 # K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
 # and sequence-parallel proxies, 4 with the observability channels, 26
-# with the tuner's knobs); all must pass
+# with the tuner's knobs, 10 with serving at scale on one card; its 10
+# two-card cases skip on one); all must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 290
+CARD_TESTS_MIN = 300
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -738,11 +758,22 @@ def serve_run(torch, label: str, flags: list[str],
     from dlnetbench_tpu_torch import cli
     from dlnetbench_tpu_torch.ops import paged_attention as PA
     from dlnetbench_tpu_torch.ops import paged_attention_quant as PAQ
+    from dlnetbench_tpu_torch.serving import disagg as DG
+    from dlnetbench_tpu_torch.serving import fleet as FL
     from dlnetbench_tpu_torch.serving import moe_decode as MD
     from dlnetbench_tpu_torch.serving import scheduler as S
-    engines = []
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    engines, servers = [], []
     engine_cls = S.Engine
     chunks = [0]
+    inits = {cls: cls.__init__ for cls in (DG.DisaggServer,
+                                           FL.FleetServer)}
+
+    def captured(cls):
+        def init(self, *a, **kw):
+            inits[cls](self, *a, **kw)
+            servers.append(self)
+        return init
 
     class RecordedEngine(engine_cls):
         def __init__(self, *a, **kw):
@@ -765,6 +796,8 @@ def serve_run(torch, label: str, flags: list[str],
     out = OUT / f"serve_{label}.jsonl"
     out.unlink(missing_ok=True)
     S.Engine = RecordedEngine
+    for cls in inits:
+        cls.__init__ = captured(cls)
     try:
         PA.launches = PAQ.launches = 0
         S.decode_dispatches = S.decode_device_steps = 0
@@ -782,6 +815,8 @@ def serve_run(torch, label: str, flags: list[str],
                   "moe_host_reads": MD.host_reads}
     finally:
         S.Engine = engine_cls
+        for cls, init in inits.items():
+            cls.__init__ = init
     if rc != 0:
         fail(f"serve {label}: cli rc {rc}")
     rec = json.loads(out.read_text().splitlines()[-1])
@@ -789,20 +824,27 @@ def serve_run(torch, label: str, flags: list[str],
     if srv["completed"] != plan["num_requests"]:
         fail(f"serve {label}: {srv['completed']} of "
              f"{plan['num_requests']} requests completed")
-    eng = engines[-1]
-    for c in eng.completed:
-        toks = eng.token_streams[c.rid]
-        if len(toks) != c.output_len or not all(0 <= t < 32768
-                                                for t in toks):
-            fail(f"serve {label}: request {c.rid} tokens {toks[:8]}... "
-                 f"(len {len(toks)}, want {c.output_len} in vocab)")
-    out = {"serving": srv, "streams": dict(eng.token_streams),
+    # the streams of the run's server (a disaggregated pair or a fleet)
+    # or of its last engine (after a crash-shrink rebuild: the requests
+    # it redid); each stream is whole and in the vocab
+    eng = engines[-1] if engines else None
+    holder = servers[-1] if servers else eng
+    streams = dict(holder.token_streams)
+    want = {r.rid: r.output_len
+            for r in ArrivalPlan.from_dict(plan).sample()}
+    for rid, toks in streams.items():
+        if len(toks) != want[rid] or not all(0 <= t < 32768
+                                             for t in toks):
+            fail(f"serve {label}: request {rid} tokens {toks[:8]}... "
+                 f"(len {len(toks)}, want {want[rid]} in vocab)")
+    out = {"serving": srv, "streams": streams,
            "counts": counts, "wall": wall, "record": rec,
-           "moe_dispatches": eng.moe_dispatches,
-           "tokens_emitted": eng._tokens_emitted}
+           "moe_dispatches": getattr(eng, "moe_dispatches", []),
+           "tokens_emitted": getattr(eng, "_tokens_emitted", 0)}
     # the engine, its class and ``engines`` form a cycle: break it, or
     # its weights (11 GB for the MoE runs) stay on the card until a GC
     engines.clear()
+    servers.clear()
     return out
 
 
@@ -1270,6 +1312,204 @@ def serving_breadth_phase(torch) -> dict:
     say(f"serving breadth: 10 served runs in "
         f"{time.perf_counter() - t_phase:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
+    return launches
+
+
+# the serving-at-scale phase (module docstring, 7d): half the served
+# plan, the prefix-heavy plan's first 8 requests for the fleet, and a
+# crash of capacity rank 1 at its world-2 engine's 12th step
+SCALE_PLAN = {**SERVE_PLAN, "num_requests": 8}
+SCALE_PREFIX_PLAN = {**PREFIX_SERVE_PLAN, "num_requests": 8}
+SCALE_CRASH = {"policy": "shrink", "events": [
+    {"kind": "crash", "ranks": [1], "iteration": 12}]}
+# K1/K2 over KV-head shards against the unsharded launch: K1's bar
+SHARD_TOL = 2e-2
+
+
+def scale_devices(torch) -> list[str]:
+    """Two distinct cards where there are two, else cuda:0 twice."""
+    if torch.cuda.device_count() >= 2:
+        return ["cuda:0", "cuda:1"]
+    return ["cuda:0", "cuda:0"]
+
+
+def shard_attention_check(torch, devs: list[str], page_dtype: str) -> float:
+    """One decode step's attention at the served shapes (3's operands)
+    over pools split along the KV heads on ``devs``: max abs error
+    against the unsharded launch, K1/K2 launched once a shard."""
+    from dlnetbench_tpu_torch.ops import paged_attention as PA
+    from dlnetbench_tpu_torch.ops import paged_attention_quant as PAQ
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    q, pools, scales, lengths, bt = decode_operands(torch, page_dtype)
+    fmt = {"int8": "int8", "fp8": "float8"}.get(page_dtype)
+    quant = scales is not None
+    ref = KV.paged_attention_decode(
+        q, *pools, lengths, bt, k_scale=scales[0] if quant else None,
+        v_scale=scales[1] if quant else None, fmt=fmt)
+    half = HKV // 2
+
+    def split(t):
+        return KV.HeadShards([t[:half].contiguous().to(devs[0]),
+                              t[half:].contiguous().to(devs[1])])
+    PA.launches = PAQ.launches = 0
+    got = KV.paged_attention_decode(
+        q, split(pools[0]), split(pools[1]), lengths, bt,
+        k_scale=split(scales[0]) if quant else None,
+        v_scale=split(scales[1]) if quant else None, fmt=fmt)
+    torch.cuda.synchronize()
+    launched = PAQ.launches if quant else PA.launches
+    PA.launches = PAQ.launches = 0
+    err = abs_err(got, ref)
+    if launched != 2 or not err <= SHARD_TOL:
+        fail(f"scale kv_shard attention {page_dtype}: {launched} launches "
+             f"(want 2), max abs err {err} against the unsharded launch "
+             f"(bar {SHARD_TOL})")
+    return err
+
+
+def migration_check(torch, devs: list[str], cache_dtype: str) -> dict:
+    """The migration channel at the served geometry (4 layers, 8 KV
+    heads, 16-token pages, Dh 128): 24 seeded pages in the stored dtype
+    sent ``devs[0] -> devs[1]`` in 8-page chunks, landed bit for bit at
+    other page ids; bytes pages x page_bytes; its ms (one send, fenced,
+    after a warm one)."""
+    from dlnetbench_tpu_torch.ops.page_migration import MigrationChannel
+    from dlnetbench_tpu_torch.serving import kv_cache as KV
+    cfg = KV.CacheConfig(num_layers=4, num_kv_heads=HKV, head_dim=DH,
+                         num_pages=64, page_size=PAGE, max_seqs=8,
+                         max_pages_per_seq=32, dtype="bfloat16",
+                         cache_dtype=cache_dtype).validate()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    src = []
+    for t in KV.device_buffers(cfg, devs[0]):
+        if t.dim() == 3:
+            src.append(torch.rand(t.shape, generator=gen, device="cuda")
+                       .to(devs[0]) + 0.01)
+        else:
+            src.append(torch.randn(t.shape, generator=gen, device="cuda")
+                       .mul(30.0 if t.dtype == torch.int8 else 1.0)
+                       .clamp(-127, 127).to(t.dtype).to(devs[0]))
+    src_ids = list(range(3, 51, 2))
+    dst_ids = list(range(40, 16, -1))
+    ch = MigrationChannel(cfg, devs[1], chunk_pages=8)
+    dst = ch.scatter(KV.device_buffers(cfg, devs[1]),
+                     ch.send(src, src_ids), dst_ids)
+    ch.reset()
+    ch.send(src, src_ids)               # the timed send (warm)
+    for got, want in zip(dst, src):
+        bits = [(t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn
+                 else t) for t in (got, want)]
+        if got.dtype != want.dtype or not torch.equal(
+                bits[0][:, :, dst_ids].cpu(), bits[1][:, :, src_ids].cpu()):
+            fail(f"scale migration {cache_dtype}: the landed pages are not "
+                 f"the sent ones bit for bit ({got.dtype})")
+    rec = ch._sends[0]
+    if rec.bytes != len(src_ids) * cfg.page_bytes:
+        fail(f"scale migration {cache_dtype}: {rec.bytes} bytes != "
+             f"{len(src_ids)} x {cfg.page_bytes}")
+    return {"pages": rec.pages, "bytes": rec.bytes, "ms": rec.wall_ms,
+            "ms_per_page": rec.wall_ms / rec.pages}
+
+
+def scale_phase(torch, served: dict) -> dict:
+    """``kv_shard``, the migration channel, disaggregation, the fleet and
+    crash + shrink at the served model's width (module docstring, 7d).
+    Returns the K1 and K2 launches of its served runs."""
+    t_phase = time.perf_counter()
+    devs = scale_devices(torch)
+    layers = int(MODEL_FLAGS[MODEL_FLAGS.index("--layers") + 1])
+    launches = {"bf16": 0, "int8": 0, "fp8": 0}
+    say(f"scale: devices {devs} "
+        f"({'two cards' if devs[0] != devs[1] else 'one card named twice'})")
+    dev_flags = ["--devices", ",".join(devs)]
+
+    def run(label, flags, plan, dtype, shards=1):
+        res = serve_run(torch, f"scale_{label}",
+                        ["--cache_dtype", dtype, *flags], plan)
+        c = res["counts"]
+        mine, other = (("k1", "k2") if dtype == "bf16" else ("k2", "k1"))
+        if c[mine] != shards * layers * c["steps"] or c["steps"] == 0 \
+                or c[other]:
+            fail(f"scale {label}: launches K1 {c['k1']} / K2 {c['k2']} "
+                 f"against {shards} shards x {layers} layers x "
+                 f"{c['steps']} device steps on {mine}")
+        launches[dtype] += c[mine]
+        srv = res["serving"]
+        say(f"scale {label}: {mine} {c[mine]} = {shards} x {layers} x "
+            f"{c['steps']} device steps; ttft p50 {srv['ttft_ms']['p50']} "
+            f"ms, tpot p50 {srv['tpot_ms']['p50']} ms, "
+            f"{srv['tokens_per_s']} tokens/s (cli {res['wall']:.1f} s)")
+        return res
+
+    # ---- kv_shard
+    for dt in ("bf16", "int8"):
+        err = shard_attention_check(torch, devs, dt)
+        say(f"scale kv_shard=2 attention {dt}: max abs err {err} against "
+            f"the unsharded launch (bar {SHARD_TOL}), 2 launches")
+    for dt in ("bf16", "int8"):
+        res = run(f"kv_shard_{dt}", ["--kv_shard", "2", *dev_flags],
+                  SCALE_PLAN, dt, shards=2)
+        ref = {rid: served[dt]["streams"][rid] for rid in res["streams"]}
+        same, n = agreement(res["streams"], ref)
+        say(f"scale kv_shard=2 {dt}: {same} of {n} tokens equal the "
+            f"kv_shard=1 run's (7); tpot p50 "
+            f"{res['serving']['tpot_ms']['p50']} ms against "
+            f"{served[dt]['serving']['tpot_ms']['p50']}")
+
+    # ---- migration
+    for dt in ("bf16", "int8", "fp8"):
+        m = migration_check(torch, devs, dt)
+        say(f"scale migration {dt}: {m['pages']} pages bit for bit, "
+            f"{m['bytes']} bytes = pages x page_bytes, {m['ms']:.3f} ms "
+            f"({m['ms_per_page'] * 1e3:.1f} us a page) {devs[0]} -> "
+            f"{devs[1]}")
+
+    # ---- disaggregated prefill/decode against one engine
+    dis = run("disagg_int8", ["--world", "2", "--disaggregate",
+                              *dev_flags], SCALE_PLAN, "int8")
+    mig = dis["serving"]["migration"]
+    if mig["sends"] != SCALE_PLAN["num_requests"] \
+            or mig["bytes_ratio_vs_bf16"] > 0.55:
+        fail(f"scale disagg: migration block {mig}")
+    ref = {rid: served["int8"]["streams"][rid] for rid in dis["streams"]}
+    same, n = agreement(dis["streams"], ref)
+    say(f"scale disagg int8: {same} of {n} tokens equal the monolithic "
+        f"run's (7); ttft p50 {dis['serving']['ttft_ms']['p50']} / tpot "
+        f"p50 {dis['serving']['tpot_ms']['p50']} ms against "
+        f"{served['int8']['serving']['ttft_ms']['p50']} / "
+        f"{served['int8']['serving']['tpot_ms']['p50']}; migration "
+        f"{mig['sends']} sends, {mig['bytes']} bytes (ratio "
+        f"{mig['bytes_ratio_vs_bf16']}), ms p50 {mig['ms']['p50']}, "
+        f"overlap {mig['overlap']}")
+
+    # ---- the fleet against one engine
+    one = run("fleet_ref", SHARING, SCALE_PREFIX_PLAN, "bf16")
+    flt = run("fleet", [*SHARING, "--replicas", "2", "--routing",
+                        "prefix_affinity", *dev_flags],
+              SCALE_PREFIX_PLAN, "bf16")
+    fb = flt["record"]["global"]["fleet"]
+    if sum(fb["requests_per_replica"]) != SCALE_PREFIX_PLAN["num_requests"]:
+        fail(f"scale fleet: fleet block {fb}")
+    same, n = agreement(flt["streams"], one["streams"])
+    say(f"scale fleet prefix_affinity: {same} of {n} tokens equal one "
+        f"engine's; requests per replica {fb['requests_per_replica']}, "
+        f"affinity hit rate {fb['affinity_hit_rate']}, reuse "
+        f"{fb['prefix_reuse_tokens']} tokens, replica hit rates "
+        f"{fb['replica_prefix_hit_rate']}")
+
+    # ---- crash + shrink
+    crash = run("crash_shrink", ["--world", "2", "--fault",
+                                 json.dumps(SCALE_CRASH), *dev_flags],
+                SCALE_PLAN, "bf16")
+    g = crash["record"]["global"]
+    if g.get("degraded_world") != [0] or g.get("degraded_slots") != 4:
+        fail(f"scale crash: degraded_world {g.get('degraded_world')}, "
+             f"degraded_slots {g.get('degraded_slots')}")
+    say(f"scale crash + shrink: every request completed on "
+        f"degraded_world [0] (4 slots), detection {g['detection_ms']} ms, "
+        f"recovery {g['recovery_ms']} ms")
+    say(f"scale: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4562,6 +4802,9 @@ def main(argv: list[str]) -> int:
     smi_sample("serving breadth")
     breadth_launches = serving_breadth_phase(torch)
     torch.cuda.empty_cache()
+    smi_sample("serving at scale")
+    scale_launches = scale_phase(torch, served)
+    torch.cuda.empty_cache()
     train_reference_phase(torch)
     smi_sample("quant train")
     quant_launches = quant_train_phase(torch)
@@ -4632,7 +4875,8 @@ def main(argv: list[str]) -> int:
                         "replaces": replaces,
                         "launches": (served[dt]["launches"]
                                      + loop_launches[dt]
-                                     + breadth_launches[dt]),
+                                     + breadth_launches[dt]
+                                     + scale_launches[dt]),
                         **results[dt]})
     for kind, label in (
             ("fwd", f"K3 flash_attention forward ({FLASH_DESIGN})"),

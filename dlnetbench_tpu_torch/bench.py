@@ -54,9 +54,13 @@ one seeded saturating plan in paired rounds: e2e p99, TTFT, TPOT and
 tokens/s bands, the dispatch decomposition, the host-fraction drop and
 ``token_parity``), ``kv_density_ab`` (dense, int8 and fp8 paged KV at
 equal pool bytes: admitted concurrency, tokens/s and the decode-parity
-bars) and ``sampling_ab`` (seeded sampling at T=0.8, fused N=16 against
+bars), ``sampling_ab`` (seeded sampling at T=0.8, fused N=16 against
 N=16 speculative sampling, and ``token_identity`` of the 1-step and
-fused sampled streams) — tiny engines with the JAX lines' model, plan
+fused sampled streams), ``disagg_ab`` (a world-2 monolithic engine
+against a 1p+1d disaggregated pair, int8 pages on the migration wire,
+``token_parity``) and ``fleet_ab`` (two-replica fleets under
+round_robin, p2c and prefix_affinity, ``token_parity``; both on the
+first two cards, absent below two as in the JAX bench) — tiny engines with the JAX lines' model, plan
 and engine configurations, the decode attention pinned to the gather
 math as the JAX lines pin it (``--live-metrics PATH`` streams the
 1-step engine's windowed snapshots to PATH, as the JAX bench does);
@@ -1066,6 +1070,256 @@ def bench_sampling_ab(device_name: str, device) -> dict:
                f"N={n_fused} spec_k=4 T={base.temperature} "
                f"top_p={base.top_p}, {device_name}",
         token_identity=identity)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def scale_devices(device, devices=None) -> list | None:
+    """The two devices of the serving-at-scale lines: ``devices`` when
+    given, else the first two cards; None below two (the JAX bench's
+    ``len(jax.devices()) < 2``: on the CPU, torch has one device)."""
+    if devices is not None:
+        return list(devices)[:2]
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def disagg_line(mono_rounds: list[dict], dis_rounds: list[dict],
+                suffix: str = "", *,
+                token_parity: bool | None = None) -> dict:
+    """The disagg_ab aux line (the JAX ``_disagg_line``) from paired
+    per-round ``serving`` blocks: ``value`` is the disaggregated arm's
+    round-median e2e p99 in ms; both arms with TTFT p50/p99, TPOT p50
+    and tokens/s bands, the migration's bytes and per-send p50 ms bands
+    and its bytes ratio, and whether splitting pulled the decode TPOT
+    band below the monolithic one, bands disjoint."""
+    from dlnetbench_tpu_torch.metrics import stats
+
+    def _bands(rounds: list[dict]) -> dict:
+        return {
+            "ttft_p50_ms": stats.summarize(
+                [r["ttft_ms"]["p50"] for r in rounds], ndigits=3),
+            "ttft_p99_ms": stats.summarize(
+                [r["ttft_ms"]["p99"] for r in rounds], ndigits=3),
+            "tpot_p50_ms": stats.summarize(
+                [r["tpot_ms"]["p50"] for r in rounds], ndigits=3),
+            "tokens_per_s": stats.summarize(
+                [r["tokens_per_s"] for r in rounds], ndigits=2),
+        }
+    mono, dis = _bands(mono_rounds), _bands(dis_rounds)
+    migs = [r.get("migration") or {} for r in dis_rounds]
+    dis["migration_bytes"] = stats.summarize(
+        [float(m.get("bytes", 0)) for m in migs], ndigits=1)
+    dis["migration_ms_p50"] = stats.summarize(
+        [float((m.get("ms") or {}).get("p50", float("nan")))
+         for m in migs], ndigits=3)
+    dis["migration_bytes_ratio"] = migs[0].get("bytes_ratio_vs_bf16")
+    p99 = stats.summarize([r["e2e_ms"]["p99"] for r in dis_rounds],
+                          ndigits=3)
+    disjoint = (stats.bands_overlap(mono["tpot_p50_ms"]["band"],
+                                    dis["tpot_p50_ms"]["band"]) is False
+                and dis["tpot_p50_ms"]["value"]
+                < mono["tpot_p50_ms"]["value"])
+    line = {
+        "metric": f"disagg_ab: monolithic vs disaggregated "
+                  f"prefill/decode at equal chips, same seeded "
+                  f"saturating plan (serving/disagg){suffix}",
+        "value": p99["value"],
+        "unit": "ms",
+        "best": p99["best"],
+        "band": p99["band"],
+        "n": p99["n"],
+        "monolithic": mono,
+        "disaggregated": dis,
+        "tpot_band_disjoint_drop": disjoint,
+        "verdict": ("decode TPOT dropped, bands disjoint — the "
+                    "prefill mesh's interference left the decode "
+                    "replica" if disjoint else
+                    "TPOT bands overlap — no interference flip at "
+                    "this scale/noise"),
+    }
+    if token_parity is not None:
+        line["token_parity"] = bool(token_parity)
+    return stats.flag_low_mode(line)
+
+
+def bench_disagg_ab(device_name: str, device,
+                    devices=None) -> dict | None:
+    """The disaggregation A/B (the JAX ``_bench_disagg_ab``): a
+    monolithic world-2 engine and a 1p+1d disaggregated pair on the same
+    two devices, weights and seeded saturating plan, int8 pages (the
+    quantized wire), interleaved per round after a discarded warm round;
+    the token-parity lock compares the full greedy streams.  None below
+    two devices (``scale_devices``)."""
+    import dataclasses
+
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving import metrics as smetrics
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.disagg import DisaggServer
+    from dlnetbench_tpu_torch.serving.scheduler import (Engine,
+                                                        ServingConfig)
+    devs = scale_devices(device, devices)
+    if devs is None:
+        return None
+    mc = serving_model()
+    # gather attention on both arms, as in the JAX line
+    mono_cfg = ServingConfig(
+        slots=4, page_size=8, num_pages=48, max_seq_len=40,
+        slo_ttft_ms=250.0, slo_tpot_ms=100.0, attn_impl="gather",
+        cache_dtype="int8", multi_step_n=8, adaptive_n=True, world=2)
+    dis_cfg = dataclasses.replace(
+        mono_cfg, disaggregate=True, prefill_ranks=1, decode_ranks=1)
+    plan = ArrivalPlan(kind="poisson", rate_rps=5000.0,
+                       num_requests=8, seed=0, prompt_len=[8, 16],
+                       output_len=[16, 24])
+    params = init_params(mc, seed=0, device=devs[0])
+    requests = plan.sample()
+    mono = Engine(mc, mono_cfg, params=params, devices=devs)
+    dis = DisaggServer(mc, dis_cfg, params=params, devices=devs)
+    mono.run(requests)  # warm round, discarded
+    dis.run(requests)
+    mono_rounds, dis_rounds = [], []
+    streams = {}
+    for _ in range(ROUNDS):
+        completed, wall = mono.run(requests)
+        streams["mono"] = dict(mono.token_streams)
+        mono_rounds.append(serving_rounds_block(mono, completed, plan,
+                                                wall, mono_cfg))
+        completed, wall = dis.run(requests)
+        streams["dis"] = dis.token_streams
+        dis_rounds.append(smetrics.serving_block(
+            completed, plan, slo_ttft_ms=mono_cfg.slo_ttft_ms,
+            slo_tpot_ms=mono_cfg.slo_tpot_ms, wall_s=wall,
+            engine_steps=dis.engine_steps(),
+            cache_stats=dis.decode.cache.stats(),
+            queue_depth_max=dis.prefill.queue_depth_max,
+            batch_occupancy_mean=dis.decode.batch_occupancy_mean(),
+            decode_loop=dis.decode.decode_loop_block(),
+            migration=dis.channel.stats_block()))
+    line = disagg_line(
+        mono_rounds, dis_rounds,
+        suffix=f", {len(requests)} req slots={mono_cfg.slots} "
+               f"int8 KV, world=2 (1p+1d), {device_name}",
+        token_parity=streams["dis"] == streams["mono"])
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def fleet_line(arm_rounds: dict, suffix: str = "", *,
+               token_parity: bool | None = None) -> dict:
+    """The fleet_ab aux line (the JAX ``_fleet_line``) from per-policy
+    per-round ``{"serving": ..., "fleet": ...}`` dicts: ``value`` is the
+    prefix_affinity arm's round-median TTFT p50 in ms; every arm with
+    TTFT p50/p99 and tokens/s bands, the affinity arm's hit rate and
+    prefix-token reuse, and whether affinity pulled TTFT p50 below the
+    round_robin band, bands disjoint."""
+    from dlnetbench_tpu_torch.metrics import stats
+
+    def _bands(rounds: list[dict]) -> dict:
+        srv = [r["serving"] for r in rounds]
+        return {
+            "ttft_p50_ms": stats.summarize(
+                [r["ttft_ms"]["p50"] for r in srv], ndigits=3),
+            "ttft_p99_ms": stats.summarize(
+                [r["ttft_ms"]["p99"] for r in srv], ndigits=3),
+            "tokens_per_s": stats.summarize(
+                [r["tokens_per_s"] for r in srv], ndigits=2),
+        }
+    arms = {pol: _bands(rounds) for pol, rounds in arm_rounds.items()}
+    pa_rounds = arm_rounds["prefix_affinity"]
+    arms["prefix_affinity"]["affinity_hit_rate"] = stats.summarize(
+        [r["fleet"]["affinity_hit_rate"] for r in pa_rounds], ndigits=4)
+    arms["prefix_affinity"]["prefix_reuse_tokens"] = stats.summarize(
+        [float(r["fleet"]["prefix_reuse_tokens"]) for r in pa_rounds],
+        ndigits=1)
+    p50 = arms["prefix_affinity"]["ttft_p50_ms"]
+    rr = arms["round_robin"]["ttft_p50_ms"]
+    disjoint = (stats.bands_overlap(rr["band"], p50["band"]) is False
+                and p50["value"] < rr["value"])
+    replicas = pa_rounds[0]["fleet"]["replicas"]
+    line = {
+        "metric": f"fleet_ab: round_robin vs p2c vs prefix_affinity "
+                  f"routing at equal chips ({replicas} replicas), same "
+                  f"seeded prefix-heavy plan (serving/fleet){suffix}",
+        "value": p50["value"],
+        "unit": "ms",
+        "best": p50["best"],
+        "band": p50["band"],
+        "n": p50["n"],
+        "round_robin": arms["round_robin"],
+        "p2c": arms["p2c"],
+        "prefix_affinity": arms["prefix_affinity"],
+        "ttft_band_disjoint_drop": disjoint,
+        "verdict": ("prefix-affinity TTFT p50 dropped below "
+                    "round_robin, bands disjoint — routing to the "
+                    "pages beat routing blind" if disjoint else
+                    "TTFT bands overlap — no routing flip at this "
+                    "scale/noise"),
+    }
+    if token_parity is not None:
+        line["token_parity"] = bool(token_parity)
+    return stats.flag_low_mode(line)
+
+
+def bench_fleet_ab(device_name: str, device, devices=None) -> dict | None:
+    """The routing A/B (the JAX ``_bench_fleet_ab``): three two-replica
+    fleets on the same two devices, weights and seeded prefix-heavy
+    plan, prefix sharing on every arm, differing only in routing,
+    interleaved per round after a discarded warm round; the
+    token-parity lock compares the three arms' streams.  None below two
+    devices."""
+    from dlnetbench_tpu_torch.models.transformer import init_params
+    from dlnetbench_tpu_torch.serving import metrics as smetrics
+    from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
+    from dlnetbench_tpu_torch.serving.fleet import FleetConfig, FleetServer
+    from dlnetbench_tpu_torch.serving.scheduler import ServingConfig
+    devs = scale_devices(device, devices)
+    if devs is None:
+        return None
+    mc = serving_model()
+    cfg = ServingConfig(
+        slots=2, page_size=8, num_pages=64, max_seq_len=64,
+        slo_ttft_ms=250.0, slo_tpot_ms=100.0, attn_impl="gather",
+        prefix_sharing=True, warmup_requests=0)
+    # spaced arrivals: affinity has pages to route to only once earlier
+    # prompts have prefilled and published
+    plan = ArrivalPlan(kind="poisson", rate_rps=120.0,
+                       num_requests=12, seed=2, prompt_len=[36, 44],
+                       output_len=[4, 8], shared_prefix_len=32,
+                       prefix_pool=2)
+    params = init_params(mc, seed=0, device=devs[0])
+    requests = plan.sample()
+    servers = {
+        pol: FleetServer(mc, cfg, FleetConfig(replicas=2, routing=pol),
+                         params=params, devices=devs)
+        for pol in ("round_robin", "p2c", "prefix_affinity")}
+    for srv in servers.values():
+        srv.run(requests)  # warm round, discarded
+    rounds: dict = {pol: [] for pol in servers}
+    streams: dict = {}
+    for _ in range(ROUNDS):
+        for pol, srv in servers.items():   # interleaved
+            completed, wall = srv.run(requests)
+            streams[pol] = srv.token_streams
+            rounds[pol].append({
+                "serving": smetrics.serving_block(
+                    completed, plan, slo_ttft_ms=cfg.slo_ttft_ms,
+                    slo_tpot_ms=cfg.slo_tpot_ms, wall_s=wall,
+                    engine_steps=srv.engine_steps(),
+                    queue_depth_max=srv.queue_depth_max,
+                    batch_occupancy_mean=srv.batch_occupancy_mean(),
+                    admitted_peak=srv.concurrent_peak),
+                "fleet": srv.fleet_block(completed)})
+    parity = (streams["round_robin"] == streams["p2c"]
+              == streams["prefix_affinity"])
+    line = fleet_line(
+        rounds,
+        suffix=f", {len(requests)} req slots={cfg.slots}/replica, "
+               f"shared_prefix={plan.shared_prefix_len} "
+               f"pool={plan.prefix_pool}, {device_name}",
+        token_parity=parity)
     print(json.dumps(line), flush=True)
     return line
 
@@ -2094,6 +2348,10 @@ def _run_bench(args, parser, tracer, fault_plan) -> int:
                 device, args.live_metrics)
         run_aux("kv_density_ab", bench_kv_density, device_name, device)
         run_aux("sampling_ab", bench_sampling_ab, device_name, device)
+        # the serving-at-scale lines: two devices or none (the JAX
+        # bench's rule)
+        run_aux("disagg_ab", bench_disagg_ab, device_name, device)
+        run_aux("fleet_ab", bench_fleet_ab, device_name, device)
         run_aux("longcontext_ab", bench_longcontext_ab, card, hw_key,
                 device_name, device)
         if device.type == "cuda":

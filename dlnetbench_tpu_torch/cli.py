@@ -48,21 +48,31 @@ plan or a plan/config conflict is a usage error; a failure inside the
 measured run keeps its traceback.
 
 ``serve`` is the JAX package's ``cli serve`` (same flag names, defaults
-and parse-time checks) for the slice the port covers: ``separate`` or
-``inline`` prefill over an unquantized, int8 or fp8 paged KV cache; the
-classic engine or the fused decode loop (``--multi_step_n``,
-``--no_adaptive_n``), speculative decode (``--speculative --spec_k
---drafter --drafter_layers``), seeded sampling (``--temperature
---sample_top_k --top_p --sample_seed``), the JSON grammar
-(``--grammar``), cross-request prefix sharing (``--prefix_sharing``),
-MoE models (``--num_experts --top_k --moe_capacity_factor`` with the
-seeded skew ``--moe_skew --moe_skew_seed``) and the windowed live
-metrics stream (``--live_metrics PATH``); ``--attn_impl`` picks the
-decode attention (``auto``: kernels K1/K2 on the card); with
-``--telemetry`` / ``--flight-dir``.  The JAX package's ``--world``,
-``--kv_shard``, ``--disaggregate`` and ``--fault`` are not ported
-(argparse refuses them by name), and a MoE model with
-``--speculative`` is refused with the JAX package's message.
+and parse-time checks): ``separate`` or ``inline`` prefill over an
+unquantized, int8 or fp8 paged KV cache; the classic engine or the
+fused decode loop (``--multi_step_n``, ``--no_adaptive_n``),
+speculative decode (``--speculative --spec_k --drafter
+--drafter_layers``), seeded sampling (``--temperature --sample_top_k
+--top_p --sample_seed``), the JSON grammar (``--grammar``),
+cross-request prefix sharing (``--prefix_sharing``), MoE models
+(``--num_experts --top_k --moe_capacity_factor`` with the seeded skew
+``--moe_skew --moe_skew_seed``) and the windowed live metrics stream
+(``--live_metrics PATH``); ``--attn_impl`` picks the decode attention
+(``auto``: kernels K1/K2 on the card); with ``--telemetry`` /
+``--flight-dir``.  Serving at scale runs in this one process over a
+device list: ``--world`` capacity ranks (the fault-shrink unit),
+``--kv_shard`` (the pools split along the KV heads over that many
+devices, K1/K2 once a shard), ``--disaggregate`` with
+``--prefill_ranks``, ``--decode_ranks`` and ``--migration_chunk_pages``
+(``serving/disagg.run_disagg``), ``--replicas`` with ``--routing``,
+``--route_seed`` and ``--autoscale`` (``serving/fleet.run_fleet``), and
+``--fault PLAN`` / ``--fault_policy`` (the training tier's plans on the
+engine's steps).  With ``--platform cuda`` the devices are the first
+cards (``cuda:0 ..``; too few is a usage error with the JAX package's
+message), with ``--platform cpu`` the CPU named once a rank, and
+``--devices`` names them (``cuda:0,cuda:0`` runs a two-rank world on
+one card).  A MoE
+model with ``--speculative`` is refused with the JAX package's message.
 ``--platform`` is ``cuda`` unless the caller asks for ``cpu``; without
 a card, ``cuda`` is an error.  The record (schema v2)
 is appended to ``--out`` or written to stdout; a one-line summary goes
@@ -102,12 +112,35 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefill_chunk", type=int, default=16)
     p.add_argument("--slo_ttft_ms", type=float, default=500.0)
     p.add_argument("--slo_tpot_ms", type=float, default=200.0)
+    p.add_argument("--world", type=int, default=1,
+                   help="capacity ranks (the fault-shrink unit: a "
+                        "crashed rank takes slots/world decode slots "
+                        "down with it)")
+    p.add_argument("--kv_shard", type=int, default=1,
+                   help=">1: shard paged attention along GQA KV heads "
+                        "over this many devices (each shard's K1/K2 on "
+                        "its own device, the outputs concatenated on "
+                        "the engine's)")
     p.add_argument("--cache_dtype", default="bf16",
                    choices=["bf16", "int8", "fp8"],
                    help="paged-KV pool storage: bf16 = unquantized "
                         "(pools in the model dtype, kernel K1); "
                         "int8/fp8 = quantized pages with per-page, "
                         "per-head f32 scales (kernel K2)")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="disaggregated prefill/decode: split --world "
+                        "into a prefill replica and a decode replica on "
+                        "disjoint devices; finished prompts' KV pages "
+                        "migrate decode-ward in their stored dtype "
+                        "(migration bytes/ms/overlap stamped in the "
+                        "record)")
+    p.add_argument("--prefill_ranks", type=int, default=1,
+                   help="prefill-replica ranks (with --disaggregate; "
+                        "prefill_ranks + decode_ranks = --world)")
+    p.add_argument("--decode_ranks", type=int, default=1,
+                   help="decode-replica ranks (with --disaggregate)")
+    p.add_argument("--migration_chunk_pages", type=int, default=8,
+                   help="KV pages per migration chunk transfer")
     p.add_argument("--attn_impl", default="auto",
                    choices=["auto", "gather"],
                    help="decode attention: auto = the hand kernel "
@@ -191,12 +224,25 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                    choices=["float32", "bfloat16"])
     p.add_argument("--seed", type=int, default=0,
                    help="weight-init seed (torch.Generator)")
+    p.add_argument("--fault", default=None, metavar="PLAN",
+                   help="JSON fault plan (faults/plan.py schema) on the "
+                        "decode loop: delay/jitter sleep at engine-step "
+                        "boundaries inside the measured window; crash "
+                        "under policy shrink costs capacity and prices "
+                        "recovery")
+    p.add_argument("--fault_policy", default=None,
+                   choices=["fail_fast", "retry", "shrink"])
     p.add_argument("--out", default=None,
                    help="append the JSON record to a file")
     p.add_argument("--tag", action="append", default=[],
                    metavar="KEY=VALUE")
     p.add_argument("--platform", default="cuda", choices=list(PLATFORMS),
                    help="cuda (default; an error without a card) or cpu")
+    p.add_argument("--devices", default=None, metavar="LIST",
+                   help="the run's device list, comma-separated torch "
+                        "device names (e.g. cuda:0,cuda:0 — a device may "
+                        "repeat); default: the first cards, or the CPU "
+                        "once a rank under --platform cpu")
     _add_telemetry(p, "per-engine-step flight ring (queue depth, "
                       "active slots, KV occupancy and fragmentation) + "
                       "the anomaly engine (SLO breach, step-time "
@@ -208,6 +254,31 @@ def _add_serve(p: argparse.ArgumentParser) -> None:
                         "percentiles, queue depth, occupancy) — the "
                         "live dashboard channel "
                         "(serving/metrics.LiveMetricsWriter)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help=">1: fleet serving — this many independent "
+                        "engine replicas (each over its own "
+                        "--world-device subset with its own page pool) "
+                        "behind a seeded front-end router; the record "
+                        "stamps the fleet block + fleet_routing/"
+                        "fleet_replicas comparables")
+    p.add_argument("--routing", default="round_robin",
+                   choices=["round_robin", "p2c", "prefix_affinity"],
+                   help="fleet routing policy (with --replicas > 1): "
+                        "round_robin baseline; p2c = seeded power-of-"
+                        "two-choices on live load; prefix_affinity = "
+                        "route to the replica whose radix trie holds "
+                        "the longest shared prefix (needs "
+                        "--prefix_sharing), p2c fallback on ties and "
+                        "full replicas")
+    p.add_argument("--route_seed", type=int, default=0,
+                   help="the router's splitmix64 stream seed "
+                        "(assignment replay)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="elastic fleet capacity (with --replicas > 1): "
+                        "scale up on rolling SLO breach / queue "
+                        "pressure (the rebuild priced into the scale "
+                        "event), scale down idle replicas through the "
+                        "drain arc (chip-seconds saved accounted)")
 
 
 def _add_telemetry(p: argparse.ArgumentParser, what: str) -> None:
@@ -682,11 +753,48 @@ def _build_proxy(args, parser, stats, cfg, device, dtype):
         parser.error(str(e))     # configuration-invariant violations
 
 
+def _serve_devices(args, parser, srv_cfg) -> list:
+    """The run's device list: ``--devices`` as given, else the CPU named
+    once a rank under ``--platform cpu``, else the first cards; too few
+    is a usage error with the JAX package's message."""
+    import torch
+
+    from dlnetbench_tpu_torch.ops.common import resolve_device
+    from dlnetbench_tpu_torch.serving.scheduler import resolve_devices
+    if args.replicas > 1:
+        need = args.replicas * srv_cfg.world
+        short = (f"fleet: {args.replicas} replicas x world "
+                 f"{srv_cfg.world} need {need} devices")
+    elif srv_cfg.disaggregate:
+        need = srv_cfg.world
+        short = (f"disagg: world {srv_cfg.world} (prefill "
+                 f"{srv_cfg.prefill_ranks} + decode "
+                 f"{srv_cfg.decode_ranks}) needs {need} devices")
+    elif srv_cfg.world >= srv_cfg.kv_shard:
+        need = srv_cfg.world
+        short = f"serving: world {need} needs {need} devices"
+    else:
+        need = srv_cfg.kv_shard
+        short = f"serving: kv_shard {need} needs {need} devices"
+    try:
+        if args.devices:
+            devices = resolve_devices(args.devices.split(","))
+        elif args.platform == "cpu":
+            devices = [torch.device("cpu")] * need
+        else:
+            resolve_device(args.platform)
+            devices = resolve_devices(None, None, need)
+    except RuntimeError as e:
+        parser.error(str(e))
+    if len(devices) < need:
+        parser.error(f"{short}, have {len(devices)}")
+    return devices
+
+
 def _run_serve(args, parser) -> int:
     from dlnetbench_tpu_torch.metrics.emit import emit_result
     from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
                                                          init_params)
-    from dlnetbench_tpu_torch.ops.common import resolve_device
     from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan
     from dlnetbench_tpu_torch.serving.scheduler import (Engine,
                                                         ServingConfig,
@@ -719,23 +827,60 @@ def _run_serve(args, parser) -> int:
             cache_dtype=args.cache_dtype,
             prefix_sharing=args.prefix_sharing,
             moe_skew=args.moe_skew,
-            moe_skew_seed=args.moe_skew_seed).validate()
+            moe_skew_seed=args.moe_skew_seed,
+            world=args.world, kv_shard=args.kv_shard,
+            disaggregate=args.disaggregate,
+            prefill_ranks=args.prefill_ranks,
+            decode_ranks=args.decode_ranks,
+            migration_chunk_pages=args.migration_chunk_pages).validate()
     except ValueError as e:
         parser.error(str(e))
-    try:
-        device = resolve_device(args.platform)
-    except RuntimeError as e:
-        parser.error(str(e))
-    params = init_params(model_cfg, seed=args.seed, device=device)
-    try:
-        # the engine build checks the knobs against the model's shape
-        # (the speculative drafter's depth, speculation on a MoE model);
-        # a refusal is a usage error
-        engine = Engine(model_cfg, srv_cfg, params=params, device=device)
-    except ValueError as e:
-        parser.error(str(e))
-    result = run_serving(model_cfg, srv_cfg, plan, engine=engine,
-                         live_metrics=args.live_metrics)
+    fault_plan = None
+    if args.fault:
+        from dlnetbench_tpu_torch.faults.plan import FaultPlan
+        try:
+            fault_plan = FaultPlan.loads(args.fault)
+            if args.fault_policy:
+                fault_plan.policy = args.fault_policy
+            fault_plan.validate()
+        except (ValueError, OSError, KeyError) as e:
+            parser.error(f"--fault: {e}")
+    fleet_cfg = None
+    if args.replicas > 1:
+        from dlnetbench_tpu_torch.serving.fleet import FleetConfig
+        try:
+            fleet_cfg = FleetConfig(replicas=args.replicas,
+                                    routing=args.routing,
+                                    route_seed=args.route_seed,
+                                    autoscale=args.autoscale).validate()
+        except ValueError as e:
+            parser.error(str(e))
+    devices = _serve_devices(args, parser, srv_cfg)
+    params = init_params(model_cfg, seed=args.seed, device=devices[0])
+    if fleet_cfg is not None:
+        from dlnetbench_tpu_torch.serving.fleet import run_fleet
+        result = run_fleet(model_cfg, srv_cfg, plan, fleet_cfg,
+                           fault_plan=fault_plan, params=params,
+                           devices=devices,
+                           live_metrics=args.live_metrics)
+    elif srv_cfg.disaggregate:
+        from dlnetbench_tpu_torch.serving.disagg import run_disagg
+        result = run_disagg(model_cfg, srv_cfg, plan,
+                            fault_plan=fault_plan, params=params,
+                            devices=devices,
+                            live_metrics=args.live_metrics)
+    else:
+        try:
+            # the engine build checks the knobs against the model's
+            # shape (speculation on a MoE model, the KV shard against
+            # the heads); a refusal is a usage error
+            engine = Engine(model_cfg, srv_cfg, params=params,
+                            devices=devices)
+        except ValueError as e:
+            parser.error(str(e))
+        result = run_serving(model_cfg, srv_cfg, plan, engine=engine,
+                             fault_plan=fault_plan,
+                             live_metrics=args.live_metrics)
     if variables:
         result.global_meta["variables"] = variables
     record = emit_result(result, path=args.out)

@@ -86,6 +86,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -96,6 +97,9 @@ constexpr int kMaxSplits = 65535;      // gridDim.z
 constexpr int kTileTokens = 64;        // tokens a stage holds (rows <= 512 B)
 constexpr int kWideTileTokens = 32;    // ... for rows of more than 512 B
 constexpr size_t kMaxSmem = 227 * 1024;
+// a function attribute is set in the current device's context, so the
+// dynamic shared memory cap is raised once per device
+constexpr int kMaxDevices = 64;
 
 enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3 };
 
@@ -556,16 +560,26 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   // may hold up to 255 registers (a 1024-thread bound caps them at 64)
   auto kern = group <= 8 ? paged_attention_kernel<QT, PT, kScaled, 256>
                          : paged_attention_kernel<QT, PT, kScaled, 1024>;
-  // raise the dynamic shared memory cap once per instantiation
-  static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(paged_attention_kernel<QT, PT, kScaled, 256>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxSmem)),
-      cudaFuncSetAttribute(paged_attention_kernel<QT, PT, kScaled, 1024>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxSmem))};
-  if (attr[0] != cudaSuccess) return attr[0];
-  if (attr[1] != cudaSuccess) return attr[1];
+  // raise the dynamic shared memory cap once per instantiation and
+  // device (the launch runs on the caller's current device)
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t attr[kMaxDevices];
+  std::call_once(once[dev], [dev] {
+    attr[dev] = cudaFuncSetAttribute(
+        paged_attention_kernel<QT, PT, kScaled, 256>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    if (attr[dev] == cudaSuccess)
+      attr[dev] = cudaFuncSetAttribute(
+          paged_attention_kernel<QT, PT, kScaled, 1024>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kMaxSmem));
+  });
+  if (attr[dev] != cudaSuccess) return attr[dev];
   kern<<<dim3(hkv, batch, n_split), dim3(32 * group), L.total, stream>>>(
       static_cast<const QT*>(q), static_cast<const PT*>(k_pages),
       static_cast<const PT*>(v_pages), static_cast<const float*>(k_scale),

@@ -22,7 +22,13 @@ Three programs cover serving, with the JAX package's signatures:
   pages and a masked softmax), as it is plain XLA in the JAX package.
 
 The programs run eagerly and update the pools in place; each returns
-the pools it was given followed by its outputs.
+the pools it was given followed by its outputs.  Pools split along the
+KV heads over devices (``kv_cache.HeadShards``, ``kv_shard > 1``) go
+through the same programs: the embedding, projections, MLP and head
+stay on the engine's device, each shard's k/v rows are written and its
+heads attended on its own device (K1/K2 once a shard a layer), and the
+attention output is concatenated back before the output projection —
+the JAX package's ``shard_map`` over the paged attention.
 
 A MoE model (``num_experts > 1``) runs every layer's MLP as per-expert
 token batches with overflow rounds (``serving/moe_decode.py``; its
@@ -39,15 +45,16 @@ import torch
 
 from dlnetbench_tpu_torch.models import layers as L
 from dlnetbench_tpu_torch.models.transformer import TransformerConfig
-from dlnetbench_tpu_torch.ops.paged_attention import take_pages
 from dlnetbench_tpu_torch.serving.arrivals import _Rng
 from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, MASK_VALUE,
-                                                   CacheConfig,
+                                                   CacheConfig, HeadShards,
                                                    decode_split,
                                                    dequant_gathered,
+                                                   gather_pages,
                                                    paged_attention_decode,
-                                                   span_plan, write_gate,
-                                                   write_rows, write_span)
+                                                   per_shard, span_plan,
+                                                   write_gate, write_rows,
+                                                   write_span)
 
 _F32 = torch.float32
 
@@ -115,20 +122,26 @@ class SplitOnce:
     first call, where the batch, the block-table width and the device
     are known (``kv_cache.decode_split``: the tuning DB's answer, or 0,
     the kernel's own split, with the tuner off), and kept for every
-    later call: the served step consults nothing per launch."""
+    later call: the served step consults nothing per launch.  On
+    sharded pools the split is resolved on one shard's shapes (its
+    heads, its device), as the JAX package consults inside
+    ``shard_map``."""
     __slots__ = ("cfg", "cache_cfg", "done", "value")
 
     def __init__(self, cfg: TransformerConfig, cache_cfg: CacheConfig):
         self.cfg, self.cache_cfg = cfg, cache_cfg
         self.done, self.value = False, 0
 
-    def __call__(self, block_tables) -> int:
+    def __call__(self, block_tables, pools=()) -> int:
         if not self.done:
             cc = self.cache_cfg
+            n, dev = 1, block_tables.device
+            if pools and isinstance(pools[0], HeadShards):
+                n, dev = len(pools[0]), pools[0].devices[0]
             self.value = decode_split(
-                block_tables.shape[0], self.cfg.num_heads, cc.num_kv_heads,
-                cc.head_dim, block_tables.shape[1], cc.page_size,
-                cc.quant_fmt, block_tables.device)
+                block_tables.shape[0], self.cfg.num_heads // n,
+                cc.num_kv_heads // n, cc.head_dim, block_tables.shape[1],
+                cc.page_size, cc.quant_fmt, dev)
             self.done = True
         return self.value
 
@@ -150,7 +163,9 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
     (expert_load, rounds))`` instead, summed over the layers
     (``moe_bias``: the seeded skew; ``write_ok`` masks inactive slots out
     of routing).  ``split`` is the kernels' pages a split (``SplitOnce``;
-    0: the kernel's own)."""
+    0: the kernel's own).  On sharded pools the write gate (or span
+    plan), the lengths and the block tables are moved to the shards
+    once for every layer."""
     b = tokens.shape[0]
     scale = cfg.head_dim ** -0.5
     s = cache_cfg.page_size
@@ -165,11 +180,19 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
     # the per-slot RoPE tables and the cache-write gate (or quantized
     # span plan) are the same for every layer's q/k and k/v
     tables = L.rope_tables(positions, cfg.head_dim)
+    att_tables = block_tables
     if quant:
         plan = span_plan(positions, write_ok[:, None], block_tables,
                          page_size=s, num_pages=cache_cfg.num_pages)
     else:
         gate = write_gate((page_id, rows), write_ok)
+    if isinstance(k_pages, HeadShards):
+        if quant:
+            plan = per_shard(plan, k_pages)
+        else:
+            gate = per_shard(gate, k_pages)
+        att_lengths = per_shard(att_lengths, k_pages)
+        att_tables = per_shard(block_tables, k_pages)
     depth = cfg.num_layers if layers is None else layers
     moe = cfg.num_experts > 1
     moe_load, moe_rounds = 0, 0
@@ -191,7 +214,7 @@ def _step_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig, params,
             write_rows(v_pages, li, v, gate)
         att = paged_attention_decode(
             (q * scale).contiguous(), k_pages[li], v_pages[li],
-            att_lengths, block_tables,
+            att_lengths, att_tables,
             k_scale=k_scale[li] if quant else None,
             v_scale=v_scale[li] if quant else None,
             fmt=cache_cfg.quant_fmt, impl=attn_impl, split=split)
@@ -258,7 +281,7 @@ def make_decode_step(cfg: TransformerConfig, cache_cfg: CacheConfig, *,
                            positions, active, block_tables,
                            attn_impl=attn_impl, moe_bias=moe_bias,
                            sampler=sampler, uids=uids, gstate=gstate,
-                           split=split_for(block_tables))
+                           split=split_for(block_tables, pools))
         if moe:
             pools, nxt, (load, rounds) = out
             return (*pools, nxt, load, rounds)
@@ -336,7 +359,7 @@ def make_multi_step_decode(cfg: TransformerConfig,
         load = torch.zeros((cfg.num_experts,), dtype=torch.int32,
                            device=dev)
         rounds = 0
-        split = split_for(block_tables)
+        split = split_for(block_tables, pools)
         for _ in range(min(int(n_steps), n_max)):
             last, pos = st[STATE_LAST], st[STATE_POS]
             act = st[STATE_REM] > 0
@@ -424,6 +447,11 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
                              page_size=s, num_pages=cache_cfg.num_pages)
         else:
             gate = write_gate((page_id, rows), valid)
+        if isinstance(k_pages, HeadShards):
+            if quant:
+                plan = per_shard(plan, k_pages)
+            else:
+                gate = per_shard(gate, k_pages)
         moe_load, moe_rounds = 0, 0
         for li in range(cfg.num_layers):
             lp = _layer(params, li)
@@ -439,15 +467,15 @@ def make_prefill_chunk(cfg: TransformerConfig, cache_cfg: CacheConfig,
                            fmt=cache_cfg.quant_fmt)
                 write_span(v_pages, v_scale, li, v[None], plan,
                            fmt=cache_cfg.quant_fmt)
-                kseq = dequant_gathered(take_pages(k_pages[li], row),
-                                        k_scale[li][:, row])
-                vseq = dequant_gathered(take_pages(v_pages[li], row),
-                                        v_scale[li][:, row])
+                kseq = dequant_gathered(gather_pages(k_pages[li], row),
+                                        gather_pages(k_scale[li], row))
+                vseq = dequant_gathered(gather_pages(v_pages[li], row),
+                                        gather_pages(v_scale[li], row))
             else:
                 write_rows(k_pages, li, k, gate)
                 write_rows(v_pages, li, v, gate)
-                kseq = k_pages[li][:, row].to(_F32)
-                vseq = v_pages[li][:, row].to(_F32)
+                kseq = gather_pages(k_pages[li], row).to(_F32)
+                vseq = gather_pages(v_pages[li], row).to(_F32)
             hkv, npg, _, dh = kseq.shape      # [Hkv, pmax, S, Dh]
             kseq = kseq.reshape(hkv, npg * s, dh)
             vseq = vseq.reshape(hkv, npg * s, dh)

@@ -43,6 +43,17 @@ package's ``serving/kv_cache.py``).
   function).
 * ``pages_for_pool_bytes`` — the pages a byte budget buys under a cache
   geometry and dtype (the equal-pool-bytes axis of the density A/B).
+* KV-head sharding (``kv_shard > 1``, the JAX package's
+  ``sharded_paged_attention``): ``sharded_buffers`` splits every pool
+  (and the scales with it) along its KV-head axis over a device list,
+  each part a ``HeadShards`` entry on its own device.  The writes, the
+  page gather (``gather_pages``), the copy-on-write copy and
+  ``paged_attention_decode`` take either form: on shards, each part's
+  heads are written and attended on its own device (q split by GQA
+  group, K1/K2 launched once a shard), and the attention outputs and
+  gathered pages come back concatenated on the caller's device.  A
+  step moves its shared operands to the shards once (``per_shard``);
+  no host read is involved.
 """
 from __future__ import annotations
 
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 
 from dlnetbench_tpu_torch.ops.paged_attention import (  # noqa: F401
-    MASK_VALUE, gather_attention, paged_attention)
+    MASK_VALUE, gather_attention, paged_attention, take_pages)
 from dlnetbench_tpu_torch.ops.paged_attention_quant import \
     quant_paged_attention
 from dlnetbench_tpu_torch.ops.quantized_matmul import cast_q, scale_from_amax
@@ -496,6 +507,90 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
+class HeadShards:
+    """One pool split along its KV-head axis over devices: ``parts[i]``
+    holds heads ``[i * h, (i + 1) * h)`` on its own device.  Indexing
+    takes the same index of every part, so ``pool[li]`` is the layer's
+    shards, heads on axis 0 — the layouts this module's functions take
+    in either form."""
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = tuple(parts)
+
+    def __getitem__(self, index) -> "HeadShards":
+        return HeadShards(p[index] for p in self.parts)
+
+    def __len__(self) -> int:
+        return len(self.parts)
+
+    @property
+    def devices(self) -> list:
+        return [p.device for p in self.parts]
+
+
+class PerShard(tuple):
+    """A step operand copied once to each shard's device, aligned with a
+    ``HeadShards``' parts (``per_shard``)."""
+
+
+def sharded_buffers(cfg: CacheConfig, devices) -> tuple:
+    """``device_buffers`` split along the KV heads over ``devices``: the
+    same zeroed pools (and unit scales), one ``HeadShards`` a pool.
+    ``len(devices)`` must divide ``num_kv_heads``."""
+    n = len(devices)
+    if cfg.num_kv_heads % n:
+        raise ValueError(f"serving: kv_shard {n} must divide num_kv_heads "
+                         f"{cfg.num_kv_heads}")
+    part_cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // n)
+    parts = [device_buffers(part_cfg, d) for d in devices]
+    return tuple(HeadShards(p[i] for p in parts)
+                 for i in range(len(parts[0])))
+
+
+def _moved(x, dev):
+    """``x`` (a tensor, a ``WriteGate`` or a span plan) on ``dev``; a
+    tensor already there is returned as is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, non_blocking=True)
+    if isinstance(x, WriteGate):
+        return WriteGate(targets=tuple(_moved(t, dev) for t in x.targets),
+                         first=_moved(x.first, dev),
+                         first_on=_moved(x.first_on, dev),
+                         first_target=tuple(_moved(t, dev)
+                                            for t in x.first_target),
+                         ok=_moved(x.ok, dev))
+    if isinstance(x, list):
+        return [SpanColumn(page=_moved(c.page, dev),
+                           old_valid=_moved(c.old_valid, dev),
+                           onehot=_moved(c.onehot, dev),
+                           new_mask=_moved(c.new_mask, dev),
+                           gate=_moved(c.gate, dev)) for c in x]
+    raise TypeError(f"per_shard: cannot move {type(x).__name__}")
+
+
+def per_shard(x, pools: HeadShards) -> PerShard:
+    """``x`` copied to each of ``pools``' devices, in part order."""
+    if isinstance(x, PerShard):
+        return x
+    return PerShard(_moved(x, d) for d in pools.devices)
+
+
+def _heads(part_ix: int, total: int, n: int) -> slice:
+    h = total // n
+    return slice(part_ix * h, (part_ix + 1) * h)
+
+
+def gather_pages(pages, idx):
+    """``pages[:, idx]`` of one layer's pool or scales (heads first); on
+    shards each part is gathered on its device and the parts come back
+    concatenated along the heads on ``idx``'s device."""
+    if isinstance(pages, HeadShards):
+        return torch.cat([take_pages(p, idx.to(p.device)).to(idx.device)
+                          for p in pages.parts])
+    return take_pages(pages, idx)
+
+
 @dataclasses.dataclass(frozen=True)
 class WriteGate:
     """Where the rows of a gated write land (see the module docstring):
@@ -537,7 +632,15 @@ def write_rows(pages, li: int, new, gate: WriteGate):
     """Unquantized write of one token per row: ``new[b]`` (``[Hkv, Dh]``)
     lands at ``pages[li, :, page, row]`` for the gate's ``(page, row)``
     targets (``write_gate((page_ids, rows), write_ok)``).  In place;
-    returns ``pages``."""
+    returns ``pages``.  On shards each part takes its heads of ``new``
+    and the gate on its device (``per_shard``)."""
+    if isinstance(pages, HeadShards):
+        gates = per_shard(gate, pages)
+        n = len(pages)
+        for i, (part, g) in enumerate(zip(pages.parts, gates)):
+            write_rows(part, li, new[:, _heads(i, new.shape[1], n)]
+                       .to(part.device, non_blocking=True), g)
+        return pages
     val = _bits(new.transpose(0, 1).to(pages.dtype))        # [Hkv, B, Dh]
     _gated_put(_bits(pages[li]), gate, val)
     return pages
@@ -597,7 +700,17 @@ def write_span(pages, scales, li: int, new, plan: list[SpanColumn], *,
     rows, masked to the sequence's own content.  The JAX package's
     arithmetic (divide by the scale, ``cast_q``).  pages ``[L, Hkv, P,
     S, Dh]`` int8/e4m3, scales ``[L, Hkv, P]`` f32, new ``[B, K, Hkv,
-    Dh]``.  In place; returns ``(pages, scales)``."""
+    Dh]``.  In place; returns ``(pages, scales)``.  On shards each part
+    (pages and scales) takes its heads of ``new`` and the plan on its
+    device."""
+    if isinstance(pages, HeadShards):
+        plans = per_shard(plan, pages)
+        n = len(pages)
+        for i, (pp, sp, pl) in enumerate(zip(pages.parts, scales.parts,
+                                             plans)):
+            write_span(pp, sp, li, new[:, :, _heads(i, new.shape[2], n)]
+                       .to(pp.device, non_blocking=True), pl, fmt=fmt)
+        return pages, scales
     pool = _bits(pages[li])
     sc = scales[li]
     newf = new.to(_F32)
@@ -629,10 +742,12 @@ def copy_page(pools, src: int, dst: int) -> None:
     """Copy physical page ``src`` into ``dst`` along the page axis of
     every pool (axis 2 of ``[L, Hkv, P, S, Dh]``) and, on a quantized
     cache, of both scale arrays (axis 2 of ``[L, Hkv, P]``): the
-    admission-time copy-on-write of a shared boundary page.  In place."""
+    admission-time copy-on-write of a shared boundary page.  In place,
+    on every shard of a sharded pool."""
     for t in pools:
-        b = _bits(t)
-        b[:, :, dst] = b[:, :, src]
+        for part in (t.parts if isinstance(t, HeadShards) else (t,)):
+            b = _bits(part)
+            b[:, :, dst] = b[:, :, src]
 
 
 def dequant_gathered(pages_g, scales_g):
@@ -726,7 +841,14 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
     (``resolve_pages_per_compute_block``: an explicit value must divide
     the pages a slot; None consults the tuning DB on the kernel path).
     An explicit value is validated on every path, the plain one
-    included; the plain versions' results do not depend on it."""
+    included; the plain versions' results do not depend on it.
+
+    On sharded pools (``HeadShards``) each shard attends over its own
+    KV heads on its own device: ``q`` is split by GQA group, K1/K2 run
+    once a shard (a failed launch raises; there is no fallback),
+    ``lengths`` and ``page_indices`` are a ``per_shard`` copy or moved
+    here, and the outputs come back concatenated on ``q``'s device.  A
+    resolved ``split`` is the per-shard shapes'."""
     if k_scale is not None and fmt is None:
         raise ValueError("paged_attention_decode: scale arrays need "
                          "fmt ('int8'|'float8')")
@@ -736,6 +858,12 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
     if pages_per_compute_block is not None:
         _check_divides(pages_per_compute_block, page_indices.shape[1],
                        "paged_attention: ")
+    if isinstance(k_pages, HeadShards):
+        return _sharded_decode(q, k_pages, v_pages, lengths, page_indices,
+                               k_scale=k_scale, v_scale=v_scale, fmt=fmt,
+                               impl=impl, split=split,
+                               pages_per_compute_block=
+                               pages_per_compute_block)
     if impl == "gather":
         return gather_attention(q, k_pages, v_pages, lengths,
                                 page_indices, k_scale, v_scale)
@@ -749,3 +877,24 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices, *,
                                      fmt=fmt, split=split or None)
     return paged_attention(q, k_pages, v_pages, lengths, page_indices,
                            split=split or None)
+
+
+def _sharded_decode(q, k_pages: HeadShards, v_pages: HeadShards, lengths,
+                    page_indices, *, k_scale, v_scale, fmt, impl, split,
+                    pages_per_compute_block):
+    """``paged_attention_decode`` over KV-head shards (its docstring)."""
+    n = len(k_pages)
+    lens = per_shard(lengths, k_pages)
+    bts = per_shard(page_indices, k_pages)
+    outs = []
+    for i, dev in enumerate(k_pages.devices):
+        q_i = q[:, _heads(i, q.shape[1], n)].contiguous().to(
+            dev, non_blocking=True)
+        out = paged_attention_decode(
+            q_i, k_pages.parts[i], v_pages.parts[i], lens[i], bts[i],
+            k_scale=None if k_scale is None else k_scale.parts[i],
+            v_scale=None if v_scale is None else v_scale.parts[i],
+            fmt=fmt, impl=impl, split=split,
+            pages_per_compute_block=pages_per_compute_block)
+        outs.append(out.to(q.device, non_blocking=True))
+    return torch.cat(outs, dim=1)

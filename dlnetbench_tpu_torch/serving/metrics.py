@@ -214,10 +214,12 @@ def serving_block(completed: list[Completed], plan: ArrivalPlan, *,
                   queue_depth_max: int = 0,
                   batch_occupancy_mean: float = 0.0,
                   decode_loop: dict | None = None,
-                  admitted_peak: int | None = None) -> dict:
+                  admitted_peak: int | None = None,
+                  migration: dict | None = None) -> dict:
     """The record's ``serving`` global: latency percentiles, throughput
     and goodput-at-SLO for one run, with the cache and decode-dispatch
-    blocks when given."""
+    blocks when given, and a disaggregated run's page-migration block
+    (``ops/page_migration.MigrationChannel.stats_block``)."""
     ttft = [c.ttft_ms for c in completed]
     tpot = [c.tpot_ms for c in completed]
     e2e = [c.e2e_ms for c in completed]
@@ -250,6 +252,8 @@ def serving_block(completed: list[Completed], plan: ArrivalPlan, *,
         block["kv_cache"] = cache_stats
     if decode_loop:
         block["decode_loop"] = decode_loop
+    if migration:
+        block["migration"] = migration
     return block
 
 

@@ -50,8 +50,25 @@ clock for it and allocates nothing.  On a traced run the engine build,
 the warmup requests and the measured run are the spans ``build``,
 ``warmup`` and ``serving_run``.
 
-Outside this slice, and refused with a ``ValueError`` naming ROADMAP.md:
-KV sharding, several capacity ranks, disaggregation and fault plans.
+Serving at scale is one process over an explicit device list
+(``devices=``, the JAX package's single controller): the default is
+``cuda:0 .. cuda:n-1``, too few devices fail with the JAX package's
+message, and a list may name one device more than once (``[cpu, cpu]``
+here, ``[cuda:0, cuda:0]`` on one card; the record's ``mesh`` header
+lists them as given).  ``world`` capacity ranks split the slots evenly
+(the fault-shrink unit); the engine computes on ``devices[0]``.  With
+``kv_shard > 1`` the page pools are split along the KV heads over
+``devices[:kv_shard]`` (``kv_cache.HeadShards``) and K1/K2 run once a
+shard.  A step is split at the dispatch boundary
+(``_step_dispatch`` launches the decode program and reads nothing back;
+``_step_complete`` fences its outputs and does the host bookkeeping),
+the window the disaggregated and fleet servers
+(``serving/disagg.py``, ``serving/fleet.py``) run other devices' work
+in.  ``run_serving`` takes the training tier's fault plans: delays and
+jitter at engine-step boundaries, a crash or preemption under
+``fail_fast`` propagates, and under ``shrink`` the engine is rebuilt
+over the surviving ranks' slot share with the leftovers re-queued on
+the first segment's clock (``serving/requeue.py``).
 """
 from __future__ import annotations
 
@@ -68,12 +85,14 @@ from dlnetbench_tpu_torch.models.transformer import (TransformerConfig,
 from dlnetbench_tpu_torch.ops.common import resolve_device
 from dlnetbench_tpu_torch.serving import decode as D
 from dlnetbench_tpu_torch.serving import metrics as M
+from dlnetbench_tpu_torch.serving import requeue
 from dlnetbench_tpu_torch.serving import sampling as SMP
 from dlnetbench_tpu_torch.serving.arrivals import ArrivalPlan, Request
 from dlnetbench_tpu_torch.serving.kv_cache import (ATTN_IMPLS, CACHE_DTYPES,
                                                    CacheConfig,
                                                    PagedKVCache, copy_page,
-                                                   device_buffers)
+                                                   device_buffers,
+                                                   sharded_buffers)
 
 PREFILL_MODES = ("separate", "inline")
 
@@ -89,17 +108,47 @@ decode_dispatches = 0
 decode_device_steps = 0
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"serving: {what} is not ported to the torch "
-                      f"package yet (ROADMAP.md queue 1)")
+def normalize_device(device) -> torch.device:
+    """An indexed ``torch.device``: a bare ``cuda`` names the current
+    card (``cuda:0`` unless the caller moved it), so per-device caches
+    never mix two cards under one key."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def resolve_devices(devices=None, device=None, need: int = 1) -> list:
+    """The device list an entry point runs over: ``devices`` as given
+    (repeats allowed), else ``[device]``, else ``cuda:0 .. cuda:k-1``
+    for the first ``need`` cards there are (an error without a card).
+    Every entry is normalized (``normalize_device``); the caller checks
+    the count against its world with the JAX package's message."""
+    if devices is not None:
+        return [normalize_device(d) for d in devices]
+    if device is not None:
+        return [normalize_device(device if isinstance(device, torch.device)
+                                 else resolve_device(device))]
+    resolve_device("cuda")
+    return [torch.device("cuda", i)
+            for i in range(min(need, torch.cuda.device_count()))]
+
+
+def tree_to(tree, device):
+    """A parameter tree (dicts and lists of tensors) on ``device``; a
+    tensor already there is kept, not copied."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
 
 
 @dataclasses.dataclass
 class ServingConfig:
-    """Engine knobs, with the JAX package's names, defaults and checks.
-    The last block is the JAX package's knobs outside the port, kept so
-    that a config asking for one fails loudly instead of being
-    ignored."""
+    """Engine knobs, with the JAX package's names, defaults and checks."""
     slots: int = 4              # decode slots = max continuous batch
     page_size: int = 8          # tokens per KV page
     num_pages: int = 64         # physical pages shared by all slots
@@ -136,16 +185,23 @@ class ServingConfig:
     moe_skew_seed: int = 0      # which experts the skew favors
     warmup_requests: int = 8    # synthetic requests run (and discarded)
     #                             before the measured run
-    world: int = 1
-    kv_shard: int = 1
-    disaggregate: bool = False
+    world: int = 1              # capacity ranks (the fault-shrink unit:
+    #                             slots split evenly, a crashed rank
+    #                             takes its share down)
+    kv_shard: int = 1           # >1: pools split along the KV heads
+    #                             over the first kv_shard devices
+    disaggregate: bool = False  # a prefill replica and a decode replica
+    #                             on disjoint devices (serving/disagg.py)
+    prefill_ranks: int = 1      # disaggregate: ranks [0, prefill_ranks)
+    decode_ranks: int = 1       # disaggregate: ranks [prefill_ranks, world)
+    migration_chunk_pages: int = 8  # pages a migration chunk transfer
 
     def validate(self) -> "ServingConfig":
         if self.prefill not in PREFILL_MODES:
             raise ValueError(f"serving: prefill must be one of "
                              f"{PREFILL_MODES}, got {self.prefill!r}")
         for name in ("slots", "page_size", "num_pages", "max_seq_len",
-                     "prefill_chunk"):
+                     "prefill_chunk", "world", "kv_shard"):
             if getattr(self, name) < 1:
                 raise ValueError(f"serving: {name} must be >= 1")
         if self.max_seq_len % self.page_size:
@@ -158,6 +214,10 @@ class ServingConfig:
                 f"one max_seq_len request "
                 f"({self.max_seq_len // self.page_size} pages) — the "
                 f"admission gate would starve the queue head forever")
+        if not self.disaggregate and self.slots % self.world:
+            # disaggregate has its per-replica rule below
+            raise ValueError("serving: slots must divide evenly across "
+                             "world ranks (the fault-shrink unit)")
         if self.multi_step_n < 1:
             raise ValueError(f"serving: multi_step_n must be >= 1, "
                              f"got {self.multi_step_n}")
@@ -191,12 +251,50 @@ class ServingConfig:
                 raise ValueError(
                     f"serving: unknown drafter {self.drafter!r} "
                     f"(one of {DRAFTERS})")
-        if self.world != 1:
-            raise _not_ported("world > 1 (capacity ranks)")
-        if self.kv_shard != 1:
-            raise _not_ported("kv_shard > 1")
         if self.disaggregate:
-            raise _not_ported("disaggregated prefill/decode")
+            if self.prefill_ranks < 1 or self.decode_ranks < 1:
+                raise ValueError(
+                    "serving: disaggregate needs prefill_ranks >= 1 "
+                    "and decode_ranks >= 1 — each phase is a replica")
+            if self.world != self.prefill_ranks + self.decode_ranks:
+                raise ValueError(
+                    f"serving: disaggregate splits world into disjoint "
+                    f"replica meshes — world {self.world} must equal "
+                    f"prefill_ranks {self.prefill_ranks} + decode_ranks "
+                    f"{self.decode_ranks}")
+            if self.slots % self.prefill_ranks \
+                    or self.slots % self.decode_ranks:
+                raise ValueError(
+                    f"serving: disaggregate needs slots {self.slots} "
+                    f"divisible by prefill_ranks {self.prefill_ranks} "
+                    f"AND decode_ranks {self.decode_ranks} (each "
+                    f"replica's fault-shrink unit is its own rank "
+                    f"share)")
+            if self.speculative:
+                raise ValueError(
+                    "serving: speculative + disaggregate is refused — "
+                    "the draft/verify ngram state has no stated parity "
+                    "story across a page migration")
+            if self.prefix_sharing:
+                raise ValueError(
+                    "serving: prefix_sharing + disaggregate is refused "
+                    "— refcounted shared pages live in ONE pool and "
+                    "cannot migrate by reference across replicas")
+            if self.kv_shard > 1:
+                raise ValueError(
+                    "serving: kv_shard + disaggregate is refused — the "
+                    "migration channel moves single-device pools; a "
+                    "sharded pool would need a per-shard wire")
+            if self.prefill == "inline":
+                raise ValueError(
+                    "serving: disaggregate implies separate-phase "
+                    "prefill (the prefill replica has no decode slots "
+                    "to interleave with) — prefill='inline' is a "
+                    "contradiction, not a knob setting")
+            if self.migration_chunk_pages < 1:
+                raise ValueError(
+                    f"serving: migration_chunk_pages must be >= 1, "
+                    f"got {self.migration_chunk_pages}")
         return self
 
 
@@ -215,19 +313,48 @@ class _SlotState:
 
 
 class Engine:
-    """One serving engine over a fixed slot/page capacity on one device.
+    """One serving engine over a fixed slot/page capacity.
 
-    ``device`` is ``"cuda"`` (the default; raises without a card) or
-    ``"cpu"``; on the card the decode attention runs the Hopper kernels
-    K1/K2 (unless ``attn_impl="gather"``), on the CPU their plain
-    versions."""
+    ``devices`` is the engine's device list (``resolve_devices``: the
+    first ``max(world, kv_shard)`` cards by default; ``device`` is the
+    one-device shorthand, ``"cuda"`` or ``"cpu"``).  The programs run on
+    ``devices[0]``; with ``kv_shard > 1`` the pools are split over
+    ``devices[:kv_shard]``.  On a card the decode attention runs the
+    Hopper kernels K1/K2 (unless ``attn_impl="gather"``), on the CPU
+    their plain versions."""
+
+    # a replica that never decodes (serving/disagg._PrefillReplica)
+    # builds no decode program
+    _decode_needed = True
 
     def __init__(self, model_cfg: TransformerConfig, cfg: ServingConfig,
-                 *, params=None, device="cuda"):
+                 *, params=None, device=None, devices=None):
         self.model_cfg = D.check_config(model_cfg)
         self.cfg = cfg.validate()
-        self.device = (device if isinstance(device, torch.device)
-                       else resolve_device(device))
+        if cfg.disaggregate:
+            raise ValueError(
+                "serving: a disaggregated config drives TWO engines — "
+                "use serving/disagg.run_disagg, not Engine/run_serving")
+        self.devices = resolve_devices(devices, device,
+                                       max(cfg.world, cfg.kv_shard))
+        if len(self.devices) < cfg.world:
+            raise ValueError(
+                f"serving: world {cfg.world} needs {cfg.world} devices, "
+                f"have {len(self.devices)}")
+        if cfg.kv_shard > 1:
+            if model_cfg.num_kv_heads % cfg.kv_shard:
+                raise ValueError(
+                    f"serving: kv_shard {cfg.kv_shard} must divide "
+                    f"num_kv_heads {model_cfg.num_kv_heads}")
+            # the shards come from THIS engine's devices: a shrink
+            # rebuild over the survivors never keeps a dead rank's
+            if len(self.devices) < cfg.kv_shard:
+                raise ValueError(
+                    f"serving: kv_shard {cfg.kv_shard} needs "
+                    f"{cfg.kv_shard} devices, engine has "
+                    f"{len(self.devices)} — a shrunk world cannot keep "
+                    f"the KV shard; lower kv_shard with it")
+        self.device = self.devices[0]
         self.cache_cfg = CacheConfig(
             num_layers=model_cfg.num_layers,
             num_kv_heads=model_cfg.num_kv_heads,
@@ -260,7 +387,8 @@ class Engine:
                          if scfg.enabled else None)
         self._decode = self._loop = None
         with spans.span("build", what="serving engine"):
-            self.params = (params if params is not None
+            self.params = (tree_to(params, self.device)
+                           if params is not None
                            else init_params(model_cfg, seed=0,
                                             device=self.device))
             if cfg.speculative:
@@ -277,7 +405,7 @@ class Engine:
                     model_cfg, self.cache_cfg, cfg.multi_step_n,
                     attn_impl=cfg.attn_impl, moe_bias=self._moe_bias,
                     sampler=self._sampler)
-            else:
+            elif self._decode_needed:
                 self._decode = D.make_decode_step(
                     model_cfg, self.cache_cfg, attn_impl=cfg.attn_impl,
                     moe_bias=self._moe_bias, sampler=self._sampler)
@@ -292,7 +420,10 @@ class Engine:
 
     def _reset_state(self):
         self.cache = PagedKVCache(self.cache_cfg)
-        self.pools = device_buffers(self.cache_cfg, self.device)
+        self.pools = (sharded_buffers(self.cache_cfg,
+                                      self.devices[:self.cfg.kv_shard])
+                      if self.cfg.kv_shard > 1
+                      else device_buffers(self.cache_cfg, self.device))
         self.slots: list[_SlotState | None] = [None] * self.cfg.slots
         self.completed: list[M.Completed] = []
         self.queue: deque[Request] = deque()
@@ -323,6 +454,10 @@ class Engine:
         self._drafted = 0
         self._accepted = 0
         self._step_ewma_s = 0.0      # measured seconds per device step
+        # disaggregation: the engine-clock second the next migrated
+        # sequence is expected (serving/disagg.py sets it); None, always
+        # on a monolithic engine, leaves _pick_n_steps as it was
+        self._migration_eta_s: float | None = None
         # MoE imbalance telemetry: per-expert routed-token totals, the
         # decode dispatches' round counts and the prefill chunks' apart
         # (their capacities differ), the last dispatch's snapshot for
@@ -343,10 +478,16 @@ class Engine:
             self.live.reset_run()    # the engine clock restarts at 0
 
     # ---- the loop ----------------------------------------------------
-    def run(self, requests: list[Request]
+    def run(self, requests: list[Request], *, injector=None,
+            t_origin: float | None = None
             ) -> tuple[list[M.Completed], float]:
         """Drive the engine until every request completes; returns
-        ``(completed, wall_s)``."""
+        ``(completed, wall_s)``.  ``t_origin`` anchors the admission
+        clock (a fault-segmented continuation passes the first
+        segment's); ``injector`` (``faults.inject.FaultInjector``) runs
+        before every engine step, and a scripted ``RankFailure`` /
+        ``RankPreempted`` propagates with the progress kept on the
+        engine (``drain_unfinished`` hands the leftovers on)."""
         self._reset_state()
         for r in requests:
             if r.prompt_len + r.output_len > self.cfg.max_seq_len:
@@ -355,7 +496,7 @@ class Engine:
                     f"{r.prompt_len + r.output_len} tokens > max_seq_len "
                     f"{self.cfg.max_seq_len}")
         self.queue = deque(sorted(requests, key=lambda r: r.arrival_s))
-        self._t0 = time.monotonic()
+        self._t0 = time.monotonic() if t_origin is None else t_origin
         while self.queue or self.pending or any(
                 s is not None for s in self.slots):
             self._admit_arrivals(self._now())
@@ -367,8 +508,31 @@ class Engine:
                     if dt > 0:
                         time.sleep(dt)
                 continue
+            if injector is not None:
+                injector.before_step()  # faults land inside the loop
             self._step()
         return self.completed, self._now()
+
+    def drain_unfinished(self) -> list[Request]:
+        """Everything not completed, for a fault-segmented continuation:
+        in-flight requests lose their decode progress (their cache dies
+        with this engine) but keep their arrival stamps.  Slots and
+        pages are freed."""
+        leftovers = [s.req for s in self.slots if s is not None]
+        if self._loop_mode and any(s is not None for s in self.slots):
+            # the drain is a sync boundary: deactivate the in-flight
+            # slots on the device too
+            self.dstate.pull()
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                self.cache.free(i)
+                self.slots[i] = None
+                if self._loop_mode:
+                    self.dstate.evict(i)
+        leftovers += self.pending
+        leftovers += list(self.queue)
+        self.pending, self.queue = [], deque()
+        return sorted(leftovers, key=lambda r: r.arrival_s)
 
     def _now(self) -> float:
         return time.monotonic() - self._t0
@@ -399,7 +563,7 @@ class Engine:
             # sharing the plan charges only the unshared pages (the
             # divergence page's private copy included)
             plan = self.cache.plan_admission(
-                req.prompt_len + req.output_len,
+                self._admission_tokens(req),
                 prompt if self.cfg.prefix_sharing else None)
             if plan.need_pages > self.cache.free_pages:
                 break  # FIFO: never starve the head
@@ -422,6 +586,12 @@ class Engine:
                 while self.slots[i] is not None \
                         and st.prefill_done < req.prompt_len:
                     self._prefill_one(i, st)
+
+    def _admission_tokens(self, req: Request) -> int:
+        """Tokens to reserve pages for at admission: the worst case
+        (prompt + output).  The disaggregated prefill replica reserves
+        the prompt only (decode happens in the other replica's pool)."""
+        return req.prompt_len + req.output_len
 
     def _prompt_of(self, req: Request) -> np.ndarray:
         """Request -> prompt tokens, memoized: a blocked queue head is
@@ -508,17 +678,63 @@ class Engine:
                  ngram_row=ngram_row, uid=st.req.rid,
                  grammar_state=st.gstate)
 
+    def admit_prefilled(self, req: Request, *, last_token: int,
+                        admitted_s: float, first_token_s: float,
+                        generated: int, pending_send, channel) -> bool:
+        """Disaggregation: admit a sequence whose prompt was prefilled on
+        the other replica.  Reserves the worst case like any admission,
+        rebuilds the lengths and block table to the monolithic
+        post-prefill state (``lengths = prompt_len``; the first
+        generated token is not cached — decode writes it at position
+        prompt_len, as after ``_prefill_one``), lands the migrated pages
+        in this pool's allocation (``channel.scatter``, ordered after
+        their arrival on the device) and seeds the decode slot.  The
+        stamps travel with the sequence.  False when no slot or pages
+        are free (the server retries at the next boundary)."""
+        slot = next((i for i, s in enumerate(self.slots) if s is None),
+                    None)
+        if slot is None:
+            return False
+        plan = self.cache.plan_admission(req.prompt_len + req.output_len)
+        if plan.need_pages > self.cache.free_pages:
+            return False
+        self.cache.admit(slot, plan)
+        self.cache.append(slot, req.prompt_len)
+        s = self.cfg.page_size
+        n_pages = (req.prompt_len + s - 1) // s
+        dst_ids = self.cache.block_tables[slot][:n_pages]
+        self.pools = channel.scatter(self.pools, pending_send, dst_ids)
+        st = _SlotState(req, admitted_s=admitted_s)
+        st.prompt = self._prompt_of(req)
+        st.prefill_done = req.prompt_len
+        st.generated = generated
+        st.last_token = last_token
+        st.first_token_s = first_token_s
+        if self._sampler is not None:
+            # the handoff is at the first-token boundary: the automaton
+            # has consumed exactly the first token
+            st.gstate = self._sampler.host_advance(
+                self._sampler.start_state, st.last_token)
+        self.slots[slot] = st
+        self.concurrent_peak = max(
+            self.concurrent_peak,
+            sum(1 for s_ in self.slots if s_ is not None))
+        self._maybe_finish(slot, st)
+        if self.slots[slot] is st:
+            self._activate_decode_slot(slot, st)
+        return True
+
     def _step(self) -> None:
-        """One engine step (``_step_once``), sampled into the flight
-        ring when telemetry is on and into the live stream when one is
-        attached."""
+        """One engine step (``_step_dispatch`` then ``_step_complete``),
+        sampled into the flight ring when telemetry is on and into the
+        live stream when one is attached."""
         if self._tele is None and self.live is None:
-            self._step_once()
+            self._step_complete(self._step_dispatch())
             return
         t0 = time.perf_counter()
         sync0 = (self.dstate.sync_total_us() if self.dstate is not None
                  else 0.0)
-        self._step_once()
+        self._step_complete(self._step_dispatch())
         self._sample_step((time.perf_counter() - t0) * 1e6, sync0)
 
     def _sample_step(self, wall_us: float, sync0: float) -> None:
@@ -563,12 +779,20 @@ class Engine:
         if self.live is not None:
             self.live.maybe_emit(self, now)
 
-    def _step_once(self) -> None:
-        """One engine step: inline prefill chunks first (one per
-        prefilling slot), then decode — one token per active slot
-        (classic) or one fused dispatch.  ``host_dispatch_us`` records
-        the step wall minus the program calls' wall (and, fused, minus
-        the priced syncs)."""
+    # ---- the dispatch / complete split ------------------------------
+    # A step is split at the dispatch boundary: _step_dispatch runs the
+    # inline prefill chunks, marshals the inputs and launches the decode
+    # program without reading anything back; _step_complete reads its
+    # outputs (the step's one fence) and does the host bookkeeping.  The
+    # monolithic engine calls them back to back; the disaggregated and
+    # fleet servers run other devices' work between them.
+
+    def _step_dispatch(self) -> dict | None:
+        """Preamble and launch, no fence.  Returns the in-flight step's
+        context for ``_step_complete``, or None when no slot is in the
+        decode phase (nothing was launched).  ``host_dispatch_us``
+        records the step wall minus the program calls' wall (and, fused,
+        minus the priced syncs)."""
         t_step = time.perf_counter()
         sync0 = (self.dstate.sync_total_us() if self.dstate is not None
                  else 0.0)
@@ -582,15 +806,22 @@ class Engine:
         self._occupancy_samples.append(len(decode_ix))
         self.engine_steps += 1
         if not decode_ix:
-            return
-        if self._loop_mode:
-            self._complete_fused(self._dispatch_fused(decode_ix), t_step,
-                                 dev_s, sync0)
-        else:
-            self._step_single(decode_ix, t_step, dev_s)
+            return None
+        ctx = (self._dispatch_fused(decode_ix) if self._loop_mode
+               else self._dispatch_single(decode_ix))
+        ctx.update(t_step=t_step, dev_s=dev_s, sync0=sync0)
+        return ctx
 
-    def _step_single(self, decode_ix: list[int], t_step: float,
-                     dev_s: float) -> None:
+    def _step_complete(self, ctx: dict | None) -> float:
+        """Fence a dispatched step and run its host bookkeeping; returns
+        the decode leg's seconds (dispatch to fence)."""
+        if ctx is None:
+            return 0.0
+        if ctx["fused"]:
+            return self._complete_fused(ctx)
+        return self._complete_single(ctx)
+
+    def _dispatch_single(self, decode_ix: list[int]) -> dict:
         global decode_dispatches, decode_device_steps
         b = self.cfg.slots
         tokens = np.zeros((b,), np.int32)
@@ -615,19 +846,25 @@ class Engine:
             self._to_device(self.cache.block_tables.copy()),
             self._to_device(active), *extra)
         n_pools = len(self.pools)
-        self.pools = list(outs[:n_pools])
+        self.pools = tuple(outs[:n_pools])
         decode_dispatches += 1
         decode_device_steps += 1
+        return {"fused": False, "t0": t0, "decode_ix": decode_ix,
+                "rest": outs[n_pools:]}
+
+    def _complete_single(self, ctx: dict) -> float:
+        b = self.cfg.slots
+        decode_ix, dev_s = ctx["decode_ix"], ctx["dev_s"]
         if self._moe:
-            nxt, load, rounds = outs[n_pools:]
+            nxt, load, rounds = ctx["rest"]
             # one read is the fence: the tokens and the step's load
             flat = torch.cat([nxt, load]).cpu().numpy()
             nxt = flat[:b]
             self._record_moe(flat[b:], rounds)
         else:
-            (nxt,) = outs[n_pools:]
+            (nxt,) = ctx["rest"]
             nxt = nxt.cpu().numpy()         # the fence
-        leg = time.perf_counter() - t0
+        leg = time.perf_counter() - ctx["t0"]
         dev_s += leg
         self._device_time_s += leg
         self._decode_device_s += leg
@@ -647,7 +884,8 @@ class Engine:
                 st.last_token)
             self._maybe_finish(i, st)
         self._host_dispatch_us.append(
-            max(0.0, time.perf_counter() - t_step - dev_s) * 1e6)
+            max(0.0, time.perf_counter() - ctx["t_step"] - dev_s) * 1e6)
+        return leg
 
     def _dispatch_fused(self, decode_ix: list[int]) -> dict:
         """Launch one fused dispatch; no fence.  The host knows every
@@ -670,13 +908,13 @@ class Engine:
         ds.rebind(tuple(outs[n_pools:n_pools + len(carries)]))
         decode_dispatches += 1
         decode_device_steps += n
-        return {"t0": t0, "n": n, "decode_ix": decode_ix,
+        return {"fused": True, "t0": t0, "n": n, "decode_ix": decode_ix,
                 "extras": outs[n_pools + len(carries):]}
 
-    def _complete_fused(self, ctx: dict, t_step: float, dev_s: float,
-                        sync0: float) -> None:
+    def _complete_fused(self, ctx: dict) -> float:
         """Fence a fused dispatch (one read of its token block and
         counters) and run the host bookkeeping."""
+        dev_s = ctx["dev_s"]
         toks, cnts, *stats = ctx["extras"]
         b, width = toks.shape
         moe_load = moe_rounds = None
@@ -722,9 +960,11 @@ class Engine:
             self._maybe_finish(i, st)
         # each crossing counts against the wall once: the priced syncs
         # are left out of host_dispatch_us
-        sync_s = (self.dstate.sync_total_us() - sync0) * 1e-6
+        sync_s = (self.dstate.sync_total_us() - ctx["sync0"]) * 1e-6
         self._host_dispatch_us.append(
-            max(0.0, time.perf_counter() - t_step - dev_s - sync_s) * 1e6)
+            max(0.0, time.perf_counter() - ctx["t_step"] - dev_s - sync_s)
+            * 1e6)
+        return leg
 
     def _record_moe(self, load, rounds: int) -> None:
         """Fold one DECODE dispatch's MoE stats (read with its tokens)
@@ -788,7 +1028,10 @@ class Engine:
         """Adaptive N: the fused loop must never starve an admissible
         request.  Work waiting caps N at the shortest remaining output
         among the active slots; an arrival due mid-loop caps it at the
-        measured steps until then; a slot mid-prefill (inline) pins 1."""
+        measured steps until then; a slot mid-prefill (inline) pins 1.
+        A disaggregated decode replica has no arrival queue of its own:
+        its next arrival is the next migrated sequence, whose ETA the
+        server keeps in ``_migration_eta_s``, capped the same way."""
         n = self.cfg.multi_step_n
         if not self.cfg.adaptive_n:
             return max(1, n)
@@ -799,6 +1042,12 @@ class Engine:
             return max(1, n)
         rem_min = min(self.slots[i].req.output_len
                       - self.slots[i].generated for i in decode_ix)
+        eta = self._migration_eta_s
+        if eta is not None:
+            dt = eta - self._now()
+            est = self._step_ewma_s
+            if est > 0 and dt < n * est:
+                n = max(1, min(n, max(1, int(dt / est) + 1)))
         if self.pending:
             return max(1, min(n, rem_min))
         if self.queue:
@@ -807,6 +1056,8 @@ class Engine:
             if est > 0 and dt < n * est:
                 steps_until = max(1, int(dt / est) + 1)
                 return max(1, min(n, rem_min, steps_until))
+        if eta is not None:
+            return max(1, min(n, rem_min))
         return n
 
     def _maybe_finish(self, slot: int, st: _SlotState) -> None:
@@ -869,20 +1120,6 @@ class Engine:
             }
         return block
 
-    def mesh_info(self) -> dict:
-        """The record's one-device mesh header."""
-        on_gpu = self.device.type == "cuda"
-        return {
-            "axes": {"devices": 1},
-            "num_devices": 1,
-            "platform": "gpu" if on_gpu else "cpu",
-            "device_kind": (torch.cuda.get_device_name(self.device)
-                            if on_gpu else "cpu"),
-            "num_hosts": 1,
-            "fabric": "real",
-            "devices": [{"id": self.device.index or 0, "process": 0}],
-        }
-
     def global_meta(self, plan: ArrivalPlan) -> dict:
         cfg, mc = self.cfg, self.model_cfg
         return {
@@ -891,7 +1128,9 @@ class Engine:
             "model": (f"decode_d{mc.embed_dim}_l{mc.num_layers}"
                       f"_h{mc.num_heads}kv{mc.num_kv_heads}"
                       f"_v{mc.vocab_size}"),
-            "world_size": 1,
+            # the devices the run holds: a KV shard wider than the world
+            # adds its devices, so the record's rank rows match
+            "world_size": max(cfg.world, cfg.kv_shard),
             "arrival_plan": plan.to_dict(),
             "kv_cache_dtype": cfg.cache_dtype,
             # a sampled run's draw identity: records with another
@@ -911,7 +1150,7 @@ class Engine:
                 "prefix_sharing": cfg.prefix_sharing,
                 "prefill": cfg.prefill,
                 "prefill_chunk": cfg.prefill_chunk,
-                "kv_shard": 1,
+                "kv_shard": cfg.kv_shard,
                 "multi_step_n": cfg.multi_step_n,
                 "adaptive_n": cfg.adaptive_n,
                 "speculative": cfg.speculative,
@@ -927,13 +1166,46 @@ class Engine:
                    if self._moe else {}),
                 "attn_impl": cfg.attn_impl,
             },
-            "mesh": self.mesh_info(),
+            "mesh": mesh_info(self.devices),
         }
 
 
+def mesh_info(devices: list) -> dict:
+    """The record's mesh header over a device list, as given: repeats
+    stay (one card named twice is two entries of one id)."""
+    on_gpu = devices[0].type == "cuda"
+    return {
+        "axes": {"devices": len(devices)},
+        "num_devices": len(devices),
+        "platform": "gpu" if on_gpu else "cpu",
+        "device_kind": (torch.cuda.get_device_name(devices[0])
+                        if on_gpu else "cpu"),
+        "num_hosts": 1,
+        "fabric": "real",
+        "devices": [{"id": d.index or 0, "process": 0} for d in devices],
+    }
+
+
+def warmup_requests(cfg: ServingConfig) -> list[Request]:
+    """The synthetic warm-up requests every runner drives (and
+    discards) before its measured run."""
+    p_len = min(cfg.prefill_chunk + 1, cfg.max_seq_len - 2)
+    return [Request(rid=-1 - i, arrival_s=0.0, prompt_len=p_len,
+                    output_len=2) for i in range(cfg.warmup_requests)]
+
+
+def fault_globals(fault_plan, injector) -> dict:
+    """The record globals of a faulted run (none without a plan)."""
+    if fault_plan is None:
+        return {}
+    return {"fault_plan": fault_plan.to_dict(),
+            "fault_policy": fault_plan.policy,
+            "fault_injected_delay_us": round(injector.injected_delay_us, 1)}
+
+
 def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
-                plan: ArrivalPlan, *, params=None, device="cuda",
-                engine: Engine | None = None, fault_plan=None,
+                plan: ArrivalPlan, *, fault_plan=None, params=None,
+                device=None, devices=None, engine: Engine | None = None,
                 live_metrics=None):
     """One measured serving run -> ``ProxyResult`` (-> ``metrics.emit``).
 
@@ -941,48 +1213,104 @@ def run_serving(model_cfg: TransformerConfig, cfg: ServingConfig,
     discarded.  Pass ``engine`` to keep a handle on the engine (its
     ``token_streams`` after the run are the measured run's).
     ``live_metrics`` (a path or a ``metrics.LiveMetricsWriter``)
-    attaches the windowed live stream to the engine."""
-    if fault_plan is not None:
-        raise _not_ported("fault composition (fault plans)")
+    attaches the windowed live stream to the engine.
+
+    With ``fault_plan``: delays and jitter sleep at engine-step
+    boundaries inside the measured loop (one ``FaultInjector`` over the
+    config's ``world`` ranks); a crash or preemption propagates unless
+    the plan's policy is ``shrink``, where the engine is rebuilt over
+    the surviving ranks' devices with ``slots // world`` slots each
+    (the rebuild priced into ``recovery_ms``), the unfinished requests
+    re-queued with their original arrival stamps on the first
+    segment's clock, and the record stamps ``degraded_world``,
+    ``degraded_slots``, ``detection_ms`` and ``recovery_ms``."""
     if engine is None:
-        engine = Engine(model_cfg, cfg, params=params, device=device)
+        engine = Engine(model_cfg, cfg, params=params, device=device,
+                        devices=devices)
     if live_metrics is not None:
         engine.live = (live_metrics if hasattr(live_metrics, "maybe_emit")
                        else M.LiveMetricsWriter(live_metrics))
     requests = plan.sample()
     if cfg.warmup_requests > 0:
-        p_len = min(cfg.prefill_chunk + 1, cfg.max_seq_len - 2)
         with spans.span("warmup", what="serving engine",
                         reps=cfg.warmup_requests):
-            engine.run([Request(rid=-1 - i, arrival_s=0.0,
-                                prompt_len=p_len, output_len=2)
-                        for i in range(cfg.warmup_requests)])
+            engine.run(warmup_requests(cfg))
+    injector = None
+    if fault_plan is not None:
+        from dlnetbench_tpu_torch.faults.inject import FaultInjector
+        fault_plan.validate()
+        injector = FaultInjector(fault_plan, world=cfg.world)
     meta = engine.global_meta(plan)
-    with spans.span("serving_run", requests=len(requests)):
-        completed, wall = engine.run(requests)
-    moe_blk = engine.moe_block()
+    extra: dict = {}
+    try:
+        with spans.span("serving_run", requests=len(requests)):
+            completed, wall = engine.run(requests, injector=injector)
+        final = engine
+    except Exception as e:
+        # the shared crash-shrink head: re-raises what is not a
+        # shrinkable fault, stamps detection, names the survivors
+        detection_ms, survivors = requeue.detect_shrink(
+            e, injector=injector, fault_plan=fault_plan,
+            world=cfg.world, step=engine.engine_steps)
+        if not survivors:
+            raise
+        leftovers = requeue.requeue_unfinished(engine)
+        done0 = list(engine.completed)
+        t_origin = engine._t0
+        steps0 = engine.engine_steps
+        occ0 = list(engine._occupancy_samples)
+        qmax0 = engine.queue_depth_max
+        t0 = time.monotonic()
+        shrunk = dataclasses.replace(
+            cfg, world=len(survivors),
+            slots=cfg.slots // cfg.world * len(survivors))
+        with spans.span("serving_rebuild", survivors=len(survivors)):
+            engine2 = Engine(model_cfg, shrunk,
+                             params=(params if params is not None
+                                     else engine.params),
+                             devices=[engine.devices[r]
+                                      for r in survivors])
+        engine2.live = engine.live  # the stream outlives the shrink
+        recovery_ms = (time.monotonic() - t0) * 1e3
+        done1, wall = requeue.run_requeued(
+            engine2, leftovers, injector=injector, t_origin=t_origin)
+        completed = done0 + done1
+        final = engine2
+        final.engine_steps += steps0
+        final._occupancy_samples = occ0 + final._occupancy_samples
+        final.queue_depth_max = max(qmax0, final.queue_depth_max)
+        final.concurrent_peak = max(engine.concurrent_peak,
+                                    final.concurrent_peak)
+        meta["mesh"] = mesh_info(engine2.devices)
+        extra = {"detection_ms": round(detection_ms, 3),
+                 "recovery_ms": round(recovery_ms, 3),
+                 "degraded_world": survivors,
+                 "degraded_slots": shrunk.slots}
+    moe_blk = final.moe_block()
     if moe_blk is not None:
         meta["moe"] = moe_blk
     meta["serving"] = M.serving_block(
         completed, plan, slo_ttft_ms=cfg.slo_ttft_ms,
         slo_tpot_ms=cfg.slo_tpot_ms, wall_s=wall,
-        engine_steps=engine.engine_steps,
-        cache_stats=engine.cache.stats(),
-        queue_depth_max=engine.queue_depth_max,
-        batch_occupancy_mean=engine.batch_occupancy_mean(),
-        decode_loop=engine.decode_loop_block(),
-        admitted_peak=engine.concurrent_peak)
+        engine_steps=final.engine_steps,
+        cache_stats=final.cache.stats(),
+        queue_depth_max=final.queue_depth_max,
+        batch_occupancy_mean=final.batch_occupancy_mean(),
+        decode_loop=final.decode_loop_block(),
+        admitted_peak=final.concurrent_peak)
     if cfg.prefix_sharing:
         # volatile at merge: residency at admission depends on arrival
         # times against the engine's speed
-        pstats = engine.cache.stats().get("prefix", {})
+        pstats = final.cache.stats().get("prefix", {})
         meta["prefix_hit_rate"] = pstats.get("hit_rate", 0.0)
         meta["prefix_bytes_saved"] = pstats.get("bytes_saved", 0)
-    if cfg.speculative and engine._sampler is not None:
+    if cfg.speculative and final._sampler is not None:
         # the measured acceptance at this run's temperature (volatile
         # at merge, unlike the sampling identity block)
         meta["spec_acceptance_by_temp"] = M.acceptance_by_temp([
             (cfg.temperature,
-             (engine._accepted / engine._drafted
-              if engine._drafted else 0.0))])
+             (final._accepted / final._drafted
+              if final._drafted else 0.0))])
+    meta.update(fault_globals(fault_plan, injector))
+    meta.update(extra)
     return M.build_result(completed, plan, meta)

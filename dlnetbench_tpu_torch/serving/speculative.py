@@ -45,7 +45,6 @@ import torch
 
 from dlnetbench_tpu_torch.models import layers as L
 from dlnetbench_tpu_torch.models.transformer import TransformerConfig
-from dlnetbench_tpu_torch.ops.paged_attention import take_pages
 from dlnetbench_tpu_torch.serving.decode import (STATE_GRAMMAR,
                                                  STATE_LAST, STATE_LIMIT,
                                                  STATE_POS, STATE_REM,
@@ -54,7 +53,9 @@ from dlnetbench_tpu_torch.serving.decode import (STATE_GRAMMAR,
                                                  _logits, _step_tokens,
                                                  check_config)
 from dlnetbench_tpu_torch.serving.kv_cache import (MASK_VALUE, CacheConfig,
-                                                   write_gate, write_rows)
+                                                   HeadShards, gather_pages,
+                                                   per_shard, write_gate,
+                                                   write_rows)
 from dlnetbench_tpu_torch.serving.sampling import (LANE_ACCEPT,
                                                    LANE_DRAFT, LANE_RESID,
                                                    LANE_TOKEN)
@@ -120,6 +121,8 @@ def _verify_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig,
     page_id = bt.gather(1, (pos2 // s).clamp(max=pmax - 1))
     gate = write_gate((page_id.reshape(-1), (pos2 % s).reshape(-1)),
                       write_ok.reshape(-1))
+    if isinstance(k_pages, HeadShards):
+        gate = per_shard(gate, k_pages)
     t_len = pmax * s
     keep = torch.arange(t_len, device=dev)[None, None, :] \
         <= pos2[:, :, None]                                  # [B, K1, T]
@@ -135,8 +138,8 @@ def _verify_tokens(cfg: TransformerConfig, cache_cfg: CacheConfig,
         write_rows(v_pages, li, v, gate)
         # each slot's whole page row; the stale tail is masked by the
         # per-query causal length, as in gather_attention
-        kseq = take_pages(k_pages[li], bt).movedim(0, 1)
-        vseq = take_pages(v_pages[li], bt).movedim(0, 1)
+        kseq = gather_pages(k_pages[li], bt).movedim(0, 1)
+        vseq = gather_pages(v_pages[li], bt).movedim(0, 1)
         kseq = kseq.reshape(b, hkv, t_len, cfg.head_dim).to(_F32)
         vseq = vseq.reshape(b, hkv, t_len, cfg.head_dim).to(_F32)
         qg = (q * scale).reshape(b, k1, hkv, g, cfg.head_dim).to(_F32)
@@ -227,7 +230,7 @@ def make_spec_decode_loop(cfg: TransformerConfig,
         """``spec_k`` drafter steps: the drafts ``[B, spec_k]`` and, when
         sampling, each step's distribution and its value at the draw."""
         rows = torch.arange(last.shape[0], device=last.device)
-        split = split_for(block_tables)
+        split = split_for(block_tables, pools)
         prev, dpos, gd = last, pos, g0
         ds, q_list, q_at_draft = [], [], []
         for _ in range(spec_k):

@@ -66,7 +66,11 @@ def _bench(monkeypatch, *argv) -> tuple[int, dict]:
     from dlnetbench_tpu_torch.models import bench_step
     for k, v in SMALL_BENCH.items():
         monkeypatch.setattr(bench_step, k, v)
-    monkeypatch.setenv("DLNB_BENCH_K", "2")
+    # 8 chained steps a timed call, as in the JAX bench's sentinel lane:
+    # the tiny step is host-bound, and at 2 a call one round of a run
+    # can take nearly twice another's, so a halved baseline's band can reach
+    # the current one
+    monkeypatch.setenv("DLNB_BENCH_K", "8")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = bench.main(["--skip-aux", *argv])

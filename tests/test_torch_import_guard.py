@@ -54,7 +54,10 @@ def test_importing_every_submodule_loads_no_jax():
               "serving.sampling", "serving.device_state",
               "serving.speculative", "serving.decode",
               "serving.kv_cache", "serving.metrics",
-              "serving.moe_decode", "cli", "tuning", "tuning.db",
+              "serving.moe_decode", "serving.requeue",
+              "serving.disagg", "serving.router", "serving.fleet",
+              "ops.page_migration", "scale_probe", "cli", "tuning",
+              "tuning.db",
               "tuning.search", "tuning.params", "tuning.__main__"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"

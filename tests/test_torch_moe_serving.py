@@ -390,15 +390,15 @@ def test_dense_engine_has_no_moe_block_and_decode_reads_nothing(weights):
     (["--num_experts", "4", "--top_k", "2", "--speculative",
       "--multi_step_n", "2"], "dense models only"),
     (["--moe_skew", "-1"], "moe_skew must be >= 0"),
-    (["--world", "2"], "unrecognized arguments: --world"),
-    (["--kv_shard", "2"], "unrecognized arguments: --kv_shard"),
-    (["--disaggregate"], "unrecognized arguments: --disaggregate"),
-    (["--fault", "{}"], "unrecognized arguments: --fault"),
+    (["--world", "3"], "slots must divide evenly across world ranks"),
+    (["--kv_shard", "3"], "kv_shard 3 must divide num_kv_heads 2"),
+    (["--disaggregate"], "world 1 must equal prefill_ranks 1"),
+    (["--fault", '{"events":[{"kind":"meteor"}]}'], "unknown kind"),
 ])
 def test_cli_serve_refusals(capsys, argv, message):
-    """``cli serve`` refuses MoE + speculation (JAX's message) and a
-    negative skew as usage errors, and has no ``--world``,
-    ``--kv_shard``, ``--disaggregate`` or ``--fault``."""
+    """``cli serve`` refuses MoE + speculation (JAX's message), a
+    negative skew, and bad ``--world``, ``--kv_shard``,
+    ``--disaggregate`` and ``--fault`` settings as usage errors."""
     from dlnetbench_tpu_torch import cli as tcli
     plan = ('{"kind":"poisson","rate_rps":100,"num_requests":2,"seed":0,'
             '"prompt_len":[3,4],"output_len":[2,3]}')

@@ -408,17 +408,22 @@ def test_serving_block_and_result_match_jax():
 
 
 def test_serving_config_refuses_knobs_outside_the_slice():
-    for over in ({"world": 2}, {"kv_shard": 2}, {"disaggregate": True}):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TS.ServingConfig(**_serving_kw(**over)).validate()
-    # the fused loop, speculation, sampling and grammars are the port's
-    # since the decode-loop slice (tests/test_torch_decode_loop.py),
+    # every knob of the JAX package's config is the port's: capacity
+    # ranks, KV sharding and disaggregation since the serving-at-scale
+    # slice (tests/test_torch_serving_scale.py), the fused loop,
+    # speculation, sampling and grammars since the decode-loop slice,
     # prefix sharing and the MoE skew since the serving-breadth slice
-    # (tests/test_torch_prefix_sharing.py, test_torch_moe_serving.py)
-    for over in ({"multi_step_n": 4}, {"speculative": True},
+    for over in ({"world": 2}, {"kv_shard": 2},
+                 {"disaggregate": True, "world": 2},
+                 {"multi_step_n": 4}, {"speculative": True},
                  {"temperature": 0.7}, {"grammar": "json"},
                  {"prefix_sharing": True}, {"moe_skew": 2.0}):
         TS.ServingConfig(**_serving_kw(**over)).validate()
+    # a disaggregated config is refused by the one-engine path, with
+    # the JAX package's message
+    with pytest.raises(ValueError, match="run_disagg"):
+        TS.Engine(torch_model(), TS.ServingConfig(**_serving_kw(
+            disaggregate=True, world=2)), devices=["cpu", "cpu"])
     # a MoE model with speculation: refused at the engine build, with
     # the JAX package's message
     from dlnetbench_tpu.serving.scheduler import Engine as JEngine
@@ -439,10 +444,12 @@ def test_serving_config_refuses_knobs_outside_the_slice():
         TS.ServingConfig(**_serving_kw(prefill="lazy")).validate()
     with pytest.raises(ValueError, match="multiple"):
         TS.ServingConfig(**_serving_kw(max_seq_len=30)).validate()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TS.run_serving(torch_model(), TS.ServingConfig(**_serving_kw()),
-                       TPlan.from_dict(PLAN), device="cpu",
-                       fault_plan=object())
+    # a fault plan is checked before the measured run
+    from dlnetbench_tpu_torch.faults.plan import FaultEvent, FaultPlan
+    with pytest.raises(ValueError, match="unknown kind"):
+        TS.run_serving(torch_model(), TS.ServingConfig(**_serving_kw(
+            warmup_requests=0)), TPlan.from_dict(PLAN), device="cpu",
+            fault_plan=FaultPlan(events=[FaultEvent(kind="meteor")]))
 
 
 def test_engine_rejects_oversized_request(weights):
