@@ -291,6 +291,35 @@ Phases, in order; any failure exits non-zero:
    step times the steps it ran, the compute leg within 10 % of the
    stats time (at world 1 each burns exactly one step of it), host
    issue and power;
+10h. model breadth (run after 10b, before 10c's profiled runs; no new
+   kernel): (a) K3/K4/K5 at gpt2_xl's attention (B=4, S=1024, 25 heads
+   of 64, MHA, causal) against their plain versions at 5's bars, timed
+   beside SDPA and the bound; (b) the gpt2_xl train step at full width
+   and depth (``TransformerConfig.from_card``: 48 layers, D 1600, F
+   6400, vocab 50257, learned positions, tied head, bf16, B=4, S=1024)
+   through ``bench_step.make_train_k``: one warm step, then 3 chained
+   steps timed, losses finite and each below the initial loss (at this
+   depth the loss falls on the first step and then wanders, in f32
+   alike), K3/K4/K5 launched layers x
+   steps and the dense route never; ms a step, tokens/s, peak GB; (c)
+   the same step's ``remat`` modes ``full`` and ``dots`` against no
+   remat on the same weights: the first loss bitwise, every gradient
+   leaf within 2^-6 of its max-abs (the bit-equal leaves counted), K3
+   launched twice a layer (the block's forward runs again), ``full``'s
+   peak below no remat's; each mode's peak GB and ms a step printed; (d)
+   ``bench_step.build(k=1, remat=True, remat_scope="mlp")`` against
+   ``build(k=1)`` at the headline shape under (c)'s bars; (e) the vit_h
+   train step at full width and depth (``ViTConfig.from_card``: 32
+   layers, D 1280, 16 heads of 80, F 5120, 224^2 images in 14-pixel
+   patches, S 257, 1000 classes, bf16, B=32), SGD as (b): 3 steps timed,
+   ``flash_attention.dense_attention_calls`` layers x steps (one a
+   forward block) and no flash or splash launch; ms a step, images/s;
+   (f) tiny f32 GPT-2 (S 128, head_dim 64: the f32 kernels) and ViT (17
+   tokens: the dense route), TF32 off, 2 SGD steps on the card and on
+   the CPU from the same weights: losses within 1e-5 relative, every
+   parameter within 1e-5 of its leaf's max-abs.  The dense route's
+   counter is set to 0 at the start of the script and must still be 0
+   when this phase starts and again after the last phase;
 10c. the observability channels through ``cli.main``: ``dp`` (8
    buckets, -w 2 -r 3) with ``--profile --trace-out --telemetry`` and
    ``ulysses`` (--sp 1, full depth) with ``--profile --trace-out``, at
@@ -372,7 +401,7 @@ Phases, in order; any failure exits non-zero:
    events of the recorded call — after the proxy phases, since a
    profiler session slows the host's later launches;
 11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a, 7c
-   and 7d; K3/K4/K5's over 9, 10f and 10g (b); K12's per format over 9 or
+   and 7d; K3/K4/K5's over 9, 10f, 10g (b) and 10h (b); K12's per format over 9 or
    8d and 10g (b)), then the ``ok`` JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
@@ -380,6 +409,7 @@ the timed phases (lines starting ``smi``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -461,9 +491,9 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
 # and sequence-parallel proxies, 4 with the observability channels, 26
 # with the tuner's knobs, 10 with serving at scale on one card; its 10
-# two-card cases skip on one); all must pass
+# two-card cases skip on one; 14 with model breadth); all must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 300
+CARD_TESTS_MIN = 314
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -3459,6 +3489,382 @@ def proxy_phase(torch, card: str) -> dict:
     return medians
 
 
+# model breadth (10h): K3/K4/K5 at gpt2_xl's attention (B=4, S=1024,
+# 25 heads of 64, MHA, causal), the gpt2_xl train step at full width and
+# depth (bf16, B=4, S=1024, tied head), its remat modes, the headline
+# step with remat_scope="mlp", the vit_h train step (B=32, 224^2, patch
+# 14: S=257 on the dense route) and tiny f32 GPT-2 / ViT models card vs
+# CPU; the steps are plain SGD (bench_step's learning rate)
+GPT2_ATTN = (4, 1024, 25, 25, 64, True)
+GPT2_BATCH, VIT_BATCH, BREADTH_STEPS = 4, 32, 3
+# the remat modes against the un-rematted step on the same weights: the
+# first loss bitwise, every gradient leaf within 2^-6 of its max-abs (the
+# recomputed forward is the same program; the backward's sums may run in
+# another order)
+REMAT_TOL_LEAF = 2.0 ** -6
+# the tiny f32 models, card vs CPU (TF32 off): losses 1e-5 relative,
+# every parameter within 1e-5 of its leaf's max-abs after 2 steps
+BREADTH_REF_TOL = 1e-5
+TINY_GPT2 = dict(vocab_size=257, embed_dim=128, num_heads=2, num_kv_heads=2,
+                 ff_dim=256, num_layers=2, seq_len=128, gated=False,
+                 max_positions=128, tied_embeddings=True, dtype="float32")
+TINY_VIT = dict(image_size=32, patch_size=8, embed_dim=128, num_heads=2,
+                ff_dim=256, num_layers=2, num_classes=10, dtype="float32")
+
+
+def dense_calls() -> int:
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    return FA.dense_attention_calls
+
+
+def reset_dense_calls() -> None:
+    from dlnetbench_tpu_torch.ops import flash_attention as FA
+    FA.dense_attention_calls = 0
+
+
+def loss_and_grads(torch, loss_of, params) -> tuple:
+    """``(loss, grads, peak GB above the allocation before the call,
+    ms)`` of ``loss_of(params)`` and its gradient over the tree's leaves
+    (``bench_step.leaves`` order)."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    ps = BS.leaves(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for p in ps:
+        p.requires_grad_(True)
+    loss = loss_of(params)
+    grads = torch.autograd.grad(loss, ps)
+    for p in ps:
+        p.requires_grad_(False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return loss.detach(), grads, peak, ms
+
+
+def grads_check(torch, label: str, l0, g0, l1, g1) -> str:
+    """The remat bars: loss bitwise, each leaf within REMAT_TOL_LEAF of
+    its max-abs; returns the worst leaf's share and the bit-equal
+    count."""
+    if not torch.equal(l0, l1):
+        fail(f"{label}: first loss {float(l1)!r} != the un-rematted "
+             f"{float(l0)!r} (bitwise)")
+    worst, same = 0.0, 0
+    for a, b in zip(g0, g1):
+        same += int(torch.equal(a, b))
+        err = float((a.float() - b.float()).abs().max())
+        worst = max(worst, err / max(float(a.float().abs().max()), 1e-30))
+    if not worst <= REMAT_TOL_LEAF:
+        fail(f"{label}: a gradient leaf differs by {worst:.3e} of its "
+             f"max-abs (bar {REMAT_TOL_LEAF:.3e})")
+    return f"worst leaf {worst:.3e} of its max-abs, {same}/{len(g0)} " \
+           f"leaves bit-equal"
+
+
+def vit_train_k(torch, cfg, k: int):
+    """``train_k(params, images, labels) -> (params, losses)``: k SGD
+    steps of ``vit.loss_fn`` on one batch, updated in place as
+    ``bench_step.make_train_k`` updates the decoder."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import vit as V
+
+    def train_k(params, images, labels):
+        ps = BS.leaves(params)
+        losses = []
+        for _ in range(k):
+            for p in ps:
+                p.requires_grad_(True)
+            loss = V.loss_fn(params, images, labels, cfg)
+            grads = torch.autograd.grad(loss, ps)
+            with torch.no_grad():
+                for p, g in zip(ps, grads):
+                    p.sub_(g.to(p.dtype) * BS.LEARNING_RATE)
+            losses.append(loss.detach().to(torch.float32))
+            del loss, grads
+        for p in ps:
+            p.requires_grad_(False)
+        return params, torch.stack(losses)
+    return train_k
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
+
+
+def gpt2_step_phase(torch) -> dict:
+    """(b) and (c): the gpt2_xl train step, then its remat modes."""
+    from dlnetbench_tpu_torch.core.model_card import load_model_card
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    cfg = T.TransformerConfig.from_card(load_model_card("gpt2_xl"))
+    if (cfg.num_layers, cfg.embed_dim, cfg.ff_dim, cfg.vocab_size,
+            cfg.max_positions, cfg.gated, cfg.tied_embeddings) != (
+                48, 1600, 6400, 50257, 1024, False, True):
+        fail(f"gpt2_xl: the card gave {cfg}")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in BS.leaves(params)) / 1e9
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, cfg.seq_len + 1),
+                           generator=gen, device="cuda")
+    with torch.no_grad():
+        initial = float(T.loss_fn(params, tokens, cfg))
+    _, warm = BS.make_train_k(cfg, 1)(params, tokens)
+    reset_flash_counts()
+    reset_dense_calls()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = BS.make_train_k(cfg, BREADTH_STEPS)(params, tokens)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / BREADTH_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = flash_counts()
+    losses = losses.cpu()
+    want = cfg.num_layers * BREADTH_STEPS
+    if counts != {"fwd": want, "dq": want, "dkv": want} or dense_calls():
+        fail(f"gpt2_xl step: flash launches {counts} (want {want} each), "
+             f"dense route {dense_calls()} (want 0)")
+    # at 48 layers, JAX's init and lr 1e-3 the loss falls on the first
+    # step and then wanders (in f32 alike): every step must stay below
+    # the initial loss
+    if not (bool(torch.isfinite(losses).all())
+            and float(losses.max()) < initial):
+        fail(f"gpt2_xl step: losses {losses.tolist()} not finite and "
+             f"below the initial {initial:.4f}")
+    tokens_s = GPT2_BATCH * cfg.seq_len / (step_ms / 1e3)
+    say(f"breadth (b) gpt2_xl train step ({cfg.num_layers} layers, D "
+        f"{cfg.embed_dim}, F {cfg.ff_dim}, vocab {cfg.vocab_size}, tied, "
+        f"bf16, B={GPT2_BATCH}, S={cfg.seq_len}): {step_ms:.3f} ms a step "
+        f"(the mean of {BREADTH_STEPS} chained), {tokens_s:.0f} tokens/s, "
+        f"peak {peak:.2f} GB allocated ({weights_gb:.2f} GB of weights, "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above "
+        f"them); initial loss {initial:.4f}, warm step {float(warm[0]):.4f}"
+        f", losses "
+        f"{losses.tolist()}; flash launches {counts}, dense route 0")
+
+    # (c) the remat modes on the updated weights, grads of one pass each
+    def loss_of(c):
+        return lambda p: T.loss_fn(p, tokens, c)
+    modes = {"none": cfg, "full": dataclasses.replace(cfg, remat=True),
+             "dots": dataclasses.replace(cfg, remat=True,
+                                         remat_policy="dots")}
+    reset_flash_counts()
+    l0, g0, peak0, _ = loss_and_grads(torch, loss_of(cfg), params)
+    if flash_counts()["fwd"] != cfg.num_layers:
+        fail(f"gpt2_xl no remat: K3 launched {flash_counts()['fwd']}")
+    peaks = {"none": peak0}
+    for mode in ("full", "dots"):
+        reset_flash_counts()
+        l1, g1, peaks[mode], _ = loss_and_grads(torch, loss_of(modes[mode]),
+                                                params)
+        counts = flash_counts()
+        line = grads_check(torch, f"gpt2_xl remat {mode}", l0, g0, l1, g1)
+        del g1
+        if counts != {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers,
+                      "dkv": cfg.num_layers}:
+            fail(f"gpt2_xl remat {mode}: flash launches {counts} (K3 "
+                 f"twice a layer: the block's forward runs again)")
+        say(f"breadth (c) remat {mode}: first loss bitwise the "
+            f"un-rematted one's ({float(l0):.6f}); {line}; flash launches "
+            f"{counts}")
+    del g0
+    torch.cuda.empty_cache()
+    if not peaks["full"] < peaks["none"]:
+        fail(f"gpt2_xl: remat full's peak {peaks['full']:.2f} GB is not "
+             f"below no remat's {peaks['none']:.2f} GB")
+    times = {}
+    for mode, c in modes.items():
+        BS.make_train_k(c, 1)(params, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        BS.make_train_k(c, 2)(params, tokens)
+        torch.cuda.synchronize()
+        times[mode] = (time.perf_counter() - t0) * 1e3 / 2
+    say("breadth (c) gpt2_xl remat modes (one forward + backward: peak GB "
+        "above what was resident before it, its own grads included; ms a "
+        "step, one warm step then the mean of 2 chained): " + "; ".join(
+            f"{m} {peaks[m]:.2f} GB {times[m]:.3f} ms" for m in modes))
+    return {"counts": {k: want for k in ("fwd", "dq", "dkv")},
+            "step_ms": step_ms, "tokens_s": tokens_s, "peak": peak,
+            "peaks": peaks, "times": times}
+
+
+def remat_mlp_phase(torch) -> None:
+    """(d) ``bench_step.build(k=1, remat=True, remat_scope="mlp")``
+    against ``build(k=1)`` at the headline shape: the first loss bitwise,
+    every gradient leaf within REMAT_TOL_LEAF of its max-abs."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    got, ref = {}, None
+    for label, kw in (("none", {}),
+                      ("mlp", {"remat": True, "remat_scope": "mlp"})):
+        step, params, tokens, _, cfg = BS.build(k=1, **kw)
+        reset_flash_counts()
+        loss, grads, peak, _ = loss_and_grads(
+            torch, lambda p, c=cfg: T.loss_fn(p, tokens, c), params)
+        if flash_counts()["fwd"] != cfg.num_layers:
+            fail(f"headline remat {label}: K3 launched "
+                 f"{flash_counts()['fwd']}, want {cfg.num_layers}")
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            line = grads_check(torch, "headline remat_scope='mlp'", *ref,
+                               loss, grads)
+            ref = None
+        del grads
+        _, losses = step(params, tokens)
+        if not torch.allclose(losses[0], loss.float(), rtol=1e-6, atol=0):
+            fail(f"headline remat {label}: train_k's loss "
+                 f"{float(losses[0])!r} != the pass's {float(loss)!r}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got[label] = (float(loss), peak, ms)
+        del params, step
+        torch.cuda.empty_cache()
+    say(f"breadth (d) headline step (bench_step.build(k=1)) with "
+        f"remat_scope='mlp': first loss bitwise ({got['none'][0]:.6f}); "
+        f"{line}; peak above the weights {got['none'][1]:.2f} -> "
+        f"{got['mlp'][1]:.2f} GB; a step {got['none'][2]:.3f} -> "
+        f"{got['mlp'][2]:.3f} ms (the second call of each)")
+
+
+def vit_step_phase(torch) -> dict:
+    """(e) the vit_h train step at full width and depth."""
+    from dlnetbench_tpu_torch.core.model_card import load_model_card
+    from dlnetbench_tpu_torch.models import vit as V
+    cfg = V.ViTConfig.from_card(load_model_card("vit_h"))
+    if (cfg.num_layers, cfg.embed_dim, cfg.head_dim, cfg.ff_dim,
+            cfg.num_patches + 1, cfg.num_classes) != (32, 1280, 80, 5120,
+                                                      257, 1000):
+        fail(f"vit_h: the card gave {cfg}")
+    params = V.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    images = torch.randn((VIT_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen,
+                           device="cuda")
+    vit_train_k(torch, cfg, 1)(params, images, labels)
+    reset_flash_counts()
+    reset_dense_calls()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = vit_train_k(torch, cfg, BREADTH_STEPS)(params, images,
+                                                       labels)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / BREADTH_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = losses.cpu()
+    flash = {**flash_counts(), **{f"splash_{k}": v
+                                  for k, v in splash_counts().items()}}
+    want = cfg.num_layers * BREADTH_STEPS
+    if dense_calls() != want or any(flash.values()):
+        fail(f"vit_h step: dense route {dense_calls()} (want {want}: one "
+             f"a forward block), flash launches {flash} (want none)")
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"vit_h step: losses {losses.tolist()}")
+    images_s = VIT_BATCH / (step_ms / 1e3)
+    say(f"breadth (e) vit_h train step ({cfg.num_layers} layers, D "
+        f"{cfg.embed_dim}, {cfg.num_heads} heads of {cfg.head_dim}, F "
+        f"{cfg.ff_dim}, S {cfg.num_patches + 1}, bf16, B={VIT_BATCH}): "
+        f"{step_ms:.3f} ms a step (the mean of {BREADTH_STEPS} chained), "
+        f"{images_s:.1f} images/s, peak {peak:.2f} GB; losses "
+        f"{losses.tolist()}; dense route {dense_calls()}, flash launches "
+        f"none")
+    reset_dense_calls()
+    return {"step_ms": step_ms, "images_s": images_s, "peak": peak}
+
+
+def breadth_reference_phase(torch) -> None:
+    """(f) tiny f32 GPT-2 (S 128, head_dim 64: the f32 kernels) and ViT
+    (17 tokens: the dense route) take 2 SGD steps on the card and on the
+    CPU from the same weights."""
+    from dlnetbench_tpu_torch.models import bench_step as BS
+    from dlnetbench_tpu_torch.models import transformer as T
+    from dlnetbench_tpu_torch.models import vit as V
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    gcfg = T.TransformerConfig(**TINY_GPT2)
+    tokens = torch.randint(0, gcfg.vocab_size, (2, gcfg.seq_len + 1),
+                           generator=gen)
+    vcfg = V.ViTConfig(**TINY_VIT)
+    images = torch.randn((2, 32, 32, 3), generator=gen)
+    labels = torch.tensor([3, 8])
+    runs = {
+        "gpt2": (T.init_params(gcfg, seed=10, device="cpu"),
+                 lambda p, dev: BS.make_train_k(gcfg, 2)(p, tokens.to(dev)),
+                 {"fwd": 4, "dq": 4, "dkv": 4}, 0),
+        "vit": (V.init_params(vcfg, seed=11, device="cpu"),
+                lambda p, dev: vit_train_k(torch, vcfg, 2)(
+                    p, images.to(dev), labels.to(dev)),
+                {"fwd": 0, "dq": 0, "dkv": 0}, 4),
+    }
+    for name, (cpu, run, want_flash, want_dense) in runs.items():
+        card = tree_to(cpu, "cuda")
+        reset_flash_counts()
+        reset_dense_calls()
+        card, card_losses = run(card, "cuda")
+        torch.cuda.synchronize()
+        counts, dense = flash_counts(), dense_calls()
+        cpu, cpu_losses = run(cpu, "cpu")
+        card_losses = card_losses.cpu()
+        if counts != want_flash or dense != want_dense:
+            fail(f"breadth reference {name}: flash {counts} (want "
+                 f"{want_flash}), dense route {dense} (want {want_dense})")
+        if not torch.allclose(card_losses, cpu_losses, rtol=BREADTH_REF_TOL,
+                              atol=0):
+            fail(f"breadth reference {name}: card losses "
+                 f"{card_losses.tolist()} vs CPU {cpu_losses.tolist()}")
+        worst = 0.0
+        for a, b in zip(BS.leaves(card), BS.leaves(cpu)):
+            err = float((a.cpu() - b).abs().max())
+            worst = max(worst, err / max(float(b.abs().max()), 1e-30))
+        if not worst <= BREADTH_REF_TOL:
+            fail(f"breadth reference {name}: a parameter differs by "
+                 f"{worst:.3e} of its leaf's max-abs (bar "
+                 f"{BREADTH_REF_TOL})")
+        say(f"breadth (f) {name} tiny f32, 2 SGD steps card vs CPU: losses "
+            f"{card_losses.tolist()} / {cpu_losses.tolist()}; worst "
+            f"parameter {worst:.3e} of its leaf's max-abs; flash {counts}, "
+            f"dense route {dense}")
+    reset_dense_calls()
+
+
+def breadth_phase(torch, peak: dict) -> dict:
+    """10h: model breadth; returns (b)'s K3/K4/K5 launches and its
+    figures."""
+    t_phase = time.perf_counter()
+    if dense_calls():
+        fail(f"an earlier path took the dense attention route "
+             f"{dense_calls()} times (every earlier path runs the kernels)")
+    flash_phase(torch, GPT2_ATTN, peak, timed=True)
+    torch.cuda.empty_cache()
+    smi_sample("gpt2_xl step")
+    gpt2 = gpt2_step_phase(torch)
+    torch.cuda.empty_cache()
+    remat_mlp_phase(torch)
+    torch.cuda.empty_cache()
+    smi_sample("vit_h step")
+    vit = vit_step_phase(torch)
+    torch.cuda.empty_cache()
+    breadth_reference_phase(torch)
+    torch.cuda.empty_cache()
+    say(f"breadth phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"flash": gpt2["counts"], "gpt2": gpt2, "vit": vit}
+
+
 # the observability runs: proxy -> (flags, warmup, runs, the kinds the
 # profile must hold and each one's device events a step).  At one rank
 # NCCL's in-place allreduce launches no device work, so DP's profile
@@ -4757,6 +5163,7 @@ def main(argv: list[str]) -> int:
     peak = {"bytes": hw.hbm_bandwidth, "bf16": hw.peak("bfloat16"),
             "int8": hw.peak("int8"), "fp8": hw.peak("float8")}
     OUT.mkdir(parents=True, exist_ok=True)
+    reset_dense_calls()
 
     from dlnetbench_tpu_torch.ops import _build
     build = _build.build()
@@ -4831,6 +5238,9 @@ def main(argv: list[str]) -> int:
     smi_sample("proxies")
     proxy_phase(torch, card)
     torch.cuda.empty_cache()
+    # after the proxies' host-launch bars, before every profiled session
+    breadth = breadth_phase(torch, peak)
+    torch.cuda.empty_cache()
     observability_phase(torch, card)
     torch.cuda.empty_cache()
     records_phase(torch, card, trained["line"])
@@ -4886,7 +5296,8 @@ def main(argv: list[str]) -> int:
                         "source": FLASH_SRC,
                         "replaces": FLASH_REPLACES[kind],
                         "launches": (trained["counts"][kind] + traced[kind]
-                                     + spmd["flash"][kind]),
+                                     + spmd["flash"][kind]
+                                     + breadth["flash"][kind]),
                         **flash[kind]})
     row = splash[SPLASH_SPECS[0][0]]
     for kind, label in (
@@ -4921,6 +5332,9 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": GMM_REPLACES, "launches": launches,
                         **gmm[kind]})
+    if dense_calls():
+        fail(f"a path after the breadth phase took the dense attention "
+             f"route {dense_calls()} times")
     say(card)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

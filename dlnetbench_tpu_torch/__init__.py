@@ -16,8 +16,10 @@ the MLP recipes, MoE, masks and the kernels' Hopper redesigns; slice
   core/      model cards, hardware presets, the roofline model, stats
              files (``data/model_stats``: H100 rooflines), the schedule
              algebra, build-time warming of step programs
-  models/    the dense gated transformer's layers, config, weights,
-             forward and loss; the bench train step
+  models/    the decoder families (gated SwiGLU + RMSNorm + RoPE, and
+             GPT-2's GELU + LayerNorm + learned positions + tied head,
+             with the remat knobs), the ViT encoders (``vit.py``), their
+             layers, weights, forward and loss; the bench train step
   ops/       hand-written Hopper kernels (``csrc/*.cu``: paged decode
              attention, flash attention forward/dq/dk-dv), their build,
              wrappers with launch counters, the plain PyTorch version
@@ -32,6 +34,8 @@ the MLP recipes, MoE, masks and the kernels' Hopper redesigns; slice
              graphs), the DP and FSDP proxies
   utils/     timing, a free loopback port
   stats_gen.py  ``python -m dlnetbench_tpu_torch.stats_gen``
+  hf_import.py  ``python -m dlnetbench_tpu_torch.hf_import`` (HF
+             configs -> model cards, offline by default)
   bench.py   ``python -m dlnetbench_tpu_torch.bench`` (headline line)
   entry.py   ``entry()``, the flagship forward
   cli.py     ``python -m dlnetbench_tpu_torch.cli

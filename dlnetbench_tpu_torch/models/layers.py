@@ -1,9 +1,10 @@
-"""Building-block layers of the gated transformer, in PyTorch (the JAX
-package's ``models/layers.py``): norms, RoPE, SwiGLU, attention, the
-loss, and the MoE router, capacity dispatch and combine.  The cast
-points are the JAX package's: norm statistics and RoPE in f32, each
-projection rounded to the compute dtype, SwiGLU's gate in f32, router
-logits, softmax and the loss's logsumexp in f32.  The capacity dispatch
+"""Building-block layers of the transformer families, in PyTorch (the
+JAX package's ``models/layers.py``): norms (RMSNorm, LayerNorm), RoPE,
+SwiGLU, the GELU MLP, attention, the loss, and the MoE router, capacity
+dispatch and combine.  The cast points are the JAX package's: norm
+statistics and RoPE in f32, each projection rounded to the compute
+dtype, SwiGLU's gate and GELU in f32, router logits, softmax and the
+loss's logsumexp in f32.  The capacity dispatch
 is held as indices (``Routing``): gathers and scatters in place of the
 JAX package's one-hot einsums, with the same values."""
 from __future__ import annotations
@@ -52,6 +53,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale``, statistics in f32."""
     return _RMSNorm.apply(x, scale, eps)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps)`` with the mean and population
+    variance in f32, cast to x's dtype, and only then ``* scale + bias``
+    in that dtype (the JAX package's order; ``F.layer_norm`` applies the
+    affine before it casts)."""
+    xf = x.to(_F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
 
 
 def rope_tables(positions: torch.Tensor, dh: int,
@@ -137,6 +151,21 @@ def quantized_swiglu(x, w_gate, w_up, w_down, *, mlp_dtype: str,
         return qf8.swiglu_fp8(x, w_gate, w_up, w_down)
     raise ValueError(f"quantized_swiglu: not a quantized mlp_dtype "
                      f"{mlp_dtype!r}")
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """The GELU MLP (gpt2 and ViT): ``a = x @ w_in + b_in`` with an f32
+    result rounded to x's dtype, ``h = gelu(a)`` in f32 rounded again
+    (the tanh form: ``jax.nn.gelu``'s default), then ``h @ w_out +
+    b_out`` with an f32 result rounded to x's dtype, so the saved
+    ``[..., ff]`` activations are in the compute dtype."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    a = (dot_f32(x2, w_in) + b_in.to(_F32)).to(x.dtype)
+    h = F.gelu(a.to(_F32), approximate="tanh").to(x.dtype)
+    y = (dot_f32(h, w_out) + b_out.to(_F32)).to(x.dtype)
+    return y.reshape(*shape[:-1], y.shape[-1])
 
 
 def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,28 @@
-"""The gated (SwiGLU + RMSNorm + RoPE) decoder: configuration and
-weights, and the full-sequence forward and loss the training step
-differentiates (the JAX package's ``models/transformer.py``: the dense
-path with the MLP recipes — bf16, int8 and e4m3 quantized SwiGLU, the
-split and fused-kernel SwiGLU backwards — the MoE path, with the
-``dense``, ``sparse`` and ``grouped`` expert layers, and the attention
-masks: a sliding window and seeded document segments, through the
-splash kernels).
+"""The decoder family: configuration and weights, and the full-sequence
+forward and loss the training step differentiates (the JAX package's
+``models/transformer.py``).  Two families, read off the card's
+``gated_mlp``: the gated one (SwiGLU + RMSNorm + RoPE: llama, minerva,
+mixtral), with the MLP recipes — bf16, int8 and e4m3 quantized SwiGLU,
+the split and fused-kernel SwiGLU backwards — and the MoE path, with
+the ``dense``, ``sparse`` and ``grouped`` expert layers; and the GPT-2
+one (GELU MLP + LayerNorm + learned positions, the head tied to the
+embedding).  Both take the attention masks (a sliding window and seeded
+document segments, through the splash kernels) and the remat knobs
+(``remat``, ``remat_policy``, ``remat_scope``: ``torch.utils.checkpoint``
+in ``jax.checkpoint``'s seat).
 
 ``init_params`` builds the JAX package's parameter tree with the same
 names and shapes — ``embed [V, D]``, ``layers.{wq, wk, wv, wo, norm1,
 norm2, w_gate, w_up, w_down}`` stacked on a leading layer axis (with
 experts, ``w_router [L, D, E]`` and ``w_gate/w_up [L, E, D, F]``,
-``w_down [L, E, F, D]``), ``final_norm [D]``, ``head [D, V]`` — from a
-seeded ``torch.Generator``
-(the draws differ from ``jax.random``'s).  ``params_from_numpy`` turns
-the JAX package's parameters, handed over as numpy arrays, into the
-port's, which is how the tests run both packages on the same weights.
+``w_down [L, E, F, D]``; GPT-2: ``norm1_b``, ``norm2_b``, ``w_in [L, D,
+F]``, ``b_in``, ``w_out [L, F, D]``, ``b_out`` in the MLP's place, and
+``final_norm_b``, ``pos_embed [max_positions, D]``), ``final_norm [D]``,
+``head [D, V]`` (none with tied embeddings) — from a seeded
+``torch.Generator`` (the draws differ from ``jax.random``'s).
+``params_from_numpy`` turns the JAX package's parameters, handed over as
+numpy arrays, into the port's, which is how the tests run both packages
+on the same weights.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from dlnetbench_tpu_torch import ops
 from dlnetbench_tpu_torch.core.model_card import ModelCard
@@ -37,9 +45,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The gated subset of the JAX package's config, dense and MoE.
-    Every knob outside it raises (see ROADMAP.md for where each
-    lands)."""
+    """The JAX package's config: its fields, defaults and checks, with
+    the port's ``dtype`` check.  ``scan_layers`` is accepted and changes
+    nothing: the port always runs the layers as a Python loop, and both
+    of JAX's values give the same numbers."""
     vocab_size: int
     embed_dim: int
     num_heads: int
@@ -53,6 +62,16 @@ class TransformerConfig:
     top_k: int = 1
     tied_embeddings: bool = False
     dtype: str = "bfloat16"
+    # recompute in backward instead of saving (jax.checkpoint's knobs):
+    # remat_scope "block" checkpoints each decoder block, "mlp" only the
+    # dense gated MLP; remat_policy "full" recomputes everything, "dots"
+    # saves the outputs of the products without batch dims (mm, addmm,
+    # _int_mm, _scaled_mm) and recomputes the rest, the flash op included
+    remat: bool = False
+    remat_policy: str = "full"
+    remat_scope: str = "block"
+    attention_impl: str = "auto"   # ops.attention: auto | flash | xla
+    scan_layers: bool = True       # accepted; the loop is Python's
     # attention masks (the JAX package's knobs): each token attends its
     # attention_window most recent tokens (0 = full causal); tokens are
     # split into documents of ~attention_seg_avg tokens by the seeded
@@ -75,11 +94,6 @@ class TransformerConfig:
     moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
-        if not self.gated or self.max_positions:
-            raise ValueError(
-                "TransformerConfig: the port covers the gated (SwiGLU + "
-                "RMSNorm + RoPE) family only; GELU / learned-position "
-                "models are not ported yet (ROADMAP.md queue 1)")
         if self.attention_window < 0 or self.attention_seg_avg < 0:
             raise ValueError(
                 f"attention_window={self.attention_window} / "
@@ -97,8 +111,19 @@ class TransformerConfig:
         self._check_mlp_knobs()
 
     def _check_mlp_knobs(self):
-        """The JAX package's validation of the MLP and MoE knobs, message
-        for message (its ``__post_init__``)."""
+        """The JAX package's validation of the remat, MLP and MoE knobs,
+        message for message (its ``__post_init__``)."""
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             f"expected 'full' or 'dots'")
+        if self.remat_scope not in ("block", "mlp"):
+            raise ValueError(f"unknown remat_scope {self.remat_scope!r}; "
+                             f"expected 'block' or 'mlp'")
+        if self.remat_scope == "mlp" and (self.num_experts > 1
+                                          or not self.gated):
+            raise ValueError(
+                "remat_scope='mlp' covers the dense gated (SwiGLU) MLP "
+                "path only")
         if self.moe_impl not in ("dense", "sparse", "grouped"):
             raise ValueError(f"unknown moe_impl {self.moe_impl!r}; "
                              f"expected 'dense', 'sparse' or 'grouped'")
@@ -156,7 +181,7 @@ class TransformerConfig:
         """Build from an architecture card, optionally overriding size
         knobs (depth, vocab and sequence are cut to fit one card)."""
         if card.is_vit:
-            raise ValueError(f"{card.name} is a ViT card; not ported yet")
+            raise ValueError(f"{card.name} is a ViT card; use models.vit")
         return cls(
             vocab_size=vocab_size or card.vocab_size or 32000,
             embed_dim=card.embed_dim,
@@ -232,7 +257,16 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
         "norm1": torch.ones((nl, d), dtype=dt, device=device),
         "norm2": torch.ones((nl, d), dtype=dt, device=device),
     }
-    if cfg.num_experts > 1:
+    if not cfg.gated:
+        layers.update({
+            "norm1_b": torch.zeros((nl, d), dtype=dt, device=device),
+            "norm2_b": torch.zeros((nl, d), dtype=dt, device=device),
+            "w_in": dense((nl, d, h), s_d),
+            "b_in": torch.zeros((nl, h), dtype=dt, device=device),
+            "w_out": dense((nl, h, d), s_h),
+            "b_out": torch.zeros((nl, d), dtype=dt, device=device),
+        })
+    elif cfg.num_experts > 1:
         e = cfg.num_experts
         layers.update({
             "w_router": dense((nl, d, e), s_d),
@@ -251,6 +285,10 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dt, device=device),
     }
+    if not cfg.gated:
+        params["final_norm_b"] = torch.zeros((d,), dtype=dt, device=device)
+    if cfg.max_positions:
+        params["pos_embed"] = dense((cfg.max_positions, d), 0.01)
     if not cfg.tied_embeddings:
         params["head"] = dense((d, v), s_d)
     return params
@@ -309,23 +347,66 @@ def _mlp(cfg: TransformerConfig, y, lp: dict, qs_row):
     return fn(y.reshape(b * s, d), *weights).reshape(b, s, d), None
 
 
+# the products JAX's ``dots_with_no_batch_dims_saveable`` keeps: a plain
+# 2-D product (the card's f32-output bf16 product is ``mm``'s dtype
+# overload), and the 8-bit recipes' library products
+_SAVED_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm,
+               torch.ops.aten._int_mm, torch.ops.aten._scaled_mm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's ``remat_policy="dots"``: save what the
+    products without batch dims return, recompute everything else."""
+    del ctx, args, kwargs
+    if getattr(op, "overloadpacket", None) in _SAVED_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, dots: bool = False):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in backward (``jax.checkpoint``),
+    all of them, or with ``dots`` all but ``_SAVED_DOTS``'s outputs."""
+    kw = {}
+    if dots:
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _block(cfg: TransformerConfig, x, lp: dict, tables, qs_row=None):
     """One decoder block over a full sequence; x ``[B, S, D]``, ``lp``
-    this layer's weights, ``tables`` the shared RoPE tables, ``qs_row``
-    this layer's delayed-scaling state (delayed scaling only).  Returns
-    ``(x, new_qs_row)``.  Each projection is a plain product rounded to
-    the compute dtype (the JAX package's ``jnp.dot`` without
-    ``preferred_element_type``)."""
+    this layer's weights, ``tables`` the shared RoPE tables (None with
+    learned positions), ``qs_row`` this layer's delayed-scaling state
+    (delayed scaling only).  Returns ``(x, new_qs_row)``.  Each
+    projection is a plain product rounded to the compute dtype (the JAX
+    package's ``jnp.dot`` without ``preferred_element_type``)."""
     b, s, d = x.shape
-    y = L.rmsnorm(x, lp["norm1"])
+    if cfg.gated:
+        y = L.rmsnorm(x, lp["norm1"])
+    else:
+        y = L.layernorm(x, lp["norm1"], lp["norm1_b"])
     q = (y @ lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = (y @ lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = (y @ lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    q, k = L.apply_rope(q, tables), L.apply_rope(k, tables)
+    if tables is not None:
+        q, k = L.apply_rope(q, tables), L.apply_rope(k, tables)
     att = ops.attention(q, k, v.contiguous(), causal=True,
+                        impl=cfg.attention_impl,
                         mask=cfg.mask_spec).reshape(b, s, d)
     x = x + att @ lp["wo"]
-    y2, new_qs_row = _mlp(cfg, L.rmsnorm(x, lp["norm2"]), lp, qs_row)
+    if not cfg.gated:
+        y = L.layernorm(x, lp["norm2"], lp["norm2_b"])
+        return x + L.gelu_mlp(y, lp["w_in"], lp["b_in"], lp["w_out"],
+                              lp["b_out"]), None
+    y = L.rmsnorm(x, lp["norm2"])
+    if cfg.remat and cfg.remat_scope == "mlp":
+        # only the MLP is recomputed in backward: its [B, S, ff]
+        # pre-activations (and the 8-bit recipes' intermediates) are not
+        # kept between the passes
+        y2, new_qs_row = _checkpoint(_mlp, cfg, y, lp, qs_row)
+    else:
+        y2, new_qs_row = _mlp(cfg, y, lp, qs_row)
     return x + y2, new_qs_row
 
 
@@ -335,24 +416,43 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     ``cfg.logits_f32``, else the compute dtype).  With
     ``cfg.quant_scaling == "delayed"``, ``qstate`` (the ``[L, 2]``
     ``init_qstate`` carry) is required and the result is ``(logits,
-    new_qstate)``.  The layer loop is a Python loop; the stacked weights
-    are split with ``unbind``, whose backward stacks each weight's layer
-    gradients once."""
+    new_qstate)``.  The layer loop is a Python loop whatever
+    ``cfg.scan_layers`` says; the stacked weights are split with
+    ``unbind``, whose backward stacks each weight's layer gradients
+    once.  With learned positions a sequence longer than the table is
+    refused here: JAX clamps the index, and on the card the gather would
+    fault on the device."""
     delayed = needs_qstate(cfg)
     if delayed and qstate is None:
         raise ValueError("cfg.quant_scaling='delayed' requires the "
                          "qstate carry (models.transformer.init_qstate)")
-    x = params["embed"][tokens.long()]
     s = tokens.shape[1]
-    tables = L.rope_tables(torch.arange(s, device=tokens.device),
-                           cfg.head_dim)
+    if cfg.max_positions and s > cfg.max_positions:
+        raise ValueError(
+            f"forward: sequence length {s} exceeds max_positions "
+            f"{cfg.max_positions} (the rows of the learned position "
+            f"table)")
+    x = params["embed"][tokens.long()]
+    tables = None
+    if cfg.max_positions:
+        x = x + params["pos_embed"][:s][None]
+    else:
+        tables = L.rope_tables(torch.arange(s, device=tokens.device),
+                               cfg.head_dim)
+    block = _block
+    if cfg.remat and cfg.remat_scope == "block":
+        block = functools.partial(_checkpoint, _block,
+                                  dots=cfg.remat_policy == "dots")
     per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
     rows = []
     for li in range(cfg.num_layers):
-        x, row = _block(cfg, x, {n: w[li] for n, w in per_layer.items()},
-                        tables, qstate[li] if delayed else None)
+        x, row = block(cfg, x, {n: w[li] for n, w in per_layer.items()},
+                       tables, qstate[li] if delayed else None)
         rows.append(row)
-    x = L.rmsnorm(x, params["final_norm"])
+    if cfg.gated:
+        x = L.rmsnorm(x, params["final_norm"])
+    else:
+        x = L.layernorm(x, params["final_norm"], params["final_norm_b"])
     head = params["embed"].T if cfg.tied_embeddings else params["head"]
     if cfg.logits_f32:
         b, s, d = x.shape

@@ -15,7 +15,7 @@
 * ``common``                — the CUDA/CPU device split;
 * ``_build``                — builds ``csrc/*.cu`` with nvcc at first use.
 
-``attention`` is the dispatcher the model calls (the JAX package's
+``attention`` is the dispatcher the models call (the JAX package's
 ``ops.attention``).  Importing this package builds nothing
 and needs no card: a kernel is compiled the first time a wrapper is
 called on a CUDA tensor.
@@ -33,23 +33,30 @@ __all__ = ["attention"]
 def attention(q, k, v, causal: bool, impl: str = "auto", mask=None):
     """q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` -> ``[B, S, Hq, Dh]``.
 
-    ``impl``: "auto" — the flash op (kernels K3/K4/K5 on a CUDA tensor,
+    ``impl``: "flash" — the flash op (kernels K3/K4/K5 on a CUDA tensor,
     their plain versions on a CPU tensor), or with ``mask`` the splash op
-    (K6/K7/K8, or their plain versions); "xla" — the einsum reference
-    ``layers.attention`` on a CPU tensor, with ``mask`` applied densely
+    (K6/K7/K8, or their plain versions), raising where the shape is one
+    they cannot take; "auto" — the same wherever the shape is one they
+    take, else the einsum reference ``layers.attention`` (below); "xla"
+    — the einsum reference on a CPU tensor, with ``mask`` applied densely
     (the name is the JAX package's; here it is for tests only, and a
     CUDA tensor is refused, so nothing routes the card around the
-    kernels).
+    kernels by choice).
 
     ``mask`` (a ``MaskSpec``, ops/attention_mask.py) must agree with
     ``causal``; the plain-causal spec is the ``mask=None`` path itself.
 
     The JAX package's "auto" picks flash only on a TPU at S >= 2048, a
     threshold measured on the TPU; the port's "auto" takes the kernels
-    on the card at every length they support.  A shape they cannot take
-    raises on the card; on the CPU "auto" then runs the einsum
-    reference, as the JAX package does off the TPU, except at S >= 64k,
-    where it refuses (the S^2 score matrix would materialize).
+    on the card at every length they support.  Off the kernels, "auto"
+    runs the einsum reference, as the JAX package does wherever its
+    kernel's blocks find no fit, except at S >= 64k, where it refuses
+    (the S^2 score matrix would materialize).  On a CUDA tensor that
+    dense route is taken only for a sequence no 128-row tile divides
+    (ViT's 197 and 257 tokens: JAX's gate finds no block there either),
+    and each such call is counted in ``flash_attention.
+    dense_attention_calls``; a tile-aligned sequence with a head dim or
+    a head grouping the kernels lack raises on the card.
     """
     s = q.shape[1]
     if mask is not None:
@@ -66,6 +73,10 @@ def attention(q, k, v, causal: bool, impl: str = "auto", mask=None):
                              "(impl='auto')")
         return _L.attention(q, k, v, causal=causal,
                             dense_mask=_dense(mask, s))
+    if impl == "flash":
+        if mask is not None:
+            return _FA.splash_attention(q, k, v, mask)
+        return _FA.flash_attention(q, k, v, causal)
     if impl != "auto":
         raise ValueError(f"unknown attention impl {impl!r}")
     if _FA.flash_supported(q, k, v):
@@ -79,10 +90,13 @@ def attention(q, k, v, causal: bool, impl: str = "auto", mask=None):
             f"materialize); pad the sequence to a multiple of 128 for the "
             f"flash kernels or pass impl='xla' explicitly (CPU only)")
     if on_card(q):
-        raise ValueError(
-            f"attention: the flash kernels cannot take q {tuple(q.shape)}"
-            f" / k {tuple(k.shape)} (seq_len a multiple of 128, head_dim "
-            f"64 or 128) and a CUDA tensor has no other path")
+        if s % _FA.SEQ_MULTIPLE == 0:
+            raise ValueError(
+                f"attention: the flash kernels cannot take q "
+                f"{tuple(q.shape)} / k {tuple(k.shape)} (seq_len a "
+                f"multiple of 128, head_dim 64 or 128) and a CUDA tensor "
+                f"has no other path")
+        _FA.dense_attention_calls += 1
     return _L.attention(q, k, v, causal=causal, dense_mask=_dense(mask, s))
 
 

@@ -82,6 +82,9 @@ dkv_launches = 0
 splash_fwd_launches = 0
 splash_dq_launches = 0
 splash_dkv_launches = 0
+# calls ops.attention took on the card off the kernels: the dense einsum
+# route, for a sequence no 128-row tile divides (ViT's 197 and 257)
+dense_attention_calls = 0
 
 
 def flash_supported(q, k, v) -> bool:

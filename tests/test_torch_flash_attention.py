@@ -127,11 +127,13 @@ def test_dispatcher():
     out = tops.attention(q, k, v, causal=True, impl="auto")
     assert torch.equal(out, TFA.plain_forward(q, k, v, True)[0])
     assert float((out - ref).abs().max()) < 2e-5
+    # "flash" is the flash op itself (JAX's impl), the same here
+    assert torch.equal(tops.attention(q, k, v, causal=True, impl="flash"),
+                       out)
     # the CPU path launches nothing
     assert (TFA.fwd_launches, TFA.dq_launches, TFA.dkv_launches) == before
-    for impl in ("nope", "flash"):     # the card's one path is "auto"
-        with pytest.raises(ValueError, match="unknown attention impl"):
-            tops.attention(q, k, v, causal=True, impl=impl)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tops.attention(q, k, v, causal=True, impl="nope")
 
 
 def test_xla_refuses_a_cuda_tensor(monkeypatch):

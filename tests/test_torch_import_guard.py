@@ -58,7 +58,8 @@ def test_importing_every_submodule_loads_no_jax():
               "serving.disagg", "serving.router", "serving.fleet",
               "ops.page_migration", "scale_probe", "cli", "tuning",
               "tuning.db",
-              "tuning.search", "tuning.params", "tuning.__main__"):
+              "tuning.search", "tuning.params", "tuning.__main__",
+              "models.vit", "hf_import"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -102,7 +103,7 @@ def test_the_guard_covers_every_card_test_file():
         "flash_attention", "splash_attention", "paged_attention",
         "mlp_backward", "quantized_mlp", "grouped_matmul",
         "proxies", "observability", "decode_loop",
-        "serving_breadth")} <= names
+        "serving_breadth", "breadth")} <= names
 
 
 def test_card_tests_collect_without_jax():

@@ -212,12 +212,16 @@ def test_init_params_tree_matches_jax_and_seeds(weights):
 
 
 def test_config_refuses_knobs_outside_the_slice():
-    for over in ({"gated": False}, {"max_positions": 64},
-                 {"dtype": "float16"}):
-        with pytest.raises(ValueError):
-            ttfm.TransformerConfig(**{**MODEL, **over})
+    with pytest.raises(ValueError):
+        ttfm.TransformerConfig(**{**MODEL, "dtype": "float16"})
     from dlnetbench_tpu_torch.core.model_card import load_model_card
     from dlnetbench_tpu_torch.serving import decode as D
+    # the GPT-2 family trains in the port (slice 20); serving refuses it
+    # as the JAX package's check_config does (no decode path)
+    for over in ({"gated": False}, {"max_positions": 64},
+                 {"gated": False, "max_positions": 64}):
+        with pytest.raises(ValueError, match="gated"):
+            D.check_config(ttfm.TransformerConfig(**{**MODEL, **over}))
     # attention masks train in the port (slice 5); serving refuses them
     # as the JAX package's check_config does (a window in decode, a
     # segment mask always)

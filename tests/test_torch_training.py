@@ -325,16 +325,15 @@ def test_headline_formulas_match_bench_py():
 def test_transformer_config_knobs():
     cfg = TT.TransformerConfig(**TINY)
     assert cfg.logits_f32
-    # the model always attends through ops.attention's default (the
-    # kernels on the card): no config field can route around them
-    for knob in ("attention_impl", "scan_layers"):
-        with pytest.raises(TypeError, match=knob):
-            TT.TransformerConfig(**{knob: "xla"}, **TINY)
     # the MLP recipes: the JAX package's five knobs, its defaults, and
-    # every combination it accepts
+    # every combination it accepts; the remat knobs, attention_impl
+    # (ops.attention's dispatch: on the card "auto" and "flash" run the
+    # kernels and "xla" is refused) and scan_layers (accepted, the loop
+    # is Python's) with the JAX package's defaults
     jcfg = JT.TransformerConfig(gated=True, max_positions=0, **TINY)
     for knob in ("mlp_dtype", "int8_backward", "quant_fusion",
-                 "quant_scaling", "mlp_backward"):
+                 "quant_scaling", "mlp_backward", "remat", "remat_policy",
+                 "remat_scope", "attention_impl", "scan_layers"):
         assert getattr(cfg, knob) == getattr(jcfg, knob), knob
     for knobs in ({"mlp_dtype": "int8"},
                   {"mlp_dtype": "int8", "int8_backward": "switchback"},
