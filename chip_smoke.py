@@ -320,6 +320,24 @@ Phases, in order; any failure exits non-zero:
    parameter within 1e-5 of its leaf's max-abs.  The dense route's
    counter is set to 0 at the start of the script and must still be 0
    when this phase starts and again after the last phase;
+10i. the studies (``dlnetbench_tpu_torch/examples/``; no new kernel), each
+   through its entry point, after 10h and before every profiled session:
+   ``dp_bucket_study --devices 1`` (one NCCL rank in this process, three
+   bucket points), ``pod_study --serving`` on a cut plan set through the
+   module's constants (load fractions 0.25 and 2.0, one seed, 40
+   requests, the straggler point at 0.25; plus the calibration), each
+   point a ``cli serve`` process pinned to the gather attention
+   (head_dim 16), and ``pod_study --kv_density`` on the card.  Bars: the
+   first two exit 0 (their own verdicts hold); each prints its tables,
+   verdicts and skipped-PNG notes; the kv-density study's parity,
+   capacity (>= 1.8x), lossless and sharing bars hold, and its
+   band-disjoint goodput@SLO verdict is printed as measured (on the H100
+   its tiny engine is dispatch-bound, and the win is not band-disjoint:
+   the study then exits 1, which this phase reports and allows); the
+   records are the card's, the serving records' ``attn_impl`` is
+   ``gather``; K1/K2 launch 0 times in this process and the dense
+   route's counter stays 0; the phase's seconds are printed (budget 90
+   s);
 10c. the observability channels through ``cli.main``: ``dp`` (8
    buckets, -w 2 -r 3) with ``--profile --trace-out --telemetry`` and
    ``ulysses`` (--sp 1, full depth) with ``--profile --trace-out``, at
@@ -412,6 +430,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -491,9 +510,10 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # K1/K2 and the wgmma K3/K6, 11 with the proxies, 13 with the pipeline
 # and sequence-parallel proxies, 4 with the observability channels, 26
 # with the tuner's knobs, 10 with serving at scale on one card; its 10
-# two-card cases skip on one; 14 with model breadth); all must pass
+# two-card cases skip on one; 14 with model breadth; 1 with the studies,
+# whose 3 two-card cases skip on one); all must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 314
+CARD_TESTS_MIN = 315
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -3865,6 +3885,115 @@ def breadth_phase(torch, peak: dict) -> dict:
     return {"flash": gpt2["counts"], "gpt2": gpt2, "vit": vit}
 
 
+# the studies (10i): the serving study's cut plan, set through the
+# module's constants (the study takes no flag for it)
+STUDY_SERVING_CUT = {"SERVING_FRACTIONS": (0.25, 2.0),
+                     "SERVING_SEEDS": (0,), "SERVING_REQUESTS": 40,
+                     "SERVING_FAULT_FRAC": 0.25}
+STUDY_BUDGET_S = 90.0
+
+
+def study_records(torch, path: Path, want: int) -> list:
+    """The ``want`` records a study wrote, each from this card."""
+    recs = [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()]
+    if len(recs) != want:
+        fail(f"{path}: {len(recs)} records, want {want}")
+    for rec in recs:
+        if rec["mesh"]["platform"] != "gpu" or \
+                rec["mesh"]["device_kind"] != torch.cuda.get_device_name(0):
+            fail(f"{path}: a record from {rec['mesh']}, not this card")
+    return recs
+
+
+def kv_density_bars(out: Path) -> bool:
+    """The kv-density study's bars from its JSON: every one but the
+    goodput band must hold (a failure here fails the script); returns
+    whether a quantized recipe's goodput@SLO win is band-disjoint (the
+    study's last bar, a wall-time verdict this script reports)."""
+    from dlnetbench_tpu_torch.metrics.stats import bands_overlap
+    line = json.loads((out / "kv_density_ab.json").read_text())
+    ab = json.loads((out / "prefix_sharing_ab.json").read_text())
+    base = line["variants"]["bf16"]["goodput_rps"]
+    win = False
+    for cd in ("int8", "fp8"):
+        v = line["variants"][cd]
+        if not v["parity_ok"]:
+            fail(f"kv_density: {cd} decode parity {v['parity_max_err']}")
+        if v["capacity_x"]["value"] < 1.8:
+            fail(f"kv_density: {cd} capacity {v['capacity_x']} < 1.8x")
+        g = v["goodput_rps"]
+        win = win or (bands_overlap(base["band"], g["band"]) is False
+                      and g["value"] > base["value"])
+    if not (ab["lossless"] and ab["prefix_hit_rate"] > 0
+            and ab["prefix_bytes_saved"] > 0):
+        fail(f"kv_density: prefix sharing {ab}")
+    return win
+
+
+def studies_phase(torch) -> None:
+    """10i: the studies through their entry points (docstring)."""
+    from dlnetbench_tpu_torch.examples import dp_bucket_study, pod_study
+    from dlnetbench_tpu_torch.ops import paged_attention as PA
+    from dlnetbench_tpu_torch.ops import paged_attention_quant as PAQ
+    t_phase = time.perf_counter()
+    out = OUT / "studies"
+    shutil.rmtree(out, ignore_errors=True)
+    PA.launches = PAQ.launches = 0
+    dense0 = dense_calls()
+
+    t0 = time.perf_counter()
+    rc = dp_bucket_study.main(["--devices", "1", "--out_dir",
+                               str(out / "dp")])
+    if rc != 0:
+        fail(f"dp_bucket_study --devices 1: rc {rc}")
+    recs = study_records(torch, out / "dp" / "records.jsonl", 3)
+    say(f"studies: dp_bucket_study --devices 1 rc 0, buckets "
+        f"{[r['global']['num_buckets'] for r in recs]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    saved = {k: getattr(pod_study, k) for k in STUDY_SERVING_CUT}
+    for k, v in STUDY_SERVING_CUT.items():
+        setattr(pod_study, k, v)
+    try:
+        rc = pod_study.main(["--serving", "--out_dir",
+                             str(out / "serving")])
+    finally:
+        for k, v in saved.items():
+            setattr(pod_study, k, v)
+    if rc != 0:
+        fail(f"pod_study --serving (cut plan): rc {rc}")
+    recs = study_records(torch, out / "serving" / "records.jsonl", 3)
+    impls = {r["global"]["serving_config"]["attn_impl"] for r in recs}
+    if impls != {"gather"}:
+        fail(f"pod_study --serving: attention {impls}, want the gather pin")
+    say(f"studies: pod_study --serving (cut: {STUDY_SERVING_CUT}) rc 0, "
+        f"attn_impl gather, in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rc = pod_study.main(["--kv_density", "--out_dir",
+                         str(out / "kv_density")])
+    study_records(torch, out / "kv_density" / "records.jsonl", 2)
+    win = kv_density_bars(out / "kv_density")
+    if rc != 0 and win:
+        fail(f"pod_study --kv_density: rc {rc} with every bar held")
+    say(f"studies: pod_study --kv_density rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; parity, capacity, lossless "
+        f"and sharing bars held; goodput@SLO win band-disjoint: {win}"
+        + ("" if win else " (the study's own verdict, a finding on this "
+           "card, printed above; PERF.md section 6)"))
+
+    if PA.launches or PAQ.launches:
+        fail(f"studies: K1 {PA.launches} / K2 {PAQ.launches} launches, "
+             f"want 0 (every study path pins the gather attention)")
+    if dense_calls() != dense0:
+        fail(f"studies: {dense_calls() - dense0} dense attention calls")
+    secs = time.perf_counter() - t_phase
+    say(f"studies phase: {secs:.1f} s (budget {STUDY_BUDGET_S:.0f} s"
+        f"{'' if secs <= STUDY_BUDGET_S else ', OVER'}); K1/K2 0 launches")
+
+
 # the observability runs: proxy -> (flags, warmup, runs, the kinds the
 # profile must hold and each one's device events a step).  At one rank
 # NCCL's in-place allreduce launches no device work, so DP's profile
@@ -5240,6 +5369,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     # after the proxies' host-launch bars, before every profiled session
     breadth = breadth_phase(torch, peak)
+    torch.cuda.empty_cache()
+    smi_sample("studies")
+    studies_phase(torch)
     torch.cuda.empty_cache()
     observability_phase(torch, card)
     torch.cuda.empty_cache()

@@ -22,6 +22,20 @@ from __future__ import annotations
 from dlnetbench_tpu_torch.analysis.py_utils import StyleMap, format_bytes
 
 
+def headless_pyplot():
+    """matplotlib's pyplot on the Agg backend, or None where matplotlib
+    is not installed (the card machine has none): a study then still
+    prints its tables and writes its CSVs, and names each PNG it
+    skipped."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
 def _require_cols(df, cols):
     missing = [c for c in cols if c not in df.columns]
     if missing:

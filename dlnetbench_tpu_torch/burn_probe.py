@@ -37,6 +37,25 @@ session earlier in the process slows each graph launch on the host; the
 calibration times back-to-back replays, which hide that cost, and the
 compute legs show whether it still follows the chain).
 
+With ``--cal-check N`` it runs none of the above and instead holds the
+calibration against a long chain N times, as the card case
+``tests/test_torch_card_proxies.py::test_replayed_calibration_follows_a_long_chain``
+does (bar 5 %), by two methods in turns on fresh burners: ``paired``
+(the burn's own ``_measure``) and ``sequential`` (the two trip counts
+timed one after the other, five timings each, the method before the
+paired one): one ``cal_check`` line each.  ``--fresh`` runs every
+check in a process of its own; ``--after-pytest ARGS`` first runs
+``pytest ARGS`` in this process (e.g. a group of card tests).
+
+With ``--stamps R`` it instead captures the chain with a one-thread
+kernel after every iteration that stamps ``%globaltimer`` and
+``%smid`` (compiled from this file into ``build/burn_probe/`` with the
+kernels' ``nvcc`` flags), replays that 512-iteration graph R times and
+prints, a replay, the median ns between stamps and the SMs the stamps
+ran on (``stamps`` lines), then the replays split at the midpoint of
+the two speed levels (``stamps_summary``): whether a level goes with
+where the chain's kernels are placed.
+
 It needs a card (NVML through ``libnvidia-ml.so.1``) and imports
 nothing of JAX.
 """
@@ -253,6 +272,155 @@ def probe_proxies(form: str, make, state: _CardState, stats, reps: int,
         burnlib._CAL_CACHE.clear()
 
 
+CHECK_BAR = 0.05     # the card case's bar
+STAMP_ITERS = burnlib.CHUNK   # one replay of the burn's chunk graph
+STAMP_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void stamp_kernel(unsigned long long* out, int slot) {
+  unsigned int sm;
+  unsigned long long t;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  out[2 * slot] = t;
+  out[2 * slot + 1] = sm;
+}
+extern "C" int dlnb_stamp(void* out, int slot, void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(out), slot);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _stamp_fn():
+    """The stamp kernel's launcher, built into ``build/burn_probe/``."""
+    import subprocess
+
+    from dlnetbench_tpu_torch.ops import _build
+    d = Path(__file__).resolve().parent.parent / "build" / "burn_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    src, so = d / "stamp.cu", d / "libstamp.so"
+    src.write_text(STAMP_SRC)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.dlnb_stamp.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p]
+    lib.dlnb_stamp.restype = ctypes.c_int
+    return lib.dlnb_stamp
+
+
+class _StampedBurner(burnlib.Burner):
+    """The proxies' chain with the stamp kernel after each iteration,
+    captured as the burn captures its own (``Burner._capture``)."""
+
+    def __init__(self, device, stamp, n: int):
+        super().__init__(device)
+        self._stamp = stamp
+        self.stamps = torch.zeros(2 * n, dtype=torch.int64,
+                                  device=self.device)
+
+    def eager(self, iters: int) -> None:
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        n = self.stamps.numel() // 2
+        for i in range(iters):
+            self._iteration()
+            if self._stamp(self.stamps.data_ptr(), i % n, stream):
+                raise RuntimeError("stamp launch failed")
+
+
+def stamps_probe(device, replays: int, emit) -> None:
+    """The stamped chain's ns an iteration and stamp SMs a replay, then
+    the two levels' SM sets (module docstring)."""
+    n = STAMP_ITERS
+    burner = _StampedBurner(device, _stamp_fn(), n)
+    stamps = burner.stamps
+    rows = []
+    for r in range(replays):
+        burner(n)                      # one replay of the n-graph
+        torch.cuda.synchronize(device)
+        st = stamps.view(n, 2).cpu()
+        dt = (st[1:, 0] - st[:-1, 0]).double()
+        sms = st[:, 1].tolist()
+        row = {"what": "stamps", "replay": r,
+               "median_ns": float(dt.median()),
+               "p10_ns": float(dt.quantile(0.1)),
+               "p90_ns": float(dt.quantile(0.9)),
+               "sms": sorted(set(sms)),
+               "top_sm": statistics.mode(sms)}
+        rows.append(row)
+        emit(row)
+    med = [x["median_ns"] for x in rows]
+    cut = (min(med) + max(med)) / 2
+    for name, part in (("fast", [x for x in rows if x["median_ns"] < cut]),
+                       ("slow", [x for x in rows if x["median_ns"] >= cut])):
+        sms: dict = {}
+        for x in part:
+            for sm in x["sms"]:
+                sms[sm] = sms.get(sm, 0) + 1
+        emit({"what": "stamps_summary", "level": name, "replays": len(part),
+              "median_ns": statistics.median(
+                  [x["median_ns"] for x in part]) if part else None,
+              "first_replays": [x["replay"] for x in part][:20],
+              "sm_replays": dict(sorted(sms.items()))})
+
+
+def _sequential_ns(burner) -> float:
+    """The calibration as it was before the paired tries: the lo trip
+    count's five timings, then the hi's, differenced."""
+    n_lo, n_hi = burnlib.CAL_ITERS
+    burner(n_lo)
+    burner(n_hi)
+    t_lo = burnlib._replayed_s(burner, n_lo, 5)
+    t_hi = burnlib._replayed_s(burner, n_hi, 5)
+    return (t_hi - t_lo) * 1e9 / (n_hi - n_lo)
+
+
+def cal_check(device, index: int, emit) -> None:
+    """One check of each method, in turns: the calibration over the ns an
+    iteration of a 2048-iteration chain timed right after it, as the
+    card case times it."""
+    methods = {"paired": lambda b: burnlib._measure(
+                   b, burnlib.device_kind(device)).ns_per_iter,
+               "sequential": _sequential_ns}
+    order = list(methods) if index % 2 == 0 else list(methods)[::-1]
+    for name in order:
+        burner = burnlib.Burner(device)
+        t0 = time.perf_counter()
+        cal = methods[name](burner)
+        cal_s = time.perf_counter() - t0
+        n = 4 * burnlib.CHUNK
+        burner(n)
+        chain = burnlib._replayed_s(burner, n, 3) * 1e9 / n
+        ratio = cal / chain
+        emit({"what": "cal_check", "method": name, "index": index,
+              "cal_ns": round(cal, 2), "chain_ns": round(chain, 2),
+              "ratio": round(ratio, 5), "cal_s": round(cal_s, 3),
+              "ok": abs(ratio - 1.0) < CHECK_BAR})
+
+
+def run_cal_checks(args, device, emit) -> None:
+    if args.after_pytest:
+        import shlex
+
+        import pytest
+        rc = pytest.main(shlex.split(args.after_pytest))
+        emit({"what": "pytest", "args": args.after_pytest, "rc": int(rc)})
+    if not args.fresh:
+        for i in range(args.cal_check):
+            cal_check(device, args.index + i, emit)
+        return
+    import subprocess
+    for i in range(args.cal_check):
+        argv = [sys.executable, "-m", "dlnetbench_tpu_torch.burn_probe",
+                "--cal-check", "1", "--index", str(i)]
+        if args.out:
+            argv += ["--out", args.out]
+        rc = subprocess.run(argv).returncode
+        if rc:
+            emit({"what": "cal_check", "index": i, "rc": rc})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="dlnetbench_tpu_torch.burn_probe")
     p.add_argument("--chains", type=int, default=16)
@@ -262,6 +430,16 @@ def main(argv=None) -> int:
                    help="then measure the proxies' form again after one "
                         "torch.profiler session")
     p.add_argument("--out", default=None, help="also append the lines here")
+    p.add_argument("--cal-check", type=int, default=0, metavar="N",
+                   help="only hold the calibration against a long chain, "
+                        "N times by each method")
+    p.add_argument("--fresh", action="store_true",
+                   help="with --cal-check: each check in a fresh process")
+    p.add_argument("--after-pytest", default=None, metavar="ARGS",
+                   help="with --cal-check: first run pytest ARGS here")
+    p.add_argument("--index", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--stamps", type=int, default=0, metavar="R",
+                   help="only replay the stamped chain R times")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("needs a CUDA card")
@@ -286,6 +464,12 @@ def main(argv=None) -> int:
     emit({"what": "card", "name": torch.cuda.get_device_name(device),
           "leg_us": leg_us, "model": MODEL, "time_scale": TIME_SCALE,
           **state.read()})
+    if args.cal_check:
+        run_cal_checks(args, device, emit)
+        return 0
+    if args.stamps:
+        stamps_probe(device, args.stamps, emit)
+        return 0
     for form, make in (("cuda_cores", burnlib.Burner),
                        ("tensor", _TensorCoreBurner)):
         probe(form, make, device, state, stats, args.chains, emit)

@@ -85,6 +85,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include "hopper.cuh"        // mbarrier, TMA, wgmma, tensor maps
@@ -1116,14 +1117,23 @@ __global__ void __launch_bounds__(kThreads)
 
 // --------------------------------------------------------------- launch
 
+// the launches below run on the caller's current device, so what they
+// ask of a device (the SM count, the shared-memory cap, the clusters
+// that fit) is asked once per device, never once per process
+constexpr int kMaxDevices = 64;
+
 int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
+  static std::once_flag once[kMaxDevices];
+  static int n[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 132;
+  std::call_once(once[dev], [dev] {
+    int v = 0;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
+    n[dev] = v > 0 ? v : 132;
+  });
+  return n[dev];
 }
 
 // the cluster sizes the 8-bit launches (dlnb_qmm_set_cluster) and K10
@@ -1191,8 +1201,15 @@ cudaError_t wg_launch(const void* x, const void* w, const float* sx,
                      64, kBf16K, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != cudaSuccess) return err;
-  static const cudaError_t attr = with_smem(kernel, smem);
-  if (attr != cudaSuccess) return attr;
+  // raise the dynamic shared memory cap once per instantiation and device
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t attr[kMaxDevices];
+  std::call_once(once[dev], [&] { attr[dev] = with_smem(kernel, smem); });
+  if (attr[dev] != cudaSuccess) return attr[dev];
   cudaLaunchAttribute la[1];
   la[0].id = cudaLaunchAttributeClusterDimension;
   la[0].val.clusterDim.x = CL * kPairM;
@@ -1206,14 +1223,17 @@ cudaError_t wg_launch(const void* x, const void* w, const float* sx,
   cfg.numAttrs = 1;
   cfg.gridDim = dim3(sm_count() / (CL * kPairM) * (CL * kPairM));
   // persistent: as many clusters as fit at once, or as there are units
-  static const int fit = [&] {
+  static std::once_flag fit_once[kMaxDevices];
+  static int fit[kMaxDevices];
+  std::call_once(fit_once[dev], [&] {
     int n = 0;
-    return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess &&
-                   n > 0
-               ? n
-               : sm_count() / (CL * kPairM);
-  }();
-  int clusters = fit;
+    fit[dev] = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) ==
+                           cudaSuccess &&
+                       n > 0
+                   ? n
+                   : sm_count() / (CL * kPairM);
+  });
+  int clusters = fit[dev];
   if (counts == nullptr)
     clusters = min(clusters,
                    E * ceil_div(M, kPairM * kBM) * (N / kBN / CL));

@@ -39,6 +39,14 @@ host's launch cost of a graph (which grows with its nodes, and more so
 after a ``torch.profiler`` session) hides behind the replays instead of
 entering the calibration; on the CPU each call is timed fenced.
 
+The card's chain runs at one of two speed levels about 5.5 % apart, and
+the level can change in the middle of a calibration.  So the card times
+the two trip counts in alternation, as pairs, takes the median of the
+pairs' slopes, and holds it against a long chain timed just before and
+just after; it measures again (``CAL_TRIES`` times at most) until all
+three agree within ``CAL_AGREE``, which makes it a calibration of the
+level in force rather than a mix of two.
+
 On a traced run (``metrics/spans.py``) each graph capture is a
 ``compile`` span (``what="cuda_graph"``) and each calibration a
 ``calibrate`` span, where the JAX package's executor compiles and its
@@ -50,6 +58,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 from pathlib import Path
 
 import torch
@@ -62,10 +71,15 @@ DEFAULT_DTYPE = torch.bfloat16
 CHUNK = 512          # iterations in the replayed graph
 CAL_ITERS = (64, 256)
 CAL_REPLAYS = 16     # back-to-back calls a card timing averages
+CAL_PAIRS = 5        # (lo, hi) timings in alternation, a try
+CAL_LONG = 4 * CHUNK  # the long chain a try's slope is held against
+CAL_LONG_REPLAYS = 4
+CAL_AGREE = 0.02     # the slope within 2 % of the chain before and after
+CAL_TRIES = 6
 # the persisted key of a card's calibration names its method: a value
-# timed by fenced single launches (before the replay timing) is never
-# reused
-CARD_METHOD = "replays"
+# timed another way (fenced single launches, or the two trip counts one
+# after the other) is never reused
+CARD_METHOD = "paired"
 ENV_CACHE_DIR = "DLNB_COMPILE_CACHE_DIR"
 
 
@@ -173,11 +187,12 @@ def device_kind(device) -> str:
             else "cpu")
 
 
-def _replayed_s(burner: Burner, iters: int, reps: int) -> float:
+def _replayed_s(burner: Burner, iters: int, reps: int,
+                replays: int = CAL_REPLAYS) -> float:
     """Seconds of one ``burner(iters)`` on the card: the least, over
-    ``reps`` timings, of ``CAL_REPLAYS`` back-to-back calls between two
-    CUDA events, over ``CAL_REPLAYS``.  A device sleep queued first
-    lets the host enqueue the calls before the start event runs."""
+    ``reps`` timings, of ``replays`` back-to-back calls between two
+    CUDA events, over ``replays``.  A device sleep queued first lets
+    the host enqueue the calls before the start event runs."""
     dev = burner.device
     best = math.inf
     for _ in range(reps):
@@ -186,17 +201,41 @@ def _replayed_s(burner: Burner, iters: int, reps: int) -> float:
         torch.cuda.synchronize(dev)
         torch.cuda._sleep(2_000_000)
         start.record()
-        for _ in range(CAL_REPLAYS):
+        for _ in range(replays):
             burner(iters)
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end) * 1e-3 / CAL_REPLAYS)
+        best = min(best, start.elapsed_time(end) * 1e-3 / replays)
     return best
 
 
+def _paired_ns(timed) -> float:
+    """ns an iteration from ``timed(iters, replays)`` (seconds a call):
+    each try takes the median slope of ``CAL_PAIRS`` (lo, hi) timings in
+    alternation and keeps it when it lies within ``CAL_AGREE`` of a long
+    chain's ns an iteration timed before and after the pairs, so no
+    speed switch fell inside the try; after ``CAL_TRIES`` tries without
+    that, the last long chain's figure (the level in force last)."""
+    n_lo, n_hi = CAL_ITERS
+
+    def chain_ns():
+        return timed(CAL_LONG, CAL_LONG_REPLAYS) * 1e9 / CAL_LONG
+
+    for _ in range(CAL_TRIES):
+        before = chain_ns()
+        slopes = []
+        for _ in range(CAL_PAIRS):
+            t_lo = timed(n_lo, CAL_REPLAYS)
+            t_hi = timed(n_hi, CAL_REPLAYS)
+            slopes.append((t_hi - t_lo) * 1e9 / (n_hi - n_lo))
+        ns = statistics.median(slopes)
+        after = chain_ns()
+        if all(abs(ns / c - 1.0) <= CAL_AGREE for c in (before, after)):
+            return ns
+    return after
+
+
 def _timed_s(burner: Burner, iters: int, reps: int) -> float:
-    if burner.device.type == "cuda":
-        return _replayed_s(burner, iters, reps)
     return min(time_callable(burner, iters, reps=reps,
                              device=burner.device))
 
@@ -205,12 +244,17 @@ def _measure(burner: Burner, kind: str) -> BurnCalibration:
     n_lo, n_hi = CAL_ITERS
     burner(n_lo)                      # capture both graphs, warm
     burner(n_hi)
-    t_lo = _timed_s(burner, n_lo, 5)
-    t_hi = _timed_s(burner, n_hi, 5)
-    ns = (t_hi - t_lo) * 1e9 / (n_hi - n_lo)
-    if ns <= 0:                       # timer noise: widen the gap
-        t_hi = _timed_s(burner, n_hi * 8, 3)
-        ns = max((t_hi - t_lo) * 1e9 / (n_hi * 8 - n_lo), 1.0)
+    if burner.device.type == "cuda":
+        burner(CAL_LONG)
+        ns = _paired_ns(lambda iters, replays: _replayed_s(
+            burner, iters, 1, replays))
+    else:
+        t_lo = _timed_s(burner, n_lo, 5)
+        t_hi = _timed_s(burner, n_hi, 5)
+        ns = (t_hi - t_lo) * 1e9 / (n_hi - n_lo)
+        if ns <= 0:                   # timer noise: widen the gap
+            t_hi = _timed_s(burner, n_hi * 8, 3)
+            ns = max((t_hi - t_lo) * 1e9 / (n_hi * 8 - n_lo), 1.0)
     return BurnCalibration(ns_per_iter=ns,
                            shape=tuple(burner.state.shape),
                            dtype=str(burner.state.dtype).split(".")[-1],

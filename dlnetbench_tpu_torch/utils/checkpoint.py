@@ -474,11 +474,14 @@ class SnapshotCheckpointer:
     def _discard(self, step: int, prev_last: int | None) -> None:
         """Unpublish the save for ``step`` and restore the last-saved
         pointer: restore-from-latest and the lost-work count treat it
-        as never having happened."""
-        if self.backend == "npz":
-            _npz_path(self.ckpt_dir, step).unlink(missing_ok=True)
-        else:
-            _dcp_delete(self.ckpt_dir, step, self.group)
+        as never having happened.  A drain of a step that a periodic
+        save had already landed (``prev_last == step``) rewrote the same
+        state: that earlier checkpoint still stands and stays on disk."""
+        if step != prev_last:
+            if self.backend == "npz":
+                _npz_path(self.ckpt_dir, step).unlink(missing_ok=True)
+            else:
+                _dcp_delete(self.ckpt_dir, step, self.group)
         with self._lock:
             if self._last_saved_step == step:
                 self._last_saved_step = prev_last

@@ -373,6 +373,24 @@ def test_snapshot_drain_save_cut_off_rolls_back(tmp_path, backend):
     assert ckpt.latest_step(tmp_path / "c") == 0
 
 
+def test_drain_rollback_keeps_a_periodic_save_of_the_same_step(
+        tmp_path, backend):
+    """A drain at the step the last periodic save landed (a preempt
+    right after a save step) that overruns its grace rolls back to that
+    periodic save, which stays on disk and restores: the rollback must
+    not delete the checkpoint the pointer goes back to."""
+    sc = ckpt.SnapshotCheckpointer(tmp_path / "c", _state(), every=2,
+                                   mode="stall", backend=backend)
+    sc.on_step(3)
+    assert sc.last_saved_step == 3
+    sc.checkpoint_ms.clear()  # force the attempt past the up-front gate
+    assert not sc.save_now(3, budget_us=0.001)
+    assert sc.last_saved_step == 3
+    assert ckpt.latest_step(tmp_path / "c") == 3
+    _, step = sc.restore(_state())
+    assert step == 3
+
+
 def test_snapshot_rejects_bad_config(tmp_path):
     with pytest.raises(ValueError, match="interval"):
         ckpt.SnapshotCheckpointer(tmp_path, _state(), every=0)

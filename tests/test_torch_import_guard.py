@@ -59,7 +59,8 @@ def test_importing_every_submodule_loads_no_jax():
               "ops.page_migration", "scale_probe", "cli", "tuning",
               "tuning.db",
               "tuning.search", "tuning.params", "tuning.__main__",
-              "models.vit", "hf_import"):
+              "models.vit", "hf_import", "examples",
+              "examples.dp_bucket_study", "examples.pod_study"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
