@@ -338,6 +338,45 @@ Phases, in order; any failure exits non-zero:
    ``gather``; K1/K2 launch 0 times in this process and the dense
    route's counter stays 0; the phase's seconds are printed (budget 90
    s);
+10j. the native C++ tier (``dlnetbench_tpu_torch/native/``), after 10i
+   and before every profiled session: (a) its card flavour, built by
+   ``utils/native_build`` in a thread started right after the kernels'
+   build (``nvcc`` for ``csrc/burn.cu``, ``g++`` with the CUDA runtime
+   for the binaries); the build's seconds, ``nvcc``'s version and the
+   dlopened NCCL's path and version printed, the version equal to
+   ``torch.cuda.nccl.version()``; (b) ``nccl_selftest`` at world 1 (and
+   2 on two cards): every collective and p2p op at f32, bf16 and e4m3
+   over the world and a split communicator, exact; (c) the burn kernel
+   against the port's torch chain (``proxies/burn.Burner.eager``) from
+   one seeded state (``nccl_probe``'s check state: positive, rank one,
+   its first product of order one) after 1 and 8 iterations, one launch
+   each: the max-abs difference within 2^-6 of the chain's own max-abs,
+   which must reach 0.5 after 1 iteration (tanh bends it) and stay a
+   normal number, at least 1e-30, after 8 (the sup norm of any chain
+   falls as m <- tanh(m^2); a state of mixed signs reaches 0), and the
+   torch chain without tanh, transposed, scaled by 1/128 or zero, from
+   the same state, must miss that bar (each miss printed); (d) a requested 20 ms burn within 5 % by CUDA
+   events, after the paired calibration, and short requests (0.7 and
+   2.7 us, as pod_study's gpt2_l asks) printed as the events and the
+   burn's own clock saw them; (e) the seven
+   proxies through their binaries on ``--backend nccl`` at world 1, at
+   10a/10b's models and flags (llama3_8b at full size and --time_scale
+   0.05; the MoE at --time_scale 0.01 and --size_scale 0.35, not 10b's
+   0.5: its card buffers come to 199.7 GB x size_scale — the dp-sync
+   source and sum, 93.4 GB each at size 1, and the non-expert sync,
+   all-to-all and activation pairs, 12.9 GB together — which is 99.9 GB
+   at 0.5 and 69.9 GB at 0.35, of the card's 80), 1 warm-up and 2 runs:
+   each record passes the port's parser with backend nccl, compute_mode
+   device_burn, transport local, nccl_impl real and 0 timed copies; its
+   runtime median printed beside 10a/10b's (a report, not a bar); the
+   burn's launches summed for the kernels line; (f) ``congestion_study``
+   (nccl, world 1, the congestor on the same card) and ``pod_study
+   --tier native --backend nccl --devices 1`` on its dp and fsdp points
+   at their default time scales, each exit 0.  In every record of (e)
+   and (f) the burns' device span (``burn_device_us``, the burn's clock)
+   lies within 5 % of the compute the record asked for
+   (``burn_requested_us``).  The phase's seconds are printed (budget 120
+   s);
 10c. the observability channels through ``cli.main``: ``dp`` (8
    buckets, -w 2 -r 3) with ``--profile --trace-out --telemetry`` and
    ``ulysses`` (--sp 1, full depth) with ``--profile --trace-out``, at
@@ -420,7 +459,11 @@ Phases, in order; any failure exits non-zero:
    profiler session slows the host's later launches;
 11. the ``kernels`` JSON line (K1/K2's launches summed over 7, 7a, 7c
    and 7d; K3/K4/K5's over 9, 10f, 10g (b) and 10h (b); K12's per format over 9 or
-   8d and 10g (b)), then the ``ok`` JSON line last.
+   8d and 10g (b); the burn kernel's over 10j (e), its time one burn of
+   64 iterations, its bound their 2 x 256^3 flop each at the card's
+   bf16 tensor-core rate, 989 TFLOP/s on an H100 SXM, the rate of its
+   bf16 operands summed in f32), then the ``ok``
+   JSON line last.
 
 ``nvidia-smi``'s SM clock, power draw and temperature are printed beside
 the timed phases (lines starting ``smi``).
@@ -511,9 +554,10 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # and sequence-parallel proxies, 4 with the observability channels, 26
 # with the tuner's knobs, 10 with serving at scale on one card; its 10
 # two-card cases skip on one; 14 with model breadth; 1 with the studies,
-# whose 3 two-card cases skip on one); all must pass
+# whose 3 two-card cases skip on one; 6 with the native tier, whose
+# two-card case skips on one); all must pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 315
+CARD_TESTS_MIN = 322
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -3994,6 +4038,301 @@ def studies_phase(torch) -> None:
         f"{'' if secs <= STUDY_BUDGET_S else ', OVER'}); K1/K2 0 launches")
 
 
+# the native tier (10j): the seven proxies at 10a/10b's models, flags and
+# scales through their binaries on --backend nccl (the MoE at
+# --size_scale 0.35, the most the card holds: docstring, 10j (e))
+NATIVE_PIPE = ["--num_stages", "1", "--num_microbatches", "4"]
+NATIVE_RUNS = {
+    "dp": ["--num_buckets", "8"],
+    "fsdp": ["--num_units", "8", "--sharding_factor", "1"],
+    "hybrid_2d": NATIVE_PIPE,
+    "hybrid_3d": [*NATIVE_PIPE, "--tp", "1"],
+    "hybrid_3d_moe": [*NATIVE_PIPE, "--num_expert_shards", "1"],
+    "ring_attention": ["--sp", "1"],
+    "ulysses": ["--sp", "1"],
+}
+NATIVE_MOE_SIZE_SCALE = 0.35
+NATIVE_MOE_CARD_GB = 199.7   # the MoE's card buffers at size_scale 1
+# the burn kernel vs the torch chain: max-abs within BURN_TOL of the
+# chain's max-abs, from nccl_probe --burn-check's state, whose chain must
+# reach BURN_BENT after 1 iteration and BURN_FLOOR after 8
+BURN_TOL, BURN_BENT, BURN_FLOOR = 2.0 ** -6, 0.5, 1e-30
+BURN_CAL_MS, BURN_CAL_TOL = 20.0, 0.05
+BURN_SHORT_MS = (0.0007, 0.0027)  # pod_study's gpt2_l bucket and forward
+BURN_SPAN_TOL = 0.05       # a record's burn span vs the compute asked
+BURN_TIME_ITERS = 64       # the kernels line's timed call
+BURN_SRC = "dlnetbench_tpu_torch/native/csrc/burn.cu"
+BURN_REPLACES = "native/include/dlnb/stablehlo_gen.hpp:181"
+NATIVE_BUDGET_S = 120.0
+_native_build: dict = {}
+
+
+def start_native_build() -> None:
+    """Build the native tier's card flavour in a thread, beside the
+    kernel phases (10j joins it)."""
+    import threading
+
+    def work():
+        from dlnetbench_tpu_torch.utils import native_build
+        t0 = time.perf_counter()
+        try:
+            _native_build["bin"] = native_build.native_bin(ROOT,
+                                                           flavour="cuda")
+        except Exception as e:  # reported by 10j
+            _native_build["error"] = e
+        _native_build["seconds"] = time.perf_counter() - t0
+    th = threading.Thread(target=work, daemon=True)
+    th.start()
+    _native_build["thread"] = th
+
+
+def native_run(bin_dir: Path, args: list, env: dict,
+               timeout: float = 300) -> str:
+    """A native binary's stdout; fails the script on a nonzero rc."""
+    proc = subprocess.run([str(bin_dir / args[0]), *map(str, args[1:])],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=env)
+    if proc.returncode != 0:
+        fail(f"native {' '.join(map(str, args))}: rc {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def native_json(bin_dir: Path, args: list, env: dict,
+                timeout: float = 300) -> dict:
+    return json.loads(native_run(bin_dir, args, env,
+                                 timeout).strip().splitlines()[-1])
+
+
+def native_burn_check(torch, bin_dir: Path, env: dict,
+                      iters: int) -> tuple:
+    """The burn kernel against the port's torch chain from one seeded
+    state after ``iters`` iterations: the max-abs difference and the
+    chain's max-abs."""
+    import numpy as np
+
+    from dlnetbench_tpu_torch.proxies.burn import Burner
+    out = OUT / f"burn_check_{iters}.bin"
+    rep = native_json(bin_dir, ["nccl_probe", "--burn-check", iters,
+                                "--seed", 11, "--out", out], env)
+    raw = torch.from_numpy(np.fromfile(out, dtype="int16"))
+    init = raw[:65536].view(torch.bfloat16).reshape(256, 256)
+    fin = raw[65536:].view(torch.bfloat16).reshape(256, 256)
+    b = Burner("cuda")
+    b.state.copy_(init.cuda())
+    b.eager(iters)
+    err = (b.state.float() - fin.cuda().float()).abs().max().item()
+    scale = b.state.float().abs().max().item()
+    if not math.isfinite(scale) or \
+            scale < (BURN_BENT if iters == 1 else BURN_FLOOR):
+        fail(f"burn check at {iters} iterations: the chain's max-abs "
+             f"{scale} (it must reach {BURN_BENT} at 1 iteration, "
+             f"{BURN_FLOOR} after)")
+    if not err <= BURN_TOL * scale or rep["burn"]["check_launches"] != 1:
+        fail(f"burn kernel vs torch chain at {iters} iterations: max-abs "
+             f"{err} (bar {BURN_TOL} x the chain's {scale}), launches "
+             f"{rep['burn']['check_launches']}")
+    # the bar's power: a wrong chain from the same state must miss it
+    x0 = init.cuda().float()
+    wrong = {"no tanh": lambda x: (x @ x / 256).clamp(-1, 1),
+             "transposed": lambda x: torch.tanh(x.T @ x / 256),
+             "scale 1/128": lambda x: torch.tanh(x @ x / 128),
+             "zeros": lambda x: torch.zeros_like(x)}
+    for name, step in wrong.items():
+        x = x0
+        for _ in range(iters):
+            x = step(x).to(torch.bfloat16).float()
+        miss = (x - b.state.float()).abs().max().item()
+        if not miss > BURN_TOL * scale:
+            fail(f"burn check at {iters} iterations cannot tell a chain "
+                 f"with {name} from the right one (max-abs {miss})")
+        say(f"native burn check, {iters} iteration(s): a chain with {name} "
+            f"misses by {miss / scale:.3g} x the chain's max-abs (bar "
+            f"{BURN_TOL})")
+    return err, scale
+
+
+def burn_span_check(label: str, rec: dict) -> float:
+    """A native record's burns: their device span against the compute it
+    asked for (BURN_SPAN_TOL); returns the ratio."""
+    g = rec["global"]
+    asked, spent = g["burn_requested_us"], g["burn_device_us"]
+    ratio = spent / asked if asked > 0 else float("nan")
+    if not abs(ratio - 1) <= BURN_SPAN_TOL:
+        fail(f"native {label}: the burns took {spent} us on the card for "
+             f"{asked} us asked (x{ratio:.4f}, bar {BURN_SPAN_TOL:.0%})")
+    return ratio
+
+
+def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
+    """10j: the native tier on the card (docstring); returns the burn
+    kernel's row of the kernels line."""
+    from dlnetbench_tpu_torch.metrics.parser import (records_to_dataframe,
+                                                     validate_record)
+    from dlnetbench_tpu_torch.utils import native_build
+    t_phase = time.perf_counter()
+    out = OUT / "native"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # (a) the build, started beside the kernel phases
+    th = _native_build.get("thread")
+    if th is None:
+        start_native_build()
+        th = _native_build["thread"]
+    th.join()
+    if "error" in _native_build:
+        fail(f"native build (cuda flavour): {_native_build['error']}")
+    bin_dir = _native_build["bin"]
+    nvcc = native_build.find_nvcc()
+    nvcc_v = subprocess.run([nvcc, "--version"], capture_output=True,
+                            text=True).stdout.strip().splitlines()[-1]
+    env = native_build.nccl_env()
+    probe = native_json(bin_dir, [
+        "nccl_probe", "--burn-ms",
+        ",".join(map(str, (BURN_CAL_MS, *BURN_SHORT_MS))),
+        "--time-iters", BURN_TIME_ITERS], env)
+    torch_nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    say(f"native: cuda build {_native_build['seconds']:.1f} s (in a thread "
+        f"beside the kernel phases), {nvcc_v}; NCCL {probe['nccl_version']}"
+        f" from {probe['nccl_library']} (torch's {torch_nccl})")
+    if probe["nccl_version"] != torch_nccl:
+        fail(f"native: dlopened NCCL {probe['nccl_version']} != torch's "
+             f"{torch_nccl}")
+    # (b) every op and dtype, exact
+    worlds = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    for w in worlds:
+        rep = native_json(bin_dir, ["nccl_selftest", "--world", w], env)
+        if not rep["ok"] or rep["failures"]:
+            fail(f"native nccl_selftest world {w}: {rep['failures']}")
+        say(f"native: nccl_selftest world {w}: {rep['checks']} checks "
+            f"exact (f32, bf16, e4m3; world and split communicators)")
+    # (c) the burn kernel against its plain version
+    checks = {n: native_burn_check(torch, bin_dir, env, n) for n in (1, 8)}
+    err = max(e for e, _ in checks.values())
+    # (d) the calibration, read by CUDA events
+    burn = probe["burn"]
+    req = {r["requested_ms"]: r for r in burn["requests"]}
+    got = statistics.median(req[BURN_CAL_MS]["measured_ms"])
+    if abs(got / BURN_CAL_MS - 1) > BURN_CAL_TOL:
+        fail(f"native burn: a requested {BURN_CAL_MS} ms burn took "
+             f"{req[BURN_CAL_MS]['measured_ms']} ms (bar "
+             f"{BURN_CAL_TOL:.0%})")
+    say(f"native burn: {burn['ns_per_iter']:.1f} ns an iteration and "
+        f"{burn['fixed_ns']:.0f} ns a launch (calibrated in "
+        f"{burn['calibration_s']:.2f} s); a requested "
+        f"{BURN_CAL_MS} ms burn took {req[BURN_CAL_MS]['measured_ms']} ms; "
+        + "; ".join(f"vs the torch chain at {n} iteration(s) max-abs {e} of "
+                    f"the chain's {m}" for n, (e, m) in checks.items()))
+    for ms in BURN_SHORT_MS:
+        r = req[ms]
+        say(f"native burn: {ms * 1e3:.1f} us asked ({r['iters']} "
+            f"iterations and the spin, {r['reps']} back to back): "
+            f"{[round(x * 1e3, 4) for x in r['measured_ms']]} us each by "
+            f"CUDA events, {r['clock_ms'] * 1e3:.4f} us by the burn's "
+            f"clock (the device timer's tick {burn['timer_tick_ns']} ns)")
+    # (e) the seven proxies on --backend nccl, world 1
+    launches = 0
+    for proxy, flags in NATIVE_RUNS.items():
+        moe = proxy == "hybrid_3d_moe"
+        path = out / f"{proxy}.jsonl"
+        if moe:
+            free, total = torch.cuda.mem_get_info()
+            need = NATIVE_MOE_CARD_GB * NATIVE_MOE_SIZE_SCALE
+            say(f"native {proxy}: {need:.1f} GB of card buffers at size "
+                f"{NATIVE_MOE_SIZE_SCALE}; "
+                f"the card has {free / 1e9:.1f} of {total / 1e9:.1f} GB "
+                f"free")
+        t0 = time.perf_counter()
+        native_run(bin_dir, [
+            proxy, "--model", MOE_MODEL if moe else PROXY_MODEL,
+            "--world", 1, *flags, "--backend", "nccl",
+            "--size_scale", NATIVE_MOE_SIZE_SCALE if moe else 1,
+            "--time_scale", MOE_TIME_SCALE if moe else PROXY_TIME_SCALE,
+            "--warmup", 1, "--runs", 2, "--no_topology",
+            "--base_path", ROOT, "--out", path], env, timeout=600)
+        wall = time.perf_counter() - t0
+        rec = json.loads(path.read_text().strip().splitlines()[-1])
+        validate_record(rec)
+        records_to_dataframe([rec])
+        g = rec["global"]
+        want = {"backend": "nccl", "compute_mode": "device_burn",
+                "transport": "local", "timed_copies": 0, "nccl_impl": "real"}
+        bad = {k: g.get(k) for k, v in want.items() if g.get(k) != v}
+        if bad:
+            fail(f"native {proxy}: record fields {bad}, want {want}")
+        launches += g["burn_launches"]
+        span = burn_span_check(proxy, rec)
+        med = statistics.median(rec["ranks"][0]["runtimes"])
+        py = py_medians.get(proxy, {}).get("runtimes")
+        py_s = "not run" if py is None else f"{py:.1f} us"
+        say(f"native {proxy}: runtime median {med:.1f} us (the Python "
+            f"tier's 10a/10b run: {py_s}"
+            f"{f', at size {MOE_SIZE_SCALE}' if moe else ''}"
+            f"); burn {g['burn_launches']} launches, "
+            f"{g['burn_iters']} iterations; {g['twins']} twins, "
+            f"{g['h2d_copies']} h2d copies, "
+            f"{g['timed_copies']} timed; burn span x{span:.4f} of the "
+            f"{g['burn_requested_us']:.1f} us asked; {wall:.1f} s")
+    # (f) the studies' native paths, cut
+    from dlnetbench_tpu_torch.examples import congestion_study, pod_study
+    t0 = time.perf_counter()
+    rc = congestion_study.main(["--out_dir", str(out / "congestion"),
+                                "--runs", "3"])
+    if rc != 0:
+        fail(f"congestion_study: rc {rc}")
+    rep = json.loads((out / "congestion" / "report.json").read_text())
+    spans = [burn_span_check(f"congestion_study {p.stem}", json.loads(
+        p.read_text().strip().splitlines()[-1]))
+        for p in sorted((out / "congestion").glob("*_p0.jsonl"))]
+    say(f"native: congestion_study (nccl, world 1, one card) runtime "
+        f"x{rep['runtime_inflation']:.3f}, barrier "
+        f"x{rep['barrier_inflation']:.3f}; burn span "
+        f"{[round(x, 4) for x in spans]} of the compute asked; in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    orig = pod_study.build_plan
+    pod_study.build_plan = lambda models, devices: [
+        pt for pt in orig(models, devices) if pt[0] in ("dp", "fsdp")]
+    try:
+        rc = pod_study.main(["--tier", "native", "--backend", "nccl",
+                             "--devices", "1", "--models",
+                             "gpt2_l_16_bfloat16", "--runs", "2",
+                             "--out_dir", str(out / "pod_study")])
+    finally:
+        pod_study.build_plan = orig
+    if rc != 0:
+        fail(f"pod_study --tier native --backend nccl: rc {rc}")
+    pts = [json.loads(line) for line in (out / "pod_study" / "records.jsonl")
+           .read_text().splitlines() if line.strip()]
+    spans = [burn_span_check(f"pod_study {r['global']['proxy']}", r)
+             for r in pts]
+    say(f"native: pod_study --tier native --backend nccl --devices 1 (dp "
+        f"and fsdp points) rc 0; runtime medians "
+        f"{[round(statistics.median(r['ranks'][0]['runtimes']), 1) for r in pts]}"
+        f" us, burn span {[round(x, 4) for x in spans]} of the compute "
+        f"asked; in {time.perf_counter() - t0:.1f} s")
+    secs = time.perf_counter() - t_phase
+    say(f"native phase: {secs:.1f} s (budget {NATIVE_BUDGET_S:.0f} s"
+        f"{'' if secs <= NATIVE_BUDGET_S else ', OVER'}) on {card}")
+    # the kernels line: one burn of BURN_TIME_ITERS iterations; its bound
+    # is their 2 x 256^3 flop each at the card's bf16 tensor-core rate
+    # (bf16 operands, f32 sums)
+    from dlnetbench_tpu_torch.proxies.burn import Burner
+    b = Burner("cuda")
+    plain = timed_ms(torch, lambda: b.eager(BURN_TIME_ITERS), reps=10)
+    ops = BURN_TIME_ITERS * 2 * 256 ** 3
+    nbytes = 2 * 256 * 256 * 2
+    return {"name": "burn chain tanh(state @ state / 256) (one block, the "
+                    "bf16 state in shared memory, mma.sync tensor cores)",
+            "route": "cuda", "source": BURN_SRC, "replaces": BURN_REPLACES,
+            "launches": launches, "max_abs_err": err,
+            "ms": burn["time_ms"], "plain_ms": plain,
+            "bound_ms": max(ops / peak["bf16"], nbytes / peak["bytes"]) * 1e3,
+            "bound_by": ("operations" if ops / peak["bf16"]
+                         >= nbytes / peak["bytes"] else "bytes"),
+            "library_ms": None}
+
+
 # the observability runs: proxy -> (flags, warmup, runs, the kinds the
 # profile must hold and each one's device events a step).  At one rank
 # NCCL's in-place allreduce launches no device work, so DP's profile
@@ -5290,7 +5629,8 @@ def main(argv: list[str]) -> int:
         say(f"no preset for {name!r}: bounds priced against h100_sxm")
     hw = HARDWARE[hw_key or "h100_sxm"]
     peak = {"bytes": hw.hbm_bandwidth, "bf16": hw.peak("bfloat16"),
-            "int8": hw.peak("int8"), "fp8": hw.peak("float8")}
+            "int8": hw.peak("int8"), "fp8": hw.peak("float8"),
+            "fp32": hw.peak("float32")}
     OUT.mkdir(parents=True, exist_ok=True)
     reset_dense_calls()
 
@@ -5298,6 +5638,7 @@ def main(argv: list[str]) -> int:
     build = _build.build()
     say(f"build: {len(build.libs)} kernel libraries in "
         f"{build.seconds:.1f} s")
+    start_native_build()
     for src, log in build.log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -5365,13 +5706,16 @@ def main(argv: list[str]) -> int:
     entry_phase(torch)
     torch.cuda.empty_cache()
     smi_sample("proxies")
-    proxy_phase(torch, card)
+    py_medians = proxy_phase(torch, card)
     torch.cuda.empty_cache()
     # after the proxies' host-launch bars, before every profiled session
     breadth = breadth_phase(torch, peak)
     torch.cuda.empty_cache()
     smi_sample("studies")
     studies_phase(torch)
+    torch.cuda.empty_cache()
+    smi_sample("native tier")
+    burn_row = native_phase(torch, card, py_medians, peak)
     torch.cuda.empty_cache()
     observability_phase(torch, card)
     torch.cuda.empty_cache()
@@ -5464,6 +5808,7 @@ def main(argv: list[str]) -> int:
         kernels.append({"name": label, "route": "cuda", "source": MLP_SRC,
                         "replaces": GMM_REPLACES, "launches": launches,
                         **gmm[kind]})
+    kernels.append(burn_row)
     if dense_calls():
         fail(f"a path after the breadth phase took the dense attention "
              f"route {dense_calls()} times")

@@ -56,6 +56,14 @@ ran on (``stamps`` lines), then the replays split at the midpoint of
 the two speed levels (``stamps_summary``): whether a level goes with
 where the chain's kernels are placed.
 
+With ``--gaps MS,MS,...`` it instead times the proxies' chain (a
+2048-iteration burn, four replays of the chunk graph) ``GAP_REPS``
+times after each idle gap: the card synchronised, the host asleep for
+the gap, then the chain between two CUDA events with nothing queued
+before it (``gap`` lines: ns an iteration, each timing and their
+median) — whether the chain's fast level follows the idle time before
+it.
+
 It needs a card (NVML through ``libnvidia-ml.so.1``) and imports
 nothing of JAX.
 """
@@ -81,6 +89,7 @@ MODEL = "llama3_8b_16_bfloat16"    # chip_smoke.py's proxy phase
 TIME_SCALE = 0.05
 GAP_S = 0.5
 CAL_REPS = 8
+GAP_REPS = 8                       # timings after each --gaps gap
 
 
 class _TensorCoreBurner(burnlib.Burner):
@@ -399,6 +408,30 @@ def cal_check(device, index: int, emit) -> None:
               "ok": abs(ratio - 1.0) < CHECK_BAR})
 
 
+def gap_probe(device, gaps_ms: list, emit) -> None:
+    """The chain's ns an iteration after idle gaps (module docstring),
+    the gaps in turns, ``GAP_REPS`` rounds."""
+    burner = burnlib.Burner(device)
+    n = 4 * burnlib.CHUNK
+    burner(n)                          # capture and warm
+    seen: dict = {g: [] for g in gaps_ms}
+    for _ in range(GAP_REPS):
+        for g in gaps_ms:
+            torch.cuda.synchronize(device)
+            time.sleep(g / 1e3)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            burner(n)
+            b.record()
+            b.synchronize()
+            seen[g].append(a.elapsed_time(b) * 1e6 / n)
+    for g in gaps_ms:
+        emit({"what": "gap", "gap_ms": g, "iters": n,
+              "median_ns": round(statistics.median(seen[g]), 2),
+              "ns": [round(x, 2) for x in seen[g]]})
+
+
 def run_cal_checks(args, device, emit) -> None:
     if args.after_pytest:
         import shlex
@@ -440,6 +473,8 @@ def main(argv=None) -> int:
     p.add_argument("--index", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--stamps", type=int, default=0, metavar="R",
                    help="only replay the stamped chain R times")
+    p.add_argument("--gaps", default=None, metavar="MS,...",
+                   help="only time the chain after these idle gaps (ms)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("needs a CUDA card")
@@ -469,6 +504,9 @@ def main(argv=None) -> int:
         return 0
     if args.stamps:
         stamps_probe(device, args.stamps, emit)
+        return 0
+    if args.gaps:
+        gap_probe(device, [float(g) for g in args.gaps.split(",")], emit)
         return 0
     for form, make in (("cuda_cores", burnlib.Burner),
                        ("tensor", _TensorCoreBurner)):

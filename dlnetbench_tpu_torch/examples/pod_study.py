@@ -41,19 +41,29 @@ The other modes, each into ``--out_dir``:
   port's own ``cli`` under ``torch.distributed.run`` where the JAX
   study drives the native binaries, then the seeded goodput sweep (dp
   at world ``--devices``, npz stall checkpoints) and the Daly verdict.
-  The drop + retry point needs a frame layer, which the Python tier
-  does not have: it is skipped with a note.  Under ``shrink`` the dead
+  The drop + retry point (3) needs a frame layer, which the Python
+  tier does not have: it runs on the port's native TCP fabric, two
+  ``dp`` processes, as JAX's study runs it.  Under ``shrink`` the dead
   rank is a bystander process that exits 0 and rank 0 writes the
   degraded record, so the crash point checks that record's
   ``degraded_world``.
 
-``--report_only`` re-analyzes an existing ``records.jsonl``.  Not
-ported: ``--tier native``, ``--backend pjrt-hier``, ``--procs``,
-``--congest`` and ``--congest_model`` (the C++ tier's fabrics and its
-``_loop`` congestors).  Where matplotlib is not installed (the card
-machine), a study prints its tables, writes its CSVs and JSON, and
-names each PNG it skipped.  ``--platform`` is ``cuda`` unless the
-caller asks for ``cpu``; without a card, ``cuda`` is an error.
+``--tier native`` runs the grid on the port's C++ binaries
+(``dlnetbench_tpu_torch/native/``, built by ``utils/native_build``),
+one binary a point with an explicit ``--world``: ``--backend shm``
+(threads of one process, ``--platform cpu``) or ``--backend nccl``
+(NCCL on the cards, ``--platform cuda``; the seat of JAX's
+``pjrt-hier``), with ``--procs`` OS processes a point, each on its
+balanced share of the cards, their records merged.  ``--congest`` runs
+a ``dp_loop`` congestor job (``--congest_model``) for the whole sweep:
+over TCP beside an shm sweep, over NCCL beside an nccl sweep (on the
+cards after the study's when the host has them).
+
+``--report_only`` re-analyzes an existing ``records.jsonl``.  Where
+matplotlib is not installed (the card machine), a study prints its
+tables, writes its CSVs and JSON, and names each PNG it skipped.
+``--platform`` is ``cuda`` unless the caller asks for ``cpu``; without a
+card, ``cuda`` is an error.
 """
 from __future__ import annotations
 
@@ -65,6 +75,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+from dlnetbench_tpu_torch.utils import native_build
 from dlnetbench_tpu_torch.utils.net import free_port
 
 REPO = Path(__file__).resolve().parents[2]
@@ -146,6 +157,8 @@ def _launch(world: int) -> list[str]:
 
 
 def run_plan(plan, args, records: Path) -> int:
+    if getattr(args, "tier", "jax") == "native":
+        return run_native_plan(plan, args, records)
     env = _env()
     failed = 0
     for i, (proxy, flags) in enumerate(plan):
@@ -171,6 +184,104 @@ def run_plan(plan, args, records: Path) -> int:
             print(f"  FAILED rc={rc}", file=sys.stderr)
             failed += 1
     return failed
+
+
+def run_native_plan(plan, args, records: Path) -> int:
+    """The grid on the native binaries: JAX's ``--tier native`` argv
+    (explicit ``--world``; the dp scaling axis ``d`` is the world), with
+    ``--backend nccl`` (and ``--procs``) on the cards."""
+    try:  # built on first use; the tree's hash covers the sources
+        bin_dir = native_build.native_bin(REPO)
+    except Exception as e:
+        raise SystemExit(f"--tier native could not build: {e}")
+    env = native_build.nccl_env() if args.backend == "nccl" else _env()
+    failed = 0
+    for i, (proxy, flags) in enumerate(plan):
+        desc = " ".join(f"{k}={v}" for k, v in flags.items())
+        flags = dict(flags)
+        world = flags.pop("d", args.devices)
+        argv = [str(bin_dir / proxy), "--model", flags.pop("model"),
+                "--world", str(world), "--out", str(records),
+                "--runs", str(args.runs), "--warmup", "1",
+                "--no_topology", "--base_path", str(REPO)]
+        if not args.full_scale:
+            argv += ["--size_scale", str(args.size_scale),
+                     "--time_scale", str(args.time_scale)]
+        for k, v in flags.items():
+            argv += [f"--{k}", str(v)]
+        print(f"[{i + 1}/{len(plan)}] {proxy} {desc}", flush=True)
+        if args.backend == "nccl" and args.procs > 1:
+            rc = _run_procs_point(argv, world, records, env, args.procs)
+        else:
+            if args.backend == "nccl":
+                argv += ["--backend", "nccl"]
+            rc = subprocess.run(argv, env=env,
+                                stdout=subprocess.DEVNULL).returncode
+        if rc != 0:
+            print(f"  FAILED rc={rc}", file=sys.stderr)
+            failed += 1
+    return failed
+
+
+def _balanced(world: int, procs: int, p: int) -> tuple[int, int]:
+    """(first rank, ranks) of process ``p`` in the native tier's
+    balanced layout (native/include/dlnb/schedule.hpp)."""
+    base, rem = divmod(world, procs)
+    return p * base + min(p, rem), base + (1 if p < rem else 0)
+
+
+def _run_procs_point(argv: list[str], world, records: Path, env,
+                     nprocs: int) -> int:
+    """One point over ``nprocs`` OS processes of the nccl fabric, each
+    on its balanced share of the cards, their per-process records merged
+    into the study's stream (JAX's ``_run_hier_point``, NCCL in the
+    PJRT hierarchy's seat).  Nonzero for any per-point failure."""
+    if int(world) < nprocs:
+        print(f"  skipped (world {world} < {nprocs} processes)",
+              file=sys.stderr)
+        return 0
+    base = [a for j, a in enumerate(argv)
+            if argv[j - 1] != "--out" and a != "--out"]
+    parts = [records.parent / f".procs_p{r}.jsonl" for r in range(nprocs)]
+    for attempt in range(3):
+        for p in parts:
+            p.unlink(missing_ok=True)
+        port = free_port()
+        procs = []
+        for r in range(nprocs):
+            first, n = _balanced(int(world), nprocs, r)
+            procs.append(subprocess.Popen(
+                base + ["--backend", "nccl", "--procs", str(nprocs),
+                        "--rank", str(r), "--coordinator",
+                        f"127.0.0.1:{port}", "--devices",
+                        ",".join(str(first + i) for i in range(n)),
+                        "--out", str(parts[r])],
+                env=env, stdout=subprocess.DEVNULL))
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=900))
+            except subprocess.TimeoutExpired:
+                rcs.append(124)
+        if any(rcs):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if all(rc == 0 for rc in rcs):
+            break
+        if attempt == 2:
+            return next((abs(rc) for rc in rcs if rc != 0), 1)
+    from dlnetbench_tpu_torch.metrics.merge import merge_files
+    try:
+        merge_files(records, parts)
+    except ValueError as e:
+        print(f"  merge failed: {e}", file=sys.stderr)
+        return 1
+    finally:
+        for p in parts:
+            p.unlink(missing_ok=True)
+    return 0
 
 
 # ---------------------------------------------------------------------
@@ -583,9 +694,10 @@ def run_kv_density_study(out_dir: Path, device) -> int:
 #                   own, the dead rank's process is a bystander that
 #                   exits 0, and rank 0 writes the degraded record
 #                   (detection_ms/recovery_ms/degraded_world);
-#   3. drop       — needs a frame layer (injected frame loss under
-#                   policy `retry`), which the Python tier does not
-#                   have: skipped with a note;
+#   3. drop       — dp over 2 TCP processes of the port's native tier
+#                   (the frame layer the Python tier lacks) at 20 %
+#                   injected frame loss under policy `retry`: the run
+#                   completes, backoff counts ride the record;
 #   4. preempt    — dp world 3, rank 2 evicted (20 ms grace) and back
 #                   4 steps later: the full world restored, rejoin_ms;
 #   5. goodput    — the seeded goodput-vs-interval sweep the Daly model
@@ -691,10 +803,9 @@ def run_fault_plan(args, records: Path) -> int:
               file=sys.stderr)
         failed += 1
 
-    # 3. drop + retry
-    print("[fault 3/5] drop+retry: skipped — injected frame loss needs a "
-          "frame layer (the native tier's TCP fabric), which the Python "
-          "tier does not have", flush=True)
+    # 3. drop + retry (the native tier's TCP fabric, 2 processes, 20 %
+    # loss with backoff)
+    failed += _drop_point(records)
 
     # 4. preempt + rejoin: rank 2 is gracefully evicted (20 ms drain),
     # the survivors run degraded, and the full world is restored 4
@@ -744,6 +855,55 @@ def run_fault_plan(args, records: Path) -> int:
                 print(f"  FAILED every={every} seed={seed} rc={rc}",
                       file=sys.stderr)
                 failed += 1
+    return failed
+
+
+DROP_PLAN = {"events": [{"kind": "drop", "ranks": [0], "iteration": 0,
+                         "rate": 0.2, "magnitude_us": 200, "seed": 42}]}
+
+
+def _drop_point(records: Path) -> int:
+    """Fault point 3 as JAX's study runs it: dp over two TCP processes
+    of the native tier, 20 % injected frame loss on rank 0 under
+    policy ``retry``; the two records merged into the study's.  The
+    failures (0 or 1)."""
+    from dlnetbench_tpu_torch.metrics.merge import merge_files
+    print("[fault 3/5] drop+retry: dp/tcp world 2 (native tier), 20 % "
+          "injected frame loss, exponential backoff", flush=True)
+    try:
+        native = native_build.native_bin(REPO)
+    except Exception as e:
+        print(f"  FAILED: the native tier did not build: {e}",
+              file=sys.stderr)
+        return 1
+    plan = json.dumps(DROP_PLAN)
+    port = free_port()
+    parts = [records.parent / f".fault_d{r}.jsonl" for r in range(2)]
+    for p in parts:
+        p.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [str(native / "dp"), "--world", "2", "--backend", "tcp",
+         "--rank", str(r), "--coordinator", f"127.0.0.1:{port}",
+         "--num_buckets", "2", "--fault", plan,
+         "--fault_policy", "retry", "--out", str(parts[r]),
+         "--model", FAULT_MODEL, "--time_scale", "0.001",
+         "--size_scale", "0.0001", "--runs", "6", "--warmup", "1",
+         "--no_topology", "--base_path", str(REPO)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        for r in range(2)]
+    rcs = [p.wait(timeout=300) for p in procs]
+    failed = 0
+    if any(rcs):
+        print(f"  FAILED rcs={rcs}", file=sys.stderr)
+        failed = 1
+    else:
+        try:
+            merge_files(records, parts)
+        except ValueError as e:
+            print(f"  merge failed: {e}", file=sys.stderr)
+            failed = 1
+    for p in parts:
+        p.unlink(missing_ok=True)
     return failed
 
 
@@ -936,8 +1096,8 @@ def main(argv: list[str] | None = None) -> int:
                          "the seeded goodput-vs-checkpoint-interval sweep "
                          "the Daly model is validated against "
                          "(analysis/goodput.py) — one records.jsonl "
-                         "artifact; the drop+retry point is skipped (no "
-                         "frame layer in the Python tier)")
+                         "artifact; the drop+retry point runs on the "
+                         "native tier's TCP fabric")
     ap.add_argument("--serving", action="store_true",
                     help="run the serving latency-vs-load study instead "
                          "of the proxy grid: capacity calibration, an "
@@ -971,6 +1131,28 @@ def main(argv: list[str] | None = None) -> int:
                          "sharing off/on (lossless, hit-rate/bytes-saved, "
                          "TTFT deltas) — generation FAILS unless the "
                          "acceptance bars hold")
+    ap.add_argument("--tier", default="jax", choices=("jax", "native"),
+                    help="jax = the port's Python tier (cli under "
+                         "torch.distributed.run; JAX's study names it "
+                         "so); native = the port's C++ binaries")
+    ap.add_argument("--backend", default="shm", choices=("shm", "nccl"),
+                    help="native tier fabric: shm (threads of one "
+                         "process, --platform cpu) or nccl (NCCL on the "
+                         "cards, --platform cuda; --procs OS processes a "
+                         "point, records merged — the seat of JAX's "
+                         "pjrt-hier)")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="nccl: OS processes a point, each on its "
+                         "balanced share of the cards (the first "
+                         "world%%procs processes one rank more)")
+    ap.add_argument("--congest", action="store_true",
+                    help="run a dp_loop congestor job for the duration "
+                         "of the sweep — sustained background traffic "
+                         "sharing the transport (TCP beside shm, NCCL "
+                         "beside nccl), the reference's _loop "
+                         "interference shape (Makefile.common:96-109); "
+                         "the study marks its output CONGESTED")
+    ap.add_argument("--congest_model", default="gpt2_l_16_bfloat16")
     ap.add_argument("--models", default=f"{DENSE},{MOE}",
                     help="comma-separated stats-file names")
     ap.add_argument("--runs", type=int, default=3)
@@ -990,6 +1172,18 @@ def main(argv: list[str] | None = None) -> int:
                  "the composition too)")
     if args.devices < 1:
         ap.error("--devices must be >= 1")
+    if args.backend == "nccl" and args.tier != "native":
+        ap.error("--backend nccl applies to --tier native (the jax tier "
+                 "runs NCCL through torch.distributed instead)")
+    if args.tier == "native" and args.backend == "shm" \
+            and args.platform != "cpu":
+        ap.error("--tier native --backend shm runs the C++ binaries on the "
+                 "threaded shm fabric (host CPU): pass --platform cpu, or "
+                 "--backend nccl for the cards")
+    if args.backend == "nccl" and args.platform != "cuda":
+        ap.error("--backend nccl runs on the cards: --platform cuda")
+    if args.procs < 1 or (args.procs > 1 and args.backend != "nccl"):
+        ap.error("--procs > 1 applies to --tier native --backend nccl")
     if args.kv_density or not args.report_only:
         from dlnetbench_tpu_torch.ops.common import resolve_device
         try:
@@ -1026,13 +1220,53 @@ def main(argv: list[str] | None = None) -> int:
         return 1 if failed else 0
     if not args.report_only:
         records.unlink(missing_ok=True)
+        # a stale marker from an earlier --congest sweep into the same
+        # dir would mislabel THIS solo run's tables
+        (args.out_dir / "CONGESTED").unlink(missing_ok=True)
         plan = build_plan([m for m in args.models.split(",") if m],
                           args.devices)
-        failed = run_plan(plan, args, records)
+        congestors = _start_congestors(args) if args.congest else []
+        try:
+            failed = run_plan(plan, args, records)
+        finally:
+            from dlnetbench_tpu_torch.utils.congest import kill_group
+            kill_group(congestors)
     report(args, records)
     if failed:
         print(f"\n{failed} study point(s) failed", file=sys.stderr)
     return 1 if failed else 0
+
+
+def _start_congestors(args) -> list:
+    """A dp_loop job running for the whole sweep (JAX's
+    ``_start_congestors``): two TCP processes beside an shm or jax-tier
+    sweep; beside an nccl sweep, NCCL on the two cards after the
+    study's when the host has them, else one rank on card 0.  The
+    study's output marks the run so congested tables are never mistaken
+    for solo ones."""
+    from dlnetbench_tpu_torch.utils import congest
+    job: dict = {}
+    if args.tier == "native" and args.backend == "nccl":
+        import torch
+        cards = torch.cuda.device_count()
+        job = {"backend": "nccl", "env": native_build.nccl_env()}
+        if cards >= args.devices + 2:
+            job.update(world=2, cards=[args.devices, args.devices + 1])
+        else:
+            job.update(world=1, cards=[0])
+    bin_dir = native_build.native_bin(
+        REPO, targets=native_build.DEFAULT_TARGETS + ("dp_loop",))
+    procs = congest.launch_pair_retry(
+        bin_dir, "dp_loop", args.congest_model, REPO,
+        args.time_scale, max(args.size_scale * 10, 1e-3),
+        extra=["--num_buckets", "4"],
+        settle_s=3.0 if job else 1.0, **job)
+    how = (f"nccl on cards {job['cards']}" if job else "tcp")
+    (args.out_dir / "CONGESTED").write_text(
+        f"sweep ran with a dp_loop congestor job ({how}, model "
+        f"{args.congest_model}) sharing the transport\n")
+    print(f"congestor job running (dp_loop over {how})", flush=True)
+    return procs
 
 
 if __name__ == "__main__":

@@ -68,7 +68,13 @@ _VOLATILE_GLOBALS = {"energy_source", "energy_scope", "burn_ns_per_iter",
                      "telemetry", "anomalies",
                      "watchdog_stall_telemetry",
                      # MoE and fleet measurements, per process
-                     "moe", "fleet"}
+                     "moe", "fleet",
+                     # the native nccl fabric's per-process counters and
+                     # each process's own cards
+                     "h2d_copies", "d2h_copies", "timed_copies", "twins",
+                     "late_twins", "burn_launches", "burn_iters",
+                     "burn_fixed_ns", "burn_requested_us", "burn_device_us",
+                     "devices"}
 
 # scheduler-stamped variables that identify the PROCESS, not the run
 # (metrics.emit.scheduler_variables): they legitimately differ between

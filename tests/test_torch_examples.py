@@ -211,8 +211,15 @@ def test_serving_points_pin_gather_attention(platform):
 @pytest.mark.parametrize("argv,match", [
     (["--serving", "--disagg", "--fleet", "--platform", "cpu"],
      "different serving arms"),
-    (["--tier", "native", "--platform", "cpu"], "unrecognized"),
-    (["--congest", "--platform", "cpu"], "unrecognized"),
+    (["--backend", "nccl", "--platform", "cpu"],
+     "--backend nccl applies to --tier native"),
+    (["--tier", "native", "--platform", "cuda"],
+     "--tier native --backend shm runs the C++ binaries"),
+    (["--tier", "native", "--backend", "nccl", "--platform", "cpu"],
+     "--backend nccl runs on the cards"),
+    (["--tier", "native", "--procs", "2", "--platform", "cpu"],
+     "--procs > 1 applies to --tier native --backend nccl"),
+    (["--tier", "python", "--platform", "cpu"], "invalid choice"),
     (["--platform", "cuda"], "torch.cuda.is_available"),
     (["--platform", "tpu"], "invalid choice"),
 ])
@@ -221,3 +228,91 @@ def test_refusals(capsys, argv, match, tmp_path):
         P.main([*argv, "--out_dir", str(tmp_path)])
     assert e.value.code == 2
     assert match in capsys.readouterr().err
+
+
+# ------------------------------------------------------ the native tier
+def _capture_native(monkeypatch, module, runner):
+    calls = []
+
+    def run(argv, **kw):
+        calls.append(list(argv))
+        return SimpleNamespace(returncode=0)
+
+    monkeypatch.setattr(module.subprocess, "run", run)
+    return calls
+
+
+@pytest.mark.parametrize("devices", [4, 8])
+@pytest.mark.parametrize("full_scale", [False, True])
+def test_native_plan_argv_equals_jax(monkeypatch, devices, full_scale):
+    """``--tier native --backend shm``: each point's binary, world and
+    flags exactly JAX's (the bin directory aside)."""
+    import dlnetbench_tpu.utils.native_build as jax_build
+    monkeypatch.setattr(jax_build, "native_bin",
+                        lambda repo, build=True: Path("/JAX_BIN"))
+    monkeypatch.setattr(P.native_build, "native_bin",
+                        lambda *a, **k: Path("/PORT_BIN"))
+    plan = P.build_plan([P.DENSE, P.MOE], devices)
+    args = SimpleNamespace(devices=devices, platform="cpu", runs=3,
+                           full_scale=full_scale, size_scale=1e-4,
+                           time_scale=1e-4, tier="native", backend="shm",
+                           procs=1)
+    jcalls = _capture_native(monkeypatch, J, "run")
+    J.run_plan(J.build_plan([J.DENSE, J.MOE], devices), args,
+               Path("r.jsonl"))
+    pcalls = _capture_native(monkeypatch, P, "run")
+    assert P.run_plan(plan, args, Path("r.jsonl")) == 0
+    norm = [[a.replace("/JAX_BIN", "BIN") for a in c] for c in jcalls]
+    assert [[a.replace("/PORT_BIN", "BIN") for a in c] for c in pcalls] \
+        == norm
+    assert len(pcalls) == len(plan)
+
+
+def test_native_nccl_points_name_the_backend(monkeypatch):
+    monkeypatch.setattr(P.native_build, "native_bin",
+                        lambda *a, **k: Path("/PORT_BIN"))
+    monkeypatch.setattr(P.native_build, "nccl_env", lambda: {})
+    calls = _capture_native(monkeypatch, P, "run")
+    args = SimpleNamespace(devices=1, platform="cuda", runs=2,
+                           full_scale=False, size_scale=1e-4,
+                           time_scale=1e-4, tier="native", backend="nccl",
+                           procs=1)
+    plan = [("dp", {"model": P.DENSE, "num_buckets": 2, "d": 1})]
+    assert P.run_plan(plan, args, Path("r.jsonl")) == 0
+    assert calls[0][-2:] == ["--backend", "nccl"]
+    assert calls[0][calls[0].index("--world") + 1] == "1"
+
+
+@pytest.mark.parametrize("world,procs", [(4, 2), (5, 2), (8, 3), (3, 3)])
+def test_balanced_layout_covers_the_world(world, procs):
+    spans = [P._balanced(world, procs, p) for p in range(procs)]
+    ranks = [r for first, n in spans for r in range(first, first + n)]
+    assert ranks == list(range(world))
+    assert max(n for _, n in spans) - min(n for _, n in spans) <= 1
+
+
+def test_fault_drop_point_report_equals_jax(tmp_path, capsys):
+    """Fault point 3 on the port's native TCP fabric (JAX's point, the
+    port's binaries), then both studies' fault reports over that
+    record: the same stdout and the same CSV."""
+    recs = tmp_path / "records.jsonl"
+    assert P._drop_point(recs) == 0
+    rec = json.loads(recs.read_text())
+    g = rec["global"]
+    assert g["fault_policy"] == "retry" and g["fault_drops"] >= 1
+    assert g["fault_retries"] == g["fault_drops"]
+    assert [r["rank"] for r in rec["ranks"]] == [0, 1]
+    out = {}
+    for side, mod in (("jax", J), ("port", P)):
+        d = tmp_path / side
+        d.mkdir()
+        shutil.copy(recs, d / "records.jsonl")
+        capsys.readouterr()
+        rc = mod.fault_report(SimpleNamespace(out_dir=d),
+                              d / "records.jsonl")
+        text = capsys.readouterr().out.replace(str(d), "OUT")
+        out[side] = (text, (d / "fault_bandwidth_summary.csv").read_bytes()
+                     if (d / "fault_bandwidth_summary.csv").exists()
+                     else None, rc)
+    assert out["port"] == out["jax"]
+    assert "drop" in out["port"][0]

@@ -1,7 +1,10 @@
 """The torch package stands alone: importing it (every submodule) loads
 no ``jax`` and no module of the JAX package, and no file of it — nor
 ``chip_smoke.py`` — imports either; the CUDA sources include no JAX or
-XLA header.  The import check runs in a subprocess because
+XLA header; the port's native C++ tier includes nothing from the root
+``native/`` tree, and neither it nor any Python file of the port names
+the JAX package's ``dlnetbench_tpu/`` directory (its data root above
+all).  The import check runs in a subprocess because
 tests/conftest.py imports jax into this one."""
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ def test_importing_every_submodule_loads_no_jax():
               "tuning.db",
               "tuning.search", "tuning.params", "tuning.__main__",
               "models.vit", "hf_import", "examples",
-              "examples.dp_bucket_study", "examples.pod_study"):
+              "examples.dp_bucket_study", "examples.pod_study",
+              "examples.congestion_study", "utils.native_build",
+              "utils.congest"):
         assert f"dlnetbench_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -96,6 +101,46 @@ def test_no_kernel_source_includes_jax_or_xla(path):
     src = (REPO / path).read_text()
     assert not _BAD_INCLUDE.search(src), path
     assert not _BAD_IMPORT.search(src), path
+
+
+NATIVE = PKG / "native"
+NATIVE_SRC = sorted(p for p in NATIVE.rglob("*")
+                    if p.suffix in (".hpp", ".cc", ".cu", ".h"))
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+_JAX_DIR = re.compile(r"dlnetbench_tpu/")
+
+
+@pytest.mark.parametrize("path", [str(p.relative_to(REPO))
+                                  for p in NATIVE_SRC])
+def test_native_includes_stay_in_the_port(path):
+    """Every quoted include resolves inside the port's native tree (its
+    own include/, src/proxies/, tests/ or the file's directory)."""
+    src = (REPO / path).read_text()
+    here = (REPO / path).parent
+    roots = [NATIVE / "include", NATIVE / "src" / "proxies",
+             NATIVE / "tests", here]
+    for inc in _INCLUDE.findall(src):
+        hits = [r / inc for r in roots if (r / inc).is_file()]
+        assert hits, f"{path}: #include \"{inc}\" is not in the port"
+        for h in hits:
+            assert NATIVE in h.resolve().parents, (path, inc)
+    assert not _BAD_INCLUDE.search(src), path
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*NATIVE_SRC, *PKG.rglob("*.py")]))
+def test_no_port_file_names_the_jax_package_dir(path):
+    assert not _JAX_DIR.search((REPO / path).read_text()), path
+
+
+def test_the_native_guard_covers_the_tier():
+    names = {p.name for p in NATIVE_SRC}
+    assert {"nccl_fabric.hpp", "nccl_api.hpp", "proxy_runner.hpp",
+            "burn.cu", "nccl_selftest.cc", "dp.cc"} <= names
+    assert not (NATIVE / "include" / "dlnb" / "pjrt_fabric.hpp").exists()
+    assert _INCLUDE.findall('#include "dlnb/x.hpp"\n') == ["dlnb/x.hpp"]
+    assert _JAX_DIR.search('"/dlnetbench_tpu/data"')
+    assert not _JAX_DIR.search('"/dlnetbench_tpu_torch/data"')
 
 
 def test_the_guard_covers_every_card_test_file():
