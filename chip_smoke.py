@@ -342,23 +342,29 @@ Phases, in order; any failure exits non-zero:
    and before every profiled session: (a) its card flavour, built by
    ``utils/native_build`` in a thread started right after the kernels'
    build (``nvcc`` for ``csrc/burn.cu``, ``g++`` with the CUDA runtime
-   for the binaries); the build's seconds, ``nvcc``'s version and the
+   for the binaries); the build's seconds, ``nvcc``'s version, ptxas's
+   register and spill lines for ``burn.cu`` (any spill fails) and the
    dlopened NCCL's path and version printed, the version equal to
    ``torch.cuda.nccl.version()``; (b) ``nccl_selftest`` at world 1 (and
    2 on two cards): every collective and p2p op at f32, bf16 and e4m3
    over the world and a split communicator, exact; (c) the burn kernel
    against the port's torch chain (``proxies/burn.Burner.eager``) from
    one seeded state (``nccl_probe``'s check state: positive, rank one,
-   its first product of order one) after 1 and 8 iterations, one launch
-   each: the max-abs difference within 2^-6 of the chain's own max-abs,
+   its first product of order one) after 1, 2 and 8 iterations, one
+   launch each: the max-abs difference within 2^-6 of the chain's own max-abs,
    which must reach 0.5 after 1 iteration (tanh bends it) and stay a
    normal number, at least 1e-30, after 8 (the sup norm of any chain
    falls as m <- tanh(m^2); a state of mixed signs reaches 0), and the
    torch chain without tanh, transposed, scaled by 1/128 or zero, from
    the same state, must miss that bar (each miss printed); (d) a requested 20 ms burn within 5 % by CUDA
    events, after the paired calibration, and short requests (0.7 and
-   2.7 us, as pod_study's gpt2_l asks) printed as the events and the
-   burn's own clock saw them; (e) the seven
+   2.7 us, as pod_study's gpt2_l asks, and 50 us) within 5 % by the
+   burn's own clock, printed beside the events; 64 iterations within
+   0.33 ms by CUDA events (a third of the one-block kernel's 0.980);
+   the burn's start delay beside 32 and 100 SMs held for 1 ms by a
+   spinning block each on a second stream (``nccl_probe --hold-sms``):
+   with 32 held the burn's cluster must start before the holder ends,
+   with 100 its delay is printed; (e) the seven
    proxies through their binaries on ``--backend nccl`` at world 1, at
    10a/10b's models and flags (llama3_8b at full size and --time_scale
    0.05; the MoE at --time_scale 0.01 and --size_scale 0.35, not 10b's
@@ -369,7 +375,9 @@ Phases, in order; any failure exits non-zero:
    each record passes the port's parser with backend nccl, compute_mode
    device_burn, transport local, nccl_impl real and 0 timed copies; its
    runtime median printed beside 10a/10b's (a report, not a bar); the
-   burn's launches summed for the kernels line; (f) ``congestion_study``
+   burn's launches summed for the kernels line, and its chain share
+   (iterations x ns an iteration over the burns' device span; the rest
+   is the spin to the time asked) printed; (f) ``congestion_study``
    (nccl, world 1, the congestor on the same card) and ``pod_study
    --tier native --backend nccl --devices 1`` on its dp and fsdp points
    at their default time scales, each exit 0.  In every record of (e)
@@ -473,6 +481,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -555,9 +564,11 @@ WG_DESIGN = "wgmma + TMA, warp-specialised, persistent"
 # with the tuner's knobs, 10 with serving at scale on one card; its 10
 # two-card cases skip on one; 14 with model breadth; 1 with the studies,
 # whose 3 two-card cases skip on one; 6 with the native tier, whose
-# two-card case skips on one); all must pass
+# two-card case skips on one; 3 with the cluster burn: its check after 2
+# iterations and its start delay beside 32 and 100 held SMs); all must
+# pass
 CARD_TESTS = "tests/test_torch_card_*.py"
-CARD_TESTS_MIN = 322
+CARD_TESTS_MIN = 325
 MLP_REPLACES = {"k11": "dlnetbench_tpu/ops/quantized_matmul.py:112",
                 "k9": "dlnetbench_tpu/ops/mlp_backward.py:50",
                 "k10": "dlnetbench_tpu/ops/mlp_backward.py:103"}
@@ -4058,7 +4069,13 @@ NATIVE_MOE_CARD_GB = 199.7   # the MoE's card buffers at size_scale 1
 # reach BURN_BENT after 1 iteration and BURN_FLOOR after 8
 BURN_TOL, BURN_BENT, BURN_FLOOR = 2.0 ** -6, 0.5, 1e-30
 BURN_CAL_MS, BURN_CAL_TOL = 20.0, 0.05
-BURN_SHORT_MS = (0.0007, 0.0027)  # pod_study's gpt2_l bucket and forward
+# pod_study's gpt2_l bucket and forward, and one a few iterations long
+BURN_SHORT_MS = (0.0007, 0.0027, 0.05)
+BURN_CHECK_ITERS = (1, 2, 8)
+# the start delay: SMs held for 1 ms beside the burn; with the first
+# count held its cluster must start before the holder ends
+BURN_HOLD_SMS = (32, 100)
+BURN_TIME_MS_MAX = 0.33    # 64 iterations: a third of the one-block 0.980
 BURN_SPAN_TOL = 0.05       # a record's burn span vs the compute asked
 BURN_TIME_ITERS = 64       # the kernels line's timed call
 BURN_SRC = "dlnetbench_tpu_torch/native/csrc/burn.cu"
@@ -4169,6 +4186,7 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
     kernel's row of the kernels line."""
     from dlnetbench_tpu_torch.metrics.parser import (records_to_dataframe,
                                                      validate_record)
+    from dlnetbench_tpu_torch.native_cards import chain_share
     from dlnetbench_tpu_torch.utils import native_build
     t_phase = time.perf_counter()
     out = OUT / "native"
@@ -4183,6 +4201,13 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
     if "error" in _native_build:
         fail(f"native build (cuda flavour): {_native_build['error']}")
     bin_dir = _native_build["bin"]
+    # ptxas's resource lines for burn.cu's kernels: no spill allowed
+    for line in (bin_dir.parent / "burn.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"  ptxas {BURN_SRC}: {line.strip()}")
+        spill = re.findall(r"(\d+) bytes spill", line)
+        if any(int(n) for n in spill):
+            fail(f"native burn: ptxas spills ({line.strip()})")
     nvcc = native_build.find_nvcc()
     nvcc_v = subprocess.run([nvcc, "--version"], capture_output=True,
                             text=True).stdout.strip().splitlines()[-1]
@@ -4190,7 +4215,8 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
     probe = native_json(bin_dir, [
         "nccl_probe", "--burn-ms",
         ",".join(map(str, (BURN_CAL_MS, *BURN_SHORT_MS))),
-        "--time-iters", BURN_TIME_ITERS], env)
+        "--time-iters", BURN_TIME_ITERS,
+        "--hold-sms", ",".join(map(str, BURN_HOLD_SMS))], env)
     torch_nccl = ".".join(map(str, torch.cuda.nccl.version()))
     say(f"native: cuda build {_native_build['seconds']:.1f} s (in a thread "
         f"beside the kernel phases), {nvcc_v}; NCCL {probe['nccl_version']}"
@@ -4207,7 +4233,8 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
         say(f"native: nccl_selftest world {w}: {rep['checks']} checks "
             f"exact (f32, bf16, e4m3; world and split communicators)")
     # (c) the burn kernel against its plain version
-    checks = {n: native_burn_check(torch, bin_dir, env, n) for n in (1, 8)}
+    checks = {n: native_burn_check(torch, bin_dir, env, n)
+              for n in BURN_CHECK_ITERS}
     err = max(e for e, _ in checks.values())
     # (d) the calibration, read by CUDA events
     burn = probe["burn"]
@@ -4230,6 +4257,29 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
             f"{[round(x * 1e3, 4) for x in r['measured_ms']]} us each by "
             f"CUDA events, {r['clock_ms'] * 1e3:.4f} us by the burn's "
             f"clock (the device timer's tick {burn['timer_tick_ns']} ns)")
+        if abs(r["clock_ms"] / ms - 1) > BURN_CAL_TOL:
+            fail(f"native burn: {ms * 1e3} us asked took "
+                 f"{r['clock_ms'] * 1e3} us by the burn's clock (bar "
+                 f"{BURN_CAL_TOL:.0%})")
+    say(f"native burn: one cluster of {burn['cluster']} CTAs, "
+        f"{burn['smem_bytes']} bytes of shared memory each, at most "
+        f"{burn['max_active_clusters']} such clusters at once on this "
+        f"card; {BURN_TIME_ITERS} iterations {burn['time_ms']:.4f} ms")
+    if not burn["time_ms"] <= BURN_TIME_MS_MAX:
+        fail(f"native burn: {BURN_TIME_ITERS} iterations took "
+             f"{burn['time_ms']} ms (bar {BURN_TIME_MS_MAX} ms)")
+    for h in burn["holds"]:
+        say(f"native burn: start delay beside {h['sms']} SMs held for "
+            f"{h['hold_us']:.0f} us ({h['started']} holders ran): the "
+            f"burn began {h['start_delay_us']:.1f} us after the holders, "
+            f"the kernel it queued behind ended at {h['wait_end_us']:.1f}")
+        if h["started"] != h["sms"] or (
+                h["sms"] == BURN_HOLD_SMS[0]
+                and not h["start_delay_us"] < h["hold_us"]):
+            fail(f"native burn: beside {h['sms']} held SMs the burn began "
+                 f"{h['start_delay_us']} us after the holders "
+                 f"({h['started']} ran), want before their "
+                 f"{h['hold_us']} us end")
     # (e) the seven proxies on --backend nccl, world 1
     launches = 0
     for proxy, flags in NATIVE_RUNS.items():
@@ -4262,6 +4312,7 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
             fail(f"native {proxy}: record fields {bad}, want {want}")
         launches += g["burn_launches"]
         span = burn_span_check(proxy, rec)
+        share = chain_share(g)
         med = statistics.median(rec["ranks"][0]["runtimes"])
         py = py_medians.get(proxy, {}).get("runtimes")
         py_s = "not run" if py is None else f"{py:.1f} us"
@@ -4272,7 +4323,8 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
             f"{g['burn_iters']} iterations; {g['twins']} twins, "
             f"{g['h2d_copies']} h2d copies, "
             f"{g['timed_copies']} timed; burn span x{span:.4f} of the "
-            f"{g['burn_requested_us']:.1f} us asked; {wall:.1f} s")
+            f"{g['burn_requested_us']:.1f} us asked, chain share "
+            f"{share:.4f}; {wall:.1f} s")
     # (f) the studies' native paths, cut
     from dlnetbench_tpu_torch.examples import congestion_study, pod_study
     t0 = time.perf_counter()
@@ -4281,13 +4333,16 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
     if rc != 0:
         fail(f"congestion_study: rc {rc}")
     rep = json.loads((out / "congestion" / "report.json").read_text())
-    spans = [burn_span_check(f"congestion_study {p.stem}", json.loads(
-        p.read_text().strip().splitlines()[-1]))
-        for p in sorted((out / "congestion").glob("*_p0.jsonl"))]
+    recs = {p.stem: json.loads(p.read_text().strip().splitlines()[-1])
+            for p in sorted((out / "congestion").glob("*_p0.jsonl"))}
+    spans = [burn_span_check(f"congestion_study {k}", r)
+             for k, r in recs.items()]
     say(f"native: congestion_study (nccl, world 1, one card) runtime "
         f"x{rep['runtime_inflation']:.3f}, barrier "
         f"x{rep['barrier_inflation']:.3f}; burn span "
-        f"{[round(x, 4) for x in spans]} of the compute asked; in "
+        f"{[round(x, 4) for x in spans]} of the compute asked ({list(recs)}"
+        f"), chain share "
+        f"{[round(chain_share(r['global']), 4) for r in recs.values()]}; in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     orig = pod_study.build_plan
@@ -4310,7 +4365,9 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
         f"and fsdp points) rc 0; runtime medians "
         f"{[round(statistics.median(r['ranks'][0]['runtimes']), 1) for r in pts]}"
         f" us, burn span {[round(x, 4) for x in spans]} of the compute "
-        f"asked; in {time.perf_counter() - t0:.1f} s")
+        f"asked, chain share "
+        f"{[round(chain_share(r['global']), 4) for r in pts]}; in "
+        f"{time.perf_counter() - t0:.1f} s")
     secs = time.perf_counter() - t_phase
     say(f"native phase: {secs:.1f} s (budget {NATIVE_BUDGET_S:.0f} s"
         f"{'' if secs <= NATIVE_BUDGET_S else ', OVER'}) on {card}")
@@ -4322,8 +4379,9 @@ def native_phase(torch, card: str, py_medians: dict, peak: dict) -> dict:
     plain = timed_ms(torch, lambda: b.eager(BURN_TIME_ITERS), reps=10)
     ops = BURN_TIME_ITERS * 2 * 256 ** 3
     nbytes = 2 * 256 * 256 * 2
-    return {"name": "burn chain tanh(state @ state / 256) (one block, the "
-                    "bf16 state in shared memory, mma.sync tensor cores)",
+    return {"name": "burn chain tanh(state @ state / 256) (one cluster of 8 "
+                    "CTAs, a 128 x 64 tile each on wgmma, the bf16 state "
+                    "exchanged through distributed shared memory)",
             "route": "cuda", "source": BURN_SRC, "replaces": BURN_REPLACES,
             "launches": launches, "max_abs_err": err,
             "ms": burn["time_ms"], "plain_ms": plain,

@@ -49,13 +49,18 @@
 // spin and clock, a device spin, the device timer's tick)
 extern "C" {
 int dlnb_burn_init(void* state, unsigned long long seed, void* stream);
-int dlnb_burn_launch(void* state, long long iters, void* clock, int stamp,
+int dlnb_burn_launch(void* state, long long iters, void* clock, int flags,
                      long long budget_ns, long long lead_ns, void* stream);
 int dlnb_burn_finish(void* clock, long long ns, int stamp, void* stream);
 int dlnb_spin_launch(long long ns, void* stream);
 int dlnb_timer_tick(void* out, int samples, void* stream);
 int dlnb_burn_chunk();
 int dlnb_burn_clock_bytes();
+int dlnb_burn_shape(int* cluster, int* smem, int* max_clusters);
+int dlnb_hold_launch(int blocks, int smem, long long ns, void* first,
+                     void* started, void* stream);
+int dlnb_wait_count(void* started, int want, long long timeout_ns,
+                    void* done, void* stream);
 }
 #endif
 
@@ -602,13 +607,51 @@ class Device {
   virtual bool can_burn() const { return false; }
   // a seeded state in (-0.5, 0.5)
   virtual void burn_init(void*, unsigned long long, Stream) {}
-  // queues `iters` iterations on `s`; returns the kernel launches made.
-  // A non-null `clock` (burn_clock_bytes(), zeroed) takes the first
-  // launch's start as the burn's start, and no iteration starts with
-  // less than `lead_ns` of `budget_ns` left.
-  virtual long burn(void*, long long, Stream, void* = nullptr,
-                    long long = 0, long long = 0) {
-    return 0;
+  // queues `iters` iterations on `s`, in launches of at most
+  // burn_chunk(); returns the launches made.  A non-null `clock`
+  // (burn_clock_bytes(), zeroed) takes the first launch's start as the
+  // burn's start, and no iteration starts with less than `lead_ns` of
+  // `budget_ns` left; with `finish` the last launch then spins until
+  // `budget_ns` have passed and books the burn's span on the clock.
+  long burn(void* state, long long iters, Stream s, void* clock = nullptr,
+            long long budget_ns = 0, long long lead_ns = 0,
+            bool finish = false) {
+    if (!can_burn()) return 0;
+    long launches = 0;
+    const long long chunk = burn_chunk();
+    while (iters > 0) {
+      long long n = std::min(iters, chunk);
+      iters -= n;
+      burn_launch(state, n, clock, launches == 0, finish && iters == 0,
+                  budget_ns, lead_ns, s);
+      ++launches;
+    }
+    return launches;
+  }
+  // the most iterations one kernel launch runs
+  virtual long long burn_chunk() const { return 1; }
+  // one launch of `iters` (1..burn_chunk()) iterations, its clock's start
+  // stamped when `stamp`, the burn's end spun and booked when `finish`
+  virtual void burn_launch(void*, long long, void*, bool, bool, long long,
+                           long long, Stream) {}
+  // the chain's cluster: CTAs, shared memory a CTA, and how many such
+  // clusters the card could run at once (0 where there is none)
+  virtual void burn_shape(int& cluster, int& smem, int& max_clusters) {
+    cluster = smem = max_clusters = 0;
+  }
+  // The start-delay probe: `sms` holder blocks (one an SM, through their
+  // shared memory) spin `hold_ns` on a second stream, and a burn of
+  // `iters` is queued on `s` behind a one-thread kernel that waits until
+  // all of them run.  From the holders' first start: `delay_ns` to the
+  // burn's (its clock's t0), `wait_ns` to the waiting kernel's end;
+  // `started` the holders that ran before the wait gave up.
+  struct HoldProbe {
+    double delay_ns = 0, wait_ns = 0;
+    int started = 0;
+  };
+  virtual HoldProbe burn_start_delay(void*, int, long long, long long,
+                                     Stream) {
+    return {};
   }
   // queues the end of a burn of `ns` on `s`: a spin until `ns` have passed
   // since the burn's start (its own start when `stamp`), the span added
@@ -727,20 +770,63 @@ class CudaDevice : public Device {
     check(static_cast<cudaError_t>(dlnb_burn_init(state, seed, s)),
           "burn state init");
   }
-  long burn(void* state, long long iters, Stream s, void* clock,
-            long long budget_ns, long long lead_ns) override {
-    long launches = 0;
-    const long long chunk = dlnb_burn_chunk();
-    while (iters > 0) {
-      long long n = std::min(iters, chunk);
+  long long burn_chunk() const override { return dlnb_burn_chunk(); }
+  void burn_launch(void* state, long long iters, void* clock, bool stamp,
+                   bool finish, long long budget_ns, long long lead_ns,
+                   Stream s) override {
+    // burn.cu's flags: 1 stamps the clock's start, 2 ends the burn
+    check(static_cast<cudaError_t>(dlnb_burn_launch(
+              state, iters, clock, (stamp ? 1 : 0) | (finish ? 2 : 0),
+              budget_ns, lead_ns, s)),
+          "burn kernel launch");
+  }
+  void burn_shape(int& cluster, int& smem, int& max_clusters) override {
+    check(static_cast<cudaError_t>(
+              dlnb_burn_shape(&cluster, &smem, &max_clusters)),
+          "burn cluster occupancy");
+  }
+  // a holder block's shared memory: more than half an SM's 228 KiB, so
+  // one block an SM and no burn CTA beside it
+  static constexpr int kHoldSmem = 120 * 1024;
+  HoldProbe burn_start_delay(void* state, int sms, long long hold_ns,
+                             long long iters, Stream s) override {
+    void* clock = alloc(burn_clock_bytes());
+    void* stamps = alloc(24);  // {first start, blocks started, wait end}
+    Stream hs = stream();
+    auto* first = static_cast<char*>(stamps);
+    auto run = [&](int n, long long ns) {
+      const std::uint64_t init[3] = {~0ULL, 0, 0}, zero[3] = {0, 0, 0};
+      h2d(stamps, init, sizeof init);
+      h2d(clock, zero, sizeof zero);
+      check(static_cast<cudaError_t>(dlnb_hold_launch(
+                n, kHoldSmem, ns, first, first + 8, hs)),
+            "holder launch");
       check(static_cast<cudaError_t>(
-                dlnb_burn_launch(state, n, clock, launches == 0 ? 1 : 0,
-                                 budget_ns, lead_ns, s)),
-            "burn kernel launch");
-      iters -= n;
-      ++launches;
-    }
-    return launches;
+                dlnb_wait_count(first + 8, n, 4 * ns, first + 16, s)),
+            "holder wait launch");
+      burn(state, iters, s, clock, 1LL << 62, 0);
+      sync(s);
+      sync(hs);
+      std::uint64_t got[3] = {0, 0, 0}, c[3] = {0, 0, 0};
+      d2h(got, stamps, sizeof got);
+      d2h(c, clock, sizeof c);  // BurnClock {t0, spent, iters}
+      auto since = [&](std::uint64_t t) {
+        return static_cast<double>(static_cast<std::int64_t>(t - got[0]));
+      };
+      HoldProbe p;
+      p.delay_ns = since(c[0]);
+      p.wait_ns = since(got[2]);
+      p.started = static_cast<int>(got[1] & 0xffffffffu);
+      return p;
+    };
+    // a first launch of a kernel loads its module, and waits for the
+    // card's running work: one short round first, not reported
+    run(1, 10'000);
+    HoldProbe p = run(sms, hold_ns);
+    destroy(hs);
+    release(stamps);
+    release(clock);
+    return p;
   }
   void burn_finish(void* clock, long long ns, bool stamp, Stream s) override {
     check(static_cast<cudaError_t>(

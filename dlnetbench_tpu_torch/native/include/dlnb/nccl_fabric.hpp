@@ -102,10 +102,13 @@ inline void nccl_check_fault_plan() {
 }
 
 // Burn calibration constants: the torch burn's paired method
-// (proxies/burn.py _paired_ns), at trip counts for this kernel's speed.
+// (proxies/burn.py _paired_ns), at trip counts for this kernel's speed:
+// at 3.4-4 us an iteration (csrc/burn.cu's cluster) the shortest timed
+// call, kLo iterations, lasts about 0.4 ms, well past a launch's fixed
+// cost of a few us, and the long chain is one launch (burn.cu's kChunk).
 struct BurnCal {
-  static constexpr long long kLo = 64, kHi = 256;  // the pair's trip counts
-  static constexpr long long kLong = 1024;         // the long chain
+  static constexpr long long kLo = 128, kHi = 512;  // the pair's trip counts
+  static constexpr long long kLong = 1024;          // the long chain
   static constexpr int kReplays = 16, kLongReplays = 4;
   static constexpr int kPairs = 5, kTries = 6;
   static constexpr double kAgree = 0.02;
@@ -160,17 +163,18 @@ constexpr std::size_t kBurnStateBytes = 256 * 256 * 2;  // bf16, width 256
 
 // Queue a burn of `ns` on `s`: the chain, stopped on the device timer
 // once one more iteration would leave less than one iteration and a
-// launch's fixed cost of the time asked, then the spin to that time, both
-// booked on `clock`.  Returns the chain's launches (none when the time
-// asked is under that lead).
+// launch's fixed cost of the time asked, then the spin to that time in
+// the chain's last launch, booked on `clock`; under that lead the spin
+// alone (burn_finish).  Returns the chain's launches.
 inline long queue_burn(nccl::Device& dev, void* state, void* clock,
                        long long ns, const BurnFit& fit, nccl::Stream s) {
   const auto lead =
       static_cast<long long>(2 * fit.ns_per_iter + fit.fixed_ns);
   const auto iters = static_cast<long long>(
       static_cast<double>(ns - lead) / fit.ns_per_iter) + 1;
-  long launches = ns > lead ? dev.burn(state, iters, s, clock, ns, lead) : 0;
-  dev.burn_finish(clock, ns, launches == 0, s);
+  long launches =
+      ns > lead ? dev.burn(state, iters, s, clock, ns, lead, true) : 0;
+  if (launches == 0) dev.burn_finish(clock, ns, true, s);
   return launches;
 }
 

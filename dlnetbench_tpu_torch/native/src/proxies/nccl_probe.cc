@@ -20,6 +20,13 @@
 //   nccl_probe --gaps 0,1,10,100    time a chain kGapReps times after idle
 //                                   gaps of those many ms (the burn's two
 //                                   speed levels)
+//   nccl_probe --hold-sms 32,100    the burn's start delay beside work
+//                                   that holds that many SMs for
+//                                   kHoldMs (one spinning block an SM, on
+//                                   a second stream): us from the
+//                                   holders' start to the burn's, and to
+//                                   the end of the kernel it queued
+//                                   behind (which waits for them all)
 #include <algorithm>
 #include <chrono>
 #include <cstdint>
@@ -38,6 +45,8 @@
 using namespace dlnb;
 
 constexpr int kGapReps = 8;  // chains timed after each --gaps gap
+constexpr double kHoldMs = 1.0;  // --hold-sms: how long the SMs are held
+constexpr int kHoldIters = 64;   // --hold-sms: the burn queued behind
 
 // bf16 bits of `f`, rounded to nearest even
 std::uint16_t to_bf16(float f) {
@@ -84,7 +93,9 @@ int main(int argc, char** argv) {
       .optional_str("out", "", "the burn check's output file")
       .optional_str("burn-ms", "", "requested burns to time, in ms")
       .optional_int("time-iters", 0, "a burn of this many iterations to time")
-      .optional_str("gaps", "", "idle gaps before timed chains, in ms");
+      .optional_str("gaps", "", "idle gaps before timed chains, in ms")
+      .optional_str("hold-sms", "",
+                    "SMs held beside a burn, for its start delay");
   args.parse(argc, argv);
   Json rep = Json::object();
   std::string impl = args.str("nccl_impl");
@@ -118,6 +129,11 @@ int main(int argc, char** argv) {
       void* state = dev->alloc(kBurnStateBytes);
       Json burn = Json::object();
       burn["width"] = 256;
+      int cluster = 0, smem = 0, clusters = 0;
+      dev->burn_shape(cluster, smem, clusters);
+      burn["cluster"] = cluster;
+      burn["smem_bytes"] = smem;
+      burn["max_active_clusters"] = clusters;
       long long check = args.integer("burn-check");
       if (check > 0) {
         auto init = check_state(
@@ -205,6 +221,23 @@ int main(int argc, char** argv) {
           rows.push_back(row);
         }
         burn["gaps"] = rows;
+      }
+      std::string holds = args.str("hold-sms");
+      if (!holds.empty()) {
+        Json rows = Json::array();
+        for (const auto& h : split_csv(holds, ',')) {
+          int sms = std::stoi(h);
+          auto p = dev->burn_start_delay(
+              state, sms, std::llround(kHoldMs * 1e6), kHoldIters, s);
+          Json row = Json::object();
+          row["sms"] = sms;
+          row["hold_us"] = kHoldMs * 1e3;
+          row["started"] = p.started;
+          row["start_delay_us"] = p.delay_ns / 1e3;
+          row["wait_end_us"] = p.wait_ns / 1e3;
+          rows.push_back(row);
+        }
+        burn["holds"] = rows;
       }
       rep["burn"] = burn;
     }

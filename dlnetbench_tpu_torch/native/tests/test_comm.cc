@@ -1,4 +1,6 @@
-// Unit tests: threaded shm fabric — collectives, p2p, slots, splits.
+// Unit tests: threaded shm fabric — collectives, p2p, slots, splits;
+// the nccl fabric's burn planning (queue_burn, paired_ns_per_iter) on a
+// scripted device.
 #include "dlnb_test.hpp"
 
 #include <atomic>
@@ -6,6 +8,7 @@
 #include <thread>
 
 #include "dlnb/harness.hpp"
+#include "dlnb/nccl_fabric.hpp"
 #include "dlnb/shm_backend.hpp"
 #include "dlnb/tensor.hpp"
 
@@ -350,4 +353,112 @@ TEST(timer_merge_entries) {
   CHECK_EQ(v.size(), std::size_t{3});
   CHECK_NEAR(v[0], 3.0, 0);
   CHECK_NEAR(v[2], 11.0, 0);
+}
+
+// A device that burns nothing: it books each chain launch and the
+// finishing spin, with a small chunk so a burn splits into several.
+struct ScriptedBurnDevice : nccl::HostDevice {
+  struct Launch {
+    long long iters, budget_ns, lead_ns;
+    bool stamp, finish;
+  };
+  long long chunk = 4;
+  std::vector<Launch> launches;
+  std::vector<std::pair<long long, bool>> finishes;  // (ns, stamp)
+  bool can_burn() const override { return true; }
+  long long burn_chunk() const override { return chunk; }
+  void burn_launch(void*, long long iters, void*, bool stamp, bool finish,
+                   long long budget_ns, long long lead_ns,
+                   nccl::Stream) override {
+    launches.push_back({iters, budget_ns, lead_ns, stamp, finish});
+  }
+  void burn_finish(void*, long long ns, bool stamp, nccl::Stream) override {
+    finishes.push_back({ns, stamp});
+  }
+};
+
+TEST(queue_burn_under_the_lead_is_the_spin_alone) {
+  ScriptedBurnDevice dev;
+  BurnFit fit{2000.0, 7000.0};  // lead = 2 x 2000 + 7000 = 11000 ns
+  for (long long ns : {1LL, 700LL, 10999LL, 11000LL}) {
+    dev.launches.clear();
+    dev.finishes.clear();
+    CHECK_EQ(queue_burn(dev, nullptr, nullptr, ns, fit, nullptr), 0L);
+    CHECK(dev.launches.empty());
+    CHECK_EQ(dev.finishes.size(), std::size_t{1});
+    CHECK_EQ(dev.finishes[0].first, ns);
+    CHECK(dev.finishes[0].second);  // the spin stamps the burn's start
+  }
+}
+
+TEST(queue_burn_over_the_lead_queues_the_chain_in_chunks) {
+  ScriptedBurnDevice dev;
+  BurnFit fit{2000.0, 7000.0};
+  const long long lead = 11000;
+  for (long long ns : {11001LL, 12999LL, 13000LL, 29500LL, 5'000'000LL}) {
+    dev.launches.clear();
+    dev.finishes.clear();
+    const long long want = (ns - lead) / 2000 + 1;
+    const long got = queue_burn(dev, nullptr, nullptr, ns, fit, nullptr);
+    CHECK_EQ(got, static_cast<long>((want + dev.chunk - 1) / dev.chunk));
+    CHECK_EQ(dev.launches.size(), static_cast<std::size_t>(got));
+    long long total = 0;
+    for (std::size_t i = 0; i < dev.launches.size(); ++i) {
+      const auto& l = dev.launches[i];
+      CHECK(l.iters >= 1 && l.iters <= dev.chunk);
+      CHECK_EQ(l.stamp, i == 0);  // only the first launch stamps
+      // only the last spins to the time asked and books the span
+      CHECK_EQ(l.finish, i + 1 == dev.launches.size());
+      CHECK_EQ(l.budget_ns, ns);
+      CHECK_EQ(l.lead_ns, lead);
+      total += l.iters;
+    }
+    CHECK_EQ(total, want);
+    CHECK(dev.finishes.empty());  // no spin kernel of its own
+  }
+}
+
+namespace {
+// ms a timed call of `iters` iterations for a chain of `ns` an
+// iteration and `fixed` ns a launch
+double chain_ms(long long iters, double ns, double fixed) {
+  return (fixed + static_cast<double>(iters) * ns) / 1e6;
+}
+constexpr int kCallsATry = 2 + 2 * BurnCal::kPairs;  // two long chains
+}  // namespace
+
+TEST(paired_ns_per_iter_agrees_on_the_first_try) {
+  int calls = 0;
+  BurnFit fit = paired_ns_per_iter([&](long long iters, int replays) {
+    ++calls;
+    CHECK(replays == (iters == BurnCal::kLong ? BurnCal::kLongReplays
+                                              : BurnCal::kReplays));
+    return chain_ms(iters, 2000.0, 7000.0);
+  });
+  CHECK_EQ(calls, kCallsATry);
+  CHECK_NEAR(fit.ns_per_iter, 2000.0, 1e-6);
+  CHECK_NEAR(fit.fixed_ns, 7000.0, 1e-3);
+}
+
+TEST(paired_ns_per_iter_retries_a_try_that_disagrees) {
+  // the first try's long chains run 10 % slow; the second's agree
+  int calls = 0;
+  BurnFit fit = paired_ns_per_iter([&](long long iters, int) {
+    ++calls;
+    const bool slow = iters == BurnCal::kLong && calls <= kCallsATry;
+    return chain_ms(iters, slow ? 2200.0 : 2000.0, 7000.0);
+  });
+  CHECK_EQ(calls, 2 * kCallsATry);
+  CHECK_NEAR(fit.ns_per_iter, 2000.0, 1e-6);
+}
+
+TEST(paired_ns_per_iter_gives_up_after_its_tries) {
+  // the long chains never agree: the last one's figure is kept
+  int calls = 0;
+  BurnFit fit = paired_ns_per_iter([&](long long iters, int) {
+    ++calls;
+    return chain_ms(iters, iters == BurnCal::kLong ? 2300.0 : 2000.0, 0.0);
+  });
+  CHECK_EQ(calls, BurnCal::kTries * kCallsATry);
+  CHECK_NEAR(fit.ns_per_iter, 2300.0, 1e-6);
 }

@@ -59,6 +59,21 @@ def grid(dense: str, moe: str, world: int) -> list:
                          "max_layers": 2})]
 
 
+def burn_span(g: dict) -> float:
+    """A record's burns: their device span over the compute asked."""
+    asked = g.get("burn_requested_us", 0)
+    return g["burn_device_us"] / asked if asked else float("nan")
+
+
+def chain_share(g: dict) -> float:
+    """The share of a record's burn span that ran the chain, the rest
+    being the spin to the time asked: iterations x ns an iteration over
+    the span."""
+    spent = g.get("burn_device_us", 0)
+    return (g["burn_iters"] * g["burn_ns_per_iter"] / (spent * 1e3)
+            if spent else float("nan"))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, required=True)
@@ -141,7 +156,9 @@ def main(argv: list[str] | None = None) -> int:
                   f" runtime median {rts[len(rts) // 2]:.1f} us, timed "
                   f"copies {g['timed_copies']}, late twins "
                   f"{g['late_twins']}, burn {g['burn_ns_per_iter']:.1f} "
-                  f"ns an iteration", flush=True)
+                  f"ns an iteration, span x{burn_span(g):.4f} of the "
+                  f"compute asked, chain share {chain_share(g):.4f}",
+                  flush=True)
         if recs:
             bw = bandwidth_summary(recs)
             cols = [c for c in ("section", "model", "collective",

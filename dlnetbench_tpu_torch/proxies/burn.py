@@ -34,10 +34,11 @@ The per-iteration cost is calibrated once per (shape, dtype, device
 name) by differencing two trip counts, so launch overheads cancel, and
 any microsecond budget maps to a trip count (``BurnCalibration``).  On
 the card each trip count is timed as ``CAL_REPLAYS`` back-to-back calls
-between two CUDA events, queued behind a short device sleep, so the
-host's launch cost of a graph (which grows with its nodes, and more so
-after a ``torch.profiler`` session) hides behind the replays instead of
-entering the calibration; on the CPU each call is timed fenced.
+between two CUDA events on a card the host synchronised, with nothing
+queued before them: the host's launch cost of a graph (which grows with
+its nodes, and more so after a ``torch.profiler`` session) enters only
+the first call, whose graph runs for hundreds of microseconds while the
+host queues the rest; on the CPU each call is timed fenced.
 
 The card's chain runs at one of two speed levels about 5.5 % apart, and
 the level can change in the middle of a calibration.  So the card times
@@ -191,15 +192,16 @@ def _replayed_s(burner: Burner, iters: int, reps: int,
                 replays: int = CAL_REPLAYS) -> float:
     """Seconds of one ``burner(iters)`` on the card: the least, over
     ``reps`` timings, of ``replays`` back-to-back calls between two
-    CUDA events, over ``replays``.  A device sleep queued first lets
-    the host enqueue the calls before the start event runs."""
+    CUDA events, over ``replays``.  Nothing is queued before the start
+    event: the chain starts on an idle card, as the card case's long
+    chain does (queue 3 (a) of ROADMAP.md: the level a chain runs at
+    follows what ran before it)."""
     dev = burner.device
     best = math.inf
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(dev)
-        torch.cuda._sleep(2_000_000)
         start.record()
         for _ in range(replays):
             burner(iters)

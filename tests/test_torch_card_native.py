@@ -2,9 +2,10 @@
 for the burn kernel, the C++ binaries against the CUDA runtime), the
 NCCL it loads (torch's, the same version), ``nccl_selftest`` at world 1
 (at world 2 too where two cards are visible), the burn kernel against
-the port's torch chain from the same state, a dp run with no host/device
-copy in its timed runs, and ``--backend nccl`` refusing a missing
-``$DLNB_NCCL_LIB`` by name.
+the port's torch chain from the same state (and wrong chains missing
+it), burns that land where asked, the burn's start beside held SMs, a dp
+run with no host/device copy in its timed runs, and ``--backend nccl``
+refusing a missing ``$DLNB_NCCL_LIB`` by name.
 
 This file imports neither jax nor the JAX package, so it runs on the
 card machine: ``python -m pytest --noconftest -m cuda
@@ -32,6 +33,13 @@ REPO = Path(__file__).resolve().parent.parent
 # reaches BURN_BENT after 1 iteration and stays a normal number, at least
 # BURN_FLOOR, after 8.
 BURN_TOL, BURN_BENT, BURN_FLOOR = 2.0 ** -6, 0.5, 1e-30
+# chains from the same state that the bar must tell from the right one
+WRONG_CHAINS = {
+    "no tanh": lambda x: (x @ x / 256).clamp(-1, 1),
+    "transposed": lambda x: torch.tanh(x.T @ x / 256),
+    "scale 1/128": lambda x: torch.tanh(x @ x / 128),
+    "zeros": lambda x: torch.zeros_like(x),
+}
 
 
 @pytest.fixture
@@ -81,7 +89,7 @@ def test_nccl_selftest_on_the_card(card_bin, world):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("iters", [1, 8])
+@pytest.mark.parametrize("iters", [1, 2, 8])
 def test_burn_kernel_against_the_torch_chain(card_bin, tmp_path, iters):
     from dlnetbench_tpu_torch.proxies.burn import Burner
     out = tmp_path / "burn.bin"
@@ -99,16 +107,39 @@ def test_burn_kernel_against_the_torch_chain(card_bin, tmp_path, iters):
     assert err.max().item() <= BURN_TOL * scale
     assert init.float().min().item() > 0
     assert scale >= (BURN_BENT if iters == 1 else BURN_FLOOR)
+    for name, step in WRONG_CHAINS.items():
+        x = init.reshape(256, 256).cuda().float()
+        for _ in range(iters):
+            x = step(x).to(torch.bfloat16).float()
+        miss = (x - b.state.float()).abs().max().item()
+        assert miss > BURN_TOL * scale, name
 
 
 @pytest.mark.cuda
 def test_a_short_burn_lands_where_asked(card_bin):
-    """Burns shorter than one iteration of the chain (pod_study's gpt2_l
-    asks 0.7 and 2.7 us at its default time scale) take the time asked on
-    the card, by the burn's clock."""
-    rep = _json(_run(card_bin / "nccl_probe", "--burn-ms", "0.0007,0.0027"))
+    """Burns shorter than the chain's lead (pod_study's gpt2_l asks 0.7
+    and 2.7 us at its default time scale), a few iterations long and 20
+    ms long take the time asked on the card, by the burn's clock."""
+    rep = _json(_run(card_bin / "nccl_probe", "--burn-ms",
+                     "0.0007,0.0027,0.05,20"))
     for row in rep["burn"]["requests"]:
         assert abs(row["clock_ms"] / row["requested_ms"] - 1) <= 0.05, row
+    assert rep["burn"]["cluster"] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [32, 100])
+def test_burn_start_beside_held_sms(card_bin, sms):
+    """The burn's cluster needs its SMs free in one GPC at once: beside 32
+    SMs held for 1 ms by another stream (NCCL's channels hold up to 32
+    CTAs) it starts before they are released; beside 100 it may wait for
+    them, and the probe reports when it started."""
+    rep = _json(_run(card_bin / "nccl_probe", "--hold-sms", sms))
+    (row,) = rep["burn"]["holds"]
+    assert row["sms"] == sms and row["started"] == sms
+    assert 0 <= row["wait_end_us"] <= row["start_delay_us"]
+    if sms == 32:
+        assert row["start_delay_us"] < row["hold_us"], row
 
 
 @pytest.mark.cuda
